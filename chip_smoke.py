@@ -7,13 +7,17 @@
 Phases (any failed check exits non-zero; no phase catches and continues):
 
 1. Setup: card name and power limit, kernel build from ``csrc/`` (seconds).
-2. Kernels against their plain PyTorch versions on the card at the serving
-   path's shapes for batch 64: window attention at the four Swin-Base stage
-   geometries (shifted and unshifted, bf16 and fp32) and fused GPF at
+2. Kernels against their plain PyTorch versions on the card.  Forward, at the
+   serving path's shapes for batch 64: window attention at the four Swin-Base
+   stage geometries (shifted and unshifted, bf16 and fp32) and fused GPF at
    [64, 49, 1024] (dot and cosine, bf16 and fp32), with errors, kernel /
    plain / library times from CUDA events and the bytes-or-operations bound.
-   Each check is run on a control too (bias or mask dropped, off-diagonal
-   GPF entries zeroed), which it must reject.
+   Backward, at the training path's shapes: window attention at the same
+   geometries for batch 128 (two views of 64) with a random output cotangent,
+   and fused GPF at [64, 49, 1024] with two distinct token sets (and once with
+   one tensor twice).  Each check is run on a control too (bias or mask
+   dropped, off-diagonal GPF entries zeroed; bias gradient dropped, dK zeroed,
+   coefficient gradient zeroed, half of dX dropped), which it must reject.
 3. Serving end to end: the flagship configuration (Swin-Base/224 bf16, GPF
    2x2 dot, moment d_out 1024 with the FFT sketch, bf16 vech projection,
    'add' classifier, 80 classes) with seeded random weights, uint8
@@ -23,7 +27,18 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    version (bf16 at batch 64, fp32 at batch 8), and rejects the kernel run
    with its bias omitted.  Relative-position tables are drawn at std 1, as
    trained ones reach, so the bias matters.  Prints images/s and peak memory.
-4. A JSON line of the kernels, then the contract's last line.
+4. Training end to end: the same configuration with the flagship's training
+   section (lambda_triplet 0.6, lambda_align 0.1, margin 0.3, lr 3e-4, dropout
+   0.1, factored second moment for the 269M-element leaf) through
+   ``create_train_state`` and ``make_train_step``, uint8 [64, 256, 256, 3] and
+   labels in [0, 80), on fixed data.  Checks per step 24 + 24 window-attention
+   and 1 + 1 GPF launches, a finite loss every step that ends below where it
+   began, no skipped step, and one step's parameter gradients against the
+   same step with every kernel swapped for its plain version (bf16 at batch
+   64, fp32 at batch 4; dropout off, same views), which must also reject the
+   kernel run with its bias gradient dropped.  Prints images/s, step ms and
+   peak memory.
+5. A JSON line of the kernels, then the contract's last line.
 """
 
 from __future__ import annotations
@@ -40,14 +55,21 @@ import time
 
 import torch
 
-from ego_moment_cle_vit_tpu_torch import create_model, make_infer_fn
-from ego_moment_cle_vit_tpu_torch.data import AugmentConfig
+from ego_moment_cle_vit_tpu_torch import (
+    create_model,
+    create_train_state,
+    make_infer_fn,
+    make_train_step,
+)
+from ego_moment_cle_vit_tpu_torch.data import AugmentConfig, dual_view_train_batch
 from ego_moment_cle_vit_tpu_torch.kernels import _build
 from ego_moment_cle_vit_tpu_torch.kernels import gpf as _gpf
 from ego_moment_cle_vit_tpu_torch.kernels import window_attention as _wa
 from ego_moment_cle_vit_tpu_torch.models.swin import _attn_mask, _relative_position_index
+from ego_moment_cle_vit_tpu_torch.ops.graph import gpf_fuse, token_similarity_graph
 
 BATCH = 64
+TRAIN_VIEWS = 2 * BATCH  # the dual-view step runs both views as one backbone batch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # tensor-core bf16; fp32 non-TC
 # Swin-Base/224 stages: (Hp = Wp, C, heads, blocks); odd blocks shift when Hp > ws
@@ -64,7 +86,15 @@ FLAGSHIP = {
         "classifier": {"fusion_type": "add"},
     },
     "data": {"input_size": 224, "resize_size": 256},
+    "training": {
+        "batch_size": BATCH,
+        "optimizer": {"lr": 3e-4, "factored_large_leaves": True},
+        "scheduler": {"warmup_epochs": 0},
+        "loss": {"lambda_triplet": 0.6, "lambda_align": 0.1, "margin": 0.3},
+        "epochs": 1,
+    },
 }
+TRAIN_STEPS_PER_EPOCH = 100
 # tolerances, kernel vs plain on the card, per element.  Window attention:
 # |err| <= atol + rtol |ref|; fp32 differs by sum order only, bf16 by P rounded
 # to bf16 before P v (as on the TPU) plus at most one bf16 ulp (2^-7 |y|) of
@@ -77,11 +107,42 @@ TOL_GPF = 2e-4
 # bias-omitted control (1.12e-1), ~3x from each
 TOL_LOGITS_REL = {torch.bfloat16: 3e-2, torch.float32: 1e-3}
 BIAS_TABLE_STD = 1.0  # trained Swin tables reach this; at init (0.02) the bias is invisible
+# backward kernels vs plain on the card.  Window attention: dqkv per element
+# |err| <= atol + rtol |ref| (both sides round P and ds to the input type, so
+# they differ by sum order and, in bf16, by a rounding that lands on the other
+# side: two ulps of the output); dbias, a sum over 128 x nW windows, within
+# btol of its own largest entry.  GPF: token gradients within tol of their
+# row's largest entry, dc within 1e-3 of its largest entry; the cotangent is
+# zeroed where the pre-activation is within 1e-4 of its error scale of zero,
+# since on the clamp's kink the two sides may round to different branches.
+TOL_WA_BWD = {torch.float32: (1e-4, 1e-4, 1e-3), torch.bfloat16: (2e-2, 2.0**-6, 2e-2)}
+TOL_GPF_BWD = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+TOL_GPF_DC = 1e-3
+# one step's parameter gradients, kernel path vs plain path, per leaf:
+# ||g - g_ref|| / ||g_ref||.  fp32 differs by sum order; bf16 by the forward
+# kernel rounding P where the plain version does not, carried through 24
+# blocks (sound runs on an H100: <= 4e-2 in bf16, <= 4e-6 in fp32; the control
+# with the bias gradient dropped: 1.0).
+TOL_GRADS_REL = {torch.bfloat16: 0.1, torch.float32: 2e-3}
+# The GPF coefficients are held apart in bf16.  The moment head normalizes the
+# fused graph, so the loss barely changes when the graph is scaled, and each
+# dc[p, q] = sum(df * A_p * B_q) is a cancellation of terms up to ~1e12 (dot
+# Grams of 1024-wide tokens) down to ~1e-7: bf16 noise in df decides it
+# (measured 0.7-0.9 relative in bf16, 3e-4 in fp32).  Its kernel is held
+# tightly on shared inputs in phase 2; here it must be finite and of the
+# reference's order of magnitude.
+TOL_GRADS_REL_ILL_CONDITIONED = {"gpf.alpha_coeffs": {torch.bfloat16: 3.0}}
 
 WA_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/window_attention.py:361"
 GPF_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/gpf.py:41"
+WA_BWD_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/window_attention.py:389"
+GPF_BWD_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/gpf.py:126"
 WA_KERNEL = _wa.window_attention_fwd
 GPF_KERNEL = _gpf.gpf_fwd
+WA_BWD_KERNEL = _wa.window_attention_bwd
+GPF_BWD_KERNEL = _gpf.gpf_bwd
+KERNELS = {"window_attention_fwd": WA_KERNEL, "window_attention_bwd": WA_BWD_KERNEL,
+           "gpf_fwd": GPF_KERNEL, "gpf_bwd": GPF_BWD_KERNEL}
 
 
 def log(*a):
@@ -119,13 +180,43 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
 @contextlib.contextmanager
 def plain_kernels():
     """Swap every kernel wrapper the model calls for its plain version."""
-    saved = (_wa.window_attention_fwd, _gpf.gpf_fwd)
+    saved = (_wa.window_attention_fwd, _wa.window_attention_bwd, _gpf.gpf_fwd, _gpf.gpf_bwd)
     _wa.window_attention_fwd = _wa.window_attention_plain
+    _wa.window_attention_bwd = _wa.window_attention_bwd_plain
     _gpf.gpf_fwd = _gpf.gpf_plain
+    _gpf.gpf_bwd = _gpf.gpf_bwd_plain
     try:
         yield
     finally:
-        _wa.window_attention_fwd, _gpf.gpf_fwd = saved
+        (_wa.window_attention_fwd, _wa.window_attention_bwd, _gpf.gpf_fwd,
+         _gpf.gpf_bwd) = saved
+
+
+@contextlib.contextmanager
+def bias_gradient_dropped():
+    """Control: the backward kernel runs but its bias gradient is thrown
+    away, a fault the training gradient check must see."""
+    saved = _wa.window_attention_bwd
+
+    def dropped(*args):
+        dqkv, dbias = saved(*args)
+        return dqkv, torch.zeros_like(dbias)
+
+    dropped.launches = 0  # the wrapper counts on whatever the module name holds
+    _wa.window_attention_bwd = dropped
+    try:
+        yield
+    finally:
+        _wa.window_attention_bwd = saved
+
+
+def reset_launches() -> None:
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: kernel.launches for name, kernel in KERNELS.items()}
 
 
 def bias_tables(model: torch.nn.Module) -> list:
@@ -191,7 +282,7 @@ def check_window_attention(g: torch.Generator) -> dict:
     per_forward = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     max_err = 0.0
     min_control = math.inf
-    bound_kinds = set()
+    bound_kinds = {"bytes": 0.0, "operations": 0.0}  # share of the summed bound by its kind
     for hp, c, heads, blocks in STAGES:
         table = torch.randn((2 * WS - 1) ** 2, heads, generator=g, device=dev) * BIAS_TABLE_STD
         bias = table[idx].reshape(nt, nt, heads).permute(2, 0, 1).contiguous()
@@ -257,11 +348,12 @@ def check_window_attention(g: torch.Generator) -> dict:
                     per_forward["plain_ms"] += n_blocks * p_ms
                     per_forward["library_ms"] += n_blocks * l_ms
                     per_forward["bound_ms"] += n_blocks * b_ms
-                    bound_kinds.add(kind)
+                    bound_kinds[kind] += n_blocks * b_ms
                 del qkv, out, ref, q, k, v, am
     torch.cuda.empty_cache()
     log(f"  window attention controls: smallest err/tol {min_control:.1f} (must be > 1)")
-    return {"max_abs_err": max_err, "bound_by": "/".join(sorted(bound_kinds)), **per_forward}
+    return {"max_abs_err": max_err, "bound_by": max(bound_kinds, key=bound_kinds.get),
+            **per_forward}
 
 
 def check_gpf(g: torch.Generator) -> dict:
@@ -315,6 +407,196 @@ def check_gpf(g: torch.Generator) -> dict:
     return {"err_over_tol": worst, **main}
 
 
+def close_excess(out: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> float:
+    ref = ref.float()
+    return ((out.float() - ref).abs() / (atol + rtol * ref.abs())).max().item()
+
+
+def check_window_attention_bwd(g: torch.Generator) -> dict:
+    """Backward kernel vs its plain version at the training shapes (batch
+    128); also times the forward kernel at that batch."""
+    dev = torch.device("cuda")
+    nt = WS * WS
+    batch = TRAIN_VIEWS
+    idx = torch.as_tensor(_relative_position_index(WS).reshape(-1), device=dev)
+    per_step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "fwd_ms": 0.0}
+    max_err = 0.0
+    worst = 0.0
+    min_control = math.inf
+    bound_kinds = {"bytes": 0.0, "operations": 0.0}
+    for hp, c, heads, blocks in STAGES:
+        table = torch.randn((2 * WS - 1) ** 2, heads, generator=g, device=dev) * BIAS_TABLE_STD
+        bias = table[idx].reshape(nt, nt, heads).permute(2, 0, 1).contiguous()
+        nw = (hp // WS) ** 2
+        d = c // heads
+        scale = d ** -0.5
+        for shifted in ((False, True) if hp > WS else (False,)):
+            mask = (torch.as_tensor(_attn_mask(hp, hp, hp, hp, WS, WS // 2), device=dev)
+                    if shifted else None)
+            n_blocks = blocks if hp == WS else (blocks // 2 if shifted else blocks - blocks // 2)
+            for dtype in (torch.bfloat16, torch.float32):
+                atol, rtol, btol = TOL_WA_BWD[dtype]
+                qkv = torch.randn(batch, hp, hp, 3 * c, generator=g, device=dev).to(dtype)
+                dout = torch.randn(batch, hp, hp, c, generator=g, device=dev).to(dtype)
+                args = (qkv, bias, mask, dout, heads, WS, scale)
+                dqkv, dbias = WA_BWD_KERNEL(*args)
+                ref_dqkv, ref_dbias = _wa.window_attention_bwd_plain(*args)
+                torch.cuda.synchronize()
+                what = f"window attention backward {hp}x{hp} C={c} shift={shifted} {dtype}"
+                err = (dqkv.float() - ref_dqkv.float()).abs().max().item()
+                excess = close_excess(dqkv, ref_dqkv, atol, rtol)
+                bias_scale = ref_dbias.abs().max().item()
+                bias_err = (dbias - ref_dbias).abs().max().item()
+                bias_excess = bias_err / (btol * bias_scale)
+                if not math.isfinite(excess) or excess > 1.0:
+                    fail(f"{what}: dqkv error {excess:.3f}x its tolerance (max abs err {err})")
+                if not math.isfinite(bias_excess) or bias_excess > 1.0:
+                    fail(f"{what}: dbias error {bias_err} is {bias_excess:.3f}x its tolerance "
+                         f"{btol} x max |dbias| {bias_scale}")
+                max_err = max(max_err, err)
+                worst = max(worst, excess, bias_excess)
+                # controls: dK zeroed in dqkv, and dbias dropped, must both fail
+                ctrl = ref_dqkv.clone()
+                ctrl[..., c:2 * c] = 0
+                ctrl_excess = close_excess(ctrl, ref_dqkv, atol, rtol)
+                ctrl_bias = bias_scale / (btol * bias_scale)  # |0 - ref| at its largest entry
+                if ctrl_excess <= 1.0 or ctrl_bias <= 1.0:
+                    fail(f"{what}: a control (dK zeroed, dbias dropped) passes the check")
+                min_control = min(min_control, ctrl_excess, ctrl_bias)
+                del ctrl, ref_dqkv, dqkv
+                k_ms = time_ms(lambda: WA_BWD_KERNEL(*args), reps=10, samples=3)
+                p_ms = time_ms(lambda: _wa.window_attention_bwd_plain(*args), reps=3, samples=3)
+                f_ms = time_ms(lambda: WA_KERNEL(qkv, bias, mask, heads, WS, scale), reps=10,
+                               samples=3)
+                # library yardstick: the backward of SDPA on pre-partitioned
+                # q/k/v with bias + mask as a float mask; it returns dq, dk, dv
+                # but no bias gradient, so it does part of the work only
+                x = qkv.reshape(batch, hp // WS, WS, hp // WS, WS, 3, heads, d)
+                x = x.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, batch, nw * heads, nt, d)
+                q, k, v = (x[i].contiguous().requires_grad_() for i in range(3))
+                am = bias[None] + (mask[:, None] if mask is not None else 0.0)
+                am = am.expand(nw, heads, nt, nt).reshape(nw * heads, nt, nt).to(dtype)
+                o = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=am,
+                                                                     scale=scale)
+                do = torch.randn_like(o)
+                l_ms = time_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True),
+                               reps=5, samples=3)
+                es = qkv.element_size()
+                nbytes = (2 * qkv.numel() + dout.numel()) * es + 2 * bias.numel() * 4 + (
+                    mask.numel() * 4 if mask is not None else 0)
+                flops = 10.0 * batch * nw * heads * nt * nt * d
+                b_ms, kind = bound_ms(nbytes, flops, dtype)
+                log(f"  window_attention_bwd {hp}x{hp} C={c} H={heads} shift={int(shifted)} "
+                    f"{str(dtype)[6:]} batch {batch}: dqkv max_abs_err={err:.3e} "
+                    f"err/tol={excess:.3f} (tol {atol}+{rtol:.4f}|ref|) dbias err={bias_err:.3e} "
+                    f"of max {bias_scale:.3e} err/tol={bias_excess:.3f} control err/tol>="
+                    f"{min(ctrl_excess, ctrl_bias):.1f} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                    f"library_ms(SDPA backward, no dbias)={l_ms:.4f} bound_ms={b_ms:.4f} ({kind}) "
+                    f"fwd_kernel_ms={f_ms:.4f} blocks/step={n_blocks}")
+                if dtype == torch.bfloat16:  # the training path's dtype
+                    per_step["ms"] += n_blocks * k_ms
+                    per_step["plain_ms"] += n_blocks * p_ms
+                    per_step["library_ms"] += n_blocks * l_ms
+                    per_step["bound_ms"] += n_blocks * b_ms
+                    per_step["fwd_ms"] += n_blocks * f_ms
+                    bound_kinds[kind] += n_blocks * b_ms
+                del qkv, dout, q, k, v, o, do, am, x, args
+                torch.cuda.empty_cache()
+    log(f"  window attention backward controls: smallest err/tol {min_control:.1f} (must be > 1)")
+    return {"max_abs_err": max_err, "err_over_tol": worst,
+            "bound_by": max(bound_kinds, key=bound_kinds.get), **per_step}
+
+
+def check_gpf_bwd(g: torch.Generator) -> dict:
+    dev = torch.device("cuda")
+    n, d = 49, 1024
+    coeffs = torch.nn.functional.softplus(torch.rand(3, 3, generator=g, device=dev) * 0.1)
+    worst = 0.0
+    main = {}
+
+    def rows_excess(out, ref, tol):
+        scale = ref.float().abs().amax(dim=-1, keepdim=True).clamp(min=1e-30)
+        return ((out.float() - ref.float()).abs() / (tol * scale)).max().item()
+
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = TOL_GPF_BWD[dtype]
+        ta = torch.randn(BATCH, n, d, generator=g, device=dev).to(dtype)
+        tp = torch.randn(BATCH, n, d, generator=g, device=dev).to(dtype)
+        for sim in ("dot", "cosine"):
+            # the same-tensor case once, in the training dtype and similarity
+            cases = (False, True) if (dtype == torch.bfloat16 and sim == "dot") else (False,)
+            for same in cases:
+                pos = ta if same else tp
+                # a random cotangent, zeroed on the clamp's kink
+                pre = gpf_fuse(token_similarity_graph(ta, sim, 1e-6),
+                               token_similarity_graph(pos, sim, 1e-6), coeffs,
+                               symmetric_enforce=True, clamp=False)
+                band = 1e-4 * _gpf.gpf_error_scale(ta, pos, coeffs, sim, 1e-6, True)
+                cot = torch.randn(BATCH, n, n, generator=g, device=dev)
+                cot = torch.where(pre.abs() <= band, torch.zeros_like(cot), cot)
+                on_kink = int((pre.abs() <= band).sum().item())
+                del pre, band
+                args = (ta, pos, coeffs, cot, sim, 1e-6, True)
+                dta, dtp, dc = GPF_BWD_KERNEL(*args)
+                rta, rtp, rdc = _gpf.gpf_bwd_plain(*args)
+                torch.cuda.synchronize()
+                what = f"gpf backward {sim} same={same} {dtype}"
+                excess = max(rows_excess(dta, rta, tol), rows_excess(dtp, rtp, tol))
+                dc_scale = rdc.abs().max().item()
+                dc_excess = (dc - rdc).abs().max().item() / (TOL_GPF_DC * dc_scale)
+                err = max((dta.float() - rta.float()).abs().max().item(),
+                          (dtp.float() - rtp.float()).abs().max().item())
+                if not math.isfinite(excess) or excess > 1.0:
+                    fail(f"{what}: token gradient error {excess:.3f}x its tolerance {tol} x "
+                         f"row max (max abs err {err})")
+                if not math.isfinite(dc_excess) or dc_excess > 1.0:
+                    fail(f"{what}: dc error {dc_excess:.3f}x its tolerance {TOL_GPF_DC} x max")
+                worst = max(worst, excess, dc_excess)
+                # controls: the dR^T half of dX dropped (dR is symmetric here,
+                # so half the gradient), and dc zeroed
+                ctrl_excess = rows_excess(0.5 * rta.float(), rta, tol)
+                ctrl_dc = dc_scale / (TOL_GPF_DC * dc_scale)
+                if ctrl_excess <= 1.0 or ctrl_dc <= 1.0:
+                    fail(f"{what}: a control (half of dX dropped, dc zeroed) passes the check")
+                if same:
+                    # autograd must add the two token gradients of one tensor
+                    x = ta.clone().requires_grad_()
+                    _gpf.gpf(x, x, coeffs, sim, 1e-6, True).backward(cot)
+                    total = rta.float() + rtp.float()
+                    sum_excess = rows_excess(x.grad, total, tol)
+                    if not math.isfinite(sum_excess) or sum_excess > 1.0:
+                        fail(f"{what}: the summed gradient of one tensor used twice is off "
+                             f"({sum_excess:.3f}x its tolerance)")
+                    if rows_excess(rta, total, tol) <= 1.0:
+                        fail(f"{what}: one gradient alone passes for the sum of both")
+                    del x, total
+                k_ms = time_ms(lambda: GPF_BWD_KERNEL(*args))
+                p_ms = time_ms(lambda: _gpf.gpf_bwd_plain(*args), reps=5, samples=3)
+                # library yardstick (part of the work only): autograd through
+                # one bmm Gram
+                tf = ta.float().requires_grad_()
+                gram = torch.bmm(tf, tf.transpose(1, 2))
+                l_ms = time_ms(lambda: torch.autograd.grad(gram, tf, cot, retain_graph=True),
+                               reps=10, samples=3)
+                del tf, gram
+                n_in = 1 if same else 2
+                es = ta.element_size()
+                nbytes = (n_in + 2) * ta.numel() * es + BATCH * n * n * 4 + BATCH * 36 + 36
+                flops = 8.0 * BATCH * n * n * d
+                b_ms, kind = bound_ms(nbytes, flops, dtype)
+                log(f"  gpf_bwd [{BATCH},{n},{d}] {sim} same_tokens={int(same)} {str(dtype)[6:]}: "
+                    f"max_abs_err={err:.3e} err/tol={excess:.4f} (tol {tol} x row max) dc "
+                    f"err/tol={dc_excess:.4f} control err/tol={min(ctrl_excess, ctrl_dc):.1f} "
+                    f"cotangent entries zeroed on the kink: {on_kink} kernel_ms={k_ms:.4f} "
+                    f"plain_ms={p_ms:.4f} library_ms(bmm Gram backward)={l_ms:.4f} "
+                    f"bound_ms={b_ms:.4f} ({kind}, {nbytes / 1e6:.1f} MB)")
+                if dtype == torch.bfloat16 and sim == "dot" and not same:  # the training call
+                    f_ms = time_ms(lambda: GPF_KERNEL(ta, tp, coeffs, sim, 1e-6, True))
+                    main = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                            "bound_ms": b_ms, "bound_by": kind, "fwd_ms": f_ms}
+    return {"err_over_tol": worst, **main}
+
+
 # ----------------------------------------------------------------------------
 # phase 3: serving end to end
 # ----------------------------------------------------------------------------
@@ -335,14 +617,15 @@ def serve(card: str, profile_dir: str | None) -> dict:
     torch.cuda.synchronize()
     log(f"  model built and first forward in {time.time() - t0:.1f} s")
 
-    WA_KERNEL.launches = 0
-    GPF_KERNEL.launches = 0
+    reset_launches()
     logits = infer(images)
     torch.cuda.synchronize()
-    launches = {"window_attention_fwd": WA_KERNEL.launches, "gpf_fwd": GPF_KERNEL.launches}
+    launches = read_launches()
     log(f"  launches in one forward: {launches}")
-    if launches != {"window_attention_fwd": 24, "gpf_fwd": 1}:
-        fail(f"expected 24 window-attention and 1 GPF launch per forward, got {launches}")
+    if launches != {"window_attention_fwd": 24, "window_attention_bwd": 0, "gpf_fwd": 1,
+                    "gpf_bwd": 0}:
+        fail(f"expected 24 window-attention and 1 GPF forward launch per forward, got "
+             f"{launches}")
     if tuple(logits.shape) != (BATCH, 80) or not torch.isfinite(logits).all():
         fail(f"logits shape {tuple(logits.shape)} or non-finite values")
 
@@ -414,6 +697,161 @@ def serve(card: str, profile_dir: str | None) -> dict:
     return {"launches": launches, "images_per_s": ips, "peak_gib": peak}
 
 
+# ----------------------------------------------------------------------------
+# phase 4: training end to end
+# ----------------------------------------------------------------------------
+
+
+def step_gradients(model, anchor, positive, labels) -> dict:
+    """One forward + backward on fixed views, dropout off: {leaf: gradient}."""
+    model.eval()  # dropout off; gradients still flow
+    model.zero_grad(set_to_none=True)
+    model(anchor, positive, labels)["loss"].backward()
+    torch.cuda.synchronize()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def worst_leaf(grads: dict, ref: dict, dtype) -> tuple[float, str, float]:
+    """Over the leaves, the largest ||g - g_ref|| / ||g_ref|| as a multiple of
+    the leaf's tolerance, with the leaf and its relative error."""
+    worst, where, worst_rel = 0.0, "", 0.0
+    for name, r in ref.items():
+        r32 = r.float()
+        denom = r32.norm().item()
+        rel = (grads[name].float() - r32).norm().item() / max(denom, 1e-30)
+        if not math.isfinite(rel):
+            return math.inf, name, math.inf
+        tol = TOL_GRADS_REL_ILL_CONDITIONED.get(name, {}).get(dtype, TOL_GRADS_REL[dtype])
+        if rel / tol > worst:
+            worst, where, worst_rel = rel / tol, name, rel
+    return worst, where, worst_rel
+
+
+def check_gradients(model, anchor, positive, labels, dtype, what: str) -> float:
+    grads = step_gradients(model, anchor, positive, labels)
+    with plain_kernels():
+        ref = step_gradients(model, anchor, positive, labels)
+    with bias_gradient_dropped():
+        ctrl = step_gradients(model, anchor, positive, labels)
+    tol = TOL_GRADS_REL[dtype]
+    worst, where, rel = worst_leaf(grads, ref, dtype)
+    worst_ctrl, where_ctrl, rel_ctrl = worst_leaf(ctrl, ref, dtype)
+    log(f"  {what} gradients kernel vs plain, {len(ref)} leaves: worst err/tol {worst:.4f} "
+        f"(relative error {rel:.4e}) at {where}; control (bias gradient dropped) err/tol "
+        f"{worst_ctrl:.2f} (relative error {rel_ctrl:.4e}) at {where_ctrl}; tol {tol} per leaf, "
+        f"{TOL_GRADS_REL_ILL_CONDITIONED} apart")
+    if worst > 1.0:
+        fail(f"{what} gradients of the kernel path disagree with the plain path")
+    if worst_ctrl <= 1.0:
+        fail(f"{what} gradient check passes the kernel run with its bias gradient dropped")
+    return rel
+
+
+def train(card: str, profile_dir: str | None) -> dict:
+    dev = torch.device("cuda")
+    aug = AugmentConfig(input_size=224, resize_size=256)
+    g = torch.Generator(device=dev).manual_seed(0)
+    images = torch.randint(0, 256, (BATCH, 256, 256, 3), generator=g, device=dev,
+                           dtype=torch.uint8)
+    labels = torch.randint(0, 80, (BATCH,), generator=g, device=dev)
+
+    t0 = time.time()
+    model = create_model(FLAGSHIP, num_classes=80, device="cuda", seed=0)
+    redraw_bias_tables(model, g)
+    state = create_train_state(model, FLAGSHIP, TRAIN_STEPS_PER_EPOCH)
+    train_step = make_train_step(model, aug)
+    seed_gen = torch.Generator(device=dev).manual_seed(1)
+    log(f"  model and train state built in {time.time() - t0:.1f} s; factored leaves "
+        f"{state.optimizer.factored}, fp32 masters for {len(state.optimizer.master)} bf16 "
+        f"leaves of {len(state.optimizer.names)}")
+
+    # one step's gradients, kernels vs plain versions, before any update
+    with torch.no_grad():
+        anchor, positive = dual_view_train_batch(
+            images, torch.Generator(device=dev).manual_seed(2), aug)
+    grad_err = check_gradients(model, anchor, positive, labels, torch.bfloat16,
+                               f"bf16 batch {BATCH}")
+    del anchor, positive
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    n_steps = 10
+    for i in range(n_steps):
+        reset_launches()
+        loss = train_step(state, images, labels, seed_gen)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        losses.append(loss.item())
+        if not math.isfinite(losses[-1]):
+            fail(f"loss at step {i} is not finite: {losses[-1]}")
+        want = {"window_attention_fwd": 24, "window_attention_bwd": 24, "gpf_fwd": 1,
+                "gpf_bwd": 1}
+        if launches != want:
+            fail(f"step {i}: expected launches {want}, got {launches}")
+    log(f"  launches in one train step: {launches}")
+    log(f"  losses over {n_steps} steps on one batch: {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"last grad norm {state.optimizer.last_grad_norm:.3f}")
+    if losses[-1] >= losses[0]:
+        fail(f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    if state.optimizer.total_notfinite != 0 or state.step != n_steps:
+        fail(f"{state.optimizer.total_notfinite} non-finite steps were skipped "
+             f"(step count {state.step})")
+    for name, p in model.named_parameters():
+        if not torch.isfinite(p).all():
+            fail(f"parameter {name} is not finite after {n_steps} steps")
+
+    rates, step_ms = [], []
+    n_timed = 5
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n_timed):
+            train_step(state, images, labels, seed_gen)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        rates.append(BATCH * n_timed / dt)
+        step_ms.append(dt / n_timed * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ips = statistics.median(rates)
+    log(f"  train images/s = {ips:.1f} (loops: {', '.join(f'{r:.1f}' for r in rates)}), step ms "
+        f"{statistics.median(step_ms):.1f} (loops: {', '.join(f'{m:.1f}' for m in step_ms)}), "
+        f"peak memory {peak:.2f} GiB, batch {BATCH} ({TRAIN_VIEWS} images through the "
+        f"backbone), on {card}")
+
+    if profile_dir:
+        os.makedirs(profile_dir, exist_ok=True)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(2):
+                train_step(state, images, labels, seed_gen)
+            torch.cuda.synchronize()
+        table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=60)
+        with open(os.path.join(profile_dir, "training_profile.txt"), "w") as f:
+            f.write(f"{card}\nbatch {BATCH}, 2 train steps\n{table}\n")
+        log(f"  profile written to {profile_dir}/training_profile.txt")
+
+    del model, state, train_step, loss
+    torch.cuda.empty_cache()
+
+    # fp32 at batch 4: kernel-path vs plain-path gradients with a tight tolerance
+    f32_cfg = json.loads(json.dumps(FLAGSHIP))
+    f32_cfg["model"]["bf16"] = False
+    f32_cfg["model"]["moment"]["bf16_params"] = False
+    model32 = create_model(f32_cfg, num_classes=80, device="cuda", seed=0)
+    redraw_bias_tables(model32, torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        anchor, positive = dual_view_train_batch(
+            images[:4], torch.Generator(device=dev).manual_seed(2), aug)
+    grad_err32 = check_gradients(model32, anchor, positive, labels[:4], torch.float32,
+                                 "fp32 batch 4")
+    return {"launches": launches, "images_per_s": ips, "step_ms": statistics.median(step_ms),
+            "peak_gib": peak, "losses": losses, "grad_err_bf16": grad_err,
+            "grad_err_f32": grad_err32}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", help="write a torch.profiler table here")
@@ -445,24 +883,52 @@ def main() -> int:
         wa = check_window_attention(g)
         gp = check_gpf(g)
 
+    log(f"[2b] backward kernels against their plain versions, batch {TRAIN_VIEWS} / {BATCH}")
+    wab = check_window_attention_bwd(g)
+    gpb = check_gpf_bwd(g)
+    torch.cuda.empty_cache()
+
     log("[3] serving, Swin-Base/224 flagship, batch 64")
     srv = serve(card, args.profile)
+    torch.cuda.empty_cache()
 
+    log(f"[4] training, Swin-Base/224 flagship, batch {BATCH}")
+    trn = train(card, args.profile)
+
+    # ms, plain_ms, bound_ms, library_ms: bf16, summed over one forward's
+    # launches at batch 64 (forward kernels, the serving path) or over one
+    # train step's launches at batch 128 / [64,49,1024] x2 (backward kernels);
+    # train_ms is a forward kernel's sum over one train step's launches
+    src = "ego_moment_cle_vit_tpu_torch/csrc/"
     kernels = [
         {"name": "window_attention_fwd", "route": "cuda",
-         "source": "ego_moment_cle_vit_tpu_torch/csrc/window_attention_fwd.cu",
+         "source": src + "window_attention_fwd.cu",
          "replaces": WA_REPLACES, "launches": srv["launches"]["window_attention_fwd"],
+         "train_launches": trn["launches"]["window_attention_fwd"],
          "max_abs_err": wa["max_abs_err"], "ms": wa["ms"], "plain_ms": wa["plain_ms"],
          "bound_ms": wa["bound_ms"], "bound_by": wa["bound_by"],
-         "library_ms": wa["library_ms"]},
-        {"name": "gpf_fwd", "route": "cuda",
-         "source": "ego_moment_cle_vit_tpu_torch/csrc/gpf_fwd.cu",
+         "library_ms": wa["library_ms"], "train_ms": wab["fwd_ms"]},
+        {"name": "window_attention_bwd", "route": "cuda",
+         "source": src + "window_attention_bwd.cu",
+         "replaces": WA_BWD_REPLACES, "launches": trn["launches"]["window_attention_bwd"],
+         "max_abs_err": wab["max_abs_err"], "err_over_tol": wab["err_over_tol"],
+         "ms": wab["ms"], "plain_ms": wab["plain_ms"], "bound_ms": wab["bound_ms"],
+         "bound_by": wab["bound_by"], "library_ms": wab["library_ms"]},
+        {"name": "gpf_fwd", "route": "cuda", "source": src + "gpf_fwd.cu",
          "replaces": GPF_REPLACES, "launches": srv["launches"]["gpf_fwd"],
+         "train_launches": trn["launches"]["gpf_fwd"],
          "max_abs_err": gp["max_abs_err"], "err_over_tol": gp["err_over_tol"],
          "ms": gp["ms"], "plain_ms": gp["plain_ms"],
          "bound_ms": gp["bound_ms"], "bound_by": gp["bound_by"],
-         "library_ms": gp["library_ms"]},
+         "library_ms": gp["library_ms"], "train_ms": gpb["fwd_ms"]},
+        {"name": "gpf_bwd", "route": "cuda", "source": src + "gpf_bwd.cu",
+         "replaces": GPF_BWD_REPLACES, "launches": trn["launches"]["gpf_bwd"],
+         "max_abs_err": gpb["max_abs_err"], "err_over_tol": gpb["err_over_tol"],
+         "ms": gpb["ms"], "plain_ms": gpb["plain_ms"], "bound_ms": gpb["bound_ms"],
+         "bound_by": gpb["bound_by"], "library_ms": gpb["library_ms"]},
     ]
+    log(f"  serving {srv['images_per_s']:.1f} images/s, training {trn['images_per_s']:.1f} "
+        f"images/s ({trn['step_ms']:.1f} ms/step, peak {trn['peak_gib']:.2f} GiB)")
     log(f"  total {time.time() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,13 +6,24 @@ functions keep the JAX layouts (images NHWC ``[B, H, W, 3]``, tokens
 ``[B, N, D]``, window-attention qkv ``[B, Hp, Wp, 3C]``).
 
 Ported so far: the serving path (eval preprocess -> Swin -> fused GPF ->
-moment head -> classifier), with hand-written CUDA kernels for spatial window
-attention and fused GPF (``kernels/``, sources in ``csrc/``).  Entry points
+moment head -> classifier) and the training step (dual-view augmentation, the
+dual-view forward, the five-term loss, backward, AdamW with a factored second
+moment for huge leaves and fp32 masters for bf16 ones), with hand-written CUDA
+kernels for spatial window attention and fused GPF, forward and backward
+(``kernels/``, sources in ``csrc/``).  Entry points
 run on ``device="cuda"`` unless the caller passes ``device="cpu"``; without a
 GPU they raise.  This package imports neither JAX nor the JAX package.
 """
 
 from .models import EGOMomentCLEViT, create_model
 from .serve import make_infer_fn
+from .train import create_optimizer, create_train_state, make_train_step
 
-__all__ = ["EGOMomentCLEViT", "create_model", "make_infer_fn"]
+__all__ = [
+    "EGOMomentCLEViT",
+    "create_model",
+    "create_optimizer",
+    "create_train_state",
+    "make_infer_fn",
+    "make_train_step",
+]

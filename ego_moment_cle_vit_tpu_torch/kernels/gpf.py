@@ -6,6 +6,12 @@
 ``csrc/gpf_fwd.cu``: one block per batch element keeps both ``[N, N]`` Grams
 on chip and runs the polynomial, symmetrization and clamp there.  The output
 is fp32 whatever the token dtype, as on the TPU.
+
+``gpf_bwd`` replaces ``_gpf_bwd_kernel`` of the same file
+(``csrc/gpf_bwd.cu``): the analytic VJP in one pass per batch element, token
+gradients for both views and per-batch coefficient gradients.  ``gpf`` is the
+differentiable entry point the model calls, a ``torch.autograd.Function``
+that saves ``(tokens_a, tokens_p, coeffs)``.
 """
 
 from __future__ import annotations
@@ -24,7 +30,15 @@ _SIGNATURES = {
         ctypes.c_int,
     )
 }
+_BWD_SIGNATURES = {
+    "gpf_bwd": (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p],
+        ctypes.c_int,
+    )
+}
 MAX_TOKENS = 64
+MAX_DEGREE = 3  # the backward kernel's compiled polynomial degree limit
 
 
 def gpf_plain(
@@ -38,7 +52,84 @@ def gpf_plain(
     """Plain PyTorch version: two fp32 Grams, then ``gpf_fuse``."""
     r_a = token_similarity_graph(tokens_a, similarity, eps)
     r_p = token_similarity_graph(tokens_p, similarity, eps)
-    return gpf_fuse(r_a, r_p, coeffs.float(), symmetric_enforce=symmetric_enforce)
+    return gpf_fuse(r_a, r_p, coeffs.to(r_a.dtype), symmetric_enforce=symmetric_enforce)
+
+
+def gpf_bwd_plain(
+    tokens_a: torch.Tensor,
+    tokens_p: torch.Tensor,
+    coeffs: torch.Tensor,
+    g: torch.Tensor,
+    similarity: str = "cosine",
+    eps: float = 1e-6,
+    symmetric_enforce: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernel: the analytic VJP.
+
+    tokens [B, N, D] x2, coeffs [P+1, Q+1], g [B, N, N] -> (dta, dtp in the
+    token dtype, dc [B, P+1, Q+1] fp32, to be summed over the batch).  fp32
+    inside (fp64 for fp64 tokens).  Given one tensor twice, the two token
+    gradients are still returned apart; their sum is that tensor's gradient.
+    """
+    wide = torch.float64 if tokens_a.dtype == torch.float64 else torch.float32
+    a, p_ = tokens_a.to(wide), tokens_p.to(wide)
+    g = g.to(wide)
+    c = coeffs.to(wide)
+    if similarity == "cosine":
+        sa = torch.sqrt(torch.sum(a * a, dim=-1, keepdim=True))
+        sp = torch.sqrt(torch.sum(p_ * p_, dim=-1, keepdim=True))
+        ma, mp = sa.clamp(min=eps), sp.clamp(min=eps)
+        ah, ph = a / ma, p_ / mp
+    elif similarity == "dot":
+        ah, ph = a, p_
+    else:
+        raise ValueError(f"Unknown similarity function: {similarity}")
+    r_a = torch.matmul(ah, ah.transpose(-1, -2))
+    r_p = torch.matmul(ph, ph.transpose(-1, -2))
+
+    def powers(r, degree):
+        # A_k = R clamp(R)^(k-1), A'_k = k clamp(R)^(k-1); A_0 = 1
+        rc = r.clamp(min=0.0)
+        vals, grads = [torch.ones_like(r)], [torch.zeros_like(r)]
+        rc_pow = torch.ones_like(r)
+        for k in range(1, degree + 1):
+            vals.append(r * rc_pow)
+            grads.append(k * rc_pow)
+            rc_pow = rc_pow * rc
+        return vals, grads
+
+    a_vals, a_grads = powers(r_a, c.shape[0] - 1)
+    b_vals, b_grads = powers(r_p, c.shape[1] - 1)
+    fused = torch.zeros_like(r_a)
+    for p in range(c.shape[0]):
+        for q in range(c.shape[1]):
+            fused = fused + c[p, q] * (a_vals[p] * b_vals[q])
+    if symmetric_enforce:
+        fused = 0.5 * (fused + fused.transpose(-1, -2))
+    df = g * (fused > 0.0).to(wide)
+    if symmetric_enforce:
+        df = 0.5 * (df + df.transpose(-1, -2))
+
+    dra = torch.zeros_like(r_a)
+    drp = torch.zeros_like(r_p)
+    dc = torch.zeros(a.shape[0], *c.shape, dtype=wide, device=a.device)
+    for p in range(c.shape[0]):
+        for q in range(c.shape[1]):
+            term = df * c[p, q]
+            dra = dra + term * (a_grads[p] * b_vals[q])
+            drp = drp + term * (a_vals[p] * b_grads[q])
+            dc[:, p, q] = torch.sum(df * (a_vals[p] * b_vals[q]), dim=(-2, -1))
+    # Gram backward: R = X X^T  =>  dX = (dR + dR^T) X
+    dah = torch.matmul(dra + dra.transpose(-1, -2), ah)
+    dph = torch.matmul(drp + drp.transpose(-1, -2), ph)
+    if similarity == "cosine":
+        # xh = x / max(|x|, eps): dx = (dxh - [|x| > eps] xh (xh . dxh)) / max(|x|, eps)
+        da = (dah - (sa > eps).to(wide) * ah * torch.sum(ah * dah, dim=-1, keepdim=True)) / ma
+        dp = (dph - (sp > eps).to(wide) * ph * torch.sum(ph * dph, dim=-1, keepdim=True)) / mp
+    else:
+        da, dp = dah, dph
+    dc_dtype = torch.float64 if wide == torch.float64 else torch.float32
+    return da.to(tokens_a.dtype), dp.to(tokens_p.dtype), dc.to(dc_dtype)
 
 
 def gpf_error_scale(
@@ -136,3 +227,85 @@ def gpf_fwd(
 
 
 gpf_fwd.launches = 0
+
+
+def gpf_bwd(
+    tokens_a: torch.Tensor,
+    tokens_p: torch.Tensor,
+    coeffs: torch.Tensor,
+    g: torch.Tensor,
+    similarity: str = "cosine",
+    eps: float = 1e-6,
+    symmetric_enforce: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """VJP of :func:`gpf_fwd`: (dta, dtp [B, N, D], dc [B, P+1, Q+1] fp32).
+
+    CPU tensors take :func:`gpf_bwd_plain`; CUDA tensors launch the kernel
+    (after the forward's checks, on ``g`` too) or raise.  ``dc`` is per batch
+    element; the caller sums it.  Counts its launches in ``gpf_bwd.launches``.
+    """
+    if tokens_a.device.type == "cpu":
+        return gpf_bwd_plain(tokens_a, tokens_p, coeffs, g, similarity, eps, symmetric_enforce)
+    if tokens_a.device.type != "cuda":
+        raise RuntimeError(f"gpf_bwd: unsupported device {tokens_a.device}")
+    _check(tokens_a, tokens_p, coeffs, similarity)
+    b, n, d = tokens_a.shape
+    if max(coeffs.shape) - 1 > MAX_DEGREE:
+        raise ValueError(f"the backward kernel takes degrees up to {MAX_DEGREE}, got coeffs "
+                         f"{tuple(coeffs.shape)}")
+    if (g.device != tokens_a.device or g.dtype != torch.float32 or tuple(g.shape) != (b, n, n)
+            or not g.is_contiguous()):
+        raise ValueError(f"g must be a contiguous float32 [{b}, {n}, {n}] on {tokens_a.device}, "
+                         f"got {g.dtype} {tuple(g.shape)} on {g.device}")
+    code = _build.dtype_code(tokens_a, "gpf_bwd")
+    dta = torch.empty_like(tokens_a)
+    dtp = torch.empty_like(tokens_p)
+    dc = torch.empty((b, *coeffs.shape), dtype=torch.float32, device=tokens_a.device)
+    lib = _build.load("gpf_bwd", _BWD_SIGNATURES)
+    rc = lib.gpf_bwd(
+        tokens_a.data_ptr(), tokens_p.data_ptr(), coeffs.data_ptr(), g.data_ptr(),
+        dta.data_ptr(), dtp.data_ptr(), dc.data_ptr(),
+        b, n, d, coeffs.shape[0] - 1, coeffs.shape[1] - 1, int(similarity == "cosine"),
+        float(eps), int(symmetric_enforce), code, _build.stream_ptr(tokens_a.device),
+    )
+    _build.check(lib, rc, "gpf_bwd")
+    gpf_bwd.launches += 1
+    return dta, dtp, dc
+
+
+gpf_bwd.launches = 0
+
+
+class GPFFunction(torch.autograd.Function):
+    """Fused GPF under autograd: forward and backward each go through their
+    wrapper (kernel on CUDA tensors, plain version on CPU tensors).  Saves
+    ``(tokens_a, tokens_p, coeffs)``.  Given one tensor as both token sets,
+    autograd adds the two token gradients returned here."""
+
+    @staticmethod
+    def forward(ctx, tokens_a, tokens_p, coeffs, similarity, eps, symmetric_enforce):
+        ctx.save_for_backward(tokens_a, tokens_p, coeffs)
+        ctx.options = (similarity, eps, symmetric_enforce)
+        return gpf_fwd(tokens_a, tokens_p, coeffs, similarity, eps, symmetric_enforce)
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens_a, tokens_p, coeffs = ctx.saved_tensors
+        dta, dtp, dc = gpf_bwd(tokens_a, tokens_p, coeffs, g.contiguous(), *ctx.options)
+        return dta, dtp, torch.sum(dc, dim=0).to(coeffs.dtype), None, None, None
+
+
+def gpf(
+    tokens_a: torch.Tensor,
+    tokens_p: torch.Tensor,
+    coeffs: torch.Tensor,
+    similarity: str = "cosine",
+    eps: float = 1e-6,
+    symmetric_enforce: bool = True,
+) -> torch.Tensor:
+    """Differentiable fused GPF (to both token sets and the coefficients).
+    Where no gradient can be asked for, the forward wrapper is called directly."""
+    if not (torch.is_grad_enabled() and (tokens_a.requires_grad or tokens_p.requires_grad
+                                         or coeffs.requires_grad)):
+        return gpf_fwd(tokens_a, tokens_p, coeffs, similarity, eps, symmetric_enforce)
+    return GPFFunction.apply(tokens_a, tokens_p, coeffs, similarity, eps, symmetric_enforce)

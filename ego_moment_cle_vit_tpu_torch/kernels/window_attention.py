@@ -8,6 +8,16 @@ qkv element once, writes each output once and keeps the ``[T, T]`` logits on
 chip (bf16: registers, both products on the tensor cores; fp32: shared
 memory, CUDA cores).
 
+``window_attention_bwd`` replaces ``_bwd_kernel_spatial`` of the same file
+(``csrc/window_attention_bwd.cu``): it recomputes the probabilities from qkv,
+writes dqkv in the spatial layout (bf16: all five products on the tensor
+cores, logits, P and ds in registers; fp32: CUDA cores) and sums the bias
+gradient through per-block partials and a second, ordered reduction kernel,
+so the gradient is the same from run to run.
+``window_attention`` is the differentiable entry point the model calls: a
+``torch.autograd.Function`` that saves ``(qkv, bias, mask)`` only, never the
+``[T, T]`` probabilities.
+
 Unlike the TPU kernel, windows are not packed in pairs behind a -100
 block-diagonal seal: that packing was a TPU layout trick, and the port
 attends per ``ws*ws``-token window, which gives the same numbers to rounding.
@@ -27,6 +37,16 @@ _SIGNATURES = {
         ctypes.c_int,
     )
 }
+_BWD_SIGNATURES = {
+    "window_attention_bwd": (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                                      ctypes.c_void_p],
+        ctypes.c_int,
+    )
+}
+# the backward aims at this many blocks per launch: each block walks a chunk
+# of images for one (window, head) and writes one [T, T] bias-gradient partial
+_BWD_TARGET_BLOCKS = 2048
 HEAD_DIM = 32  # the kernel's compiled head width (every Swin stage in the registry)
 MAX_WINDOW = 8  # T = ws*ws <= 64 tokens per window
 
@@ -39,27 +59,79 @@ def window_attention_plain(
     window_size: int,
     scale: float,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, fp32 inside.
+    """Plain PyTorch version of the kernel, fp32 inside (fp64 for fp64 input).
 
     qkv [B, Hp, Wp, 3C]; bias [H, T, T] fp32; mask [nW, T, T] fp32 or None
     (T = ws*ws, nW = (Hp/ws)(Wp/ws) windows, row-major) -> [B, Hp, Wp, C] in
     qkv's dtype.
     """
     b, hp, wp, c3 = qkv.shape
-    c = c3 // 3
-    h, ws = num_heads, window_size
-    d, nt = c // h, ws * ws
-    nwy, nwx = hp // ws, wp // ws
-    x = qkv.float().reshape(b, nwy, ws, nwx, ws, 3, h, d)
-    x = x.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, b, nwy * nwx, h, nt, d)
-    q, k, v = x[0], x[1], x[2]
-    logits = torch.matmul(q, k.transpose(-1, -2)) * scale + bias.float()[None, None]
+    q, k, v = _partition(qkv, 3, num_heads, window_size)
+    probs = _probabilities(q, k, bias, mask, scale)
+    return _reverse(torch.matmul(probs, v), b, hp, wp, window_size).to(qkv.dtype)
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """The plain versions' compute type: fp32, or fp64 when given fp64."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def _partition(x: torch.Tensor, parts: int, num_heads: int, ws: int):
+    """[B, Hp, Wp, parts*C] -> ``parts`` tensors [B, nW, H, T, d], window-major."""
+    b, hp, wp, pc = x.shape
+    d = pc // parts // num_heads
+    x = _wide(x).reshape(b, hp // ws, ws, wp // ws, ws, parts, num_heads, d)
+    x = x.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(
+        parts, b, (hp // ws) * (wp // ws), num_heads, ws * ws, d)
+    return tuple(x[i] for i in range(parts))
+
+
+def _reverse(x: torch.Tensor, b: int, hp: int, wp: int, ws: int) -> torch.Tensor:
+    """[B, nW, H, T, d] -> [B, Hp, Wp, H*d]."""
+    h, d = x.shape[2], x.shape[4]
+    x = x.reshape(b, hp // ws, wp // ws, h, ws, ws, d).permute(0, 1, 4, 2, 5, 3, 6)
+    return x.reshape(b, hp, wp, h * d)
+
+
+def _probabilities(q, k, bias, mask, scale):
+    logits = torch.matmul(q, k.transpose(-1, -2)) * scale + _wide(bias)[None, None]
     if mask is not None:
-        logits = logits + mask.float()[None, :, None]
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.matmul(probs, v)  # [B, nW, H, T, d]
-    out = out.reshape(b, nwy, nwx, h, ws, ws, d).permute(0, 1, 4, 2, 5, 3, 6)
-    return out.reshape(b, hp, wp, c).to(qkv.dtype)
+        logits = logits + _wide(mask)[None, :, None]
+    return torch.softmax(logits, dim=-1)
+
+
+def window_attention_bwd_plain(
+    qkv: torch.Tensor,
+    bias: torch.Tensor,
+    mask: torch.Tensor | None,
+    dout: torch.Tensor,
+    num_heads: int,
+    window_size: int,
+    scale: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernel, the same formulas.
+
+    qkv [B, Hp, Wp, 3C], dout [B, Hp, Wp, C] -> (dqkv like qkv, dbias
+    [H, T, T] fp32).  The probabilities are recomputed; P is rounded to qkv's
+    dtype before ``P^T do`` and ds before the dq / dk products, as in the
+    kernel; everything else is fp32 (fp64 for fp64 input).
+    """
+    b, hp, wp, _ = qkv.shape
+    dt = qkv.dtype
+    q, k, v = _partition(qkv, 3, num_heads, window_size)
+    (do,) = _partition(dout, 1, num_heads, window_size)
+    probs = _probabilities(q, k, bias, mask, scale)
+    dv = torch.matmul(_wide(probs.to(dt)).transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = probs * (dp - torch.sum(dp * probs, dim=-1, keepdim=True))
+    dbias = ds.sum(dim=(0, 1))
+    ds_c = _wide(ds.to(dt))
+    dq = torch.matmul(ds_c, k) * scale
+    dk = torch.matmul(ds_c.transpose(-1, -2), q) * scale
+    dqkv = torch.cat(
+        [_reverse(t, b, hp, wp, window_size) for t in (dq, dk, dv)], dim=-1
+    ).to(dt)
+    return dqkv, dbias.to(bias.dtype)
 
 
 def _check(qkv, bias, mask, num_heads, ws):
@@ -123,3 +195,95 @@ def window_attention_fwd(
 
 
 window_attention_fwd.launches = 0
+
+
+def _bwd_chunks(batch: int, blocks_per_image: int) -> int:
+    """How many image chunks the backward grid gets: enough blocks to fill the
+    card, few enough that the bias-gradient partials stay small."""
+    want = max(1, -(-_BWD_TARGET_BLOCKS // blocks_per_image))
+    per_block = -(-batch // min(batch, want))
+    return -(-batch // per_block)
+
+
+def window_attention_bwd(
+    qkv: torch.Tensor,
+    bias: torch.Tensor,
+    mask: torch.Tensor | None,
+    dout: torch.Tensor,
+    num_heads: int,
+    window_size: int,
+    scale: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """VJP of :func:`window_attention_fwd`: (dqkv, dbias); the mask gets none.
+
+    CPU tensors take :func:`window_attention_bwd_plain`; CUDA tensors launch
+    the kernel (after the forward's checks, on ``dout`` too) or raise.  Counts
+    its launches in ``window_attention_bwd.launches``.
+    """
+    if qkv.device.type == "cpu":
+        return window_attention_bwd_plain(qkv, bias, mask, dout, num_heads, window_size, scale)
+    if qkv.device.type != "cuda":
+        raise RuntimeError(f"window_attention_bwd: unsupported device {qkv.device}")
+    _check(qkv, bias, mask, num_heads, window_size)
+    b, hp, wp, c3 = qkv.shape
+    c = c3 // 3
+    if (dout.device != qkv.device or dout.dtype != qkv.dtype
+            or tuple(dout.shape) != (b, hp, wp, c) or not dout.is_contiguous()):
+        raise ValueError(f"dout must be a contiguous {qkv.dtype} [{b}, {hp}, {wp}, {c}] on "
+                         f"{qkv.device}, got {dout.dtype} {tuple(dout.shape)} on {dout.device}")
+    if dout.data_ptr() % 16:
+        raise ValueError("dout must start on a 16-byte boundary")
+    code = _build.dtype_code(qkv, "window_attention_bwd")
+    nt = window_size * window_size
+    n_win = (hp // window_size) * (wp // window_size)
+    n_chunks = _bwd_chunks(b, n_win * num_heads)
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty((num_heads, nt, nt), dtype=torch.float32, device=qkv.device)
+    partial = torch.empty((n_chunks, n_win, num_heads, nt, nt), dtype=torch.float32,
+                          device=qkv.device)
+    lib = _build.load("window_attention_bwd", _BWD_SIGNATURES)
+    rc = lib.window_attention_bwd(
+        qkv.data_ptr(), bias.data_ptr(), mask.data_ptr() if mask is not None else None,
+        dout.data_ptr(), dqkv.data_ptr(), partial.data_ptr(), dbias.data_ptr(),
+        b, hp, wp, c, num_heads, window_size, float(scale), n_chunks, code,
+        _build.stream_ptr(qkv.device),
+    )
+    _build.check(lib, rc, "window_attention_bwd")
+    window_attention_bwd.launches += 1
+    return dqkv, dbias
+
+
+window_attention_bwd.launches = 0
+
+
+class WindowAttentionFunction(torch.autograd.Function):
+    """Windowed MHSA under autograd: forward and backward each go through
+    their wrapper (kernel on CUDA tensors, plain version on CPU tensors).
+    Saves ``(qkv, bias, mask)``; the probabilities are recomputed."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, mask, num_heads, window_size, scale):
+        ctx.save_for_backward(qkv, bias, mask)
+        ctx.geometry = (num_heads, window_size, scale)
+        return window_attention_fwd(qkv, bias, mask, num_heads, window_size, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, bias, mask = ctx.saved_tensors
+        dqkv, dbias = window_attention_bwd(qkv, bias, mask, dout.contiguous(), *ctx.geometry)
+        return dqkv, dbias, None, None, None, None
+
+
+def window_attention(
+    qkv: torch.Tensor,
+    bias: torch.Tensor,
+    mask: torch.Tensor | None,
+    num_heads: int,
+    window_size: int,
+    scale: float,
+) -> torch.Tensor:
+    """Differentiable windowed MHSA (to qkv and bias) from the spatial qkv map.
+    Where no gradient can be asked for, the forward wrapper is called directly."""
+    if not (torch.is_grad_enabled() and (qkv.requires_grad or bias.requires_grad)):
+        return window_attention_fwd(qkv, bias, mask, num_heads, window_size, scale)
+    return WindowAttentionFunction.apply(qkv, bias, mask, num_heads, window_size, scale)

@@ -11,7 +11,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import Dense
+from .layers import Dense, Dropout
 from .moment_head import _head_norm
 
 
@@ -24,17 +24,19 @@ def _not_ported(what: str):
 class ClassifierHead(nn.Module):
     """[B, d_cls] + [B, d_moment] -> logits [B, num_classes].
 
-    Fusion -> fc1 -> Norm -> GELU -> fc2 -> Norm -> GELU -> fc_out.
+    Fusion -> fc1 -> Norm -> GELU -> Drop -> fc2 -> Norm -> GELU -> Drop -> fc_out.
     """
 
     def __init__(self, d_cls: int, d_moment: int, num_classes: int,
                  hidden_dim: int | None = None, fusion_type: str = "concat",
-                 norm: str = "layer", dtype=torch.float32, device="cpu"):
+                 norm: str = "layer", dtype=torch.float32, device="cpu",
+                 dropout: float = 0.1):
         super().__init__()
         if fusion_type == "bilinear":
             raise _not_ported("the 'bilinear' classifier fusion")
         self.fusion_type = fusion_type
         self.dtype = dtype
+        self.drop = Dropout(dropout)
         if fusion_type == "concat":
             fusion_dim = d_cls + d_moment
         elif fusion_type == "add":
@@ -52,7 +54,8 @@ class ClassifierHead(nn.Module):
         self.norm2 = _head_norm(norm, hidden // 2, device)
         self.fc_out = Dense(hidden // 2, num_classes, dtype=dtype, device=device)
 
-    def forward(self, cls_features: torch.Tensor, moment_features: torch.Tensor) -> torch.Tensor:
+    def forward(self, cls_features: torch.Tensor, moment_features: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         if self.fusion_type == "concat":
             # jnp.concatenate promotes mixed dtypes (bf16 global, fp32 moments)
             dt = torch.promote_types(cls_features.dtype, moment_features.dtype)
@@ -61,8 +64,8 @@ class ClassifierHead(nn.Module):
             fused = self.cls_proj(cls_features) + self.moment_proj(moment_features)
         else:
             fused = cls_features + moment_features
-        x = F.gelu(self.norm1(self.fc1(fused)), approximate="none")
-        x = F.gelu(self.norm2(self.fc2(x)), approximate="none")
+        x = self.drop(F.gelu(self.norm1(self.fc1(fused)), approximate="none"), generator)
+        x = self.drop(F.gelu(self.norm2(self.fc2(x)), approximate="none"), generator)
         return self.fc_out(x)
 
 

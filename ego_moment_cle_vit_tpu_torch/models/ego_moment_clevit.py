@@ -1,9 +1,11 @@
-"""EGOMomentCLEViT, the composition root (serving path).
+"""EGOMomentCLEViT, the composition root.
 
-Counterpart of ``ego_moment_cle_vit_tpu/models/ego_moment_clevit.py:45-180,
-309-362``: backbone -> GPF -> MomentHead -> ClassifierHead, with
-``inference`` as the one ported forward.  The full dual-view forward and the
-five-term loss are not ported yet.
+Counterpart of ``ego_moment_cle_vit_tpu/models/ego_moment_clevit.py:39-273,
+309-362``: dual-stream backbone -> GPF -> MomentHead -> ClassifierHead plus
+the per-view auxiliary classifier and the five-term loss dictionary (three
+cross-entropies, the roll-negative triplet, the graph-alignment MSE), and
+``inference`` as the single-view serving forward.  ``ablation_forward`` is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -11,8 +13,10 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..losses import graph_alignment_mse_loss, roll_negative_triplet_loss
 from ..utils.device import pin_fp32_precision, resolve_device
 from .backbone import CLEViTDualStream
 from .classifier_head import ClassifierHead, _not_ported
@@ -21,7 +25,18 @@ from .layers import Dense, init_parameters
 from .moment_head import MomentHead
 
 
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood, taken in fp32."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, 1, labels[:, None].long())[:, 0].mean()
+
+
 class EGOMomentCLEViT(nn.Module):
+    """Call signature mirrors the JAX model: ``(anchor, positive, labels=None,
+    return_features=False)`` -> dict of logits / losses / features.  Dropout
+    follows ``self.training`` and draws from the ``generator`` given to
+    ``forward``."""
+
     def __init__(
         self,
         num_classes: int,
@@ -39,14 +54,23 @@ class EGOMomentCLEViT(nn.Module):
         sketch_mode: str = "fft",
         classifier_fusion: str = "concat",
         classifier_hidden: Optional[int] = None,
+        lambda_triplet: float = 1.0,
+        lambda_align: float = 0.1,
+        margin: float = 0.3,
+        dropout: float = 0.1,
         norm: str = "layer",
+        backbone_remat: str = "attn",
         moment_bf16_params: bool = False,
         dtype: torch.dtype = torch.float32,
         device: str | torch.device = "cpu",
     ):
         super().__init__()
         self.dtype = dtype
-        self.backbone = CLEViTDualStream(backbone_name, img_size, dtype, device)
+        self.lambda_triplet = lambda_triplet
+        self.lambda_align = lambda_align
+        self.margin = margin
+        self.backbone = CLEViTDualStream(backbone_name, img_size, dtype, device,
+                                         drop_rate=dropout, remat=backbone_remat)
         d = self.backbone.num_features
         self.gpf = GraphPolynomialFusion(
             gpf_degree_p, gpf_degree_q, gpf_similarity,
@@ -55,10 +79,11 @@ class EGOMomentCLEViT(nn.Module):
         self.moment_head = MomentHead(
             d, moment_d_out, use_third_order, isqrt_iterations, sketch_dim, sketch_mode,
             norm=norm, bf16_params=moment_bf16_params, dtype=dtype, device=device,
+            dropout=dropout,
         )
         self.classifier = ClassifierHead(
             d, moment_d_out, num_classes, classifier_hidden, classifier_fusion, norm,
-            dtype=dtype, device=device,
+            dtype=dtype, device=device, dropout=dropout,
         )
         self.cls_only_classifier = Dense(d, num_classes, dtype=dtype, device=device)
 
@@ -69,10 +94,77 @@ class EGOMomentCLEViT(nn.Module):
         self.gpf.reset_parameters(generator)
         self.moment_head.reset_sketch(generator)
 
-    def forward(self, anchor, positive, labels=None):
+    def forward(
+        self,
+        anchor: torch.Tensor,
+        positive: torch.Tensor,
+        labels: Optional[torch.Tensor] = None,
+        return_features: bool = False,
+        *,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, Any]:
+        """Dual-view forward.  anchor, positive: normalized NHWC [B, H, W, 3];
+        labels [B] int.  Returns ``logits``, ``logits_anchor``,
+        ``logits_positive`` and, given labels, ``loss_dict`` and ``loss``."""
+        anchor_features, positive_features = self.backbone(anchor, positive, generator)
+        anchor_tokens = anchor_features["patch_tokens"]
+        positive_tokens = positive_features["patch_tokens"]
+        anchor_global = anchor_features["global_features"]
+        positive_global = positive_features["global_features"]
+
+        fused_graph = self.gpf(anchor_tokens, positive_tokens)
+        moment_features = self.moment_head(anchor_tokens, fused_graph, generator)
+        main_logits = self.classifier(anchor_global, moment_features, generator)
+        anchor_logits = self.cls_only_classifier(anchor_global)
+        positive_logits = self.cls_only_classifier(positive_global)
+
+        output: Dict[str, Any] = {
+            "logits": main_logits,
+            "logits_anchor": anchor_logits,
+            "logits_positive": positive_logits,
+        }
+        if labels is not None:
+            loss_dict = self._compute_losses(
+                main_logits, anchor_logits, positive_logits, anchor_global, positive_global,
+                fused_graph, labels,
+            )
+            output["loss_dict"] = loss_dict
+            output["loss"] = sum(loss_dict.values())
+        if return_features:
+            output["features"] = {
+                "anchor_tokens": anchor_tokens,
+                "positive_tokens": positive_tokens,
+                "anchor_global": anchor_global,
+                "positive_global": positive_global,
+                "fused_graph": fused_graph,
+                "moment_features": moment_features,
+                "gpf_coefficients": self.gpf.coefficient_matrix(),
+            }
+        return output
+
+    def _compute_losses(self, main_logits, anchor_logits, positive_logits, anchor_global,
+                        positive_global, fused_graph, labels) -> Dict[str, torch.Tensor]:
+        """3x CE + lambda_t * roll-negative triplet + lambda_a * alignment.  A
+        zero-weight term is left out, not multiplied by zero."""
+        loss_dict = {
+            "loss_main_ce": cross_entropy_loss(main_logits, labels),
+            "loss_anchor_ce": cross_entropy_loss(anchor_logits, labels),
+            "loss_positive_ce": cross_entropy_loss(positive_logits, labels),
+        }
+        if self.lambda_triplet > 0:
+            loss_dict["loss_triplet"] = self.lambda_triplet * roll_negative_triplet_loss(
+                anchor_global.float(), positive_global.float(), margin=self.margin
+            )
+        if self.lambda_align > 0:
+            loss_dict["loss_align"] = self.lambda_align * graph_alignment_mse_loss(
+                fused_graph.float(), labels
+            )
+        return loss_dict
+
+    def ablation_forward(self, anchor, positive, mode: str = "full"):
         raise NotImplementedError(
-            "the dual-view forward and its five-term loss belong to training, which is not "
-            "ported yet (ROADMAP.md, 'Modules to port', training slice); use inference()"
+            "ablation_forward is not ported yet (ROADMAP.md, 'Modules to port', trainer, "
+            "evaluator, CLI)"
         )
 
     def inference(self, images: torch.Tensor) -> torch.Tensor:
@@ -105,6 +197,7 @@ def create_model(
     gpf = mcfg.get("gpf", {})
     moment = mcfg.get("moment", {})
     classifier = mcfg.get("classifier", {})
+    loss = config.get("training", {}).get("loss", {})
     if gpf.get("adaptive_type") is not None:
         raise _not_ported("AdaptiveGraphPolynomialFusion")
     if moment.get("variant", "full") != "full":
@@ -132,7 +225,12 @@ def create_model(
         sketch_mode=moment.get("sketch_mode", "fft"),
         classifier_fusion=classifier.get("fusion_type", "concat"),
         classifier_hidden=classifier.get("hidden_dim"),
+        lambda_triplet=loss.get("lambda_triplet", 1.0),
+        lambda_align=loss.get("lambda_align", 0.1),
+        margin=loss.get("margin", 0.3),
+        dropout=classifier.get("dropout", 0.1),
         norm=mcfg.get("norm", "layer"),
+        backbone_remat=mcfg.get("backbone_remat", "attn"),
         moment_bf16_params=moment.get("bf16_params", False),
         dtype=torch.bfloat16 if mcfg.get("bf16", False) else torch.float32,
         device=dev,

@@ -2,8 +2,8 @@
 
 Counterpart of ``ego_moment_cle_vit_tpu/models/gpf.py:44-107``: softplus of
 the raw ``alpha_coeffs`` parameter, then the fused GPF through
-``kernels.gpf.gpf_fwd`` (the CUDA kernel on the card, its plain version on
-the CPU).  ``AdaptiveGraphPolynomialFusion`` is not ported yet.
+``kernels.gpf.gpf`` (forward and backward CUDA kernels on the card, their
+plain versions on the CPU).  ``AdaptiveGraphPolynomialFusion`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ class GraphPolynomialFusion(nn.Module):
 
     def forward(self, tokens_anchor: torch.Tensor, tokens_positive: torch.Tensor) -> torch.Tensor:
         """[B, N, D] x2 -> fused graph [B, N, N] fp32."""
-        return _gpf.gpf_fwd(
+        return _gpf.gpf(
             tokens_anchor, tokens_positive, self.coefficient_matrix().contiguous(),
             self.similarity, self.eps, self.symmetric_enforce,
         )

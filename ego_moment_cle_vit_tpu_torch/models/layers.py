@@ -60,6 +60,28 @@ class LayerNorm(nn.Module):
         return y.to(out_dtype)
 
 
+class Dropout(nn.Module):
+    """Inverted dropout driven by an explicit ``torch.Generator``.
+
+    Active only in training mode with ``p > 0``.  The keep mask is drawn from
+    ``generator`` (on the input's device), so a step is reproducible from the
+    generator's seed; ``generator=None`` draws from the global stream.
+    """
+
+    def __init__(self, p: float):
+        super().__init__()
+        if not 0.0 <= p < 1.0:
+            raise ValueError(f"dropout rate must be in [0, 1), got {p}")
+        self.p = p
+
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, dtype=torch.float32, device=x.device,
+                          generator=generator) >= self.p
+        return x * keep.to(x.dtype) * (1.0 / (1.0 - self.p))
+
+
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Random initialization close to flax's defaults, from ``generator``.
 

@@ -1,10 +1,10 @@
 """Graph-weighted moment pooling head.
 
 Counterpart of ``ego_moment_cle_vit_tpu/models/moment_head.py:73-233``
-(``MomentHead``), serving route only: symmetric graph normalization,
-weighted mean and centering, iSQRT-COV in the token subspace (N < D), paired
-half-vectorization, ``second_proj`` -> LayerNorm -> GELU, and the third-order
-Tensor-Sketch branch.  The dense Newton–Schulz route (N >= D),
+(``MomentHead``): symmetric graph normalization, weighted mean and
+centering, iSQRT-COV in the token subspace (N < D), paired
+half-vectorization, ``second_proj`` -> LayerNorm -> GELU -> Dropout, and the
+third-order Tensor-Sketch branch.  The dense Newton–Schulz route (N >= D),
 ``norm='batch'`` and ``SimplifiedMomentHead`` are not ported yet.
 """
 
@@ -22,7 +22,7 @@ from ..ops.moments import (
     isqrt_cov_subspace,
 )
 from ..ops.sketch import effective_sketch_dim, make_sketch_matrices, tensor_sketch_3
-from .layers import Dense, LayerNorm
+from .layers import Dense, Dropout, LayerNorm
 
 # flax nn.LayerNorm's default epsilon, which the JAX head norms keep
 HEAD_NORM_EPS = 1e-6
@@ -51,7 +51,8 @@ class MomentHead(nn.Module):
     def __init__(self, d_in: int, d_out: int = 512, use_third_order: bool = False,
                  isqrt_iterations: int = 3, sketch_dim: int = 2048, sketch_mode: str = "fft",
                  eps: float = 1e-5, norm: str = "layer",
-                 bf16_params: bool = False, dtype=torch.float32, device="cpu"):
+                 bf16_params: bool = False, dtype=torch.float32, device="cpu",
+                 dropout: float = 0.1):
         super().__init__()
         if sketch_mode not in ("fft", "faithful"):
             raise ValueError(f"Unknown tensor-sketch mode: {sketch_mode}")
@@ -64,6 +65,7 @@ class MomentHead(nn.Module):
         self.d_second = d_out // 2 if use_third_order else d_out
         self.d_third = d_out - self.d_second if use_third_order else 0
         self.sketch_dim = sketch_dim
+        self.drop = Dropout(dropout)
 
         self.second_proj = Dense(
             d_in * (d_in + 1) // 2, self.d_second, dtype=dtype,
@@ -86,7 +88,8 @@ class MomentHead(nn.Module):
                 device=self.sketch_matrices.device,
             ))
 
-    def forward(self, tokens: torch.Tensor, graph: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, graph: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         n_tok, d_tok = tokens.shape[-2], tokens.shape[-1]
         if n_tok >= d_tok:
             raise NotImplementedError(
@@ -100,6 +103,7 @@ class MomentHead(nn.Module):
         m2 = isqrt_cov_subspace(centered, weighted, self.isqrt_iterations, self.eps)
         m2_vec = half_vectorize_paired(m2).to(self.dtype)
         x = F.gelu(self.second_norm(self.second_proj(m2_vec)), approximate="none")
+        x = self.drop(x, generator)
         if not self.use_third_order:
             return x
         third = tensor_sketch_3(
@@ -107,6 +111,7 @@ class MomentHead(nn.Module):
             self.sketch_mode,
         ).to(self.dtype)
         y = F.gelu(self.third_norm(self.third_proj(third)), approximate="none")
+        y = self.drop(y, generator)
         return torch.cat([x, y], dim=-1)
 
 

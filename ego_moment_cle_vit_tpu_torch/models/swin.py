@@ -6,11 +6,18 @@ converter maps one to the other name for name.
 
 Every block runs one attention path: LayerNorm, pad, roll and the qkv/proj
 products stay plain PyTorch, and the attention itself goes through
-``kernels.window_attention.window_attention_fwd`` (the CUDA kernel on the
-card, its plain version on the CPU), as the JAX package's spatial-kernel path
-does (``swin.py:620-678``).  The relative-position bias is an index gather
-from the ``[(2ws-1)^2, H]`` table; the shift mask keeps the -100 floor.  The
-TPU-only window packing and the fused attention-half kernel are not ported.
+``kernels.window_attention.window_attention`` (forward and backward CUDA
+kernels on the card, their plain versions on the CPU), as the JAX package's
+spatial-kernel path does (``swin.py:620-678``).  The relative-position bias is
+an index gather from the ``[(2ws-1)^2, H]`` table, differentiable to the table
+by plain autograd; the shift mask keeps the -100 floor.  The TPU-only window
+packing and the fused attention-half kernel are not ported.
+
+Training: ``drop_rate`` dropout after ``patch_embed_norm`` (the backbone has
+nothing else stochastic) and ``remat='block'``, which checkpoints every
+``SwinBlock`` (saves its input, recomputes the block in backward).  The JAX
+package's ``remat='attn'`` only avoided saving attention probabilities, which
+the kernel never saves, so here it equals ``'none'``.
 """
 
 from __future__ import annotations
@@ -22,9 +29,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import window_attention as _wa
-from .layers import Dense, LayerNorm
+from .layers import Dense, Dropout, LayerNorm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +46,7 @@ class SwinConfig:
     mlp_ratio: float = 4.0
     drop_rate: float = 0.0
     layer_norm_eps: float = 1e-5
+    remat: str = "none"  # 'none' | 'attn' (same as 'none' here) | 'block'
 
     @property
     def num_features(self) -> int:
@@ -165,7 +174,7 @@ class SwinBlock(nn.Module):
         if shift > 0:
             xm = torch.roll(xm, shifts=(-shift, -shift), dims=(1, 2))
         qkv = self.attn.qkv(xm)
-        om = _wa.window_attention_fwd(
+        om = _wa.window_attention(
             qkv, self.relative_position_bias(), self.attn_mask, self.num_heads, self.ws,
             self.scale,
         )
@@ -205,8 +214,11 @@ class Swin(nn.Module):
     def __init__(self, config: SwinConfig, dtype=torch.float32, device="cpu"):
         super().__init__()
         cfg = config
+        if cfg.remat not in ("none", "attn", "block"):
+            raise ValueError(f"Unknown remat policy: {cfg.remat!r}")
         self.config = cfg
         self.dtype = dtype
+        self.drop = Dropout(cfg.drop_rate)
         self.patch_embed_proj = nn.Conv2d(
             3, cfg.embed_dim, cfg.patch_size, stride=cfg.patch_size, dtype=dtype, device=device
         )
@@ -230,11 +242,19 @@ class Swin(nn.Module):
                 dim *= 2
         self.norm = LayerNorm(dim, eps=cfg.layer_norm_eps, device=device)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         x = images.to(self.dtype).permute(0, 3, 1, 2)
         x = self.patch_embed_proj(x).permute(0, 2, 3, 1)
         b, h, w, c = x.shape
         x = self.patch_embed_norm(x.reshape(b, h * w, c))
+        x = self.drop(x, generator)
+        remat = self.config.remat == "block" and torch.is_grad_enabled()
         for name in self.layer_names:
-            x = getattr(self, name)(x)
+            layer = getattr(self, name)
+            if remat and isinstance(layer, SwinBlock):
+                # nothing in a block is stochastic, so no RNG state to replay
+                x = checkpoint(layer, x, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = layer(x)
         return self.norm(x)

@@ -18,8 +18,8 @@ def _l2_normalize(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 def token_similarity_graph(
     tokens: torch.Tensor, similarity: str = "cosine", eps: float = 1e-6
 ) -> torch.Tensor:
-    """[B, N, D] -> [B, N, N] fp32 Gram ('cosine' | 'dot')."""
-    t = tokens.float()
+    """[B, N, D] -> [B, N, N] fp32 Gram ('cosine' | 'dot'); fp64 tokens stay fp64."""
+    t = tokens if tokens.dtype == torch.float64 else tokens.float()
     if similarity == "cosine":
         t = _l2_normalize(t, eps)
     elif similarity != "dot":
@@ -33,12 +33,14 @@ def gpf_fuse(
     coeffs: torch.Tensor,
     *,
     symmetric_enforce: bool = True,
+    clamp: bool = True,
 ) -> torch.Tensor:
     """G = sum_pq coeffs[p, q] * A_p(R_a) ⊙ A_q(R_p), symmetrized, clamped >= 0.
 
     A_0 = 1, A_1 = R, and every later power multiplies by clamp(R, 0), as
     running Hadamard powers.  ``coeffs`` is the already-nonnegative
-    ``[P+1, Q+1]`` matrix.
+    ``[P+1, Q+1]`` matrix.  ``clamp=False`` returns the pre-activation (what
+    the final clamp sees), which tells where its kink lies.
     """
     P, Q = coeffs.shape[0] - 1, coeffs.shape[1] - 1
     ra_clamped = torch.clamp(r_anchor, min=0.0)
@@ -53,7 +55,7 @@ def gpf_fuse(
         ra_pow = ra_pow * (r_anchor if p == 0 else ra_clamped)
     if symmetric_enforce:
         fused = 0.5 * (fused + fused.transpose(-1, -2))
-    return torch.clamp(fused, min=0.0)
+    return torch.clamp(fused, min=0.0) if clamp else fused
 
 
 def normalize_graph(

@@ -4,12 +4,20 @@ Counterpart of ``ego_moment_cle_vit_tpu/ops/moments.py:192-225, 291-307,
 336-413``: the paired half-vectorization, the graph-weighted means and the
 token-subspace iSQRT-COV.  Products accumulate in fp32 and results are cast
 back to the token dtype, as in the JAX package.  The dense Newton–Schulz
-route (N >= D) is not ported yet.
+route (N >= D) is not ported yet.  Everything here is differentiable by plain
+autograd (fp64 inputs stay fp64, so ``gradcheck`` applies); the one in-place
+update, on the diagonal of a fresh matmul result, touches nothing that
+autograd saved.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """The accumulation type: fp32, or fp64 when given fp64."""
+    return t if t.dtype == torch.float64 else t.float()
 
 
 def half_vectorize_paired(matrix: torch.Tensor) -> torch.Tensor:
@@ -48,9 +56,9 @@ def graph_weighted_mean(
     tokens: torch.Tensor, weights: torch.Tensor, eps: float = 1e-5
 ) -> torch.Tensor:
     """mu = (Z^T W 1) / tr(W): [B, N, D] x [B, N, N] -> [B, D]."""
-    row_sums = torch.sum(weights.float(), dim=-1)
-    weighted_sum = torch.einsum("bnd,bn->bd", tokens.float(), row_sums)
-    trace_w = _trace(weights.float())[..., None]
+    row_sums = torch.sum(_wide(weights), dim=-1)
+    weighted_sum = torch.einsum("bnd,bn->bd", _wide(tokens), row_sums.to(_wide(tokens).dtype))
+    trace_w = _trace(_wide(weights))[..., None]
     return (weighted_sum / (trace_w + eps)).to(tokens.dtype)
 
 
@@ -74,15 +82,15 @@ def isqrt_cov_subspace(
     inside.
     """
     in_dtype = centered.dtype
-    a = centered.float()
-    b = weighted.float()
+    a = _wide(centered)
+    b = _wide(weighted)
     n, d = a.shape[-2], a.shape[-1]
 
     trace = torch.sum(a * b, dim=(-2, -1))[..., None, None]
     bh = b / (trace + eps)
     s = torch.matmul(bh, a.transpose(-1, -2))  # S = B̂ A^T  [B, N, N]
 
-    eye = torch.eye(n, dtype=torch.float32, device=a.device)
+    eye = torch.eye(n, dtype=a.dtype, device=a.device)
     a_k = 1.0
     g = torch.zeros_like(s)
     for _ in range(num_iterations):

@@ -48,7 +48,8 @@ def tensor_sketch_3(
     'fft':      IFFT(FFT(s1) * FFT(s2) * FFT(s3)).real, length K.
     'faithful': s1 * s2 * s3 elementwise (the original reference estimator).
     """
-    xf = x.float()
+    xf = x if x.dtype == torch.float64 else x.float()
+    matrices = matrices.to(xf.dtype)
     s1 = torch.matmul(xf, matrices[0])
     s2 = torch.matmul(xf, matrices[1])
     s3 = torch.matmul(xf, matrices[2])

@@ -1,4 +1,4 @@
-"""flax variables (numpy) -> the port's ``state_dict``.
+"""flax variables (numpy) <-> the port's named tensors.
 
 The reverse direction of ``ego_moment_cle_vit_tpu/utils/port_weights.py``.
 The port's module tree mirrors the flax tree name for name, so a flax path
@@ -14,6 +14,10 @@ The port's module tree mirrors the flax tree name for name, so a flax path
 
 Every converted tensor takes the dtype of the model's own entry.  Any flax
 leaf without a port entry, or port entry without a flax leaf, raises.
+
+``flax_tree_from_named_tensors`` is the inverse for names and layouts, so the
+port's parameters, gradients or updated parameters can be laid beside a flax
+``params`` tree leaf by leaf.  Both directions take and return numpy.
 """
 
 from __future__ import annotations
@@ -86,3 +90,50 @@ def torch_state_dict_from_flax(
         raise KeyError(f"flax leaves without a port entry: {unused}; "
                        f"port entries without a flax leaf: {missing}")
     return out
+
+
+def flax_tree_from_named_tensors(
+    named: Mapping[str, np.ndarray], model: torch.nn.Module
+) -> Dict[str, Any]:
+    """Lay tensors named like ``model.named_parameters()`` out as a flax
+    ``params`` tree: nested dicts, flax leaf names and layouts.
+
+    ``named`` maps parameter names to numpy arrays in the port's layouts
+    (parameters, their gradients, or anything else of those shapes).  Dense
+    ``weight [out, in]`` -> ``kernel [in, out]``; conv ``weight [O, I, kh,
+    kw]`` -> ``kernel [kh, kw, I, O]``; LayerNorm ``weight`` -> ``scale``, with
+    the ``LayerNorm_0`` level restored under the head norms.  ``model`` only
+    tells the kind of each module.  Returns ``{"params": tree}``.
+    """
+    from ..models.layers import Dense, LayerNorm  # here: models imports utils
+
+    kinds = {}
+    for prefix, mod in model.named_modules():
+        if isinstance(mod, Dense):
+            kinds[prefix] = "dense"
+        elif isinstance(mod, torch.nn.Conv2d):
+            kinds[prefix] = "conv"
+        elif isinstance(mod, LayerNorm):
+            kinds[prefix] = "norm"
+    tree: Dict[str, Any] = {}
+    for name, value in named.items():
+        value = np.asarray(value)
+        prefix, _, leaf = name.rpartition(".")
+        kind = kinds.get(prefix)
+        path = prefix.split(".") if prefix else []
+        if kind == "norm" and path[0] in ("moment_head", "classifier"):
+            path.append("LayerNorm_0")
+        if leaf == "weight":
+            if kind == "dense":
+                leaf, value = "kernel", value.T
+            elif kind == "conv":
+                leaf, value = "kernel", value.transpose(2, 3, 1, 0)
+            elif kind == "norm":
+                leaf = "scale"
+            else:
+                raise KeyError(f"{name}: a 'weight' outside Dense, Conv2d and LayerNorm")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return {"params": tree}

@@ -9,6 +9,13 @@ Tolerances: window attention fp32 1e-4 absolute (sum order); bf16 3.2e-2,
 two bf16 ulps at |out| < 4 (the kernel rounds the probabilities to bf16
 before P v, the plain version does not).  GPF: each entry within 2e-4 of
 ``gpf_error_scale``, its own size, and a zeroed off-diagonal fails that.
+
+Backward kernels: dqkv within atol + rtol |ref| of the plain version per
+element (fp32 1e-4 + 1e-4, sum order; bf16 2e-2 + 2^-6, two bf16 ulps of the
+output's rounding, the plain version rounding P and ds as the kernel does),
+dbias within 1e-3 (fp32) / 2e-2 (bf16) of its largest entry; the GPF token
+gradients within 1e-3 (fp32) / 2e-2 (bf16) of each row's largest entry and
+dc within 1e-3 relative.  Each check also rejects a control.
 """
 
 import pytest
@@ -78,3 +85,75 @@ def test_cuda_wrappers_reject_bad_inputs(cuda_device):
     t = torch.zeros(1, 49, 32, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError, match="not supported"):
         tgpf.gpf_fwd(t, t, torch.ones(3, 3, device=cuda_device))
+
+
+def _close(out, ref, atol, rtol):
+    return bool(((out.float() - ref.float()).abs() <= atol + rtol * ref.float().abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, atol, rtol, btol", [(torch.float32, 1e-4, 1e-4, 1e-3),
+                                                     (torch.bfloat16, 2e-2, 2.0**-6, 2e-2)])
+@pytest.mark.parametrize("b, hp, c, heads, shifted", [(5, 14, 128, 4, True),
+                                                      (3, 7, 256, 8, False)])
+def test_cuda_window_attention_bwd_matches_plain(cuda_device, dtype, atol, rtol, btol, b, hp, c,
+                                                 heads, shifted):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    qkv = torch.randn(b, hp, hp, 3 * c, generator=g, device=cuda_device).to(dtype)
+    dout = torch.randn(b, hp, hp, c, generator=g, device=cuda_device).to(dtype)
+    table = torch.randn((2 * WS - 1) ** 2, heads, generator=g, device=cuda_device)
+    idx = torch.as_tensor(_relative_position_index(WS).reshape(-1), device=cuda_device)
+    bias = table[idx].reshape(WS * WS, WS * WS, heads).permute(2, 0, 1).contiguous()
+    mask = (torch.as_tensor(_attn_mask(hp, hp, hp, hp, WS, 3), device=cuda_device)
+            if shifted else None)
+    args = (qkv, bias, mask, dout, heads, WS, (c // heads) ** -0.5)
+    before = twa.window_attention_bwd.launches
+    dqkv, dbias = twa.window_attention_bwd(*args)
+    assert twa.window_attention_bwd.launches == before + 1
+    ref_dqkv, ref_dbias = twa.window_attention_bwd_plain(*args)
+    assert dqkv.dtype == dtype and dbias.dtype == torch.float32
+    assert _close(dqkv, ref_dqkv, atol, rtol)
+    assert (dbias - ref_dbias).abs().max().item() <= btol * ref_dbias.abs().max().item()
+    # controls: dK zeroed, and the bias gradient dropped, both fall outside
+    ctrl = ref_dqkv.clone()
+    ctrl[..., c:2 * c] = 0
+    assert not _close(ctrl, ref_dqkv, atol, rtol)
+    assert ref_dbias.abs().max().item() > btol * ref_dbias.abs().max().item()
+    # and the Function routes autograd through the same kernels
+    q2 = qkv.clone().requires_grad_()
+    b2 = bias.clone().requires_grad_()
+    twa.window_attention(q2, b2, mask, heads, WS, args[-1]).backward(dout)
+    assert torch.equal(q2.grad, dqkv) and torch.equal(b2.grad, dbias)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-3), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("similarity", ["dot", "cosine"])
+@pytest.mark.parametrize("b, n, d", [(4, 49, 256), (3, 16, 100)])
+def test_cuda_gpf_bwd_matches_plain(cuda_device, dtype, tol, similarity, b, n, d):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    ta = torch.randn(b, n, d, generator=g, device=cuda_device).to(dtype)
+    tp = torch.randn(b, n, d, generator=g, device=cuda_device).to(dtype)
+    c = torch.rand(3, 3, generator=g, device=cuda_device) + 0.05
+    cot = torch.randn(b, n, n, generator=g, device=cuda_device)
+
+    def rows_close(out, ref):
+        scale = ref.float().abs().amax(dim=-1, keepdim=True)
+        return bool(((out.float() - ref.float()).abs() <= tol * scale).all())
+
+    for pos in (tp, ta):
+        before = tgpf.gpf_bwd.launches
+        dta, dtp, dc = tgpf.gpf_bwd(ta, pos, c, cot, similarity)
+        assert tgpf.gpf_bwd.launches == before + 1
+        rta, rtp, rdc = tgpf.gpf_bwd_plain(ta, pos, c, cot, similarity)
+        assert dta.dtype == dtype and dc.dtype == torch.float32 and dc.shape == (b, 3, 3)
+        assert rows_close(dta, rta) and rows_close(dtp, rtp)
+        assert ((dc - rdc).abs() <= 1e-3 * rdc.abs().amax()).all()
+        # controls: the dR^T half of dX dropped (half the gradient), dc zeroed
+        assert not rows_close(0.5 * rta.float(), rta)
+        assert not ((torch.zeros_like(rdc) - rdc).abs() <= 1e-3 * rdc.abs().amax()).all()
+    # one tensor as both token sets: autograd adds the two gradients
+    x = ta.clone().requires_grad_()
+    tgpf.gpf(x, x, c, similarity).backward(cot)
+    rta, rtp, _ = tgpf.gpf_bwd_plain(ta, ta, c, cot, similarity)
+    assert rows_close(x.grad, rta.float() + rtp.float())

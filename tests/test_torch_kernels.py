@@ -8,6 +8,13 @@ products in another order) and, for GPF, 1e-4 of ``gpf_error_scale`` per
 entry (fp32 Grams raised to the fourth power by the degree-2x2 polynomial;
 the scale holds each entry at its own size, where one scaled by max |G|
 would let the dot Gram's diagonal cover every off-diagonal entry).
+
+Backward plain versions: against ``jax.vjp`` of the Pallas functions (fp32;
+dqkv 5e-5 absolute, the table gradient 2e-4 absolute, a sum of up to 8 windows
+of O(1) terms; GPF token gradients and dcoeffs 1e-4 of their largest entry)
+and against ``torch.autograd.grad`` of the forward plain versions in fp64
+(1e-9 relative: the same function, differentiated by hand).  The two
+``torch.autograd.Function``s pass ``gradcheck`` on the CPU.
 """
 
 import numpy as np
@@ -28,6 +35,10 @@ from ego_moment_cle_vit_tpu_torch.kernels import gpf as tgpf
 from ego_moment_cle_vit_tpu_torch.kernels import window_attention as twa
 from ego_moment_cle_vit_tpu_torch.models.swin import _attn_mask, _relative_position_index
 from ego_moment_cle_vit_tpu_torch.ops.graph import gpf_fuse
+
+# the test workers share the cores, and these sizes are tiny: one intra-op thread
+# per worker keeps torch's thread pools from contending with each other
+torch.set_num_threads(1)
 
 WS = 7
 
@@ -157,3 +168,162 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device()
     assert resolve_device("cpu").type == "cpu"
+
+
+def _table_bias(table: torch.Tensor, heads: int) -> torch.Tensor:
+    nt = WS * WS
+    idx = torch.as_tensor(_relative_position_index(WS).reshape(-1))
+    return table[idx].reshape(nt, nt, heads).permute(2, 0, 1).contiguous()
+
+
+@pytest.mark.parametrize("hp, c, heads, shifted, pack, mm", GEOMETRIES)
+def test_window_attention_bwd_plain_matches_pallas_vjp(hp, c, heads, shifted, pack, mm):
+    rng = np.random.default_rng(3)
+    qkv = rng.normal(size=(2, hp, hp, 3 * c)).astype(np.float32)
+    dout = rng.normal(size=(2, hp, hp, c)).astype(np.float32)
+    table = (rng.normal(size=((2 * WS - 1) ** 2, heads)) * 0.5).astype(np.float32)
+    mask = _attn_mask(hp, hp, hp, hp, WS, WS // 2) if shifted else None
+    scale = (c // heads) ** -0.5
+    nt = mm * WS * WS
+    jm = j_attn_mask(hp, hp, hp, hp, WS, WS // 2) if shifted else None
+    madd = (_blockdiag_mask(jnp.asarray(jm), mm) if jm is not None
+            else jnp.zeros((1, nt, nt), jnp.float32))
+
+    def f(x, t):
+        return flash_window_attention_spatial(x, _build_bias_bd(t, WS, mm, heads), madd, heads,
+                                              WS, pack, mm, scale)
+
+    _, vjp = jax.vjp(f, jnp.asarray(qkv), jnp.asarray(table))
+    ref_dqkv, ref_dtable = (np.asarray(x) for x in vjp(jnp.asarray(dout)))
+
+    # the port: the table gradient comes by plain autograd through the gather,
+    # dbias from the Function's backward (the plain version on the CPU)
+    t_qkv = torch.from_numpy(qkv).requires_grad_()
+    t_table = torch.from_numpy(table).requires_grad_()
+    t_mask = torch.from_numpy(mask) if mask is not None else None
+    out = twa.window_attention(t_qkv, _table_bias(t_table, heads), t_mask, heads, WS, scale)
+    out.backward(torch.from_numpy(dout))
+    np.testing.assert_allclose(t_qkv.grad.numpy(), ref_dqkv, rtol=0, atol=5e-5)
+    np.testing.assert_allclose(t_table.grad.numpy(), ref_dtable, rtol=0, atol=2e-4)
+    # and the explicit function gives what the Function returned
+    dqkv, dbias = twa.window_attention_bwd_plain(
+        t_qkv.detach(), _table_bias(t_table.detach(), heads), t_mask, torch.from_numpy(dout),
+        heads, WS, scale)
+    assert torch.equal(dqkv, t_qkv.grad) and dbias.shape == (heads, 49, 49)
+
+
+@pytest.mark.parametrize("shifted", [True, False])
+def test_window_attention_bwd_plain_matches_autograd_fp64(shifted):
+    g = torch.Generator().manual_seed(4)
+    hp, c, heads = 14, 64, 2
+    qkv = torch.randn(2, hp, hp, 3 * c, generator=g, dtype=torch.float64, requires_grad=True)
+    bias = torch.randn(heads, 49, 49, generator=g, dtype=torch.float64, requires_grad=True)
+    mask = torch.as_tensor(_attn_mask(hp, hp, hp, hp, WS, 3)).double() if shifted else None
+    dout = torch.randn(2, hp, hp, c, generator=g, dtype=torch.float64)
+    out = twa.window_attention_plain(qkv, bias, mask, heads, WS, 0.17)
+    ref_dqkv, ref_dbias = torch.autograd.grad(out, (qkv, bias), dout)
+    dqkv, dbias = twa.window_attention_bwd_plain(qkv.detach(), bias.detach(), mask, dout, heads,
+                                                 WS, 0.17)
+    torch.testing.assert_close(dqkv, ref_dqkv, rtol=1e-9, atol=1e-12)
+    torch.testing.assert_close(dbias, ref_dbias, rtol=1e-9, atol=1e-12)
+    # a control: without the dK term the same comparison fails
+    broken = dqkv.clone()
+    broken[..., c:2 * c] = 0
+    assert not torch.allclose(broken, ref_dqkv, rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("similarity", ["dot", "cosine"])
+def test_gpf_bwd_plain_matches_pallas_vjp(similarity):
+    rng = np.random.default_rng(5)
+    ta = rng.normal(size=(2, 49, 64)).astype(np.float32)
+    tp = rng.normal(size=(2, 49, 64)).astype(np.float32)
+    coeffs = np.log1p(np.exp(rng.uniform(0, 0.1, size=(3, 3)))).astype(np.float32)
+    cot = rng.normal(size=(2, 49, 49)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, p, c: fused_gpf_pallas(a, p, c, similarity, 1e-6, True),
+                     jnp.asarray(ta), jnp.asarray(tp), jnp.asarray(coeffs))
+    ref_da, ref_dp, ref_dc = (np.asarray(x) for x in vjp(jnp.asarray(cot)))
+    da, dp, dc = tgpf.gpf_bwd_plain(torch.from_numpy(ta), torch.from_numpy(tp),
+                                    torch.from_numpy(coeffs), torch.from_numpy(cot), similarity,
+                                    1e-6, True)
+    assert dc.shape == (2, 3, 3) and dc.dtype == torch.float32
+    for out, ref in ((da.numpy(), ref_da), (dp.numpy(), ref_dp), (dc.sum(0).numpy(), ref_dc)):
+        assert np.abs(out - ref).max() <= 1e-4 * np.abs(ref).max()
+    # a control: the dR^T half dropped (half the gradient) is far outside
+    assert np.abs(0.5 * da.numpy() - ref_da).max() > 1e-2 * np.abs(ref_da).max()
+
+
+@pytest.mark.parametrize("similarity", ["dot", "cosine"])
+@pytest.mark.parametrize("same", [True, False])
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_gpf_bwd_plain_matches_autograd_fp64(similarity, same, symmetric):
+    g = torch.Generator().manual_seed(6)
+    ta = torch.randn(2, 9, 16, generator=g, dtype=torch.float64, requires_grad=True)
+    tp = ta if same else torch.randn(2, 9, 16, generator=g, dtype=torch.float64,
+                                     requires_grad=True)
+    c = (torch.rand(3, 2, generator=g, dtype=torch.float64) + 0.1).requires_grad_()
+    cot = torch.randn(2, 9, 9, generator=g, dtype=torch.float64)
+    out = tgpf.gpf_plain(ta, tp, c, similarity, 1e-6, symmetric)
+    da, dp, dc = tgpf.gpf_bwd_plain(ta.detach(), tp.detach(), c.detach(), cot, similarity, 1e-6,
+                                    symmetric)
+    if same:
+        ref_t, ref_c = torch.autograd.grad(out, (ta, c), cot)
+        torch.testing.assert_close(da + dp, ref_t, rtol=1e-9, atol=1e-12)
+    else:
+        ref_a, ref_p, ref_c = torch.autograd.grad(out, (ta, tp, c), cot)
+        torch.testing.assert_close(da, ref_a, rtol=1e-9, atol=1e-12)
+        torch.testing.assert_close(dp, ref_p, rtol=1e-9, atol=1e-12)
+    torch.testing.assert_close(dc.sum(0), ref_c, rtol=1e-9, atol=1e-12)
+
+
+def test_window_attention_function_gradcheck():
+    # 3x3 windows of 8-wide heads keep the numerical Jacobian small; two
+    # windows with a 0 / -100 mask
+    g = torch.Generator().manual_seed(7)
+    qkv = torch.randn(2, 3, 6, 3 * 16, generator=g, dtype=torch.float64, requires_grad=True)
+    bias = torch.randn(2, 9, 9, generator=g, dtype=torch.float64, requires_grad=True)
+    mask = torch.where(torch.rand(2, 9, 9, generator=g) < 0.2, -100.0, 0.0).double()
+    assert torch.autograd.gradcheck(
+        lambda a, b: twa.window_attention(a, b, mask, 2, 3, 0.35), (qkv, bias))
+
+
+@pytest.mark.parametrize("similarity", ["dot", "cosine"])
+def test_gpf_function_gradcheck(similarity):
+    g = torch.Generator().manual_seed(8)
+    ta = torch.randn(2, 7, 12, generator=g, dtype=torch.float64, requires_grad=True)
+    tp = torch.randn(2, 7, 12, generator=g, dtype=torch.float64, requires_grad=True)
+    c = (torch.rand(3, 3, generator=g, dtype=torch.float64) + 0.1).requires_grad_()
+    assert torch.autograd.gradcheck(lambda a, b, k: tgpf.gpf(a, b, k, similarity), (ta, tp, c))
+    # one tensor as both token sets: the two gradients are added
+    assert torch.autograd.gradcheck(lambda a, k: tgpf.gpf(a, a, k, similarity), (ta, c))
+
+
+def test_backward_wrappers_dispatch_like_the_forward_ones():
+    g = torch.Generator().manual_seed(9)
+    qkv = torch.randn(1, 7, 7, 3 * 64, generator=g)
+    bias = torch.randn(2, 49, 49, generator=g)
+    dout = torch.randn(1, 7, 7, 64, generator=g)
+    before = twa.window_attention_bwd.launches
+    dqkv, dbias = twa.window_attention_bwd(qkv, bias, None, dout, 2, 7, 0.25)
+    ref = twa.window_attention_bwd_plain(qkv, bias, None, dout, 2, 7, 0.25)
+    assert torch.equal(dqkv, ref[0]) and torch.equal(dbias, ref[1])
+    assert twa.window_attention_bwd.launches == before  # no kernel launch on the CPU
+    t = torch.randn(2, 49, 32, generator=g)
+    c = torch.rand(3, 3, generator=g)
+    cot = torch.randn(2, 49, 49, generator=g)
+    before = tgpf.gpf_bwd.launches
+    out = tgpf.gpf_bwd(t, t, c, cot, "dot")
+    assert all(torch.equal(a, b) for a, b in zip(out, tgpf.gpf_bwd_plain(t, t, c, cot, "dot")))
+    assert tgpf.gpf_bwd.launches == before
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        twa.window_attention_bwd(torch.empty(1, 7, 7, 96, device="meta"),
+                                 torch.empty(3, 49, 49, device="meta"), None,
+                                 torch.empty(1, 7, 7, 32, device="meta"), 3, 7, 1.0)
+    m = torch.empty(1, 49, 32, device="meta")
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        tgpf.gpf_bwd(m, m, torch.empty(3, 3, device="meta"), torch.empty(1, 49, 49, device="meta"))
+
+
+@pytest.mark.parametrize("batch, blocks", [(128, 256), (128, 32), (5, 4), (1, 1), (7, 400)])
+def test_backward_grid_chunks_cover_every_image(batch, blocks):
+    n = twa._bwd_chunks(batch, blocks)
+    assert 1 <= n <= batch and n * -(-batch // n) >= batch

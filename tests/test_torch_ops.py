@@ -19,6 +19,10 @@ from ego_moment_cle_vit_tpu_torch.ops import graph as tgraph
 from ego_moment_cle_vit_tpu_torch.ops import moments as tmoments
 from ego_moment_cle_vit_tpu_torch.ops import sketch as tsketch
 
+# the test workers share the cores, and these sizes are tiny: one intra-op thread
+# per worker keeps torch's thread pools from contending with each other
+torch.set_num_threads(1)
+
 
 def _close(a, b, rel):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
@@ -129,3 +133,49 @@ def test_sketch_dim_and_matrices(d, k, cap):
     # one signed one-hot entry per input coordinate, like the JAX draw
     assert torch.equal((mats != 0).sum(-1), torch.ones(3, d, dtype=torch.long))
     assert set(mats.unique().tolist()) <= {-1.0, 0.0, 1.0}
+
+
+# ----------------------------------------------------------------------------
+# the head's math under autograd (fp64 gradcheck, tiny sizes)
+# ----------------------------------------------------------------------------
+
+
+def test_isqrt_cov_subspace_gradcheck():
+    g = torch.Generator().manual_seed(0)
+    centered = torch.randn(2, 3, 6, generator=g, dtype=torch.float64, requires_grad=True)
+    w = torch.rand(2, 3, 3, generator=g, dtype=torch.float64) + 0.5
+    w = 0.5 * (w + w.transpose(1, 2))
+
+    def fn(c):
+        return tmoments.isqrt_cov_subspace(c, torch.matmul(w, c), 3, 1e-5)
+
+    assert torch.autograd.gradcheck(fn, (centered,))
+    assert fn(centered).dtype == torch.float64
+
+
+def test_half_vectorize_paired_gradcheck():
+    g = torch.Generator().manual_seed(1)
+    m = torch.randn(2, 6, 6, generator=g, dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(tmoments.half_vectorize_paired, (m,))
+    # each upper-triangle entry feeds exactly one output, the rest none
+    tmoments.half_vectorize_paired(m).sum().backward()
+    assert torch.equal(m.grad[0], torch.triu(torch.ones(6, 6, dtype=torch.float64)))
+
+
+@pytest.mark.parametrize("mode", ["fft", "faithful"])
+def test_tensor_sketch_3_gradcheck(mode):
+    g = torch.Generator().manual_seed(2)
+    mats = tsketch.make_sketch_matrices(5, 128, generator=g)
+    x = torch.randn(3, 5, generator=g, dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(lambda v: tsketch.tensor_sketch_3(v, mats, mode), (x,))
+
+
+def test_graph_weighted_mean_and_normalize_graph_gradcheck():
+    g = torch.Generator().manual_seed(3)
+    tokens = torch.randn(2, 4, 5, generator=g, dtype=torch.float64, requires_grad=True)
+    graph = (torch.rand(2, 4, 4, generator=g, dtype=torch.float64) + 0.1).requires_grad_()
+
+    def fn(t, a):
+        return tmoments.graph_weighted_mean(t, tgraph.normalize_graph(a, "symmetric", eps=1e-5))
+
+    assert torch.autograd.gradcheck(fn, (tokens, graph))

@@ -21,6 +21,10 @@ from ego_moment_cle_vit_tpu.models.swin import _build_bias_bd
 from ego_moment_cle_vit_tpu_torch.models.swin import Swin, SwinConfig
 from ego_moment_cle_vit_tpu_torch.utils.convert import torch_state_dict_from_flax
 
+# the test workers share the cores, and these sizes are tiny: one intra-op thread
+# per worker keeps torch's thread pools from contending with each other
+torch.set_num_threads(1)
+
 KW = dict(img_size=56, embed_dim=128, depths=(2, 2), num_heads=(4, 8))
 
 
