@@ -8,16 +8,19 @@ Phases (any failed check exits non-zero; no phase catches and continues):
 
 1. Setup: card name and power limit, kernel build from ``csrc/`` (seconds).
 2. Kernels against their plain PyTorch versions on the card.  Forward, at the
-   serving path's shapes for batch 64: window attention at the four Swin-Base
-   stage geometries (shifted and unshifted, bf16 and fp32) and fused GPF at
-   [64, 49, 1024] (dot and cosine, bf16 and fp32), with errors, kernel /
-   plain / library times from CUDA events and the bytes-or-operations bound.
-   Backward, at the training path's shapes: window attention at the same
-   geometries for batch 128 (two views of 64) with a random output cotangent,
-   and fused GPF at [64, 49, 1024] with two distinct token sets (and once with
-   one tensor twice).  Each check is run on a control too (bias or mask
-   dropped, off-diagonal GPF entries zeroed; bias gradient dropped, dK zeroed,
-   coefficient gradient zeroed, half of dX dropped), which it must reject.
+   serving paths' shapes for batch 64: window attention at the four Swin-Base
+   stage geometries (shifted and unshifted, bf16 and fp32), packed-layout
+   attention at the ViT-Base and ViT-Tiny calls ([64, 1, 197, 3C], no bias, no
+   mask) and at a Swin packed shape with bias and mask, and fused GPF at
+   [64, 49, 1024] and [64, 196, 768] (dot and cosine, bf16 and fp32), with
+   errors, kernel / plain / library times from CUDA events and the
+   bytes-or-operations bound.  Backward, at the training paths' shapes: both
+   attentions for batch 128 (two views of 64) with a random output cotangent,
+   and fused GPF at both shapes with two distinct token sets (and once with one
+   tensor twice).  Each check is run on a control too (bias or mask dropped,
+   padded keys left unmasked, off-diagonal GPF entries zeroed; bias gradient
+   dropped, dK zeroed, coefficient gradient zeroed, half of dX dropped), which
+   it must reject; two runs of the packed backward must agree bit for bit.
 3. Serving end to end: the flagship configuration (Swin-Base/224 bf16, GPF
    2x2 dot, moment d_out 1024 with the FFT sketch, bf16 vech projection,
    'add' classifier, 80 classes) with seeded random weights, uint8
@@ -38,7 +41,12 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    64, fp32 at batch 4; dropout off, same views), which must also reject the
    kernel run with its bias gradient dropped.  Prints images/s, step ms and
    peak memory.
-5. A JSON line of the kernels, then the contract's last line.
+5. Phases 3 and 4 again on the other model family, ViT-Base/224 with the same
+   heads: 12 packed-attention launches and 1 GPF launch per forward, 12 + 12
+   and 1 + 1 per train step.  A ViT has no bias table, so its controls are
+   the kernel run with only the first 64 keys attended (serving) and with dK
+   dropped (training).
+6. A JSON line of the kernels, then the contract's last line.
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ from ego_moment_cle_vit_tpu_torch import (
 from ego_moment_cle_vit_tpu_torch.data import AugmentConfig, dual_view_train_batch
 from ego_moment_cle_vit_tpu_torch.kernels import _build
 from ego_moment_cle_vit_tpu_torch.kernels import gpf as _gpf
+from ego_moment_cle_vit_tpu_torch.kernels import packed_attention as _pa
 from ego_moment_cle_vit_tpu_torch.kernels import window_attention as _wa
 from ego_moment_cle_vit_tpu_torch.models.swin import _attn_mask, _relative_position_index
 from ego_moment_cle_vit_tpu_torch.ops.graph import gpf_fuse, token_similarity_graph
@@ -94,6 +103,9 @@ FLAGSHIP = {
         "epochs": 1,
     },
 }
+VIT_FLAGSHIP = json.loads(json.dumps(FLAGSHIP))
+VIT_FLAGSHIP["model"]["backbone_name"] = "vit_base_patch16_224"
+VIT_T, VIT_C, VIT_H, VIT_DEPTH = 197, 768, 12, 12  # ViT-Base/224: tokens, width, heads, blocks
 TRAIN_STEPS_PER_EPOCH = 100
 # tolerances, kernel vs plain on the card, per element.  Window attention:
 # |err| <= atol + rtol |ref|; fp32 differs by sum order only, bf16 by P rounded
@@ -137,12 +149,17 @@ WA_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/window_attention.py:361"
 GPF_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/gpf.py:41"
 WA_BWD_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/window_attention.py:389"
 GPF_BWD_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/gpf.py:126"
+PA_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/window_attention.py:133"
+PA_BWD_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/window_attention.py:155"
 WA_KERNEL = _wa.window_attention_fwd
 GPF_KERNEL = _gpf.gpf_fwd
 WA_BWD_KERNEL = _wa.window_attention_bwd
 GPF_BWD_KERNEL = _gpf.gpf_bwd
+PA_KERNEL = _pa.packed_attention_fwd
+PA_BWD_KERNEL = _pa.packed_attention_bwd
 KERNELS = {"window_attention_fwd": WA_KERNEL, "window_attention_bwd": WA_BWD_KERNEL,
-           "gpf_fwd": GPF_KERNEL, "gpf_bwd": GPF_BWD_KERNEL}
+           "gpf_fwd": GPF_KERNEL, "gpf_bwd": GPF_BWD_KERNEL,
+           "packed_attention_fwd": PA_KERNEL, "packed_attention_bwd": PA_BWD_KERNEL}
 
 
 def log(*a):
@@ -180,16 +197,63 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
 @contextlib.contextmanager
 def plain_kernels():
     """Swap every kernel wrapper the model calls for its plain version."""
-    saved = (_wa.window_attention_fwd, _wa.window_attention_bwd, _gpf.gpf_fwd, _gpf.gpf_bwd)
+    saved = (_wa.window_attention_fwd, _wa.window_attention_bwd, _gpf.gpf_fwd, _gpf.gpf_bwd,
+             _pa.packed_attention_fwd, _pa.packed_attention_bwd)
     _wa.window_attention_fwd = _wa.window_attention_plain
     _wa.window_attention_bwd = _wa.window_attention_bwd_plain
     _gpf.gpf_fwd = _gpf.gpf_plain
     _gpf.gpf_bwd = _gpf.gpf_bwd_plain
+    _pa.packed_attention_fwd = _pa.packed_attention_plain
+    _pa.packed_attention_bwd = (
+        lambda *args, need_dbias=True: _pa.packed_attention_bwd_plain(*args))
     try:
         yield
     finally:
-        (_wa.window_attention_fwd, _wa.window_attention_bwd, _gpf.gpf_fwd,
-         _gpf.gpf_bwd) = saved
+        (_wa.window_attention_fwd, _wa.window_attention_bwd, _gpf.gpf_fwd, _gpf.gpf_bwd,
+         _pa.packed_attention_fwd, _pa.packed_attention_bwd) = saved
+
+
+@contextlib.contextmanager
+def only_first_keys_attended(model: torch.nn.Module):
+    """Control for a model without bias tables: the packed kernel runs, but
+    every query sees the first 64 keys only, as if the walk over the key tiles
+    stopped after the first.  The serving check must see it."""
+    del model
+    saved = _pa.packed_attention_fwd
+
+    def truncated(qkv, bias, mask, num_heads, scale=None):
+        t = qkv.shape[2]
+        hide = torch.zeros(1, t, t, dtype=torch.float32, device=qkv.device)
+        hide[:, :, _pa.TILE:] = -100.0
+        return saved(qkv, bias, hide if mask is None else mask + hide, num_heads, scale)
+
+    truncated.launches = 0  # the wrapper counts on whatever the module name holds
+    _pa.packed_attention_fwd = truncated
+    try:
+        yield
+    finally:
+        _pa.packed_attention_fwd = saved
+
+
+@contextlib.contextmanager
+def key_gradient_dropped():
+    """Control for a model without bias tables: the packed backward kernel
+    runs but its dK is thrown away, a fault the training gradient check must
+    see."""
+    saved = _pa.packed_attention_bwd
+
+    def dropped(*args, **kwargs):
+        dqkv, dbias = saved(*args, **kwargs)
+        c = dqkv.shape[-1] // 3
+        dqkv[..., c:2 * c] = 0
+        return dqkv, dbias
+
+    dropped.launches = 0  # the wrapper counts on whatever the module name holds
+    _pa.packed_attention_bwd = dropped
+    try:
+        yield
+    finally:
+        _pa.packed_attention_bwd = saved
 
 
 @contextlib.contextmanager
@@ -356,9 +420,10 @@ def check_window_attention(g: torch.Generator) -> dict:
             **per_forward}
 
 
-def check_gpf(g: torch.Generator) -> dict:
+def check_gpf(g: torch.Generator, n: int, d: int) -> dict:
+    """Forward kernel at [64, n, d]: the Swin path's (49, 1024) or the ViT
+    path's (196, 768)."""
     dev = torch.device("cuda")
-    n, d = 49, 1024
     coeffs = torch.nn.functional.softplus(torch.rand(3, 3, generator=g, device=dev) * 0.1)
     worst = 0.0
     main = {}
@@ -507,9 +572,8 @@ def check_window_attention_bwd(g: torch.Generator) -> dict:
             "bound_by": max(bound_kinds, key=bound_kinds.get), **per_step}
 
 
-def check_gpf_bwd(g: torch.Generator) -> dict:
+def check_gpf_bwd(g: torch.Generator, n: int, d: int) -> dict:
     dev = torch.device("cuda")
-    n, d = 49, 1024
     coeffs = torch.nn.functional.softplus(torch.rand(3, 3, generator=g, device=dev) * 0.1)
     worst = 0.0
     main = {}
@@ -597,20 +661,228 @@ def check_gpf_bwd(g: torch.Generator) -> dict:
     return {"err_over_tol": worst, **main}
 
 
+# packed-layout attention shapes: (name, W, T, C, heads, bias heads, mask groups,
+# launches per ViT-Base forward).  The ViT-Base call is the main path's; the
+# ViT-Tiny call has three heads of 64; the Swin packed shape (two windows of 49
+# per group at stage 0) switches on a per-head bias with a -100 block seal
+# between the two windows and a per-group mask, and heads of 32.
+PACKED_SHAPES = (
+    ("vit_base", 1, VIT_T, VIT_C, VIT_H, 0, 0, VIT_DEPTH),
+    ("vit_tiny", 1, VIT_T, 192, 3, 0, 0, 0),
+    ("swin_packed", 32, 98, 128, 4, 4, 32, 0),
+)
+
+
+def packed_inputs(g, batch, w, t, c, heads, hb, wm, dtype):
+    dev = torch.device("cuda")
+    qkv = torch.randn(batch, w, t, 3 * c, generator=g, device=dev).to(dtype)
+    bias = mask = None
+    if hb:
+        bias = torch.randn(hb, t, t, generator=g, device=dev) * BIAS_TABLE_STD
+        half = t // 2  # the seal between the two packed windows
+        bias[:, :half, half:] = -100.0
+        bias[:, half:, :half] = -100.0
+    if wm:
+        mask = torch.where(torch.rand(wm, t, t, generator=g, device=dev) < 0.2, -100.0, 0.0)
+    return qkv, bias, mask
+
+
+def sdpa_inputs(qkv, bias, mask, heads):
+    """q, k, v [B*W, H, T, d] and the float mask SDPA takes, from the packed layout."""
+    b, w, t, c3 = qkv.shape
+    d = c3 // 3 // heads
+    x = qkv.reshape(b * w, t, 3, heads, d).permute(2, 0, 3, 1, 4)
+    am = None
+    if bias is not None or mask is not None:
+        am = torch.zeros(b, w, heads, t, t, dtype=torch.float32, device=qkv.device)
+        if bias is not None:
+            am = am + bias[None, None]
+        if mask is not None:
+            am = am + mask[None, :, None]
+        am = am.reshape(b * w, heads, t, t).to(qkv.dtype)
+    return x[0].contiguous(), x[1].contiguous(), x[2].contiguous(), am
+
+
+def check_packed_attention(g: torch.Generator) -> dict:
+    main = {}
+    min_control = math.inf
+    for name, w, t, c, heads, hb, wm, per_forward in PACKED_SHAPES:
+        d = c // heads
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv, bias, mask = packed_inputs(g, BATCH, w, t, c, heads, hb, wm, dtype)
+            args = (qkv, bias, mask, heads)
+            out = PA_KERNEL(*args)
+            ref = _pa.packed_attention_plain(*args)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            excess = wa_excess(out, ref, dtype)
+            what = f"packed attention {name} [{BATCH},{w},{t},{3 * c}] H={heads} {dtype}"
+            if not math.isfinite(excess) or excess > 1.0:
+                fail(f"{what}: error {excess:.3f}x its tolerance {TOL_WA[dtype]} (max abs err "
+                     f"{err})")
+            # controls: the keys padded up to the kernel's tile and left
+            # unmasked (zero keys join the softmax), and the bias dropped
+            pad = -(-t // _pa.TILE) * _pa.TILE - t
+            padded = torch.nn.functional.pad(qkv, (0, 0, 0, pad))
+            pb = None if bias is None else torch.nn.functional.pad(bias, (0, pad, 0, pad))
+            pm = None if mask is None else torch.nn.functional.pad(mask, (0, pad, 0, pad))
+            ctrl_excess = wa_excess(
+                _pa.packed_attention_plain(padded, pb, pm, heads)[:, :, :t], ref, dtype)
+            if bias is not None:
+                ctrl_excess = min(ctrl_excess, wa_excess(
+                    _pa.packed_attention_plain(qkv, None, mask, heads), ref, dtype))
+            if ctrl_excess <= 1.0:
+                fail(f"{what}: a control (padded keys unmasked, bias dropped) passes the check")
+            min_control = min(min_control, ctrl_excess)
+            del padded, pb, pm
+            reps = 20 if dtype == torch.bfloat16 else 5
+            k_ms = time_ms(lambda: PA_KERNEL(*args), reps=reps, samples=3)
+            p_ms = time_ms(lambda: _pa.packed_attention_plain(*args), reps=3, samples=3)
+            q, k, v, am = sdpa_inputs(qkv, bias, mask, heads)
+            l_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=am, scale=d ** -0.5), reps=5, samples=3)
+            es = qkv.element_size()
+            nbytes = qkv.numel() * es + qkv.numel() // 3 * es + (
+                bias.numel() * 4 if bias is not None else 0) + (
+                mask.numel() * 4 if mask is not None else 0)
+            flops = 4.0 * BATCH * w * heads * t * t * d
+            b_ms, kind = bound_ms(nbytes, flops, dtype)
+            log(f"  packed_attention {name} [{BATCH},{w},{t},{3 * c}] H={heads} "
+                f"{str(dtype)[6:]}: max_abs_err={err:.3e} err/tol={excess:.3f} (tol atol+rtol|ref| "
+                f"{TOL_WA[dtype]}) control err/tol>={ctrl_excess:.1f} kernel_ms={k_ms:.4f} "
+                f"plain_ms={p_ms:.4f} library_ms(SDPA)={l_ms:.4f} bound_ms={b_ms:.4f} ({kind})")
+            if per_forward and dtype == torch.bfloat16:  # the serving path's call
+                main = {"max_abs_err": err, "ms": per_forward * k_ms,
+                        "plain_ms": per_forward * p_ms, "library_ms": per_forward * l_ms,
+                        "bound_ms": per_forward * b_ms, "bound_by": kind}
+            del qkv, out, ref, q, k, v, am
+            torch.cuda.empty_cache()
+    log(f"  packed attention controls: smallest err/tol {min_control:.1f} (must be > 1)")
+    return main
+
+
+def check_packed_attention_bwd(g: torch.Generator) -> dict:
+    """Backward kernel vs its plain version at the training shapes (batch 128
+    for the ViT calls, 64 for the Swin packed shape); also times the forward
+    kernel at that batch."""
+    main = {}
+    worst = 0.0
+    min_control = math.inf
+    for name, w, t, c, heads, hb, wm, per_step in PACKED_SHAPES:
+        d = c // heads
+        batch = TRAIN_VIEWS if w == 1 else BATCH
+        for dtype in (torch.bfloat16, torch.float32):
+            atol, rtol, btol = TOL_WA_BWD[dtype]
+            qkv, bias, mask = packed_inputs(g, batch, w, t, c, heads, hb, wm, dtype)
+            dout = torch.randn(batch, w, t, c, generator=g, device=qkv.device).to(dtype)
+            args = (qkv, bias, mask, dout, heads)
+            dqkv, dbias = PA_BWD_KERNEL(*args)
+            ref_dqkv, ref_dbias = _pa.packed_attention_bwd_plain(*args)
+            torch.cuda.synchronize()
+            what = f"packed attention backward {name} [{batch},{w},{t},{3 * c}] {dtype}"
+            err = (dqkv.float() - ref_dqkv.float()).abs().max().item()
+            excess = close_excess(dqkv, ref_dqkv, atol, rtol)
+            if not math.isfinite(excess) or excess > 1.0:
+                fail(f"{what}: dqkv error {excess:.3f}x its tolerance (max abs err {err})")
+            bias_excess, bias_err, bias_scale = 0.0, 0.0, 0.0
+            if bias is not None:
+                bias_scale = ref_dbias.abs().max().item()
+                bias_err = (dbias - ref_dbias).abs().max().item()
+                bias_excess = bias_err / (btol * bias_scale)
+                if not math.isfinite(bias_excess) or bias_excess > 1.0:
+                    fail(f"{what}: dbias error {bias_err} is {bias_excess:.3f}x its tolerance "
+                         f"{btol} x max |dbias| {bias_scale}")
+            worst = max(worst, excess, bias_excess)
+            # the same gradient twice, bit for bit
+            again, dbias_again = PA_BWD_KERNEL(*args)
+            if not torch.equal(again, dqkv) or (
+                    dbias is not None and not torch.equal(dbias_again, dbias)):
+                fail(f"{what}: two runs of the backward kernel differ")
+            # controls: dK zeroed in dqkv, and dbias dropped, must both fail
+            ctrl = ref_dqkv.clone()
+            ctrl[..., c:2 * c] = 0
+            ctrl_excess = close_excess(ctrl, ref_dqkv, atol, rtol)
+            if bias is not None:  # |0 - ref| at its largest entry
+                ctrl_excess = min(ctrl_excess, bias_scale / (btol * bias_scale))
+            if ctrl_excess <= 1.0:
+                fail(f"{what}: a control (dK zeroed, dbias dropped) passes the check")
+            min_control = min(min_control, ctrl_excess)
+            del ctrl, ref_dqkv, dqkv, again
+            reps = 10 if dtype == torch.bfloat16 else 3
+            k_ms = time_ms(lambda: PA_BWD_KERNEL(*args), reps=reps, samples=3)
+            p_ms = time_ms(lambda: _pa.packed_attention_bwd_plain(*args), reps=2, samples=3)
+            f_ms = time_ms(lambda: PA_KERNEL(qkv, bias, mask, heads), reps=reps, samples=3)
+            # library yardstick: the backward of SDPA; it returns dq, dk, dv but
+            # no bias gradient, so with a bias it does part of the work only
+            q, k, v, am = sdpa_inputs(qkv, bias, mask, heads)
+            q, k, v = (x.requires_grad_() for x in (q, k, v))
+            o = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=am,
+                                                                 scale=d ** -0.5)
+            do = torch.randn_like(o)
+            l_ms = time_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True),
+                           reps=5, samples=3)
+            es = qkv.element_size()
+            nbytes = (2 * qkv.numel() + dout.numel()) * es + (
+                2 * bias.numel() * 4 if bias is not None else 0) + (
+                mask.numel() * 4 if mask is not None else 0)
+            flops = 10.0 * batch * w * heads * t * t * d
+            b_ms, kind = bound_ms(nbytes, flops, dtype)
+            log(f"  packed_attention_bwd {name} [{batch},{w},{t},{3 * c}] H={heads} "
+                f"{str(dtype)[6:]}: dqkv max_abs_err={err:.3e} err/tol={excess:.3f} (tol "
+                f"{atol}+{rtol:.4f}|ref|) dbias err={bias_err:.3e} of max {bias_scale:.3e} "
+                f"err/tol={bias_excess:.3f} two runs equal; control err/tol>={ctrl_excess:.1f} "
+                f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms(SDPA backward)={l_ms:.4f} "
+                f"bound_ms={b_ms:.4f} ({kind}) fwd_kernel_ms={f_ms:.4f}")
+            if per_step and dtype == torch.bfloat16:  # the training path's call
+                main = {"max_abs_err": err, "ms": per_step * k_ms, "plain_ms": per_step * p_ms,
+                        "library_ms": per_step * l_ms, "bound_ms": per_step * b_ms,
+                        "bound_by": kind, "fwd_ms": per_step * f_ms}
+            del qkv, dout, q, k, v, o, do, am, args
+            torch.cuda.empty_cache()
+    log(f"  packed attention backward controls: smallest err/tol {min_control:.1f} (must be > 1)")
+    return {"err_over_tol": worst, **main}
+
+
 # ----------------------------------------------------------------------------
 # phase 3: serving end to end
 # ----------------------------------------------------------------------------
 
 
-def serve(card: str, profile_dir: str | None) -> dict:
+def zero_launches(**counts) -> dict:
+    return {**{name: 0 for name in KERNELS}, **counts}
+
+
+# the two model families the port serves and trains: configuration, launches
+# per serving forward and per train step, and the controls their checks reject
+SWIN = {
+    "label": "Swin-Base/224", "config": FLAGSHIP, "profile_prefix": "",
+    "serve_launches": zero_launches(window_attention_fwd=24, gpf_fwd=1),
+    "train_launches": zero_launches(window_attention_fwd=24, window_attention_bwd=24,
+                                    gpf_fwd=1, gpf_bwd=1),
+    "serve_control": bias_omitted, "serve_control_name": "kernel without bias",
+    "grad_control": bias_gradient_dropped, "grad_control_name": "bias gradient dropped",
+}
+VIT = {
+    "label": "ViT-Base/224", "config": VIT_FLAGSHIP, "profile_prefix": "vit_",
+    "serve_launches": zero_launches(packed_attention_fwd=VIT_DEPTH, gpf_fwd=1),
+    "train_launches": zero_launches(packed_attention_fwd=VIT_DEPTH,
+                                    packed_attention_bwd=VIT_DEPTH, gpf_fwd=1, gpf_bwd=1),
+    "serve_control": only_first_keys_attended,
+    "serve_control_name": "kernel attending the first 64 keys only",
+    "grad_control": key_gradient_dropped, "grad_control_name": "dK dropped",
+}
+
+
+def serve(card: str, profile_dir: str | None, family: dict) -> dict:
     dev = torch.device("cuda")
+    config = family["config"]
     aug = AugmentConfig(input_size=224, resize_size=256)
     g = torch.Generator(device=dev).manual_seed(0)
     images = torch.randint(0, 256, (BATCH, 256, 256, 3), generator=g, device=dev,
                            dtype=torch.uint8)
 
     t0 = time.time()
-    model = create_model(FLAGSHIP, num_classes=80, device="cuda", seed=0)
+    model = create_model(config, num_classes=80, device="cuda", seed=0)
     redraw_bias_tables(model, g)
     infer = make_infer_fn(model, aug)
     logits = infer(images)
@@ -622,17 +894,15 @@ def serve(card: str, profile_dir: str | None) -> dict:
     torch.cuda.synchronize()
     launches = read_launches()
     log(f"  launches in one forward: {launches}")
-    if launches != {"window_attention_fwd": 24, "window_attention_bwd": 0, "gpf_fwd": 1,
-                    "gpf_bwd": 0}:
-        fail(f"expected 24 window-attention and 1 GPF forward launch per forward, got "
-             f"{launches}")
+    if launches != family["serve_launches"]:
+        fail(f"expected launches {family['serve_launches']} per forward, got {launches}")
     if tuple(logits.shape) != (BATCH, 80) or not torch.isfinite(logits).all():
         fail(f"logits shape {tuple(logits.shape)} or non-finite values")
 
     with plain_kernels():
         ref = infer(images)
     torch.cuda.synchronize()
-    with bias_omitted(model):
+    with family["serve_control"](model):
         ctrl = infer(images)
     torch.cuda.synchronize()
     scale = max(1.0, ref.float().abs().max().item())
@@ -640,12 +910,12 @@ def serve(card: str, profile_dir: str | None) -> dict:
     err_ctrl = (ctrl.float() - ref.float()).abs().max().item()
     tol = TOL_LOGITS_REL[torch.bfloat16]
     log(f"  bf16 logits kernel vs plain: max_abs_err={err:.4e} ({err / scale:.4e} of max "
-        f"|logit| {scale:.4e}); control (kernel without bias) {err_ctrl:.4e} "
+        f"|logit| {scale:.4e}); control ({family['serve_control_name']}) {err_ctrl:.4e} "
         f"({err_ctrl / scale:.4e}); tol {tol} x max")
     if err > tol * scale:
         fail("bf16 serving logits disagree with the plain path")
     if err_ctrl <= tol * scale:
-        fail("bf16 serving check passes the kernel with its bias omitted")
+        fail(f"bf16 serving check passes its control ({family['serve_control_name']})")
 
     torch.cuda.reset_peak_memory_stats()
     rates = []
@@ -670,15 +940,16 @@ def serve(card: str, profile_dir: str | None) -> dict:
                 infer(images)
             torch.cuda.synchronize()
         table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-        with open(os.path.join(profile_dir, "serving_profile.txt"), "w") as f:
-            f.write(f"{card}\nbatch {BATCH}, 3 forwards\n{table}\n")
-        log(f"  profile written to {profile_dir}/serving_profile.txt")
+        name = family["profile_prefix"] + "serving_profile.txt"
+        with open(os.path.join(profile_dir, name), "w") as f:
+            f.write(f"{card}\n{family['label']}, batch {BATCH}, 3 forwards\n{table}\n")
+        log(f"  profile written to {profile_dir}/{name}")
 
     del model, infer, logits, ref, ctrl
     torch.cuda.empty_cache()
 
     # fp32 at batch 8: kernel vs plain with a tight tolerance
-    f32_cfg = json.loads(json.dumps(FLAGSHIP))
+    f32_cfg = json.loads(json.dumps(config))
     f32_cfg["model"]["bf16"] = False
     f32_cfg["model"]["moment"]["bf16_params"] = False
     model32 = create_model(f32_cfg, num_classes=80, device="cuda", seed=0)
@@ -729,28 +1000,29 @@ def worst_leaf(grads: dict, ref: dict, dtype) -> tuple[float, str, float]:
     return worst, where, worst_rel
 
 
-def check_gradients(model, anchor, positive, labels, dtype, what: str) -> float:
+def check_gradients(model, anchor, positive, labels, dtype, what: str, family: dict) -> float:
     grads = step_gradients(model, anchor, positive, labels)
     with plain_kernels():
         ref = step_gradients(model, anchor, positive, labels)
-    with bias_gradient_dropped():
+    with family["grad_control"]():
         ctrl = step_gradients(model, anchor, positive, labels)
     tol = TOL_GRADS_REL[dtype]
     worst, where, rel = worst_leaf(grads, ref, dtype)
     worst_ctrl, where_ctrl, rel_ctrl = worst_leaf(ctrl, ref, dtype)
     log(f"  {what} gradients kernel vs plain, {len(ref)} leaves: worst err/tol {worst:.4f} "
-        f"(relative error {rel:.4e}) at {where}; control (bias gradient dropped) err/tol "
+        f"(relative error {rel:.4e}) at {where}; control ({family['grad_control_name']}) err/tol "
         f"{worst_ctrl:.2f} (relative error {rel_ctrl:.4e}) at {where_ctrl}; tol {tol} per leaf, "
         f"{TOL_GRADS_REL_ILL_CONDITIONED} apart")
     if worst > 1.0:
         fail(f"{what} gradients of the kernel path disagree with the plain path")
     if worst_ctrl <= 1.0:
-        fail(f"{what} gradient check passes the kernel run with its bias gradient dropped")
+        fail(f"{what} gradient check passes its control ({family['grad_control_name']})")
     return rel
 
 
-def train(card: str, profile_dir: str | None) -> dict:
+def train(card: str, profile_dir: str | None, family: dict) -> dict:
     dev = torch.device("cuda")
+    config = family["config"]
     aug = AugmentConfig(input_size=224, resize_size=256)
     g = torch.Generator(device=dev).manual_seed(0)
     images = torch.randint(0, 256, (BATCH, 256, 256, 3), generator=g, device=dev,
@@ -758,9 +1030,9 @@ def train(card: str, profile_dir: str | None) -> dict:
     labels = torch.randint(0, 80, (BATCH,), generator=g, device=dev)
 
     t0 = time.time()
-    model = create_model(FLAGSHIP, num_classes=80, device="cuda", seed=0)
+    model = create_model(config, num_classes=80, device="cuda", seed=0)
     redraw_bias_tables(model, g)
-    state = create_train_state(model, FLAGSHIP, TRAIN_STEPS_PER_EPOCH)
+    state = create_train_state(model, config, TRAIN_STEPS_PER_EPOCH)
     train_step = make_train_step(model, aug)
     seed_gen = torch.Generator(device=dev).manual_seed(1)
     log(f"  model and train state built in {time.time() - t0:.1f} s; factored leaves "
@@ -772,7 +1044,7 @@ def train(card: str, profile_dir: str | None) -> dict:
         anchor, positive = dual_view_train_batch(
             images, torch.Generator(device=dev).manual_seed(2), aug)
     grad_err = check_gradients(model, anchor, positive, labels, torch.bfloat16,
-                               f"bf16 batch {BATCH}")
+                               f"bf16 batch {BATCH}", family)
     del anchor, positive
     torch.cuda.empty_cache()
 
@@ -787,8 +1059,7 @@ def train(card: str, profile_dir: str | None) -> dict:
         losses.append(loss.item())
         if not math.isfinite(losses[-1]):
             fail(f"loss at step {i} is not finite: {losses[-1]}")
-        want = {"window_attention_fwd": 24, "window_attention_bwd": 24, "gpf_fwd": 1,
-                "gpf_bwd": 1}
+        want = family["train_launches"]
         if launches != want:
             fail(f"step {i}: expected launches {want}, got {launches}")
     log(f"  launches in one train step: {launches}")
@@ -829,15 +1100,16 @@ def train(card: str, profile_dir: str | None) -> dict:
                 train_step(state, images, labels, seed_gen)
             torch.cuda.synchronize()
         table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=60)
-        with open(os.path.join(profile_dir, "training_profile.txt"), "w") as f:
-            f.write(f"{card}\nbatch {BATCH}, 2 train steps\n{table}\n")
-        log(f"  profile written to {profile_dir}/training_profile.txt")
+        name = family["profile_prefix"] + "training_profile.txt"
+        with open(os.path.join(profile_dir, name), "w") as f:
+            f.write(f"{card}\n{family['label']}, batch {BATCH}, 2 train steps\n{table}\n")
+        log(f"  profile written to {profile_dir}/{name}")
 
     del model, state, train_step, loss
     torch.cuda.empty_cache()
 
     # fp32 at batch 4: kernel-path vs plain-path gradients with a tight tolerance
-    f32_cfg = json.loads(json.dumps(FLAGSHIP))
+    f32_cfg = json.loads(json.dumps(config))
     f32_cfg["model"]["bf16"] = False
     f32_cfg["model"]["moment"]["bf16_params"] = False
     model32 = create_model(f32_cfg, num_classes=80, device="cuda", seed=0)
@@ -846,7 +1118,7 @@ def train(card: str, profile_dir: str | None) -> dict:
         anchor, positive = dual_view_train_batch(
             images[:4], torch.Generator(device=dev).manual_seed(2), aug)
     grad_err32 = check_gradients(model32, anchor, positive, labels[:4], torch.float32,
-                                 "fp32 batch 4")
+                                 "fp32 batch 4", family)
     return {"launches": launches, "images_per_s": ips, "step_ms": statistics.median(step_ms),
             "peak_gib": peak, "losses": losses, "grad_err_bf16": grad_err,
             "grad_err_f32": grad_err32}
@@ -881,25 +1153,46 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(1234)
     with torch.inference_mode():
         wa = check_window_attention(g)
-        gp = check_gpf(g)
+        pa = check_packed_attention(g)
+        gp = check_gpf(g, 49, 1024)
+        gp_vit = check_gpf(g, VIT_T - 1, VIT_C)
 
     log(f"[2b] backward kernels against their plain versions, batch {TRAIN_VIEWS} / {BATCH}")
     wab = check_window_attention_bwd(g)
-    gpb = check_gpf_bwd(g)
+    pab = check_packed_attention_bwd(g)
+    gpb = check_gpf_bwd(g, 49, 1024)
+    gpb_vit = check_gpf_bwd(g, VIT_T - 1, VIT_C)
     torch.cuda.empty_cache()
 
     log("[3] serving, Swin-Base/224 flagship, batch 64")
-    srv = serve(card, args.profile)
+    srv = serve(card, args.profile, SWIN)
     torch.cuda.empty_cache()
 
     log(f"[4] training, Swin-Base/224 flagship, batch {BATCH}")
-    trn = train(card, args.profile)
+    trn = train(card, args.profile, SWIN)
+    torch.cuda.empty_cache()
+
+    log("[5] serving, ViT-Base/224 with the flagship heads, batch 64")
+    srv_vit = serve(card, args.profile, VIT)
+    torch.cuda.empty_cache()
+
+    log(f"[5b] training, ViT-Base/224 with the flagship heads, batch {BATCH}")
+    trn_vit = train(card, args.profile, VIT)
 
     # ms, plain_ms, bound_ms, library_ms: bf16, summed over one forward's
     # launches at batch 64 (forward kernels, the serving path) or over one
-    # train step's launches at batch 128 / [64,49,1024] x2 (backward kernels);
-    # train_ms is a forward kernel's sum over one train step's launches
+    # train step's launches at batch 128 / [64,N,D] x2 (backward kernels);
+    # train_ms is a forward kernel's sum over one train step's launches.
+    # launches: the count from the main path that runs the kernel (Swin-Base
+    # for window attention, ViT-Base for packed attention and for GPF, whose
+    # Swin-path numbers ride along under swin_*); every path was driven with
+    # the counts at 0 just before and read just after.
     src = "ego_moment_cle_vit_tpu_torch/csrc/"
+
+    def swin_gpf(res: dict) -> dict:
+        return {f"swin_{k}": res[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                              "library_ms")}
+
     kernels = [
         {"name": "window_attention_fwd", "route": "cuda",
          "source": src + "window_attention_fwd.cu",
@@ -915,20 +1208,44 @@ def main() -> int:
          "ms": wab["ms"], "plain_ms": wab["plain_ms"], "bound_ms": wab["bound_ms"],
          "bound_by": wab["bound_by"], "library_ms": wab["library_ms"]},
         {"name": "gpf_fwd", "route": "cuda", "source": src + "gpf_fwd.cu",
-         "replaces": GPF_REPLACES, "launches": srv["launches"]["gpf_fwd"],
-         "train_launches": trn["launches"]["gpf_fwd"],
-         "max_abs_err": gp["max_abs_err"], "err_over_tol": gp["err_over_tol"],
-         "ms": gp["ms"], "plain_ms": gp["plain_ms"],
-         "bound_ms": gp["bound_ms"], "bound_by": gp["bound_by"],
-         "library_ms": gp["library_ms"], "train_ms": gpb["fwd_ms"]},
+         "replaces": GPF_REPLACES, "launches": srv_vit["launches"]["gpf_fwd"],
+         "train_launches": trn_vit["launches"]["gpf_fwd"],
+         "swin_launches": srv["launches"]["gpf_fwd"],
+         "max_abs_err": gp_vit["max_abs_err"],
+         "err_over_tol": max(gp["err_over_tol"], gp_vit["err_over_tol"]),
+         "ms": gp_vit["ms"], "plain_ms": gp_vit["plain_ms"],
+         "bound_ms": gp_vit["bound_ms"], "bound_by": gp_vit["bound_by"],
+         "library_ms": gp_vit["library_ms"], "train_ms": gpb_vit["fwd_ms"],
+         **swin_gpf(gp), "swin_train_ms": gpb["fwd_ms"]},
         {"name": "gpf_bwd", "route": "cuda", "source": src + "gpf_bwd.cu",
-         "replaces": GPF_BWD_REPLACES, "launches": trn["launches"]["gpf_bwd"],
-         "max_abs_err": gpb["max_abs_err"], "err_over_tol": gpb["err_over_tol"],
-         "ms": gpb["ms"], "plain_ms": gpb["plain_ms"], "bound_ms": gpb["bound_ms"],
-         "bound_by": gpb["bound_by"], "library_ms": gpb["library_ms"]},
+         "replaces": GPF_BWD_REPLACES, "launches": trn_vit["launches"]["gpf_bwd"],
+         "swin_launches": trn["launches"]["gpf_bwd"],
+         "max_abs_err": gpb_vit["max_abs_err"],
+         "err_over_tol": max(gpb["err_over_tol"], gpb_vit["err_over_tol"]),
+         "ms": gpb_vit["ms"], "plain_ms": gpb_vit["plain_ms"], "bound_ms": gpb_vit["bound_ms"],
+         "bound_by": gpb_vit["bound_by"], "library_ms": gpb_vit["library_ms"],
+         **swin_gpf(gpb)},
+        {"name": "packed_attention_fwd", "route": "cuda",
+         "source": src + "packed_attention_fwd.cu",
+         "replaces": PA_REPLACES, "launches": srv_vit["launches"]["packed_attention_fwd"],
+         "train_launches": trn_vit["launches"]["packed_attention_fwd"],
+         "max_abs_err": pa["max_abs_err"], "ms": pa["ms"], "plain_ms": pa["plain_ms"],
+         "bound_ms": pa["bound_ms"], "bound_by": pa["bound_by"],
+         "library_ms": pa["library_ms"], "train_ms": pab["fwd_ms"]},
+        {"name": "packed_attention_bwd", "route": "cuda",
+         "source": src + "packed_attention_bwd.cu",
+         "replaces": PA_BWD_REPLACES, "launches": trn_vit["launches"]["packed_attention_bwd"],
+         "max_abs_err": pab["max_abs_err"], "err_over_tol": pab["err_over_tol"],
+         "ms": pab["ms"], "plain_ms": pab["plain_ms"], "bound_ms": pab["bound_ms"],
+         "bound_by": pab["bound_by"], "library_ms": pab["library_ms"]},
     ]
-    log(f"  serving {srv['images_per_s']:.1f} images/s, training {trn['images_per_s']:.1f} "
-        f"images/s ({trn['step_ms']:.1f} ms/step, peak {trn['peak_gib']:.2f} GiB)")
+    for entry in kernels:
+        if entry["launches"] < 1:
+            fail(f"kernel {entry['name']} was launched no time on its main path")
+    for label, s_res, t_res in (("Swin-Base/224", srv, trn), ("ViT-Base/224", srv_vit, trn_vit)):
+        log(f"  {label}: serving {s_res['images_per_s']:.1f} images/s (peak "
+            f"{s_res['peak_gib']:.2f} GiB), training {t_res['images_per_s']:.1f} images/s "
+            f"({t_res['step_ms']:.1f} ms/step, peak {t_res['peak_gib']:.2f} GiB)")
     log(f"  total {time.time() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,4 +1,4 @@
-// Fused Graph Polynomial Fusion, backward: the analytic VJP in one pass.
+// Fused Graph Polynomial Fusion, backward: the analytic VJP.
 //
 // Replaces: ego_moment_cle_vit_tpu/ops/pallas/gpf.py, _gpf_bwd_kernel (the VJP
 //   of fused_gpf_pallas).
@@ -18,70 +18,65 @@
 // What bounds it on an H100: memory.  One batch element reads 2*N*D token
 // values and N*N fp32 cotangents and writes 2*N*D values; two Grams and two
 // [N,N] x [N,D] products are 8*N*N*D flops, about N flops per byte of bf16.
-// Design: one block per batch element, like the forward.  The Grams are built
-// from 64-column chunks streamed through shared memory and stay on chip, as
-// do the six [N, N] work tiles.  The cosine backward is folded into the
-// [N, N] factor so the tokens are streamed only once more:
-//   dx_i = sum_j W_ij x_j,  W_ij = S_ij / (m_i m_j) - [i == j] gate_i proj_i / m_i^2,
-//   S = dR + dR^T,  proj_i = sum_j S_ij R_ij,  m_i = max(|x_i|, eps),
-// which equals (dxh - gate * xh * (xh . dxh)) / m with xh = x / m.  When both
-// token pointers are the same tensor its Gram is built once, and the two
-// gradients are still written apart: the caller (autograd) adds them.
-// With one block per batch element a batch of 64 fills 64 of the card's 132
-// SMs; splitting D across blocks is left to a later version.
+//
+// Design.  The TPU kernel holds six [N, N] work tiles of one batch element on
+// chip; at a ViT's 196 tokens that is past one block, and dX needs a sum over
+// all N columns of a row before it can be written.  Two kernels, every sum
+// inside a block or over ordered partials (no float atomics):
+//   1. w kernel, one block per (batch element, 64 x 64 tile): rebuilds its
+//      tile of both Grams like the forward, evaluates the polynomial and its
+//      derivatives entry by entry, and writes the factor W = S / (m m^T) of
+//      each token set to a scratch [B, 2, N, N], with S = dR + dR^T and m the
+//      clamped norms (1 for dot).  Because R_a, R_p and F are symmetric,
+//      S_ij = (g_ij + g_ji) [F_ij > 0] poly'_ij with or without the
+//      symmetrization flag, so a block needs its own tile and the mirrored
+//      tile of g and no second pass.  It also writes the tile's part of
+//      proj_i = sum_j S_ij R_ij (the cosine backward's row reduction) and of dc.
+//   2. dx kernel, one block per (batch element, 64 rows, 64 features): streams
+//      W and the tokens through shared memory, dX = W X on the CUDA cores in
+//      fp32 (W is fp32; rounding it to bf16 for the tensor cores would cost
+//      the gradient three digits), then the folded cosine term
+//      dx_i -= gate_i proj_i / m_i^2 x_i with proj_i summed over the column
+//      tiles in order.  Its first block per batch element adds the dc
+//      partials in order.
+// The scratch costs 2*N*N fp32 written and read per batch element on top of
+// the bytes above.  When both token pointers are the same tensor its Gram is
+// built once, and the two gradients are still written apart: the caller
+// (autograd) adds them.
 
-#include "common.cuh"
+#include "gpf_tiles.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 64;
-constexpr int kMaxN = 64;
-constexpr int kMaxDeg = 3;  // P, Q <= 3
-constexpr int kMaxCoef = (kMaxDeg + 1) * (kMaxDeg + 1);
-constexpr int kPerThread = (kMaxN * kMaxN + kThreads - 1) / kThreads;
-
-// values[k] = A_k(r), grads[k] = A'_k(r) for k = 0..kMaxDeg
-__device__ __forceinline__ void powers(float r, float* values, float* grads) {
-  const float rc = fmaxf(r, 0.f);
-  values[0] = 1.f;
-  grads[0] = 0.f;
-  float rc_pow = 1.f;  // rc^(k-1)
-#pragma unroll
-  for (int k = 1; k <= kMaxDeg; ++k) {
-    values[k] = r * rc_pow;
-    grads[k] = static_cast<float>(k) * rc_pow;
-    rc_pow *= rc;
-  }
-}
+// ---------------------------------------------------------------------------
+// 1. the [N, N] factors
+// ---------------------------------------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-gpf_bwd_kernel(const T* __restrict__ ta, const T* __restrict__ tp,
-               const float* __restrict__ coeffs, const float* __restrict__ g,
-               T* __restrict__ dta, T* __restrict__ dtp, float* __restrict__ dc, int N, int D,
-               int P, int Q, int cosine, float eps, int symmetric, int same) {
-  extern __shared__ float smem[];
-  constexpr int KP = kChunk + 1;
-  const int nn = N * N;
-  float* sa = smem;          // [N][KP] anchor chunk
-  float* sp = sa + N * KP;   // [N][KP] positive chunk
-  float* ga = sp + N * KP;   // [N][N] raw anchor Gram
-  float* gp = ga + nn;       // [N][N] raw positive Gram
-  float* f1 = gp + nn;       // F, then dR_a
-  float* f2 = f1 + nn;       // masked g, then S_a, then W_a
-  float* f3 = f2 + nn;       // dR_p
-  float* f4 = f3 + nn;       // S_p, then W_p
-  __shared__ float ma[kMaxN], mp[kMaxN], gate_a[kMaxN], gate_p[kMaxN];
-  __shared__ float proj_a[kMaxN], proj_p[kMaxN];
+gpf_bwd_w_kernel(const T* __restrict__ ta, const T* __restrict__ tp,
+                 const float* __restrict__ coeffs, const float* __restrict__ gout,
+                 float* __restrict__ wmat, float* __restrict__ proj_part,
+                 float* __restrict__ norms, float* __restrict__ dc_part, int N, int D, int P,
+                 int Q, int cosine, float eps, int symmetric, int same, int vec_ok) {
+  using S = GramSmem<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* panels = reinterpret_cast<T*>(smem_raw);
+  __shared__ float m_a[2 * kTile], m_p[2 * kTile];  // clamped norms: rows, then columns
   __shared__ float red[kWarps][kMaxCoef];
   __shared__ float sc[kMaxCoef];
 
-  const int b = blockIdx.x;
+  const int b = blockIdx.z;
+  const int it = blockIdx.y;
+  const int jt = blockIdx.x;
+  const int tiles = gridDim.x;
+  const int i0 = it * kTile;
+  const int j0 = jt * kTile;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int tg = lane & 3;
   const T* xa = ta + static_cast<size_t>(b) * N * D;
   const T* xp = tp + static_cast<size_t>(b) * N * D;
 
@@ -91,125 +86,98 @@ gpf_bwd_kernel(const T* __restrict__ ta, const T* __restrict__ tp,
     sc[tid] = (p <= P && q <= Q) ? coeffs[p * (Q + 1) + q] : 0.f;
   }
 
-  // --- both Grams, as in the forward ---
-  float acc_a[kPerThread];
-  float acc_p[kPerThread];
-#pragma unroll
-  for (int u = 0; u < kPerThread; ++u) {
-    acc_a[u] = 0.f;
-    acc_p[u] = 0.f;
-  }
-  for (int k0 = 0; k0 < D; k0 += kChunk) {
-    const int kc = min(kChunk, D - k0);
-    __syncthreads();
-    for (int e = tid; e < N * kChunk; e += kThreads) {
-      const int r = e / kChunk;
-      const int c = e % kChunk;
-      const bool in = c < kc;
-      const size_t off = static_cast<size_t>(r) * D + k0 + c;
-      sa[r * KP + c] = in ? to_f32(xa[off]) : 0.f;
-      if (!same) sp[r * KP + c] = in ? to_f32(xp[off]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < kPerThread; ++u) {
-      const int e = tid + u * kThreads;
-      if (e < nn) {
-        const float* ra = sa + (e / N) * KP;
-        const float* rb = sa + (e % N) * KP;
-        float s = acc_a[u];
-#pragma unroll 16
-        for (int c = 0; c < kChunk; ++c) s = fmaf(ra[c], rb[c], s);
-        acc_a[u] = s;
-        if (!same) {
-          const float* pa = sp + (e / N) * KP;
-          const float* pb = sp + (e % N) * KP;
-          float t = acc_p[u];
-#pragma unroll 16
-          for (int c = 0; c < kChunk; ++c) t = fmaf(pa[c], pb[c], t);
-          acc_p[u] = t;
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < kPerThread; ++u) {
-    const int e = tid + u * kThreads;
-    if (e < nn) {
-      ga[e] = acc_a[u];
-      gp[e] = same ? acc_a[u] : acc_p[u];
-    }
+  float acc_a[8][4], acc_p[8][4], nsq_a, nsq_p;
+  gram_tiles<T>(xa, xp, N, D, i0, j0, same != 0, vec_ok != 0, panels, acc_a, acc_p, nsq_a, nsq_p);
+  const float norm_a = sqrtf(nsq_a);
+  const float norm_p = sqrtf(same ? nsq_a : nsq_p);
+  m_a[tid] = cosine ? fmaxf(norm_a, eps) : 1.f;
+  m_p[tid] = cosine ? fmaxf(norm_p, eps) : 1.f;
+  // norms[b][set][0: clamped norm, 1: gate][N], written once per row tile
+  if (jt == 0 && tid < kTile && i0 + tid < N) {
+    float* nb = norms + static_cast<size_t>(b) * 4 * N;
+    nb[0 * N + i0 + tid] = m_a[tid];
+    nb[1 * N + i0 + tid] = (!cosine || norm_a > eps) ? 1.f : 0.f;
+    nb[2 * N + i0 + tid] = m_p[tid];
+    nb[3 * N + i0 + tid] = (!cosine || norm_p > eps) ? 1.f : 0.f;
   }
   __syncthreads();
 
-  // row norms off the Gram diagonals
-  if (tid < N) {
-    const float na = sqrtf(ga[tid * N + tid]);
-    const float np = sqrtf(gp[tid * N + tid]);
-    ma[tid] = cosine ? fmaxf(na, eps) : 1.f;
-    mp[tid] = cosine ? fmaxf(np, eps) : 1.f;
-    gate_a[tid] = na > eps ? 1.f : 0.f;
-    gate_p[tid] = np > eps ? 1.f : 0.f;
-  }
-  __syncthreads();
-
-  // --- pass 1: the pre-activation polynomial F ---
-  for (int e = tid; e < nn; e += kThreads) {
-    const int i = e / N;
-    const int j = e % N;
-    float av[kMaxDeg + 1], ag[kMaxDeg + 1], bv[kMaxDeg + 1], bg[kMaxDeg + 1];
-    powers(ga[e] / (ma[i] * ma[j]), av, ag);
-    powers(gp[e] / (mp[i] * mp[j]), bv, bg);
-    float fused = 0.f;
-#pragma unroll
-    for (int p = 0; p <= kMaxDeg; ++p) {
-#pragma unroll
-      for (int q = 0; q <= kMaxDeg; ++q) {
-        // unused degrees are skipped, not multiplied by zero: their powers may overflow
-        if (p <= P && q <= Q) fused = fmaf(sc[p * (kMaxDeg + 1) + q], av[p] * bv[q], fused);
-      }
-    }
-    f1[e] = fused;
-  }
-  __syncthreads();
-
-  // --- pass 2: the cotangent behind the clamp ---
-  const float* gb = g + static_cast<size_t>(b) * nn;
-  for (int e = tid; e < nn; e += kThreads) {
-    const int i = e / N;
-    const int j = e % N;
-    const float fs = symmetric ? 0.5f * (f1[e] + f1[j * N + i]) : f1[e];
-    f2[e] = fs > 0.f ? gb[e] : 0.f;
-  }
-  __syncthreads();
-
-  // --- pass 3: dR_a, dR_p and the coefficient gradients ---
+  const float* gb = gout + static_cast<size_t>(b) * N * N;
+  float* wa = wmat + static_cast<size_t>(b) * 2 * N * N;
+  float* wp = wa + static_cast<size_t>(N) * N;
   float dc_acc[kMaxCoef];
 #pragma unroll
   for (int k = 0; k < kMaxCoef; ++k) dc_acc[k] = 0.f;
-  for (int e = tid; e < nn; e += kThreads) {
-    const int i = e / N;
-    const int j = e % N;
-    const float df = symmetric ? 0.5f * (f2[e] + f2[j * N + i]) : f2[e];
-    float av[kMaxDeg + 1], ag[kMaxDeg + 1], bv[kMaxDeg + 1], bg[kMaxDeg + 1];
-    powers(ga[e] / (ma[i] * ma[j]), av, ag);
-    powers(gp[e] / (mp[i] * mp[j]), bv, bg);
-    float dra = 0.f, drp = 0.f;
+  float proj_a[2] = {0.f, 0.f}, proj_p[2] = {0.f, 0.f};  // rows g and g + 8
+
 #pragma unroll
-    for (int p = 0; p <= kMaxDeg; ++p) {
+  for (int n = 0; n < 8; ++n) {
 #pragma unroll
-      for (int q = 0; q <= kMaxDeg; ++q) {
-        if (p <= P && q <= Q) {
-          const float term = df * sc[p * (kMaxDeg + 1) + q];
-          dra = fmaf(term, ag[p] * bv[q], dra);
-          drp = fmaf(term, av[p] * bg[q], drp);
-          dc_acc[p * (kMaxDeg + 1) + q] = fmaf(df, av[p] * bv[q], dc_acc[p * (kMaxDeg + 1) + q]);
+    for (int e = 0; e < 4; ++e) {
+      const int li = warp * 16 + g + (e >> 1) * 8;
+      const int lj = n * 8 + tg * 2 + (e & 1);
+      const int i = i0 + li;
+      const int j = j0 + lj;
+      if (i < N && j < N) {
+        const float mm_a = m_a[li] * m_a[kTile + lj];
+        const float mmp = m_p[li] * m_p[kTile + lj];
+        const float ra = acc_a[n][e] / mm_a;
+        const float rp = (same ? acc_a[n][e] : acc_p[n][e]) / mmp;
+        float av[kMaxDeg + 1], ag[kMaxDeg + 1], bv[kMaxDeg + 1], bg[kMaxDeg + 1];
+        powers(ra, av, ag);
+        powers(rp, bv, bg);
+        float fused = 0.f, da = 0.f, dp = 0.f;
+#pragma unroll
+        for (int p = 0; p <= kMaxDeg; ++p) {
+#pragma unroll
+          for (int q = 0; q <= kMaxDeg; ++q) {
+            // unused degrees are skipped, not multiplied by zero: their powers may overflow
+            if (p <= P && q <= Q) {
+              const float c = sc[p * (kMaxDeg + 1) + q];
+              fused = fmaf(c, av[p] * bv[q], fused);
+              da = fmaf(c, ag[p] * bv[q], da);
+              dp = fmaf(c, av[p] * bg[q], dp);
+            }
+          }
         }
+        const float gij = gb[static_cast<size_t>(i) * N + j];
+        const float gji = gb[static_cast<size_t>(j) * N + i];
+        const bool pos = fused > 0.f;
+        const float gs = pos ? gij + gji : 0.f;
+        const float df = symmetric ? 0.5f * gs : (pos ? gij : 0.f);
+#pragma unroll
+        for (int p = 0; p <= kMaxDeg; ++p) {
+#pragma unroll
+          for (int q = 0; q <= kMaxDeg; ++q) {
+            if (p <= P && q <= Q) {
+              dc_acc[p * (kMaxDeg + 1) + q] = fmaf(df, av[p] * bv[q], dc_acc[p * (kMaxDeg + 1) + q]);
+            }
+          }
+        }
+        const float s_a = gs * da;
+        const float s_p = gs * dp;
+        wa[static_cast<size_t>(i) * N + j] = s_a / mm_a;
+        wp[static_cast<size_t>(i) * N + j] = s_p / mmp;
+        proj_a[e >> 1] = fmaf(s_a, ra, proj_a[e >> 1]);
+        proj_p[e >> 1] = fmaf(s_p, rp, proj_p[e >> 1]);
       }
     }
-    f1[e] = dra;
-    f3[e] = drp;
   }
+
+  // proj_part[b][set][jt][N]: this tile's share of each row's reduction
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const float pa = quad_sum(proj_a[half]);
+    const float pp = quad_sum(proj_p[half]);
+    const int i = i0 + warp * 16 + g + half * 8;
+    if (tg == 0 && i < N) {
+      float* pb = proj_part + static_cast<size_t>(b) * 2 * tiles * N;
+      pb[static_cast<size_t>(jt) * N + i] = pa;
+      pb[(static_cast<size_t>(tiles) + jt) * N + i] = pp;
+    }
+  }
+
+  // dc_part[b][tile][kMaxCoef]
 #pragma unroll
   for (int k = 0; k < kMaxCoef; ++k) {
     const float v = warp_sum(dc_acc[k]);
@@ -217,82 +185,98 @@ gpf_bwd_kernel(const T* __restrict__ ta, const T* __restrict__ tp,
   }
   __syncthreads();
   if (tid < kMaxCoef) {
+    float v = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kWarps; ++wi) v += red[wi][tid];
+    dc_part[(static_cast<size_t>(b) * tiles * tiles + it * tiles + jt) * kMaxCoef + tid] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 2. dX = W X and the folded cosine term
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gpf_bwd_dx_kernel(const T* __restrict__ ta, const T* __restrict__ tp,
+                  const float* __restrict__ wmat, const float* __restrict__ proj_part,
+                  const float* __restrict__ norms, const float* __restrict__ dc_part,
+                  T* __restrict__ dta, T* __restrict__ dtp, float* __restrict__ dc, int N, int D,
+                  int P, int Q, int cosine, int tiles) {
+  constexpr int LD = kTile + TilePad<float>::value;
+  __shared__ __align__(16) float sw[kTile * LD];   // W tile [row][column token]
+  __shared__ __align__(16) float sxt[kTile * LD];  // token tile transposed [feature][token]
+
+  const int b = blockIdx.z;
+  const int i0 = blockIdx.y * kTile;
+  const int d0 = blockIdx.x * kTile;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int g = (tid & 31) >> 2;
+  const int tg = tid & 3;
+
+  if (blockIdx.x == 0 && blockIdx.y == 0 && tid < kMaxCoef) {
     const int p = tid / (kMaxDeg + 1);
     const int q = tid % (kMaxDeg + 1);
     if (p <= P && q <= Q) {
+      const float* part = dc_part + static_cast<size_t>(b) * tiles * tiles * kMaxCoef + tid;
       float v = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) v += red[w][tid];
+      for (int t = 0; t < tiles * tiles; ++t) v += part[static_cast<size_t>(t) * kMaxCoef];
       dc[(static_cast<size_t>(b) * (P + 1) + p) * (Q + 1) + q] = v;
     }
   }
 
-  // --- pass 4: S = dR + dR^T ---
-  for (int e = tid; e < nn; e += kThreads) {
-    const int eT = (e % N) * N + e / N;
-    f2[e] = f1[e] + f1[eT];
-    f4[e] = f3[e] + f3[eT];
-  }
-  __syncthreads();
+  for (int set = 0; set < 2; ++set) {
+    const T* x = (set ? tp : ta) + static_cast<size_t>(b) * N * D;
+    T* dx = (set ? dtp : dta) + static_cast<size_t>(b) * N * D;
+    const float* wm = wmat + (static_cast<size_t>(b) * 2 + set) * N * N;
+    float acc[8][4];
+    zero_acc<8>(acc);
+    for (int jt = 0; jt < tiles; ++jt) {
+      const int j0 = jt * kTile;
+      __syncthreads();
+      for (int e = tid; e < kTile * kTile; e += kThreads) {
+        const int r = e / kTile;
+        const int c = e % kTile;
+        sw[r * LD + c] =
+            (i0 + r < N && j0 + c < N) ? wm[static_cast<size_t>(i0 + r) * N + j0 + c] : 0.f;
+        // r: token of the tile, c: feature
+        sxt[c * LD + r] = (j0 + r < N && d0 + c < D)
+                              ? to_f32(x[static_cast<size_t>(j0 + r) * D + d0 + c])
+                              : 0.f;
+      }
+      __syncthreads();
+      mma_nt<8, kTile>(acc, sw + warp * 16 * LD, LD, sxt, LD, g, tg);
+    }
 
-  // --- passes 5, 6: fold the cosine backward into W ---
-  if (cosine) {
-    for (int i = warp; i < N; i += kWarps) {
-      float pa = 0.f, pp = 0.f;
-      for (int j = lane; j < N; j += 32) {
-        pa = fmaf(f2[i * N + j], ga[i * N + j] / (ma[i] * ma[j]), pa);
-        pp = fmaf(f4[i * N + j], gp[i * N + j] / (mp[i] * mp[j]), pp);
-      }
-      pa = warp_sum(pa);
-      pp = warp_sum(pp);
-      if (lane == 0) {
-        proj_a[i] = pa;
-        proj_p[i] = pp;
+    // rows g and g + 8 of this warp: gate_i proj_i / m_i^2
+    float fold[2] = {0.f, 0.f};
+    if (cosine) {
+      const float* nb = norms + (static_cast<size_t>(b) * 4 + 2 * set) * N;
+      const float* pb = proj_part + (static_cast<size_t>(b) * 2 + set) * tiles * N;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int i = i0 + warp * 16 + g + half * 8;
+        if (i < N) {
+          float proj = 0.f;
+          for (int jt = 0; jt < tiles; ++jt) proj += pb[static_cast<size_t>(jt) * N + i];
+          const float m = nb[i];
+          fold[half] = nb[N + i] * proj / (m * m);
+        }
       }
     }
-    __syncthreads();
-    for (int e = tid; e < nn; e += kThreads) {
-      const int i = e / N;
-      const int j = e % N;
-      float wa = f2[e] / (ma[i] * ma[j]);
-      float wp = f4[e] / (mp[i] * mp[j]);
-      if (i == j) {
-        wa -= gate_a[i] * proj_a[i] / (ma[i] * ma[i]);
-        wp -= gate_p[i] * proj_p[i] / (mp[i] * mp[i]);
-      }
-      f2[e] = wa;
-      f4[e] = wp;
-    }
-  }
-
-  // --- dX = W X, streamed in 64-column chunks ---
-  T* oa = dta + static_cast<size_t>(b) * N * D;
-  T* op = dtp + static_cast<size_t>(b) * N * D;
-  for (int k0 = 0; k0 < D; k0 += kChunk) {
-    const int kc = min(kChunk, D - k0);
-    __syncthreads();
-    for (int e = tid; e < N * kChunk; e += kThreads) {
-      const int r = e / kChunk;
-      const int c = e % kChunk;
-      const bool in = c < kc;
-      const size_t off = static_cast<size_t>(r) * D + k0 + c;
-      sa[r * KP + c] = in ? to_f32(xa[off]) : 0.f;
-      if (!same) sp[r * KP + c] = in ? to_f32(xp[off]) : 0.f;
-    }
-    __syncthreads();
-    const float* xs_p = same ? sa : sp;
-    for (int o = tid; o < N * kChunk; o += kThreads) {
-      const int i = o / kChunk;
-      const int c = o % kChunk;
-      float da = 0.f, dp = 0.f;
-      for (int j = 0; j < N; ++j) {
-        da = fmaf(f2[i * N + j], sa[j * KP + c], da);
-        dp = fmaf(f4[i * N + j], xs_p[j * KP + c], dp);
-      }
-      if (c < kc) {
-        const size_t off = static_cast<size_t>(i) * D + k0 + c;
-        oa[off] = from_f32<T>(da);
-        op[off] = from_f32<T>(dp);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + warp * 16 + g + (e >> 1) * 8;
+        const int c = d0 + n * 8 + tg * 2 + (e & 1);
+        if (i < N && c < D) {
+          const size_t off = static_cast<size_t>(i) * D + c;
+          float v = acc[n][e];
+          if (cosine) v -= fold[e >> 1] * to_f32(x[off]);
+          dx[off] = from_f32<T>(v);
+        }
       }
     }
   }
@@ -300,41 +284,63 @@ gpf_bwd_kernel(const T* __restrict__ ta, const T* __restrict__ tp,
 
 template <typename T>
 cudaError_t launch(const void* ta, const void* tp, const void* coeffs, const void* g, void* dta,
-                   void* dtp, void* dc, int B, int N, int D, int P, int Q, int cosine, float eps,
-                   int symmetric, cudaStream_t stream) {
-  const size_t smem =
-      (2 * static_cast<size_t>(N) * (kChunk + 1) + 6 * static_cast<size_t>(N) * N) * sizeof(float);
-  auto kernel = gpf_bwd_kernel<T>;
-  cudaError_t err = emct_allow_smem(kernel, smem);
+                   void* dtp, void* dc, float* scratch, int B, int N, int D, int P, int Q,
+                   int cosine, float eps, int symmetric, cudaStream_t stream) {
+  const int tiles = (N + kTile - 1) / kTile;
+  // scratch: W [B,2,N,N], proj_part [B,2,tiles,N], norms [B,4,N], dc_part [B,tiles^2,16]
+  float* wmat = scratch;
+  float* proj_part = wmat + static_cast<size_t>(B) * 2 * N * N;
+  float* norms = proj_part + static_cast<size_t>(B) * 2 * tiles * N;
+  float* dc_part = norms + static_cast<size_t>(B) * 4 * N;
+
+  const size_t smem = 4 * static_cast<size_t>(GramSmem<T>::kPanel) * sizeof(T);
+  auto w_kernel = gpf_bwd_w_kernel<T>;
+  cudaError_t err = emct_allow_smem(w_kernel, smem);
   if (err != cudaSuccess) return err;
   const int same = ta == tp ? 1 : 0;
-  kernel<<<B, kThreads, smem, stream>>>(
+  const int vec = 16 / static_cast<int>(sizeof(T));
+  const int vec_ok = (D % vec == 0 && reinterpret_cast<uintptr_t>(ta) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(tp) % 16 == 0)
+                         ? 1
+                         : 0;
+  w_kernel<<<dim3(tiles, tiles, B), kThreads, smem, stream>>>(
       static_cast<const T*>(ta), static_cast<const T*>(tp), static_cast<const float*>(coeffs),
-      static_cast<const float*>(g), static_cast<T*>(dta), static_cast<T*>(dtp),
-      static_cast<float*>(dc), N, D, P, Q, cosine, eps, symmetric, same);
+      static_cast<const float*>(g), wmat, proj_part, norms, dc_part, N, D, P, Q, cosine, eps,
+      symmetric, same, vec_ok);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gpf_bwd_dx_kernel<T><<<dim3((D + kTile - 1) / kTile, tiles, B), kThreads, 0, stream>>>(
+      static_cast<const T*>(ta), static_cast<const T*>(tp), wmat, proj_part, norms, dc_part,
+      static_cast<T*>(dta), static_cast<T*>(dtp), static_cast<float*>(dc), N, D, P, Q, cosine,
+      tiles);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // tokens_a, tokens_p, dta, dtp [B, N, D] (dtype); coeffs [P+1, Q+1] f32;
-// g [B, N, N] f32; dc [B, P+1, Q+1] f32.  Requires 1 <= N <= 64 and
-// P, Q <= 3; the Python wrapper checks shapes first.  dta and dtp must be two
-// buffers even when tokens_a and tokens_p are one.
+// g [B, N, N] f32; dc [B, P+1, Q+1] f32; scratch: f32, at least
+// B * (2*N*N + 2*tiles*N + 4*N + 16*tiles*tiles) values with
+// tiles = ceil(N / 64).  Requires P, Q <= 3; the Python wrapper checks shapes
+// first.  dta and dtp must be two buffers even when tokens_a and tokens_p are
+// one.
 extern "C" int gpf_bwd(const void* tokens_a, const void* tokens_p, const void* coeffs,
-                       const void* g, void* dta, void* dtp, void* dc, int B, int N, int D, int P,
-                       int Q, int cosine, float eps, int symmetric, int dtype, void* stream) {
-  if (N < 1 || N > kMaxN || D < 1 || P < 0 || Q < 0 || P > kMaxDeg || Q > kMaxDeg || dta == dtp) {
+                       const void* g, void* dta, void* dtp, void* dc, void* scratch, int B, int N,
+                       int D, int P, int Q, int cosine, float eps, int symmetric, int dtype,
+                       void* stream) {
+  if (B < 1 || B > 65535 || N < 1 || D < 1 || P < 0 || Q < 0 || P > kMaxDeg || Q > kMaxDeg ||
+      dta == dtp || scratch == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* scratch_f = static_cast<float*>(scratch);
   cudaError_t err;
   if (dtype == EMCT_DTYPE_F32) {
-    err = launch<float>(tokens_a, tokens_p, coeffs, g, dta, dtp, dc, B, N, D, P, Q, cosine, eps,
-                        symmetric, s);
+    err = launch<float>(tokens_a, tokens_p, coeffs, g, dta, dtp, dc, scratch_f, B, N, D, P, Q,
+                        cosine, eps, symmetric, s);
   } else if (dtype == EMCT_DTYPE_BF16) {
-    err = launch<__nv_bfloat16>(tokens_a, tokens_p, coeffs, g, dta, dtp, dc, B, N, D, P, Q,
-                                cosine, eps, symmetric, s);
+    err = launch<__nv_bfloat16>(tokens_a, tokens_p, coeffs, g, dta, dtp, dc, scratch_f, B, N, D,
+                                P, Q, cosine, eps, symmetric, s);
   } else {
     err = cudaErrorInvalidValue;
   }

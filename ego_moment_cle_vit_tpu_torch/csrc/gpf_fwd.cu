@@ -4,185 +4,131 @@
 // Replaces: ego_moment_cle_vit_tpu/ops/pallas/gpf.py, _gpf_kernel (called by
 //   fused_gpf_pallas).
 //
-// Computes, per batch element (tokens [N, D], any float type, read as fp32):
+// Computes, per batch element (tokens [N, D], bf16 or fp32):
 //   R_a = X_a X_a^T, R_p = X_p X_p^T   (cosine: rows scaled by 1/max(|x|, eps))
 //   G   = sum_pq c[p, q] A_p(R_a) * A_q(R_p),  A_0 = 1, A_1 = R,
 //         A_k = A_{k-1} * max(R, 0) for k >= 2
 //   out = max(0, (G + G^T) / 2)  (or max(0, G) without symmetrization), fp32.
 //
-// What bounds it on an H100: memory, at the serving shapes.  One batch
-// element reads N*D token values (twice that for two distinct token sets)
-// and writes N*N fp32 values; a Gram costs 2*N*N*D flops, N flops per
-// byte of bf16 tokens (49 at N = 49), well under the tensor cores' ~295.
-// Design: one block per batch element streams its tokens through shared
-// memory in 64-column chunks and keeps both N x N Gram accumulators in
-// registers (N <= 64: at most 16 entries per thread per Gram), so the Grams
-// never reach device memory.  The cosine normalization divides each Gram
-// entry by the clamped row norms taken from the Gram diagonal, which is the
-// same quantity as normalizing the rows first.  When anchor and positive are
-// the same tensor (serving passes one tensor twice) the second Gram is not
-// recomputed.  With one block per batch element, a batch of 64 fills 64 of
-// the card's 132 SMs; splitting D across blocks is left to a later version.
+// What bounds it on an H100: memory.  One batch element reads N*D token
+// values (twice that for two distinct token sets) and writes N*N fp32 values;
+// a Gram costs 2*N*N*D flops, N flops per byte of bf16 tokens (196 for a
+// ViT at 224), under the tensor cores' ~295.
+//
+// Design.  The TPU kernel holds a whole [N, N] graph per grid step; here the
+// output is tiled: one block of four warps per (batch element, 64 x 64 output
+// tile) streams the row tokens and the column tokens of both sets through
+// shared memory in 64-feature chunks and keeps its tile of both Grams in
+// registers (mma_nt: tensor cores for bf16 tokens, whose products are exact in
+// fp32; CUDA cores for fp32 tokens).  So N is unbounded and a ViT's 196 tokens
+// give 16 blocks per batch element.  The cosine normalization divides each
+// Gram entry by the clamped row norms, which the block sums from the staged
+// chunks; that is the same quantity as normalizing the rows first.
+// Symmetrization needs no second pass: both Grams are symmetric and the
+// polynomial acts entry by entry, so G^T = G and (G + G^T) / 2 = G; the flag
+// changes nothing here.  When anchor and positive are the same tensor the
+// second Gram is not computed.
 
-#include "common.cuh"
+#include "gpf_tiles.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kChunk = 64;
-constexpr int kMaxN = 64;
-constexpr int kPerThread = (kMaxN * kMaxN + kThreads - 1) / kThreads;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 gpf_fwd_kernel(const T* __restrict__ ta, const T* __restrict__ tp,
                const float* __restrict__ coeffs, float* __restrict__ out, int N, int D, int P,
-               int Q, int cosine, float eps, int symmetric, int same) {
-  extern __shared__ float smem[];
-  constexpr int KP = kChunk + 1;
-  float* sa = smem;          // [N][KP] anchor chunk
-  float* sp = sa + N * KP;   // [N][KP] positive chunk
-  float* ga = sp + N * KP;   // [N][N] anchor Gram, later the fused graph
-  float* gp = ga + N * N;    // [N][N] positive Gram
+               int Q, int cosine, float eps, int same, int vec_ok) {
+  using S = GramSmem<T>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* panels = reinterpret_cast<T*>(smem_raw);
+  __shared__ float m_a[2 * kTile], m_p[2 * kTile];  // clamped norms: rows, then columns
 
-  const int b = blockIdx.x;
+  const int b = blockIdx.z;
+  const int i0 = blockIdx.y * kTile;
+  const int j0 = blockIdx.x * kTile;
   const int tid = threadIdx.x;
-  const int nn = N * N;
+  const int warp = tid >> 5;
+  const int g = (tid & 31) >> 2;
+  const int tg = tid & 3;
   const T* xa = ta + static_cast<size_t>(b) * N * D;
   const T* xp = tp + static_cast<size_t>(b) * N * D;
 
-  float acc_a[kPerThread];
-  float acc_p[kPerThread];
-#pragma unroll
-  for (int u = 0; u < kPerThread; ++u) {
-    acc_a[u] = 0.f;
-    acc_p[u] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < D; k0 += kChunk) {
-    const int kc = min(kChunk, D - k0);
-    __syncthreads();
-    for (int e = tid; e < N * kChunk; e += kThreads) {
-      const int r = e / kChunk;
-      const int c = e % kChunk;
-      const bool in = c < kc;
-      const size_t off = static_cast<size_t>(r) * D + k0 + c;
-      sa[r * KP + c] = in ? to_f32(xa[off]) : 0.f;
-      if (!same) sp[r * KP + c] = in ? to_f32(xp[off]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < kPerThread; ++u) {
-      const int e = tid + u * kThreads;
-      if (e < nn) {
-        const float* ra = sa + (e / N) * KP;
-        const float* rb = sa + (e % N) * KP;
-        float s = acc_a[u];
-#pragma unroll 16
-        for (int c = 0; c < kChunk; ++c) s = fmaf(ra[c], rb[c], s);
-        acc_a[u] = s;
-        if (!same) {
-          const float* pa = sp + (e / N) * KP;
-          const float* pb = sp + (e % N) * KP;
-          float t = acc_p[u];
-#pragma unroll 16
-          for (int c = 0; c < kChunk; ++c) t = fmaf(pa[c], pb[c], t);
-          acc_p[u] = t;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int u = 0; u < kPerThread; ++u) {
-    const int e = tid + u * kThreads;
-    if (e < nn) {
-      ga[e] = acc_a[u];
-      gp[e] = same ? acc_a[u] : acc_p[u];
-    }
-  }
+  float acc_a[8][4], acc_p[8][4], nsq_a, nsq_p;
+  gram_tiles<T>(xa, xp, N, D, i0, j0, same != 0, vec_ok != 0, panels, acc_a, acc_p, nsq_a, nsq_p);
+  m_a[tid] = cosine ? fmaxf(sqrtf(nsq_a), eps) : 1.f;
+  m_p[tid] = cosine ? fmaxf(sqrtf(same ? nsq_a : nsq_p), eps) : 1.f;
   __syncthreads();
 
-  float fused_vals[kPerThread];
+  float* o = out + static_cast<size_t>(b) * N * N;
 #pragma unroll
-  for (int u = 0; u < kPerThread; ++u) {
-    const int e = tid + u * kThreads;
-    fused_vals[u] = 0.f;
-    if (e < nn) {
-      const int i = e / N;
-      const int j = e % N;
-      float ra = ga[e];
-      float rp = gp[e];
-      if (cosine) {
-        ra = ra / (fmaxf(sqrtf(ga[i * N + i]), eps) * fmaxf(sqrtf(ga[j * N + j]), eps));
-        rp = rp / (fmaxf(sqrtf(gp[i * N + i]), eps) * fmaxf(sqrtf(gp[j * N + j]), eps));
-      }
-      const float rac = fmaxf(ra, 0.f);
-      const float rpc = fmaxf(rp, 0.f);
-      float fused = 0.f;
-      float ra_pow = 1.f;
-      for (int p = 0; p <= P; ++p) {
-        float rp_pow = 1.f;
-        for (int q = 0; q <= Q; ++q) {
-          fused += __ldg(coeffs + p * (Q + 1) + q) * (ra_pow * rp_pow);
-          rp_pow *= (q == 0 ? rp : rpc);
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int li = warp * 16 + g + (e >> 1) * 8;
+      const int lj = n * 8 + tg * 2 + (e & 1);
+      const int i = i0 + li;
+      const int j = j0 + lj;
+      if (i < N && j < N) {
+        const float ra = acc_a[n][e] / (m_a[li] * m_a[kTile + lj]);
+        const float rp = (same ? acc_a[n][e] : acc_p[n][e]) / (m_p[li] * m_p[kTile + lj]);
+        const float rac = fmaxf(ra, 0.f);
+        const float rpc = fmaxf(rp, 0.f);
+        float fused = 0.f;
+        float ra_pow = 1.f;
+        for (int p = 0; p <= P; ++p) {
+          float rp_pow = 1.f;
+          for (int q = 0; q <= Q; ++q) {
+            fused += __ldg(coeffs + p * (Q + 1) + q) * (ra_pow * rp_pow);
+            rp_pow *= (q == 0 ? rp : rpc);
+          }
+          ra_pow *= (p == 0 ? ra : rac);
         }
-        ra_pow *= (p == 0 ? ra : rac);
+        o[static_cast<size_t>(i) * N + j] = fmaxf(fused, 0.f);
       }
-      fused_vals[u] = fused;
     }
-  }
-  __syncthreads();  // every Gram read is done before ga is overwritten
-
-#pragma unroll
-  for (int u = 0; u < kPerThread; ++u) {
-    const int e = tid + u * kThreads;
-    if (e < nn) ga[e] = fused_vals[u];
-  }
-  __syncthreads();
-
-  float* o = out + static_cast<size_t>(b) * nn;
-  for (int e = tid; e < nn; e += kThreads) {
-    const int i = e / N;
-    const int j = e % N;
-    const float g = symmetric ? 0.5f * (ga[e] + ga[j * N + i]) : ga[e];
-    o[e] = fmaxf(g, 0.f);
   }
 }
 
 template <typename T>
 cudaError_t launch(const void* ta, const void* tp, const void* coeffs, void* out, int B, int N,
-                   int D, int P, int Q, int cosine, float eps, int symmetric, cudaStream_t stream) {
-  const size_t smem =
-      (2 * static_cast<size_t>(N) * (kChunk + 1) + 2 * static_cast<size_t>(N) * N) * sizeof(float);
+                   int D, int P, int Q, int cosine, float eps, cudaStream_t stream) {
+  const size_t smem = 4 * static_cast<size_t>(GramSmem<T>::kPanel) * sizeof(T);
   auto kernel = gpf_fwd_kernel<T>;
   cudaError_t err = emct_allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int same = ta == tp ? 1 : 0;
-  kernel<<<B, kThreads, smem, stream>>>(static_cast<const T*>(ta), static_cast<const T*>(tp),
-                                         static_cast<const float*>(coeffs),
-                                         static_cast<float*>(out), N, D, P, Q, cosine, eps,
-                                         symmetric, same);
+  const int vec = 16 / static_cast<int>(sizeof(T));
+  const int vec_ok = (D % vec == 0 && reinterpret_cast<uintptr_t>(ta) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(tp) % 16 == 0)
+                         ? 1
+                         : 0;
+  const int tiles = (N + kTile - 1) / kTile;
+  const dim3 grid(tiles, tiles, B);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(ta), static_cast<const T*>(tp),
+                                           static_cast<const float*>(coeffs),
+                                           static_cast<float*>(out), N, D, P, Q, cosine, eps, same,
+                                           vec_ok);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // tokens_a, tokens_p [B, N, D] (dtype), coeffs [P+1, Q+1] f32, out [B, N, N]
-// f32.  Requires 1 <= N <= 64; the Python wrapper checks shapes first.
+// f32.  ``symmetric`` is accepted and changes nothing (see above).  The Python
+// wrapper checks shapes first.
 extern "C" int gpf_fwd(const void* tokens_a, const void* tokens_p, const void* coeffs, void* out,
                        int B, int N, int D, int P, int Q, int cosine, float eps, int symmetric,
                        int dtype, void* stream) {
-  if (N < 1 || N > kMaxN || D < 1 || P < 0 || Q < 0) {
+  (void)symmetric;
+  if (B < 1 || B > 65535 || N < 1 || D < 1 || P < 0 || Q < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == EMCT_DTYPE_F32) {
-    err = launch<float>(tokens_a, tokens_p, coeffs, out, B, N, D, P, Q, cosine, eps, symmetric, s);
+    err = launch<float>(tokens_a, tokens_p, coeffs, out, B, N, D, P, Q, cosine, eps, s);
   } else if (dtype == EMCT_DTYPE_BF16) {
-    err = launch<__nv_bfloat16>(tokens_a, tokens_p, coeffs, out, B, N, D, P, Q, cosine, eps,
-                                symmetric, s);
+    err = launch<__nv_bfloat16>(tokens_a, tokens_p, coeffs, out, B, N, D, P, Q, cosine, eps, s);
   } else {
     err = cudaErrorInvalidValue;
   }

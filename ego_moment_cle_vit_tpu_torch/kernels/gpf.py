@@ -3,13 +3,14 @@
 ``gpf_fwd`` replaces the TPU kernel ``_gpf_kernel`` in
 ``ego_moment_cle_vit_tpu/ops/pallas/gpf.py`` (reached through
 ``fused_gpf_pallas``).  The kernel source and its design note are in
-``csrc/gpf_fwd.cu``: one block per batch element keeps both ``[N, N]`` Grams
-on chip and runs the polynomial, symmetrization and clamp there.  The output
-is fp32 whatever the token dtype, as on the TPU.
+``csrc/gpf_fwd.cu``: one block per 64 x 64 output tile keeps its piece of both
+Grams on chip and runs the polynomial, symmetrization and clamp there, so a
+Swin's 49 tokens and a ViT's 196 take the same kernel.  The output is fp32
+whatever the token dtype, as on the TPU.
 
 ``gpf_bwd`` replaces ``_gpf_bwd_kernel`` of the same file
-(``csrc/gpf_bwd.cu``): the analytic VJP in one pass per batch element, token
-gradients for both views and per-batch coefficient gradients.  ``gpf`` is the
+(``csrc/gpf_bwd.cu``): the analytic VJP in two tiled kernels, token gradients
+for both views and per-batch coefficient gradients.  ``gpf`` is the
 differentiable entry point the model calls, a ``torch.autograd.Function``
 that saves ``(tokens_a, tokens_p, coeffs)``.
 """
@@ -32,12 +33,18 @@ _SIGNATURES = {
 }
 _BWD_SIGNATURES = {
     "gpf_bwd": (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2
         + [ctypes.c_void_p],
         ctypes.c_int,
     )
 }
-MAX_TOKENS = 64
+TILE = 64  # output rows and columns per block
+# The tiled kernels have no token limit of their own; this is the largest
+# count they are held to.  The TPU kernel's envelope (``fused_gpf_fits``:
+# (2*N*D + 6*N*N) * 4 bytes < 12 MiB) ends earlier: it admits a ViT at 224
+# (N = 196, D up to 1024) and not one at 448 (N = 784: its six [N, N] work
+# tiles alone pass the limit).
+MAX_TOKENS = 1024
 MAX_DEGREE = 3  # the backward kernel's compiled polynomial degree limit
 
 
@@ -181,7 +188,9 @@ def _check(tokens_a, tokens_p, coeffs, similarity):
     if tokens_a.dtype != tokens_p.dtype:
         raise TypeError(f"token dtypes differ: {tokens_a.dtype} vs {tokens_p.dtype}")
     if not 1 <= tokens_a.shape[1] <= MAX_TOKENS:
-        raise ValueError(f"kernel takes 1..{MAX_TOKENS} tokens, got N={tokens_a.shape[1]}")
+        raise ValueError(
+            f"kernel takes 1..{MAX_TOKENS} tokens, got N={tokens_a.shape[1]} (the TPU kernel it "
+            "replaces ends at (2*N*D + 6*N*N) * 4 bytes < 12 MiB)")
     if coeffs.dim() != 2 or coeffs.dtype != torch.float32:
         raise ValueError(f"coeffs must be float32 [P+1, Q+1], got {coeffs.dtype} "
                          f"{tuple(coeffs.shape)}")
@@ -261,10 +270,15 @@ def gpf_bwd(
     dta = torch.empty_like(tokens_a)
     dtp = torch.empty_like(tokens_p)
     dc = torch.empty((b, *coeffs.shape), dtype=torch.float32, device=tokens_a.device)
+    # W [B,2,N,N], row-reduction partials [B,2,tiles,N], norms and gates
+    # [B,4,N], coefficient partials [B,tiles^2,16]: see csrc/gpf_bwd.cu
+    tiles = -(-n // TILE)
+    scratch = torch.empty(b * (2 * n * n + 2 * tiles * n + 4 * n + 16 * tiles * tiles),
+                          dtype=torch.float32, device=tokens_a.device)
     lib = _build.load("gpf_bwd", _BWD_SIGNATURES)
     rc = lib.gpf_bwd(
         tokens_a.data_ptr(), tokens_p.data_ptr(), coeffs.data_ptr(), g.data_ptr(),
-        dta.data_ptr(), dtp.data_ptr(), dc.data_ptr(),
+        dta.data_ptr(), dtp.data_ptr(), dc.data_ptr(), scratch.data_ptr(),
         b, n, d, coeffs.shape[0] - 1, coeffs.shape[1] - 1, int(similarity == "cosine"),
         float(eps), int(symmetric_enforce), code, _build.stream_ptr(tokens_a.device),
     )

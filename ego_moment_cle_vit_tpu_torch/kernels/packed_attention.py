@@ -1,0 +1,306 @@
+"""Packed-layout multi-head self-attention: CUDA kernels and plain versions.
+
+``packed_attention_fwd`` replaces the TPU kernel ``_fwd_kernel`` in
+``ego_moment_cle_vit_tpu/ops/pallas/window_attention.py`` (reached through
+``flash_window_attention``), ``packed_attention_bwd`` its ``_bwd_kernel``.
+The layout is the qkv projection's own: ``qkv [B, W, T, 3C]`` (``W`` token
+groups per image, ``T`` tokens per group, head ``h`` in columns
+``h*d:(h+1)*d`` of each third), an optional ``bias [H or 1, T, T]`` and an
+optional ``mask [W or 1, T, T]``, both fp32 and additive; ``None`` stands for
+zeros.  The ViT backbone calls it with one group per image, ``T = 1 + N``
+tokens, no bias and no mask.
+
+The kernel sources and their design notes are in
+``csrc/packed_attention_fwd.cu`` and ``csrc/packed_attention_bwd.cu``: blocks
+own 128 query rows (128 keys for dk / dv) and walk the other axis in tiles, so
+nothing of size ``T x T`` is ever held; the backward recomputes the
+probabilities from qkv and reduces everything inside a block or through
+ordered partials, so gradients are the same from run to run.
+``packed_attention`` is the differentiable entry point the model calls, a
+``torch.autograd.Function`` that saves ``(qkv, bias, mask)`` only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_SIGNATURES = {
+    "packed_attention_fwd": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        ctypes.c_int,
+    )
+}
+_BWD_SIGNATURES = {
+    "packed_attention_bwd": (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                                      ctypes.c_void_p],
+        ctypes.c_int,
+    )
+}
+HEAD_DIMS = (32, 64)  # the kernels' compiled head widths
+MAX_TOKENS = 256  # tokens per group the wrappers admit; longer sequences are another kernel's
+ROWS = 128  # tokens a block owns (queries; keys in the dk / dv kernel)
+TILE = 64  # tokens per tile of the axis a block walks; keys are padded to it
+# the bias-gradient kernel aims at this many blocks per launch: each block
+# walks a chunk of (image, group) pairs for one (128 queries, 64 keys, head)
+_DBIAS_TARGET_BLOCKS = 1024
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """The plain versions' compute type: fp32, or fp64 when given fp64."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def _heads(x: torch.Tensor, parts: int, num_heads: int):
+    """[B, W, T, parts*C] -> ``parts`` tensors [B, W, H, T, d]."""
+    b, w, t, pc = x.shape
+    d = pc // parts // num_heads
+    x = _wide(x).reshape(b, w, t, parts, num_heads, d).permute(3, 0, 1, 4, 2, 5)
+    return tuple(x[i] for i in range(parts))
+
+
+def _merge(x: torch.Tensor) -> torch.Tensor:
+    """[B, W, H, T, d] -> [B, W, T, H*d]."""
+    b, w, h, t, d = x.shape
+    return x.permute(0, 1, 3, 2, 4).reshape(b, w, t, h * d)
+
+
+def _probabilities(q, k, bias, mask, scale):
+    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if bias is not None:
+        logits = logits + _wide(bias)[None, None]  # [Hb, T, T] broadcasts over heads
+    if mask is not None:
+        logits = logits + _wide(mask)[None, :, None]  # [Wm, T, T] broadcasts over groups
+    return torch.softmax(logits, dim=-1)
+
+
+def packed_attention_plain(
+    qkv: torch.Tensor,
+    bias: torch.Tensor | None,
+    mask: torch.Tensor | None,
+    num_heads: int,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of the forward kernel, fp32 inside (fp64 for
+    fp64 input): ``softmax(q k^T * scale + bias + mask)`` rounded to qkv's
+    dtype, times v.  qkv [B, W, T, 3C] -> [B, W, T, C] in qkv's dtype."""
+    q, k, v = _heads(qkv, 3, num_heads)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    probs = _probabilities(q, k, bias, mask, scale)
+    return _merge(torch.matmul(_wide(probs.to(qkv.dtype)), v)).to(qkv.dtype)
+
+
+def packed_attention_bwd_plain(
+    qkv: torch.Tensor,
+    bias: torch.Tensor | None,
+    mask: torch.Tensor | None,
+    dout: torch.Tensor,
+    num_heads: int,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Plain PyTorch version of the backward kernel, the same formulas.
+
+    qkv [B, W, T, 3C], dout [B, W, T, C] -> (dqkv like qkv, dbias like bias in
+    fp32, or None without a bias).  The probabilities are recomputed; P is
+    rounded to qkv's dtype before ``P^T do`` and ds before the dq / dk
+    products, as in the kernel; everything else is fp32 (fp64 for fp64 input).
+    """
+    dt = qkv.dtype
+    q, k, v = _heads(qkv, 3, num_heads)
+    (do,) = _heads(dout, 1, num_heads)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    probs = _probabilities(q, k, bias, mask, scale)
+    dv = torch.matmul(_wide(probs.to(dt)).transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = probs * (dp - torch.sum(dp * probs, dim=-1, keepdim=True))
+    dbias = None
+    if bias is not None:
+        dbias = ds.sum(dim=(0, 1))  # [H, T, T]
+        if bias.shape[0] == 1:
+            dbias = dbias.sum(dim=0, keepdim=True)
+        dbias = dbias.to(bias.dtype)
+    ds_c = _wide(ds.to(dt))
+    dq = torch.matmul(ds_c, k) * scale
+    dk = torch.matmul(ds_c.transpose(-1, -2), q) * scale
+    dqkv = torch.cat([_merge(t) for t in (dq, dk, dv)], dim=-1).to(dt)
+    return dqkv, dbias
+
+
+def kernel_supports(tokens: int, channels: int, num_heads: int) -> bool:
+    """Whether the CUDA kernels take ``tokens`` per group at this width."""
+    return (num_heads > 0 and channels % num_heads == 0
+            and channels // num_heads in HEAD_DIMS and 1 <= tokens <= MAX_TOKENS)
+
+
+def _check(qkv, bias, mask, num_heads):
+    if qkv.dim() != 4 or qkv.shape[-1] % 3 != 0:
+        raise ValueError(f"qkv must be [B, W, T, 3C], got {tuple(qkv.shape)}")
+    b, w, t, c3 = qkv.shape
+    c = c3 // 3
+    if not kernel_supports(t, c, num_heads):
+        raise ValueError(
+            f"the kernel needs C / heads in {HEAD_DIMS} and T <= {MAX_TOKENS}, got C={c}, "
+            f"heads={num_heads}, T={t}")
+    if qkv.data_ptr() % 16:
+        raise ValueError("qkv must start on a 16-byte boundary (the kernel loads 16-byte rows)")
+    for name, x, lead in (("bias", bias, (num_heads, 1)), ("mask", mask, (w, 1))):
+        if x is None:
+            continue
+        if x.device != qkv.device:
+            raise ValueError(f"{name} is on {x.device}, qkv on {qkv.device}")
+        if (x.dtype != torch.float32 or x.dim() != 3 or x.shape[0] not in lead
+                or tuple(x.shape[1:]) != (t, t)):
+            raise ValueError(f"{name} must be float32 [{lead[0]} or 1, {t}, {t}], got {x.dtype} "
+                             f"{tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not qkv.is_contiguous():
+        raise ValueError("qkv must be contiguous")
+
+
+def _ptr(x: torch.Tensor | None):
+    return x.data_ptr() if x is not None else None
+
+
+def packed_attention_fwd(
+    qkv: torch.Tensor,
+    bias: torch.Tensor | None,
+    mask: torch.Tensor | None,
+    num_heads: int,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """MHSA over packed token groups, qkv [B, W, T, 3C] -> [B, W, T, C].
+
+    CPU tensors take :func:`packed_attention_plain`; CUDA tensors launch the
+    kernel (after dtype, shape and contiguity checks) or raise.  Counts its
+    launches in ``packed_attention_fwd.launches``.
+    """
+    if qkv.device.type == "cpu":
+        return packed_attention_plain(qkv, bias, mask, num_heads, scale)
+    if qkv.device.type != "cuda":
+        raise RuntimeError(f"packed_attention_fwd: unsupported device {qkv.device}")
+    _check(qkv, bias, mask, num_heads)
+    code = _build.dtype_code(qkv, "packed_attention_fwd")
+    b, w, t, c3 = qkv.shape
+    c = c3 // 3
+    scale = (c // num_heads) ** -0.5 if scale is None else scale
+    out = torch.empty((b, w, t, c), dtype=qkv.dtype, device=qkv.device)
+    lib = _build.load("packed_attention_fwd", _SIGNATURES)
+    rc = lib.packed_attention_fwd(
+        qkv.data_ptr(), _ptr(bias), _ptr(mask), out.data_ptr(), b, w, t, c, num_heads,
+        bias.shape[0] if bias is not None else 1, mask.shape[0] if mask is not None else 1,
+        float(scale), code, _build.stream_ptr(qkv.device),
+    )
+    _build.check(lib, rc, "packed_attention_fwd")
+    packed_attention_fwd.launches += 1
+    return out
+
+
+packed_attention_fwd.launches = 0
+
+
+def _dbias_chunks(pairs: int, blocks_per_pair: int) -> int:
+    """How many chunks of (image, group) pairs the bias-gradient grid gets:
+    enough blocks to fill the card, few enough that the partials stay small.
+    Every chunk is non-empty."""
+    want = max(1, -(-_DBIAS_TARGET_BLOCKS // blocks_per_pair))
+    per_chunk = -(-pairs // min(pairs, want))
+    return -(-pairs // per_chunk)
+
+
+def packed_attention_bwd(
+    qkv: torch.Tensor,
+    bias: torch.Tensor | None,
+    mask: torch.Tensor | None,
+    dout: torch.Tensor,
+    num_heads: int,
+    scale: float | None = None,
+    need_dbias: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """VJP of :func:`packed_attention_fwd`: (dqkv, dbias); the mask gets none.
+
+    ``dbias`` is None without a bias or with ``need_dbias=False`` (then the
+    kernel skips that work).  CPU tensors take
+    :func:`packed_attention_bwd_plain`; CUDA tensors launch the kernel (after
+    the forward's checks, on ``dout`` too) or raise.  Counts its launches in
+    ``packed_attention_bwd.launches``.
+    """
+    if qkv.device.type == "cpu":
+        dqkv, dbias = packed_attention_bwd_plain(qkv, bias, mask, dout, num_heads, scale)
+        return dqkv, dbias if need_dbias else None
+    if qkv.device.type != "cuda":
+        raise RuntimeError(f"packed_attention_bwd: unsupported device {qkv.device}")
+    _check(qkv, bias, mask, num_heads)
+    b, w, t, c3 = qkv.shape
+    c = c3 // 3
+    if (dout.device != qkv.device or dout.dtype != qkv.dtype
+            or tuple(dout.shape) != (b, w, t, c) or not dout.is_contiguous()):
+        raise ValueError(f"dout must be a contiguous {qkv.dtype} [{b}, {w}, {t}, {c}] on "
+                         f"{qkv.device}, got {dout.dtype} {tuple(dout.shape)} on {dout.device}")
+    if dout.data_ptr() % 16:
+        raise ValueError("dout must start on a 16-byte boundary")
+    code = _build.dtype_code(qkv, "packed_attention_bwd")
+    scale = (c // num_heads) ** -0.5 if scale is None else scale
+    dev = qkv.device
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((2, b * w, num_heads, t), dtype=torch.float32, device=dev)
+    dbias = partial = None
+    n_chunks = 1
+    if bias is not None and need_dbias:
+        n_chunks = _dbias_chunks(b * w, -(-t // ROWS) * -(-t // TILE) * num_heads)
+        dbias = torch.empty_like(bias)
+        partial = torch.empty((n_chunks, num_heads, t, t), dtype=torch.float32, device=dev)
+    lib = _build.load("packed_attention_bwd", _BWD_SIGNATURES)
+    rc = lib.packed_attention_bwd(
+        qkv.data_ptr(), _ptr(bias), _ptr(mask), dout.data_ptr(), dqkv.data_ptr(),
+        stats.data_ptr(), _ptr(partial), _ptr(dbias), b, w, t, c, num_heads,
+        bias.shape[0] if bias is not None else 1, mask.shape[0] if mask is not None else 1,
+        float(scale), n_chunks, code, _build.stream_ptr(dev),
+    )
+    _build.check(lib, rc, "packed_attention_bwd")
+    packed_attention_bwd.launches += 1
+    return dqkv, dbias
+
+
+packed_attention_bwd.launches = 0
+
+
+class PackedAttentionFunction(torch.autograd.Function):
+    """Packed MHSA under autograd: forward and backward each go through their
+    wrapper (kernel on CUDA tensors, plain version on CPU tensors).  Saves
+    ``(qkv, bias, mask)``; the probabilities are recomputed.  The bias
+    gradient is computed only when autograd asks for it."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, mask, num_heads, scale):
+        ctx.save_for_backward(qkv, bias, mask)
+        ctx.geometry = (num_heads, scale)
+        return packed_attention_fwd(qkv, bias, mask, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, bias, mask = ctx.saved_tensors
+        dqkv, dbias = packed_attention_bwd(
+            qkv, bias, mask, dout.contiguous(), *ctx.geometry,
+            need_dbias=bias is not None and ctx.needs_input_grad[1])
+        return dqkv, dbias, None, None, None
+
+
+def packed_attention(
+    qkv: torch.Tensor,
+    bias: torch.Tensor | None,
+    mask: torch.Tensor | None,
+    num_heads: int,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Differentiable packed MHSA (to qkv and bias), qkv [B, W, T, 3C] ->
+    [B, W, T, C].  Where no gradient can be asked for, the forward wrapper is
+    called directly."""
+    wants_grad = qkv.requires_grad or (bias is not None and bias.requires_grad)
+    if not (torch.is_grad_enabled() and wants_grad):
+        return packed_attention_fwd(qkv, bias, mask, num_heads, scale)
+    return PackedAttentionFunction.apply(qkv, bias, mask, num_heads, scale)

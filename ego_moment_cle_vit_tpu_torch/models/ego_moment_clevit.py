@@ -18,7 +18,7 @@ from torch import nn
 
 from ..losses import graph_alignment_mse_loss, roll_negative_triplet_loss
 from ..utils.device import pin_fp32_precision, resolve_device
-from .backbone import CLEViTDualStream
+from .backbone import CLEViTDualStream, backbone_num_features, backbone_num_patches
 from .classifier_head import ClassifierHead, _not_ported
 from .gpf import GraphPolynomialFusion
 from .layers import Dense, init_parameters
@@ -209,10 +209,19 @@ def create_model(
             "attn_kernel='fused_half' is not ported yet (ROADMAP.md, 'TPU kernels to port', "
             "fused_attn_half_spatial)"
         )
+    backbone_name = mcfg.get("backbone_name", "swin_base_patch4_window7_224")
+    img_size = config.get("data", {}).get("input_size")
+    n_tok, d_tok = backbone_num_patches(backbone_name, img_size), backbone_num_features(backbone_name)
+    if n_tok >= d_tok:
+        raise NotImplementedError(
+            f"'{backbone_name}' at input size {img_size} gives N={n_tok} >= D={d_tok} tokens, "
+            "which takes the moment head's dense Newton–Schulz route; it is not ported yet "
+            "(ROADMAP.md, 'TPU kernels to port', newton_schulz_isqrt_pallas)"
+        )
     model = EGOMomentCLEViT(
         num_classes=num_classes,
-        backbone_name=mcfg.get("backbone_name", "swin_base_patch4_window7_224"),
-        img_size=config.get("data", {}).get("input_size"),
+        backbone_name=backbone_name,
+        img_size=img_size,
         gpf_degree_p=gpf.get("degree_p", 2),
         gpf_degree_q=gpf.get("degree_q", 2),
         gpf_similarity=gpf.get("similarity", "cosine"),

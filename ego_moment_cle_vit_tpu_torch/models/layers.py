@@ -87,7 +87,8 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
 
     Dense and conv kernels: truncated normal with std sqrt(1/fan_in) (flax's
     lecun_normal); biases zero; LayerNorm ones/zeros; Swin relative-position
-    tables: truncated normal, std 0.02.  GPF coefficients and sketch
+    tables and the ViT's CLS token and position embedding: truncated normal,
+    std 0.02.  GPF coefficients and sketch
     matrices are initialized by their own modules.
     """
     for sub in module.modules():
@@ -97,9 +98,10 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             fan_in = sub.weight[0].numel()
             _trunc_normal(sub.weight, _LECUN / math.sqrt(fan_in), generator)
             nn.init.zeros_(sub.bias)
-        table = getattr(sub, "relative_position_bias_table", None)
-        if isinstance(table, nn.Parameter):
-            _trunc_normal(table, 0.02, generator)
+        for name in ("relative_position_bias_table", "cls_token", "pos_embed"):
+            table = getattr(sub, name, None)
+            if isinstance(table, nn.Parameter):
+                _trunc_normal(table, 0.02, generator)
 
 
 # flax's lecun_normal divides by the std of a normal truncated at +-2

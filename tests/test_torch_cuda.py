@@ -16,12 +16,20 @@ output's rounding, the plain version rounding P and ds as the kernel does),
 dbias within 1e-3 (fp32) / 2e-2 (bf16) of its largest entry; the GPF token
 gradients within 1e-3 (fp32) / 2e-2 (bf16) of each row's largest entry and
 dc within 1e-3 relative.  Each check also rejects a control.
+
+Packed-layout attention (the ViT's kernels) is held like window attention:
+forward fp32 1e-4, bf16 1e-2 + 2^-7 |ref| per element (P rounded to bf16 before
+P v on both sides; the kernel rounds the unnormalized probabilities of its
+online softmax); backward as above.  Two runs of the backward give the same
+bits.  The GPF kernels are tiled, so they are held at a ViT's 196 tokens and at
+784 as well as at 49.
 """
 
 import pytest
 import torch
 
 from ego_moment_cle_vit_tpu_torch.kernels import gpf as tgpf
+from ego_moment_cle_vit_tpu_torch.kernels import packed_attention as tpa
 from ego_moment_cle_vit_tpu_torch.kernels import window_attention as twa
 from ego_moment_cle_vit_tpu_torch.models.swin import _attn_mask, _relative_position_index
 
@@ -61,10 +69,11 @@ def test_cuda_window_attention_matches_plain(cuda_device, dtype, tol, hp, c, hea
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("similarity", ["dot", "cosine"])
-def test_cuda_gpf_matches_plain(cuda_device, dtype, similarity):
+@pytest.mark.parametrize("n, d", [(49, 256), (196, 192), (784, 40)])
+def test_cuda_gpf_matches_plain(cuda_device, dtype, similarity, n, d):
     g = torch.Generator(device=cuda_device).manual_seed(0)
-    ta = torch.randn(4, 49, 256, generator=g, device=cuda_device).to(dtype)
-    tp = torch.randn(4, 49, 256, generator=g, device=cuda_device).to(dtype)
+    ta = torch.randn(4, n, d, generator=g, device=cuda_device).to(dtype)
+    tp = torch.randn(4, n, d, generator=g, device=cuda_device).to(dtype)
     c = torch.rand(3, 3, generator=g, device=cuda_device)
     for pos in (ta, tp):
         out = tgpf.gpf_fwd(ta, pos, c, similarity)
@@ -72,7 +81,7 @@ def test_cuda_gpf_matches_plain(cuda_device, dtype, similarity):
         scale = tgpf.gpf_error_scale(ta, pos, c, similarity)
         assert out.dtype == torch.float32
         assert ((out - ref).abs() <= 2e-4 * scale).all()
-        zeroed = out * torch.eye(49, device=cuda_device)
+        zeroed = out * torch.eye(n, device=cuda_device)
         assert not ((zeroed - ref).abs() <= 2e-4 * scale).all()
 
 
@@ -129,7 +138,7 @@ def test_cuda_window_attention_bwd_matches_plain(cuda_device, dtype, atol, rtol,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-3), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("similarity", ["dot", "cosine"])
-@pytest.mark.parametrize("b, n, d", [(4, 49, 256), (3, 16, 100)])
+@pytest.mark.parametrize("b, n, d", [(4, 49, 256), (3, 16, 100), (2, 196, 192), (1, 784, 64)])
 def test_cuda_gpf_bwd_matches_plain(cuda_device, dtype, tol, similarity, b, n, d):
     g = torch.Generator(device=cuda_device).manual_seed(2)
     ta = torch.randn(b, n, d, generator=g, device=cuda_device).to(dtype)
@@ -157,3 +166,95 @@ def test_cuda_gpf_bwd_matches_plain(cuda_device, dtype, tol, similarity, b, n, d
     tgpf.gpf(x, x, c, similarity).backward(cot)
     rta, rtp, _ = tgpf.gpf_bwd_plain(ta, ta, c, cot, similarity)
     assert rows_close(x.grad, rta.float() + rtp.float())
+
+
+# (B, W, T, C, heads, bias heads or None, mask groups or None): the ViT call at
+# two widths, a Swin packed shape with everything switched on, shared bias and
+# mask, and the longest group the wrappers admit
+PACKED = [(3, 1, 197, 768, 12, None, None), (2, 1, 197, 192, 3, None, None),
+          (3, 4, 98, 128, 4, 4, 4), (2, 3, 50, 128, 2, 1, 1), (2, 1, 256, 64, 2, 2, None)]
+
+
+def _packed(device, dtype, b, w, t, c, heads, hb, wm):
+    g = torch.Generator(device=device).manual_seed(3)
+    qkv = torch.randn(b, w, t, 3 * c, generator=g, device=device).to(dtype)
+    dout = torch.randn(b, w, t, c, generator=g, device=device).to(dtype)
+    bias = torch.randn(hb, t, t, generator=g, device=device) if hb else None
+    mask = (torch.where(torch.rand(wm, t, t, generator=g, device=device) < 0.2, -100.0, 0.0)
+            if wm else None)
+    return qkv, dout, bias, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-4, 0.0),
+                                               (torch.bfloat16, 1e-2, 2.0**-7)])
+@pytest.mark.parametrize("b, w, t, c, heads, hb, wm", PACKED)
+def test_cuda_packed_attention_matches_plain(cuda_device, dtype, atol, rtol, b, w, t, c, heads,
+                                             hb, wm):
+    qkv, _, bias, mask = _packed(cuda_device, dtype, b, w, t, c, heads, hb, wm)
+    before = tpa.packed_attention_fwd.launches
+    out = tpa.packed_attention_fwd(qkv, bias, mask, heads)
+    assert tpa.packed_attention_fwd.launches == before + 1
+    ref = tpa.packed_attention_plain(qkv, bias, mask, heads)
+    assert out.dtype == dtype and out.shape == (b, w, t, c)
+    assert _close(out, ref, atol, rtol)
+    # controls: the padded keys left unmasked (zero keys join the softmax), and
+    # the bias dropped, both fall outside
+    pad = -(-t // 64) * 64 - t
+    if pad:
+        padded = torch.nn.functional.pad(qkv, (0, 0, 0, pad))
+        pb = None if bias is None else torch.nn.functional.pad(bias, (0, pad, 0, pad))
+        pm = None if mask is None else torch.nn.functional.pad(mask, (0, pad, 0, pad))
+        ctrl = tpa.packed_attention_plain(padded, pb, pm, heads)[:, :, :t]
+        assert not _close(ctrl, ref, atol, rtol)
+    if bias is not None:
+        assert not _close(tpa.packed_attention_plain(qkv, None, mask, heads), ref, atol, rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, atol, rtol, btol", [(torch.float32, 1e-4, 1e-4, 1e-3),
+                                                     (torch.bfloat16, 2e-2, 2.0**-6, 2e-2)])
+@pytest.mark.parametrize("b, w, t, c, heads, hb, wm", PACKED)
+def test_cuda_packed_attention_bwd_matches_plain(cuda_device, dtype, atol, rtol, btol, b, w, t,
+                                                 c, heads, hb, wm):
+    qkv, dout, bias, mask = _packed(cuda_device, dtype, b, w, t, c, heads, hb, wm)
+    before = tpa.packed_attention_bwd.launches
+    dqkv, dbias = tpa.packed_attention_bwd(qkv, bias, mask, dout, heads)
+    assert tpa.packed_attention_bwd.launches == before + 1
+    ref_dqkv, ref_dbias = tpa.packed_attention_bwd_plain(qkv, bias, mask, dout, heads)
+    assert dqkv.dtype == dtype and _close(dqkv, ref_dqkv, atol, rtol)
+    ctrl = ref_dqkv.clone()
+    ctrl[..., c:2 * c] = 0  # a control: dK zeroed falls outside
+    assert not _close(ctrl, ref_dqkv, atol, rtol)
+    if bias is None:
+        assert dbias is None
+    else:
+        assert dbias.dtype == torch.float32 and dbias.shape == bias.shape
+        top = ref_dbias.abs().max().item()
+        assert (dbias - ref_dbias).abs().max().item() <= btol * top
+        assert top > btol * top  # a control: the bias gradient dropped falls outside
+        assert tpa.packed_attention_bwd(qkv, bias, mask, dout, heads, need_dbias=False)[1] is None
+    # the same gradient twice, bit for bit
+    again, dbias_again = tpa.packed_attention_bwd(qkv, bias, mask, dout, heads)
+    assert torch.equal(again, dqkv)
+    assert dbias is None or torch.equal(dbias_again, dbias)
+    # and the Function routes autograd through the same kernels
+    q2 = qkv.clone().requires_grad_()
+    b2 = None if bias is None else bias.clone().requires_grad_()
+    tpa.packed_attention(q2, b2, mask, heads).backward(dout)
+    assert torch.equal(q2.grad, dqkv) and (b2 is None or torch.equal(b2.grad, dbias))
+
+
+@pytest.mark.cuda
+def test_cuda_packed_attention_rejects_bad_inputs(cuda_device):
+    qkv = torch.zeros(1, 1, 9, 3 * 96, device=cuda_device)  # head dim 48 is not compiled
+    with pytest.raises(ValueError, match="C / heads"):
+        tpa.packed_attention_fwd(qkv, None, None, 2)
+    long = torch.zeros(1, 1, 785, 3 * 64, device=cuda_device)
+    with pytest.raises(ValueError, match="T <= 256"):
+        tpa.packed_attention_fwd(long, None, None, 1)
+    ok = torch.zeros(1, 2, 9, 3 * 64, device=cuda_device)
+    with pytest.raises(ValueError, match="bias must be float32"):
+        tpa.packed_attention_fwd(ok, torch.zeros(3, 9, 9, device=cuda_device), None, 2)
+    with pytest.raises(ValueError, match="dout must be"):
+        tpa.packed_attention_bwd(ok, None, None, torch.zeros(1, 2, 9, 32, device=cuda_device), 2)

@@ -15,6 +15,13 @@ of O(1) terms; GPF token gradients and dcoeffs 1e-4 of their largest entry)
 and against ``torch.autograd.grad`` of the forward plain versions in fp64
 (1e-9 relative: the same function, differentiated by hand).  The two
 ``torch.autograd.Function``s pass ``gradcheck`` on the CPU.
+
+Packed-layout attention (the ViT's kernel): ``packed_attention_plain`` /
+``packed_attention_bwd_plain`` against ``flash_window_attention`` and its
+``jax.vjp`` in interpret mode (forward 2e-5 absolute, dqkv 5e-5, dbias 2e-4:
+fp32 sum order over up to 197 keys and up to 16 (image, group) pairs), against
+fp64 autograd (1e-9 relative) and under ``gradcheck``; GPF at a ViT's 196
+tokens against ``fused_gpf_pallas`` as at 49.
 """
 
 import numpy as np
@@ -30,8 +37,12 @@ from ego_moment_cle_vit_tpu.models.swin import (
     _build_bias_bd,
 )
 from ego_moment_cle_vit_tpu.ops.pallas.gpf import fused_gpf_pallas
-from ego_moment_cle_vit_tpu.ops.pallas.window_attention import flash_window_attention_spatial
+from ego_moment_cle_vit_tpu.ops.pallas.window_attention import (
+    flash_window_attention,
+    flash_window_attention_spatial,
+)
 from ego_moment_cle_vit_tpu_torch.kernels import gpf as tgpf
+from ego_moment_cle_vit_tpu_torch.kernels import packed_attention as tpa
 from ego_moment_cle_vit_tpu_torch.kernels import window_attention as twa
 from ego_moment_cle_vit_tpu_torch.models.swin import _attn_mask, _relative_position_index
 from ego_moment_cle_vit_tpu_torch.ops.graph import gpf_fuse
@@ -327,3 +338,163 @@ def test_backward_wrappers_dispatch_like_the_forward_ones():
 def test_backward_grid_chunks_cover_every_image(batch, blocks):
     n = twa._bwd_chunks(batch, blocks)
     assert 1 <= n <= batch and n * -(-batch // n) >= batch
+
+
+# packed layout: (B, W, T, C, heads, bias heads or None, mask groups or None).
+# The first three are the JAX package's own kernel-test geometries at a smaller
+# batch; then the ViT call (one group, 197 tokens, zero bias and mask), a
+# head-shared bias with a group-shared mask, and a bias without a mask.
+PACKED = [
+    (2, 8, 98, 128, 4, 4, 8),
+    (1, 2, 98, 512, 16, 16, 2),
+    (2, 1, 49, 1024, 32, 32, None),
+    (2, 1, 197, 64, 2, None, None),
+    (2, 3, 50, 64, 2, 1, 1),
+    (1, 2, 17, 64, 1, 1, None),
+]
+
+
+def _packed_inputs(seed, b, w, t, c, heads, hb, wm, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    qkv = rng.normal(size=(b, w, t, 3 * c)).astype(dtype)
+    dout = rng.normal(size=(b, w, t, c)).astype(dtype)
+    bias = (rng.normal(size=(hb, t, t)) * 0.5).astype(dtype) if hb else None
+    mask = (np.where(rng.uniform(size=(wm, t, t)) < 0.2, -100.0, 0.0).astype(dtype)
+            if wm else None)
+    return qkv, dout, bias, mask
+
+
+def _jax_packed_args(qkv, bias, mask):
+    """The JAX kernel takes zeros where the port takes None."""
+    t = qkv.shape[2]
+    zeros = jnp.zeros((1, t, t), jnp.float32)
+    return (jnp.asarray(qkv), zeros if bias is None else jnp.asarray(bias),
+            zeros if mask is None else jnp.asarray(mask))
+
+
+def _opt(x):
+    return torch.from_numpy(x) if x is not None else None
+
+
+@pytest.mark.parametrize("b, w, t, c, heads, hb, wm", PACKED)
+def test_packed_attention_plain_matches_pallas(b, w, t, c, heads, hb, wm):
+    qkv, _, bias, mask = _packed_inputs(20, b, w, t, c, heads, hb, wm)
+    ref = np.asarray(flash_window_attention(*_jax_packed_args(qkv, bias, mask), heads))
+    out = tpa.packed_attention_plain(torch.from_numpy(qkv), _opt(bias), _opt(mask), heads)
+    assert out.shape == (b, w, t, c) and out.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=2e-5)
+    if bias is not None:  # a control: without its bias the same comparison fails
+        ctrl = tpa.packed_attention_plain(torch.from_numpy(qkv), None, _opt(mask), heads)
+        assert np.abs(ctrl.numpy() - ref).max() > 1e-2
+
+
+@pytest.mark.parametrize("b, w, t, c, heads, hb, wm", PACKED)
+def test_packed_attention_bwd_plain_matches_pallas_vjp(b, w, t, c, heads, hb, wm):
+    qkv, dout, bias, mask = _packed_inputs(21, b, w, t, c, heads, hb, wm)
+    j_qkv, j_bias, j_mask = _jax_packed_args(qkv, bias, mask)
+    _, vjp = jax.vjp(lambda x, bb: flash_window_attention(x, bb, j_mask, heads), j_qkv, j_bias)
+    ref_dqkv, ref_dbias = (np.asarray(x) for x in vjp(jnp.asarray(dout)))
+
+    t_qkv = torch.from_numpy(qkv).requires_grad_()
+    t_bias = torch.from_numpy(bias).requires_grad_() if bias is not None else None
+    out = tpa.packed_attention(t_qkv, t_bias, _opt(mask), heads)
+    out.backward(torch.from_numpy(dout))
+    np.testing.assert_allclose(t_qkv.grad.numpy(), ref_dqkv, rtol=0, atol=5e-5)
+    dqkv, dbias = tpa.packed_attention_bwd_plain(torch.from_numpy(qkv), _opt(bias), _opt(mask),
+                                                 torch.from_numpy(dout), heads)
+    assert torch.equal(dqkv, t_qkv.grad)
+    if bias is None:
+        assert dbias is None
+    else:
+        assert dbias.shape == bias.shape and torch.equal(dbias, t_bias.grad)
+        np.testing.assert_allclose(dbias.numpy(), ref_dbias, rtol=0, atol=2e-4)
+        assert np.abs(ref_dbias).max() > 1e-2  # the bias gradient is not trivially zero
+
+
+@pytest.mark.parametrize("hb, wm", [(2, 3), (1, 1), (None, None), (2, None)])
+def test_packed_attention_bwd_plain_matches_autograd_fp64(hb, wm):
+    qkv, dout, bias, mask = (x if x is None else torch.from_numpy(x) for x in _packed_inputs(
+        22, 2, 3, 11, 32, 2, hb, wm, np.float64))
+    qkv.requires_grad_()
+    leaves = [qkv]
+    if bias is not None:
+        leaves.append(bias.requires_grad_())
+    out = tpa.packed_attention_plain(qkv, bias, mask, 2, 0.21)
+    refs = torch.autograd.grad(out, leaves, dout)
+    dqkv, dbias = tpa.packed_attention_bwd_plain(
+        qkv.detach(), None if bias is None else bias.detach(), mask, dout, 2, 0.21)
+    torch.testing.assert_close(dqkv, refs[0], rtol=1e-9, atol=1e-12)
+    if bias is not None:
+        torch.testing.assert_close(dbias, refs[1], rtol=1e-9, atol=1e-12)
+    broken = dqkv.clone()
+    broken[..., 32:64] = 0  # a control: without dK the same comparison fails
+    assert not torch.allclose(broken, refs[0], rtol=1e-9, atol=1e-12)
+
+
+@pytest.mark.parametrize("hb", [2, 1, None])
+def test_packed_attention_function_gradcheck(hb):
+    g = torch.Generator().manual_seed(23)
+    qkv = torch.randn(2, 2, 5, 3 * 16, generator=g, dtype=torch.float64, requires_grad=True)
+    mask = torch.where(torch.rand(2, 5, 5, generator=g) < 0.2, -100.0, 0.0).double()
+    if hb is None:
+        assert torch.autograd.gradcheck(
+            lambda a: tpa.packed_attention(a, None, mask, 2, 0.3), (qkv,))
+        return
+    bias = torch.randn(hb, 5, 5, generator=g, dtype=torch.float64, requires_grad=True)
+    assert torch.autograd.gradcheck(
+        lambda a, b: tpa.packed_attention(a, b, mask, 2, 0.3), (qkv, bias))
+
+
+def test_packed_attention_wrappers_dispatch():
+    """CPU tensors take the plain versions and count no launch; other devices
+    raise; the bias gradient is skipped when nobody asks for it."""
+    g = torch.Generator().manual_seed(24)
+    qkv = torch.randn(1, 2, 9, 3 * 64, generator=g)
+    bias = torch.randn(2, 9, 9, generator=g)
+    dout = torch.randn(1, 2, 9, 64, generator=g)
+    before = (tpa.packed_attention_fwd.launches, tpa.packed_attention_bwd.launches)
+    out = tpa.packed_attention_fwd(qkv, bias, None, 2)
+    assert torch.equal(out, tpa.packed_attention_plain(qkv, bias, None, 2))
+    dqkv, dbias = tpa.packed_attention_bwd(qkv, bias, None, dout, 2)
+    ref = tpa.packed_attention_bwd_plain(qkv, bias, None, dout, 2)
+    assert torch.equal(dqkv, ref[0]) and torch.equal(dbias, ref[1])
+    assert tpa.packed_attention_bwd(qkv, bias, None, dout, 2, need_dbias=False)[1] is None
+    assert (tpa.packed_attention_fwd.launches, tpa.packed_attention_bwd.launches) == before
+    meta = torch.empty(1, 1, 9, 3 * 64, device="meta")
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        tpa.packed_attention_fwd(meta, None, None, 2)
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        tpa.packed_attention_bwd(meta, None, None, torch.empty(1, 1, 9, 64, device="meta"), 2)
+    # no gradient can be asked for: the forward wrapper is called directly
+    assert tpa.packed_attention(qkv, bias, None, 2).grad_fn is None
+    assert tpa.packed_attention(qkv.clone().requires_grad_(), None, None, 2).grad_fn is not None
+    assert tpa.kernel_supports(197, 768, 12) and tpa.kernel_supports(197, 192, 3)
+    assert not tpa.kernel_supports(785, 768, 12) and not tpa.kernel_supports(197, 96, 2)
+
+
+@pytest.mark.parametrize("pairs, blocks", [(128, 48), (2048, 16), (5, 4), (1, 1), (7, 4000)])
+def test_packed_dbias_chunks_cover_every_pair(pairs, blocks):
+    n = tpa._dbias_chunks(pairs, blocks)
+    per_chunk = -(-pairs // n)
+    assert 1 <= n <= pairs and n * per_chunk >= pairs and (n - 1) * per_chunk < pairs
+
+
+@pytest.mark.parametrize("similarity", ["dot", "cosine"])
+def test_gpf_plain_matches_pallas_at_vit_token_count(similarity):
+    """N = 196 tokens, a ViT at 224: forward and VJP against the Pallas kernel."""
+    rng = np.random.default_rng(25)
+    ta = rng.normal(size=(2, 196, 48)).astype(np.float32)
+    tp = rng.normal(size=(2, 196, 48)).astype(np.float32)
+    coeffs = np.log1p(np.exp(rng.uniform(0, 0.1, size=(3, 3)))).astype(np.float32)
+    cot = rng.normal(size=(2, 196, 196)).astype(np.float32)
+    ref, vjp = jax.vjp(lambda a, p, c: fused_gpf_pallas(a, p, c, similarity, 1e-6, True),
+                       jnp.asarray(ta), jnp.asarray(tp), jnp.asarray(coeffs))
+    args = (torch.from_numpy(ta), torch.from_numpy(tp), torch.from_numpy(coeffs))
+    out = tgpf.gpf_plain(*args, similarity, 1e-6, True)
+    scale = tgpf.gpf_error_scale(*args, similarity, 1e-6, True)
+    assert out.shape == (2, 196, 196)
+    assert (np.abs(out.numpy() - np.asarray(ref)) <= 1e-4 * scale.numpy()).all()
+    ref_da, ref_dp, ref_dc = (np.asarray(x) for x in vjp(jnp.asarray(cot)))
+    da, dp, dc = tgpf.gpf_bwd_plain(*args, torch.from_numpy(cot), similarity, 1e-6, True)
+    for got, want in ((da.numpy(), ref_da), (dp.numpy(), ref_dp), (dc.sum(0).numpy(), ref_dc)):
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()

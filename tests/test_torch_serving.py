@@ -1,5 +1,8 @@
 """The port's serving path against the JAX package, and its boundaries.
 
+ViT backbones are ported (tests/test_torch_vit.py); a ViT whose token count
+reaches its width (N >= D, the dense Newton-Schulz route) still raises.
+
 ``make_infer_fn`` of the port (uint8 -> eval preprocess -> Swin -> fused GPF
 -> moment head -> classifier) against the JAX ``bench_core.make_infer_fn``
 with the same flax weights and sketch matrices, on swin_micro (N=49 < D=256,
@@ -94,7 +97,7 @@ def test_fresh_model_is_seeded_and_finite():
 
 
 @pytest.mark.parametrize("change", [
-    {"model": {"backbone_name": "vit_small_patch16_224"}},
+    {"model": {"backbone_name": "vit_tiny_patch16_224"}, "data": {"input_size": 224}},
     {"model": {"gpf": {"adaptive_type": "global"}}},
     {"model": {"classifier": {"type": "multiscale"}}},
     {"model": {"classifier": {"type": "adaptive"}}},
@@ -106,6 +109,7 @@ def test_fresh_model_is_seeded_and_finite():
 ])
 def test_unported_paths_raise(change):
     cfg = _config("dot")
+    cfg["data"].update(change.get("data", {}))
     for section, values in change["model"].items():
         if isinstance(values, dict):
             cfg["model"][section] = {**cfg["model"].get(section, {}), **values}
@@ -149,7 +153,8 @@ def test_port_imports_no_jax():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
     names = {str(f.relative_to(pkg)) for f in files[:-1]}
-    assert {"losses/triplet.py", "losses/alignment.py", "train/state.py", "train/step.py"} <= names
+    assert {"losses/triplet.py", "losses/alignment.py", "train/state.py", "train/step.py",
+            "models/vit.py", "kernels/packed_attention.py"} <= names
     offenders = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
                  for f in files for m in pattern.finditer(f.read_text())]
     assert offenders == []
