@@ -12,11 +12,12 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    stage geometries (shifted and unshifted, bf16 and fp32), packed-layout
    attention at the ViT-Base and ViT-Tiny calls ([64, 1, 197, 3C], no bias, no
    mask) and at a Swin packed shape with bias and mask, and fused GPF at
-   [64, 49, 1024] and [64, 196, 768] (dot and cosine, bf16 and fp32), with
+   [64, 49, 1024], [64, 196, 768] and [64, 784, 768] (dot and cosine, bf16 and
+   fp32), with
    errors, kernel / plain / library times from CUDA events and the
    bytes-or-operations bound.  Backward, at the training paths' shapes: both
    attentions for batch 128 (two views of 64) with a random output cotangent,
-   and fused GPF at both shapes with two distinct token sets (and once with one
+   and fused GPF at all three shapes with two distinct token sets (and once with one
    tensor twice).  Each check is run on a control too (bias or mask dropped,
    padded keys left unmasked, off-diagonal GPF entries zeroed; bias gradient
    dropped, dK zeroed, coefficient gradient zeroed, half of dX dropped), which
@@ -46,6 +47,23 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    and 1 + 1 per train step.  A ViT has no bias table, so its controls are
    the kernel run with only the first 64 keys attended (serving) and with dK
    dropped (training).
+5c, 5d. Phases 3 and 4 once more on ViT-Base at a 448 input (uint8
+   [64, 600, 600, 3], 785 tokens, N = 784 >= D = 768): 12 q-tiled attention
+   launches, 1 GPF launch and 1 Newton-Schulz launch per forward (no packed
+   attention), 12 + 12, 1 + 1 and 1 per train step.  The plain path holds
+   [B, 12, 785, 785] fp32 probabilities, so the comparisons with it run at
+   batch 8 in bf16 and 2 in fp32 (serving and training alike).  Controls: the
+   first 64 keys only (computed in plain PyTorch: the tiled kernel takes no
+   mask), dK dropped.  The fp32 gradient of the GPF coefficients, an
+   ill-conditioned sum at N = 784, is also held against the plain path run
+   in fp64 on three view seeds, where two planted faults in its dc (the last
+   token tile skipped, a bf16 cotangent) must fail.
+   Phase 2 / 2b hold the new kernels at the 448 path's shapes: q-tiled
+   attention at [64, 785, 2304] and its backward at batch 128 (controls:
+   padded keys unmasked, first 64 keys only, dK zeroed; two backward runs
+   equal bit for bit), and the Newton-Schulz iteration at [64, 768, 768] with
+   M built as the head builds it and at [64, 192, 192] (control: four
+   iterations instead of five), bf16 and fp32.
 6. A JSON line of the kernels, then the contract's last line.
 """
 
@@ -71,11 +89,19 @@ from ego_moment_cle_vit_tpu_torch import (
 )
 from ego_moment_cle_vit_tpu_torch.data import AugmentConfig, dual_view_train_batch
 from ego_moment_cle_vit_tpu_torch.kernels import _build
+from ego_moment_cle_vit_tpu_torch.kernels import flash_attention as _fa
 from ego_moment_cle_vit_tpu_torch.kernels import gpf as _gpf
+from ego_moment_cle_vit_tpu_torch.kernels import newton_schulz as _ns
 from ego_moment_cle_vit_tpu_torch.kernels import packed_attention as _pa
 from ego_moment_cle_vit_tpu_torch.kernels import window_attention as _wa
 from ego_moment_cle_vit_tpu_torch.models.swin import _attn_mask, _relative_position_index
-from ego_moment_cle_vit_tpu_torch.ops.graph import gpf_fuse, token_similarity_graph
+from ego_moment_cle_vit_tpu_torch.ops.graph import (
+    gpf_fuse,
+    normalize_graph,
+    token_similarity_graph,
+)
+from ego_moment_cle_vit_tpu_torch.ops.moments import graph_weighted_mean
+from ego_moment_cle_vit_tpu_torch.utils.device import pin_fp32_precision
 
 BATCH = 64
 TRAIN_VIEWS = 2 * BATCH  # the dual-view step runs both views as one backbone batch
@@ -106,6 +132,10 @@ FLAGSHIP = {
 VIT_FLAGSHIP = json.loads(json.dumps(FLAGSHIP))
 VIT_FLAGSHIP["model"]["backbone_name"] = "vit_base_patch16_224"
 VIT_T, VIT_C, VIT_H, VIT_DEPTH = 197, 768, 12, 12  # ViT-Base/224: tokens, width, heads, blocks
+VIT448_FLAGSHIP = json.loads(json.dumps(VIT_FLAGSHIP))
+VIT448_FLAGSHIP["data"] = {"input_size": 448, "resize_size": 600}  # AugmentConfig's defaults
+VIT448_T = 785  # 28 x 28 patches + CLS: past the packed kernel, on kernel 6's path
+NS_ITERS, NS_EPS = 5, 1e-5  # the flagship head's isqrt_iterations and eps
 TRAIN_STEPS_PER_EPOCH = 100
 # tolerances, kernel vs plain on the card, per element.  Window attention:
 # |err| <= atol + rtol |ref|; fp32 differs by sum order only, bf16 by P rounded
@@ -144,6 +174,30 @@ TOL_GRADS_REL = {torch.bfloat16: 0.1, torch.float32: 2e-3}
 # tightly on shared inputs in phase 2; here it must be finite and of the
 # reference's order of magnitude.
 TOL_GRADS_REL_ILL_CONDITIONED = {"gpf.alpha_coeffs": {torch.bfloat16: 3.0}}
+# At a 448 input the GPF Grams are 784 x 784, so each dc[p, q] cancels 16x the
+# terms it does at 196 tokens, and fp32 rounding alone decides its third digit
+# (kernel path vs plain path 1.5e-3 relative, against 6.1e-5 at 224; every
+# other leaf is held to TOL_GRADS_REL).  The fp32 limit is set between what
+# coefficient_gradient_witness read against the fp64 path on an H100 (3 view
+# seeds): kernel path 4.6e-4 to 2.2e-3, plain path 3.6e-4 to 8.1e-4; dc from a
+# bf16 cotangent 4.7e-2 to 0.23; the last token tile skipped 244 to 1341.
+TOL_GRADS_REL_ILL_CONDITIONED_448 = {
+    "gpf.alpha_coeffs": {torch.bfloat16: 3.0, torch.float32: 1e-2}}
+COEFF_WITNESS_SEEDS = (2, 3, 4)  # view seeds of the 448 witness; 2 is the check's own
+# q-tiled attention, kernel vs plain per element, |err| <= atol + rtol |ref|.
+# Forward: fp32 by sum order; bf16 by one ulp of the output's rounding (2^-7
+# |y|) over a pre-rounding difference far under atol (the kernel rounds the
+# unnormalized probabilities of its online softmax, the plain version the
+# normalized ones).  atol sits well under a 785-token output's typical size
+# (~0.06 for unit-variance v), so that the padded-keys control, which moves
+# each output by ~6 %, fails.  Backward: the same, with two ulps (ds rounded
+# on both sides from slightly different fp32 values, then the output).
+TOL_FA = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-3, 2.0**-7)}
+TOL_FA_BWD = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (4e-3, 2.0**-6)}
+# Newton-Schulz, kernel vs plain per element: |err| <= rtol |ref| + atol x
+# max |ref|.  fp32: sum order over 14 chained products; bf16: one ulp of the
+# output's rounding over the same fp32 difference.
+TOL_NS = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2.0**-7, 1e-4)}
 
 WA_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/window_attention.py:361"
 GPF_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/gpf.py:41"
@@ -151,15 +205,23 @@ WA_BWD_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/window_attention.py:389"
 GPF_BWD_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/gpf.py:126"
 PA_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/window_attention.py:133"
 PA_BWD_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/window_attention.py:155"
+FA_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/flash_attention.py:75"
+FA_BWD_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/flash_attention.py:94"
+NS_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/newton_schulz.py:43"
 WA_KERNEL = _wa.window_attention_fwd
 GPF_KERNEL = _gpf.gpf_fwd
 WA_BWD_KERNEL = _wa.window_attention_bwd
 GPF_BWD_KERNEL = _gpf.gpf_bwd
 PA_KERNEL = _pa.packed_attention_fwd
 PA_BWD_KERNEL = _pa.packed_attention_bwd
+FA_KERNEL = _fa.flash_attention_tiled_fwd
+FA_BWD_KERNEL = _fa.flash_attention_tiled_bwd
+NS_KERNEL = _ns.newton_schulz_isqrt_fwd
 KERNELS = {"window_attention_fwd": WA_KERNEL, "window_attention_bwd": WA_BWD_KERNEL,
            "gpf_fwd": GPF_KERNEL, "gpf_bwd": GPF_BWD_KERNEL,
-           "packed_attention_fwd": PA_KERNEL, "packed_attention_bwd": PA_BWD_KERNEL}
+           "packed_attention_fwd": PA_KERNEL, "packed_attention_bwd": PA_BWD_KERNEL,
+           "flash_attention_tiled_fwd": FA_KERNEL, "flash_attention_tiled_bwd": FA_BWD_KERNEL,
+           "newton_schulz_isqrt_fwd": NS_KERNEL}
 
 
 def log(*a):
@@ -198,7 +260,8 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
 def plain_kernels():
     """Swap every kernel wrapper the model calls for its plain version."""
     saved = (_wa.window_attention_fwd, _wa.window_attention_bwd, _gpf.gpf_fwd, _gpf.gpf_bwd,
-             _pa.packed_attention_fwd, _pa.packed_attention_bwd)
+             _pa.packed_attention_fwd, _pa.packed_attention_bwd, _fa.flash_attention_tiled_fwd,
+             _fa.flash_attention_tiled_bwd, _ns.newton_schulz_isqrt_fwd)
     _wa.window_attention_fwd = _wa.window_attention_plain
     _wa.window_attention_bwd = _wa.window_attention_bwd_plain
     _gpf.gpf_fwd = _gpf.gpf_plain
@@ -206,11 +269,17 @@ def plain_kernels():
     _pa.packed_attention_fwd = _pa.packed_attention_plain
     _pa.packed_attention_bwd = (
         lambda *args, need_dbias=True: _pa.packed_attention_bwd_plain(*args))
+    _fa.flash_attention_tiled_fwd = _fa.flash_attention_tiled_plain
+    _fa.flash_attention_tiled_bwd = (
+        lambda qkv, out, lse, dout, num_heads: _fa.flash_attention_tiled_bwd_plain(
+            qkv, dout, num_heads))
+    _ns.newton_schulz_isqrt_fwd = _ns.newton_schulz_isqrt_plain
     try:
         yield
     finally:
         (_wa.window_attention_fwd, _wa.window_attention_bwd, _gpf.gpf_fwd, _gpf.gpf_bwd,
-         _pa.packed_attention_fwd, _pa.packed_attention_bwd) = saved
+         _pa.packed_attention_fwd, _pa.packed_attention_bwd, _fa.flash_attention_tiled_fwd,
+         _fa.flash_attention_tiled_bwd, _ns.newton_schulz_isqrt_fwd) = saved
 
 
 @contextlib.contextmanager
@@ -254,6 +323,86 @@ def key_gradient_dropped():
         yield
     finally:
         _pa.packed_attention_bwd = saved
+
+
+def first_keys_attention(qkv: torch.Tensor, num_heads: int, keys: int = _fa.TILE):
+    """Attention of every query over the first ``keys`` keys only, in plain
+    PyTorch (fp32 inside, P rounded to qkv's dtype): (out [B, N, C], lse)."""
+    b, n, c3 = qkv.shape
+    d = c3 // 3 // num_heads
+    x = qkv.float().reshape(b, n, 3, num_heads, d).permute(2, 0, 3, 1, 4)
+    logits = torch.matmul(x[0], x[1][:, :, :keys].transpose(-1, -2)) * d ** -0.5
+    probs = torch.softmax(logits, dim=-1).to(qkv.dtype).float()
+    out = torch.matmul(probs, x[2][:, :, :keys]).permute(0, 2, 1, 3).reshape(b, n, c3 // 3)
+    return out.to(qkv.dtype), torch.logsumexp(logits, dim=-1)
+
+
+@contextlib.contextmanager
+def only_first_keys_attended_tiled(model: torch.nn.Module):
+    """Control for the long-sequence path: every query sees the first 64 keys
+    only, as if the q-tiled kernel's walk over the key tiles stopped after the
+    first.  The tiled kernel takes no mask, so the control computes that
+    attention in plain PyTorch.  The serving check must see it."""
+    del model
+    saved = _fa.flash_attention_tiled_fwd
+
+    def truncated(qkv, num_heads):
+        return first_keys_attention(qkv, num_heads)
+
+    truncated.launches = 0  # the wrapper counts on whatever the module name holds
+    _fa.flash_attention_tiled_fwd = truncated
+    try:
+        yield
+    finally:
+        _fa.flash_attention_tiled_fwd = saved
+
+
+@contextlib.contextmanager
+def key_gradient_dropped_tiled():
+    """Control for the long-sequence path: the q-tiled backward kernel runs
+    but its dK is thrown away, a fault the training gradient check must see."""
+    saved = _fa.flash_attention_tiled_bwd
+
+    def dropped(*args, **kwargs):
+        dqkv = saved(*args, **kwargs)
+        c = dqkv.shape[-1] // 3
+        dqkv[..., c:2 * c] = 0
+        return dqkv
+
+    dropped.launches = 0  # the wrapper counts on whatever the module name holds
+    _fa.flash_attention_tiled_bwd = dropped
+    try:
+        yield
+    finally:
+        _fa.flash_attention_tiled_bwd = saved
+
+
+@contextlib.contextmanager
+def coefficient_gradient_faulted(fault: str):
+    """Planted faults in the GPF backward's coefficient gradient dc; its
+    token gradients stay sound.  'tail': the reduction skips the last,
+    partial tile of 64 tokens (rows and columns 768-783 at N = 784).  'bf16':
+    dc summed from the cotangent rounded to bf16.  The 448 check of that
+    leaf against the fp64 path must see both."""
+    saved = _gpf.gpf_bwd
+
+    def faulty(tokens_a, tokens_p, coeffs, g, *options):
+        dta, dtp, _ = saved(tokens_a, tokens_p, coeffs, g, *options)
+        if fault == "tail":
+            g = g.clone()
+            keep = g.shape[-1] // _gpf.TILE * _gpf.TILE
+            g[:, keep:, :] = 0
+            g[:, :, keep:] = 0
+        else:
+            g = g.to(torch.bfloat16).float()
+        return dta, dtp, saved(tokens_a, tokens_p, coeffs, g, *options)[2]
+
+    faulty.launches = 0  # the wrapper counts on whatever the module name holds
+    _gpf.gpf_bwd = faulty
+    try:
+        yield
+    finally:
+        _gpf.gpf_bwd = saved
 
 
 @contextlib.contextmanager
@@ -843,6 +992,208 @@ def check_packed_attention_bwd(g: torch.Generator) -> dict:
     return {"err_over_tol": worst, **main}
 
 
+def check_flash_attention(g: torch.Generator) -> dict:
+    """Kernel 6 at the 448 serving call, qkv [64, 785, 2304], bf16 and fp32,
+    with the log-sum-exp it writes for the backward."""
+    t, c, heads = VIT448_T, VIT_C, VIT_H
+    d = c // heads
+    main = {}
+    min_control = math.inf
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = TOL_FA[dtype]
+        qkv = torch.randn(BATCH, t, 3 * c, generator=g, device="cuda").to(dtype)
+        out, lse = FA_KERNEL(qkv, heads)
+        ref, ref_lse = _fa.flash_attention_tiled_plain(qkv, heads)
+        torch.cuda.synchronize()
+        what = f"q-tiled attention [{BATCH},{t},{3 * c}] H={heads} {dtype}"
+        err = (out.float() - ref.float()).abs().max().item()
+        excess = close_excess(out, ref, atol, rtol)
+        lse_err = (lse - ref_lse).abs().max().item()
+        if not math.isfinite(excess) or excess > 1.0:
+            fail(f"{what}: error {excess:.3f}x its tolerance {TOL_FA[dtype]} (max abs err {err})")
+        if not lse_err <= 1e-4 * ref_lse.abs().max().item():
+            fail(f"{what}: log-sum-exp off by {lse_err}")
+        # controls: the keys padded up to the kernel's tile and left unmasked
+        # (zero keys join the softmax), and only the first tile of keys
+        pad = -(-t // _fa.TILE) * _fa.TILE - t
+        padded = torch.nn.functional.pad(qkv, (0, 0, 0, pad))
+        controls = (_fa.flash_attention_tiled_plain(padded, heads)[0][:, :t],
+                    first_keys_attention(qkv, heads)[0])
+        ctrl_excess = min(close_excess(ctrl, ref, atol, rtol) for ctrl in controls)
+        if ctrl_excess <= 1.0:
+            fail(f"{what}: a control (padded keys unmasked, first 64 keys only) passes the check")
+        min_control = min(min_control, ctrl_excess)
+        del padded, controls
+        reps = 10 if dtype == torch.bfloat16 else 3
+        k_ms = time_ms(lambda: FA_KERNEL(qkv, heads), reps=reps, samples=3)
+        p_ms = time_ms(lambda: _fa.flash_attention_tiled_plain(qkv, heads), reps=3, samples=3)
+        q, k, v, _ = sdpa_inputs(qkv[:, None], None, None, heads)
+        l_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, scale=d ** -0.5), reps=5, samples=3)
+        nbytes = qkv.numel() * qkv.element_size() * 4 / 3 + lse.numel() * 4
+        flops = 4.0 * BATCH * heads * t * t * d
+        b_ms, kind = bound_ms(nbytes, flops, dtype)
+        log(f"  flash_attention_tiled [{BATCH},{t},{3 * c}] H={heads} {str(dtype)[6:]}: "
+            f"max_abs_err={err:.3e} err/tol={excess:.3f} (tol atol+rtol|ref| {TOL_FA[dtype]}) "
+            f"lse max_abs_err={lse_err:.3e} control err/tol>={ctrl_excess:.1f} "
+            f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms(SDPA)={l_ms:.4f} "
+            f"bound_ms={b_ms:.4f} ({kind})")
+        if dtype == torch.bfloat16:  # the serving path's call, 12 per forward
+            main = {"max_abs_err": err, "ms": VIT_DEPTH * k_ms, "plain_ms": VIT_DEPTH * p_ms,
+                    "library_ms": VIT_DEPTH * l_ms, "bound_ms": VIT_DEPTH * b_ms,
+                    "bound_by": kind}
+        del qkv, out, lse, ref, ref_lse, q, k, v
+        torch.cuda.empty_cache()
+    log(f"  q-tiled attention controls: smallest err/tol {min_control:.1f} (must be > 1)")
+    return main
+
+
+def check_flash_attention_bwd(g: torch.Generator) -> dict:
+    """Kernel 6b at the 448 training call (batch 128), from the forward
+    kernel's out and lse; also times the forward kernel at that batch."""
+    t, c, heads = VIT448_T, VIT_C, VIT_H
+    d = c // heads
+    batch = TRAIN_VIEWS
+    main = {}
+    worst = 0.0
+    min_control = math.inf
+    for dtype in (torch.bfloat16, torch.float32):
+        atol, rtol = TOL_FA_BWD[dtype]
+        qkv = torch.randn(batch, t, 3 * c, generator=g, device="cuda").to(dtype)
+        dout = torch.randn(batch, t, c, generator=g, device="cuda").to(dtype)
+        out, lse = FA_KERNEL(qkv, heads)
+        args = (qkv, out, lse, dout, heads)
+        dqkv = FA_BWD_KERNEL(*args)
+        ref = _fa.flash_attention_tiled_bwd_plain(qkv, dout, heads)
+        torch.cuda.synchronize()
+        what = f"q-tiled attention backward [{batch},{t},{3 * c}] {dtype}"
+        err = (dqkv.float() - ref.float()).abs().max().item()
+        excess = close_excess(dqkv, ref, atol, rtol)
+        if not math.isfinite(excess) or excess > 1.0:
+            fail(f"{what}: dqkv error {excess:.3f}x its tolerance (max abs err {err})")
+        worst = max(worst, excess)
+        if not torch.equal(FA_BWD_KERNEL(*args), dqkv):  # the same gradient twice, bit for bit
+            fail(f"{what}: two runs of the backward kernel differ")
+        ctrl = ref.clone()
+        ctrl[..., c:2 * c] = 0  # control: dK zeroed
+        ctrl_excess = close_excess(ctrl, ref, atol, rtol)
+        if ctrl_excess <= 1.0:
+            fail(f"{what}: a control (dK zeroed) passes the check")
+        min_control = min(min_control, ctrl_excess)
+        del ctrl, ref, dqkv
+        reps = 5 if dtype == torch.bfloat16 else 2
+        k_ms = time_ms(lambda: FA_BWD_KERNEL(*args), reps=reps, samples=3)
+        p_ms = time_ms(lambda: _fa.flash_attention_tiled_bwd_plain(qkv, dout, heads), reps=2,
+                       samples=3)
+        f_ms = time_ms(lambda: FA_KERNEL(qkv, heads), reps=reps, samples=3)
+        q, k, v, _ = sdpa_inputs(qkv[:, None], None, None, heads)
+        q, k, v = (x.requires_grad_() for x in (q, k, v))
+        o = torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=d ** -0.5)
+        do = torch.randn_like(o)
+        l_ms = time_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True),
+                       reps=3, samples=3)
+        es = qkv.element_size()
+        nbytes = (2 * qkv.numel() + 2 * dout.numel()) * es + lse.numel() * 4
+        flops = 10.0 * batch * heads * t * t * d
+        b_ms, kind = bound_ms(nbytes, flops, dtype)
+        log(f"  flash_attention_tiled_bwd [{batch},{t},{3 * c}] H={heads} {str(dtype)[6:]}: "
+            f"dqkv max_abs_err={err:.3e} err/tol={excess:.3f} (tol {atol}+{rtol:.4f}|ref|) "
+            f"two runs equal; control err/tol>={ctrl_excess:.1f} kernel_ms={k_ms:.4f} "
+            f"plain_ms={p_ms:.4f} library_ms(SDPA backward)={l_ms:.4f} bound_ms={b_ms:.4f} "
+            f"({kind}) fwd_kernel_ms={f_ms:.4f}")
+        if dtype == torch.bfloat16:  # the training path's call, 12 per step
+            main = {"max_abs_err": err, "ms": VIT_DEPTH * k_ms, "plain_ms": VIT_DEPTH * p_ms,
+                    "library_ms": VIT_DEPTH * l_ms, "bound_ms": VIT_DEPTH * b_ms,
+                    "bound_by": kind, "fwd_ms": VIT_DEPTH * f_ms}
+        del qkv, dout, out, lse, q, k, v, o, do, args
+        torch.cuda.empty_cache()
+    log(f"  q-tiled attention backward controls: smallest err/tol {min_control:.1f} "
+        "(must be > 1)")
+    return {"err_over_tol": worst, **main}
+
+
+def head_moment_matrix(g: torch.Generator, n: int, d: int) -> torch.Tensor:
+    """M2 = Zc^T W Zc in fp32 as the moment head forms it on the dense route,
+    from random [64, n, d] tokens and a random non-negative symmetric graph
+    (a Gram of non-negative features, so W and M2 are PSD as the head's are)."""
+    tokens = torch.randn(BATCH, n, d, generator=g, device="cuda")
+    feats = torch.rand(BATCH, n, 16, generator=g, device="cuda")
+    w = normalize_graph(torch.matmul(feats, feats.transpose(1, 2)), "symmetric", eps=NS_EPS)
+    centered = tokens - graph_weighted_mean(tokens, w, eps=NS_EPS)[:, None, :]
+    return torch.matmul(centered.transpose(1, 2), torch.matmul(w, centered))
+
+
+def ns_excess(out: torch.Tensor, ref: torch.Tensor, dtype) -> float:
+    """Largest |out - ref| / (rtol |ref| + atol max |ref|); passes at <= 1."""
+    rtol, atol = TOL_NS[dtype]
+    ref = ref.float()
+    return ((out.float() - ref).abs() / (rtol * ref.abs() + atol * ref.abs().max())).max().item()
+
+
+def check_newton_schulz(g: torch.Generator) -> dict:
+    """Kernel 5 at the dense head's call, M [64, 768, 768] (ViT-Base at 448),
+    and at [64, 192, 192] (ViT-Tiny at 224), M in bf16 and fp32."""
+    main = {}
+    min_control = math.inf
+    for n, d in ((VIT448_T - 1, VIT_C), (196, 192)):
+        m32 = head_moment_matrix(g, n, d)
+        for dtype in (torch.bfloat16, torch.float32):
+            m = m32.to(dtype)
+            out = NS_KERNEL(m, NS_ITERS, NS_EPS)
+            ref = _ns.newton_schulz_isqrt_plain(m, NS_ITERS, NS_EPS)
+            torch.cuda.synchronize()
+            what = f"newton_schulz [{BATCH},{d},{d}] {dtype}"
+            err = (out.float() - ref.float()).abs().max().item()
+            excess = ns_excess(out, ref, dtype)
+            if not math.isfinite(excess) or excess > 1.0:
+                fail(f"{what}: error {excess:.3f}x its tolerance {TOL_NS[dtype]} (max abs err "
+                     f"{err})")
+            # control: four iterations instead of five
+            ctrl_excess = ns_excess(_ns.newton_schulz_isqrt_plain(m, NS_ITERS - 1, NS_EPS), ref,
+                                    dtype)
+            if ctrl_excess <= 1.0:
+                fail(f"{what}: a control (four iterations) passes the check")
+            min_control = min(min_control, ctrl_excess)
+            k_ms = time_ms(lambda: NS_KERNEL(m, NS_ITERS, NS_EPS), reps=3, samples=3)
+            p_ms = time_ms(lambda: _ns.newton_schulz_isqrt_plain(m, NS_ITERS, NS_EPS), reps=3,
+                           samples=3)
+
+            def library():
+                # the same iteration on cuBLAS fp32, each update one baddbmm
+                mf = m.float()
+                tr = torch.diagonal(mf, dim1=-2, dim2=-1).sum(-1)[:, None, None] + NS_EPS
+                z = mf / tr
+                y = torch.eye(d, device=m.device).expand_as(z).contiguous()
+                for i in range(NS_ITERS):
+                    t = torch.bmm(z, y)
+                    y_next = torch.baddbmm(y, y, t, beta=1.5, alpha=-0.5)
+                    if i + 1 < NS_ITERS:
+                        z = torch.baddbmm(z, t.transpose(1, 2), z, beta=1.5, alpha=-0.5)
+                    y = y_next
+                return (y / torch.sqrt(tr)).to(m.dtype)
+
+            l_ms = time_ms(library, reps=3, samples=3)
+            nbytes = 2 * m.numel() * m.element_size()
+            # products the function needs: three a step, less the first step's
+            # two (Y = I) and the last step's Z update, which nothing reads
+            flops = BATCH * (3 * NS_ITERS - 3) * 2.0 * d ** 3
+            b_ms, kind = bound_ms(nbytes, flops, torch.float32)  # fp32 inside, whatever M's type
+            log(f"  newton_schulz [{BATCH},{d},{d}] k={NS_ITERS} {str(dtype)[6:]}: "
+                f"max_abs_err={err:.3e} of max |ref| {ref.float().abs().max().item():.3e} "
+                f"err/tol={excess:.3f} (tol rtol|ref| + atol max|ref| {TOL_NS[dtype]}) control "
+                f"err/tol={ctrl_excess:.1f} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+                f"library_ms(cuBLAS fp32 bmm/baddbmm iteration)={l_ms:.4f} bound_ms={b_ms:.4f} "
+                f"({kind})")
+            if d == VIT_C and dtype == torch.bfloat16:  # the 448 path's call, 1 per forward
+                main = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                        "bound_ms": b_ms, "bound_by": kind}
+            del m, out, ref
+        del m32
+        torch.cuda.empty_cache()
+    log(f"  newton_schulz controls: smallest err/tol {min_control:.1f} (must be > 1)")
+    return main
+
+
 # ----------------------------------------------------------------------------
 # phase 3: serving end to end
 # ----------------------------------------------------------------------------
@@ -861,6 +1212,10 @@ SWIN = {
                                     gpf_fwd=1, gpf_bwd=1),
     "serve_control": bias_omitted, "serve_control_name": "kernel without bias",
     "grad_control": bias_gradient_dropped, "grad_control_name": "bias gradient dropped",
+    # batches at which the kernel path is held against the plain path
+    "serve_check_batch": {torch.bfloat16: BATCH, torch.float32: 8},
+    "train_check_batch": {torch.bfloat16: BATCH, torch.float32: 4},
+    "ill_conditioned": TOL_GRADS_REL_ILL_CONDITIONED,
 }
 VIT = {
     "label": "ViT-Base/224", "config": VIT_FLAGSHIP, "profile_prefix": "vit_",
@@ -870,16 +1225,46 @@ VIT = {
     "serve_control": only_first_keys_attended,
     "serve_control_name": "kernel attending the first 64 keys only",
     "grad_control": key_gradient_dropped, "grad_control_name": "dK dropped",
+    "serve_check_batch": {torch.bfloat16: BATCH, torch.float32: 8},
+    "train_check_batch": {torch.bfloat16: BATCH, torch.float32: 4},
+    "ill_conditioned": TOL_GRADS_REL_ILL_CONDITIONED,
 }
+# ViT-Base at 448: 785 tokens take kernel 6, and N = 784 >= D = 768 takes the
+# moment head's dense route through kernel 5.  The plain path's attention
+# holds [B, 12, 785, 785] fp32 probabilities (3.8 GB per tensor at 128
+# images), so it is compared at small batches.
+VIT448 = {
+    "label": "ViT-Base/448", "config": VIT448_FLAGSHIP, "profile_prefix": "vit448_",
+    "serve_launches": zero_launches(flash_attention_tiled_fwd=VIT_DEPTH, gpf_fwd=1,
+                                    newton_schulz_isqrt_fwd=1),
+    "train_launches": zero_launches(flash_attention_tiled_fwd=VIT_DEPTH,
+                                    flash_attention_tiled_bwd=VIT_DEPTH, gpf_fwd=1, gpf_bwd=1,
+                                    newton_schulz_isqrt_fwd=1),
+    "serve_control": only_first_keys_attended_tiled,
+    "serve_control_name": "first 64 keys attended only",
+    "grad_control": key_gradient_dropped_tiled, "grad_control_name": "dK dropped",
+    "serve_check_batch": {torch.bfloat16: 8, torch.float32: 2},
+    "train_check_batch": {torch.bfloat16: 8, torch.float32: 2},
+    "ill_conditioned": TOL_GRADS_REL_ILL_CONDITIONED_448,
+    "coefficient_witness": True,
+}
+
+
+def family_inputs(family: dict, g: torch.Generator):
+    """The family's augmentation and a seeded uint8 batch at its resize size."""
+    data = family["config"]["data"]
+    aug = AugmentConfig(input_size=data["input_size"], resize_size=data["resize_size"])
+    size = data["resize_size"]
+    images = torch.randint(0, 256, (BATCH, size, size, 3), generator=g, device="cuda",
+                           dtype=torch.uint8)
+    return aug, images
 
 
 def serve(card: str, profile_dir: str | None, family: dict) -> dict:
     dev = torch.device("cuda")
     config = family["config"]
-    aug = AugmentConfig(input_size=224, resize_size=256)
     g = torch.Generator(device=dev).manual_seed(0)
-    images = torch.randint(0, 256, (BATCH, 256, 256, 3), generator=g, device=dev,
-                           dtype=torch.uint8)
+    aug, images = family_inputs(family, g)
 
     t0 = time.time()
     model = create_model(config, num_classes=80, device="cuda", seed=0)
@@ -899,17 +1284,21 @@ def serve(card: str, profile_dir: str | None, family: dict) -> dict:
     if tuple(logits.shape) != (BATCH, 80) or not torch.isfinite(logits).all():
         fail(f"logits shape {tuple(logits.shape)} or non-finite values")
 
+    nb = family["serve_check_batch"][torch.bfloat16]
+    sub = images[:nb]
+    out = logits if nb == BATCH else infer(sub)
     with plain_kernels():
-        ref = infer(images)
+        ref = infer(sub)
     torch.cuda.synchronize()
     with family["serve_control"](model):
-        ctrl = infer(images)
+        ctrl = infer(sub)
     torch.cuda.synchronize()
     scale = max(1.0, ref.float().abs().max().item())
-    err = (logits.float() - ref.float()).abs().max().item()
+    err = (out.float() - ref.float()).abs().max().item()
     err_ctrl = (ctrl.float() - ref.float()).abs().max().item()
     tol = TOL_LOGITS_REL[torch.bfloat16]
-    log(f"  bf16 logits kernel vs plain: max_abs_err={err:.4e} ({err / scale:.4e} of max "
+    log(f"  bf16 logits (batch {nb}) kernel vs plain: max_abs_err={err:.4e} "
+        f"({err / scale:.4e} of max "
         f"|logit| {scale:.4e}); control ({family['serve_control_name']}) {err_ctrl:.4e} "
         f"({err_ctrl / scale:.4e}); tol {tol} x max")
     if err > tol * scale:
@@ -945,23 +1334,24 @@ def serve(card: str, profile_dir: str | None, family: dict) -> dict:
             f.write(f"{card}\n{family['label']}, batch {BATCH}, 3 forwards\n{table}\n")
         log(f"  profile written to {profile_dir}/{name}")
 
-    del model, infer, logits, ref, ctrl
+    del model, infer, logits, out, ref, ctrl
     torch.cuda.empty_cache()
 
-    # fp32 at batch 8: kernel vs plain with a tight tolerance
+    # fp32 at a small batch: kernel vs plain with a tight tolerance
+    nf = family["serve_check_batch"][torch.float32]
     f32_cfg = json.loads(json.dumps(config))
     f32_cfg["model"]["bf16"] = False
     f32_cfg["model"]["moment"]["bf16_params"] = False
     model32 = create_model(f32_cfg, num_classes=80, device="cuda", seed=0)
     redraw_bias_tables(model32, torch.Generator(device=dev).manual_seed(0))
     infer32 = make_infer_fn(model32, aug)
-    out32 = infer32(images[:8])
+    out32 = infer32(images[:nf])
     with plain_kernels():
-        ref32 = infer32(images[:8])
+        ref32 = infer32(images[:nf])
     torch.cuda.synchronize()
     err32 = (out32 - ref32).abs().max().item()
     scale32 = max(1.0, ref32.abs().max().item())
-    log(f"  fp32 logits (batch 8) kernel vs plain: max_abs_err={err32:.4e}, max |logit|="
+    log(f"  fp32 logits (batch {nf}) kernel vs plain: max_abs_err={err32:.4e}, max |logit|="
         f"{scale32:.4e} (tol {TOL_LOGITS_REL[torch.float32]} x max)")
     if not torch.isfinite(out32).all() or err32 > TOL_LOGITS_REL[torch.float32] * scale32:
         fail("fp32 serving logits disagree with the plain path")
@@ -984,9 +1374,10 @@ def step_gradients(model, anchor, positive, labels) -> dict:
     return grads
 
 
-def worst_leaf(grads: dict, ref: dict, dtype) -> tuple[float, str, float]:
+def worst_leaf(grads: dict, ref: dict, dtype, ill: dict) -> tuple[float, str, float]:
     """Over the leaves, the largest ||g - g_ref|| / ||g_ref|| as a multiple of
-    the leaf's tolerance, with the leaf and its relative error."""
+    the leaf's tolerance (``ill`` for the ill-conditioned leaves), with the
+    leaf and its relative error."""
     worst, where, worst_rel = 0.0, "", 0.0
     for name, r in ref.items():
         r32 = r.float()
@@ -994,7 +1385,7 @@ def worst_leaf(grads: dict, ref: dict, dtype) -> tuple[float, str, float]:
         rel = (grads[name].float() - r32).norm().item() / max(denom, 1e-30)
         if not math.isfinite(rel):
             return math.inf, name, math.inf
-        tol = TOL_GRADS_REL_ILL_CONDITIONED.get(name, {}).get(dtype, TOL_GRADS_REL[dtype])
+        tol = ill.get(name, {}).get(dtype, TOL_GRADS_REL[dtype])
         if rel / tol > worst:
             worst, where, worst_rel = rel / tol, name, rel
     return worst, where, worst_rel
@@ -1007,12 +1398,13 @@ def check_gradients(model, anchor, positive, labels, dtype, what: str, family: d
     with family["grad_control"]():
         ctrl = step_gradients(model, anchor, positive, labels)
     tol = TOL_GRADS_REL[dtype]
-    worst, where, rel = worst_leaf(grads, ref, dtype)
-    worst_ctrl, where_ctrl, rel_ctrl = worst_leaf(ctrl, ref, dtype)
+    ill = family["ill_conditioned"]
+    worst, where, rel = worst_leaf(grads, ref, dtype, ill)
+    worst_ctrl, where_ctrl, rel_ctrl = worst_leaf(ctrl, ref, dtype, ill)
     log(f"  {what} gradients kernel vs plain, {len(ref)} leaves: worst err/tol {worst:.4f} "
         f"(relative error {rel:.4e}) at {where}; control ({family['grad_control_name']}) err/tol "
         f"{worst_ctrl:.2f} (relative error {rel_ctrl:.4e}) at {where_ctrl}; tol {tol} per leaf, "
-        f"{TOL_GRADS_REL_ILL_CONDITIONED} apart")
+        f"{ill} apart")
     if worst > 1.0:
         fail(f"{what} gradients of the kernel path disagree with the plain path")
     if worst_ctrl <= 1.0:
@@ -1020,13 +1412,61 @@ def check_gradients(model, anchor, positive, labels, dtype, what: str, family: d
     return rel
 
 
+def coefficient_gradient_witness(model32, images, labels, aug, family: dict) -> list:
+    """The fp32 gradient of ``gpf.alpha_coeffs`` at batch 2, kernel path and
+    plain path, against the plain path run in fp64 on the same weights and
+    views, for each of COEFF_WITNESS_SEEDS' views, with both planted dc
+    faults: relative L2 distances to the fp64 gradient.  Fails unless both
+    fp32 paths lie within the leaf's fp32 tolerance of it and both faults
+    beyond."""
+    leaf = "gpf.alpha_coeffs"
+    nf = family["train_check_batch"][torch.float32]
+    tol = family["ill_conditioned"][leaf][torch.float32]
+    model64 = create_model(family["config"], num_classes=80, device="cuda", seed=0,
+                           dtype=torch.float64)
+    model64.load_state_dict(model32.state_dict())
+
+    def leaf_grad(model, anchor, positive):
+        return step_gradients(model, anchor, positive, labels[:nf])[leaf].double()
+
+    rows = []
+    for seed in COEFF_WITNESS_SEEDS:
+        with torch.no_grad():
+            anchor, positive = dual_view_train_batch(
+                images[:nf], torch.Generator(device=images.device).manual_seed(seed), aug)
+        kernel = leaf_grad(model32, anchor, positive)
+        with plain_kernels():
+            plain = leaf_grad(model32, anchor, positive)
+            exact = leaf_grad(model64, anchor.double(), positive.double())
+        faults = {}
+        for fault in ("tail", "bf16"):
+            with coefficient_gradient_faulted(fault):
+                faults[fault] = leaf_grad(model32, anchor, positive)
+
+        def rel(x, ref=exact):
+            return ((x - ref).norm() / ref.norm()).item()
+
+        row = {"seed": seed, "kernel": rel(kernel), "plain": rel(plain),
+               "kernel_vs_plain": rel(kernel, plain),
+               **{f"fault_{k}": rel(v) for k, v in faults.items()}}
+        rows.append(row)
+        log(f"  {leaf} fp32 gradient vs the fp64 plain path, batch {nf}, views seed {seed}: "
+            f"kernel path {row['kernel']:.4e}, plain path {row['plain']:.4e} (kernel vs plain "
+            f"{row['kernel_vs_plain']:.4e}); planted faults: last token tile skipped "
+            f"{row['fault_tail']:.4e}, cotangent in bf16 {row['fault_bf16']:.4e}; tol {tol}")
+    del model64
+    if max(max(r["kernel"], r["plain"]) for r in rows) > tol:
+        fail(f"an fp32 {leaf} gradient is further than {tol} from the fp64 one")
+    if min(min(r["fault_tail"], r["fault_bf16"]) for r in rows) <= tol:
+        fail(f"a planted dc fault reads within the {leaf} tolerance {tol}")
+    return rows
+
+
 def train(card: str, profile_dir: str | None, family: dict) -> dict:
     dev = torch.device("cuda")
     config = family["config"]
-    aug = AugmentConfig(input_size=224, resize_size=256)
     g = torch.Generator(device=dev).manual_seed(0)
-    images = torch.randint(0, 256, (BATCH, 256, 256, 3), generator=g, device=dev,
-                           dtype=torch.uint8)
+    aug, images = family_inputs(family, g)
     labels = torch.randint(0, 80, (BATCH,), generator=g, device=dev)
 
     t0 = time.time()
@@ -1040,11 +1480,12 @@ def train(card: str, profile_dir: str | None, family: dict) -> dict:
         f"leaves of {len(state.optimizer.names)}")
 
     # one step's gradients, kernels vs plain versions, before any update
+    nb = family["train_check_batch"][torch.bfloat16]
     with torch.no_grad():
         anchor, positive = dual_view_train_batch(
-            images, torch.Generator(device=dev).manual_seed(2), aug)
-    grad_err = check_gradients(model, anchor, positive, labels, torch.bfloat16,
-                               f"bf16 batch {BATCH}", family)
+            images[:nb], torch.Generator(device=dev).manual_seed(2), aug)
+    grad_err = check_gradients(model, anchor, positive, labels[:nb], torch.bfloat16,
+                               f"bf16 batch {nb}", family)
     del anchor, positive
     torch.cuda.empty_cache()
 
@@ -1108,7 +1549,9 @@ def train(card: str, profile_dir: str | None, family: dict) -> dict:
     del model, state, train_step, loss
     torch.cuda.empty_cache()
 
-    # fp32 at batch 4: kernel-path vs plain-path gradients with a tight tolerance
+    # fp32 at a small batch: kernel-path vs plain-path gradients with a tight
+    # tolerance
+    nf = family["train_check_batch"][torch.float32]
     f32_cfg = json.loads(json.dumps(config))
     f32_cfg["model"]["bf16"] = False
     f32_cfg["model"]["moment"]["bf16_params"] = False
@@ -1116,12 +1559,15 @@ def train(card: str, profile_dir: str | None, family: dict) -> dict:
     redraw_bias_tables(model32, torch.Generator(device=dev).manual_seed(0))
     with torch.no_grad():
         anchor, positive = dual_view_train_batch(
-            images[:4], torch.Generator(device=dev).manual_seed(2), aug)
-    grad_err32 = check_gradients(model32, anchor, positive, labels[:4], torch.float32,
-                                 "fp32 batch 4", family)
+            images[:nf], torch.Generator(device=dev).manual_seed(2), aug)
+    grad_err32 = check_gradients(model32, anchor, positive, labels[:nf], torch.float32,
+                                 f"fp32 batch {nf}", family)
+    del anchor, positive
+    witness = (coefficient_gradient_witness(model32, images, labels, aug, family)
+               if family.get("coefficient_witness") else None)
     return {"launches": launches, "images_per_s": ips, "step_ms": statistics.median(step_ms),
             "peak_gib": peak, "losses": losses, "grad_err_bf16": grad_err,
-            "grad_err_f32": grad_err32}
+            "grad_err_f32": grad_err32, "coefficient_witness": witness}
 
 
 def main() -> int:
@@ -1133,6 +1579,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.time()
+    pin_fp32_precision()  # the plain versions' fp32 products in true fp32, as the entry points do
     card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1156,12 +1603,17 @@ def main() -> int:
         pa = check_packed_attention(g)
         gp = check_gpf(g, 49, 1024)
         gp_vit = check_gpf(g, VIT_T - 1, VIT_C)
+        gp_448 = check_gpf(g, VIT448_T - 1, VIT_C)
+        fa = check_flash_attention(g)
+        ns = check_newton_schulz(g)
 
     log(f"[2b] backward kernels against their plain versions, batch {TRAIN_VIEWS} / {BATCH}")
     wab = check_window_attention_bwd(g)
     pab = check_packed_attention_bwd(g)
     gpb = check_gpf_bwd(g, 49, 1024)
     gpb_vit = check_gpf_bwd(g, VIT_T - 1, VIT_C)
+    gpb_448 = check_gpf_bwd(g, VIT448_T - 1, VIT_C)
+    fab = check_flash_attention_bwd(g)
     torch.cuda.empty_cache()
 
     log("[3] serving, Swin-Base/224 flagship, batch 64")
@@ -1178,20 +1630,32 @@ def main() -> int:
 
     log(f"[5b] training, ViT-Base/224 with the flagship heads, batch {BATCH}")
     trn_vit = train(card, args.profile, VIT)
+    torch.cuda.empty_cache()
+
+    log("[5c] serving, ViT-Base/448 with the flagship heads, batch 64 (kernel path vs plain "
+        "path at batch 8 in bf16 and 2 in fp32: the plain attention's probabilities are "
+        "[B, 12, 785, 785] fp32)")
+    srv_448 = serve(card, args.profile, VIT448)
+    torch.cuda.empty_cache()
+
+    log(f"[5d] training, ViT-Base/448 with the flagship heads, batch {BATCH} (gradients vs the "
+        "plain path at batch 8 in bf16 and 2 in fp32)")
+    trn_448 = train(card, args.profile, VIT448)
 
     # ms, plain_ms, bound_ms, library_ms: bf16, summed over one forward's
     # launches at batch 64 (forward kernels, the serving path) or over one
     # train step's launches at batch 128 / [64,N,D] x2 (backward kernels);
     # train_ms is a forward kernel's sum over one train step's launches.
     # launches: the count from the main path that runs the kernel (Swin-Base
-    # for window attention, ViT-Base for packed attention and for GPF, whose
-    # Swin-path numbers ride along under swin_*); every path was driven with
-    # the counts at 0 just before and read just after.
+    # for window attention, ViT-Base/224 for packed attention and for GPF, whose
+    # Swin-path and 448-path numbers ride along under swin_* and vit448_*,
+    # ViT-Base/448 for q-tiled attention and Newton-Schulz); every path was
+    # driven with the counts at 0 just before and read just after.
     src = "ego_moment_cle_vit_tpu_torch/csrc/"
 
-    def swin_gpf(res: dict) -> dict:
-        return {f"swin_{k}": res[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                              "library_ms")}
+    def other_gpf(prefix: str, res: dict) -> dict:
+        return {f"{prefix}_{k}": res[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                  "library_ms")}
 
     kernels = [
         {"name": "window_attention_fwd", "route": "cuda",
@@ -1212,19 +1676,21 @@ def main() -> int:
          "train_launches": trn_vit["launches"]["gpf_fwd"],
          "swin_launches": srv["launches"]["gpf_fwd"],
          "max_abs_err": gp_vit["max_abs_err"],
-         "err_over_tol": max(gp["err_over_tol"], gp_vit["err_over_tol"]),
+         "err_over_tol": max(gp["err_over_tol"], gp_vit["err_over_tol"], gp_448["err_over_tol"]),
          "ms": gp_vit["ms"], "plain_ms": gp_vit["plain_ms"],
          "bound_ms": gp_vit["bound_ms"], "bound_by": gp_vit["bound_by"],
          "library_ms": gp_vit["library_ms"], "train_ms": gpb_vit["fwd_ms"],
-         **swin_gpf(gp), "swin_train_ms": gpb["fwd_ms"]},
+         **other_gpf("swin", gp), "swin_train_ms": gpb["fwd_ms"],
+         **other_gpf("vit448", gp_448), "vit448_train_ms": gpb_448["fwd_ms"]},
         {"name": "gpf_bwd", "route": "cuda", "source": src + "gpf_bwd.cu",
          "replaces": GPF_BWD_REPLACES, "launches": trn_vit["launches"]["gpf_bwd"],
          "swin_launches": trn["launches"]["gpf_bwd"],
          "max_abs_err": gpb_vit["max_abs_err"],
-         "err_over_tol": max(gpb["err_over_tol"], gpb_vit["err_over_tol"]),
+         "err_over_tol": max(gpb["err_over_tol"], gpb_vit["err_over_tol"],
+                             gpb_448["err_over_tol"]),
          "ms": gpb_vit["ms"], "plain_ms": gpb_vit["plain_ms"], "bound_ms": gpb_vit["bound_ms"],
          "bound_by": gpb_vit["bound_by"], "library_ms": gpb_vit["library_ms"],
-         **swin_gpf(gpb)},
+         **other_gpf("swin", gpb), **other_gpf("vit448", gpb_448)},
         {"name": "packed_attention_fwd", "route": "cuda",
          "source": src + "packed_attention_fwd.cu",
          "replaces": PA_REPLACES, "launches": srv_vit["launches"]["packed_attention_fwd"],
@@ -1238,11 +1704,32 @@ def main() -> int:
          "max_abs_err": pab["max_abs_err"], "err_over_tol": pab["err_over_tol"],
          "ms": pab["ms"], "plain_ms": pab["plain_ms"], "bound_ms": pab["bound_ms"],
          "bound_by": pab["bound_by"], "library_ms": pab["library_ms"]},
+        {"name": "flash_attention_tiled_fwd", "route": "cuda",
+         "source": src + "flash_attention_fwd.cu",
+         "replaces": FA_REPLACES, "launches": srv_448["launches"]["flash_attention_tiled_fwd"],
+         "train_launches": trn_448["launches"]["flash_attention_tiled_fwd"],
+         "max_abs_err": fa["max_abs_err"], "ms": fa["ms"], "plain_ms": fa["plain_ms"],
+         "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
+         "library_ms": fa["library_ms"], "train_ms": fab["fwd_ms"]},
+        {"name": "flash_attention_tiled_bwd", "route": "cuda",
+         "source": src + "flash_attention_bwd.cu",
+         "replaces": FA_BWD_REPLACES,
+         "launches": trn_448["launches"]["flash_attention_tiled_bwd"],
+         "max_abs_err": fab["max_abs_err"], "err_over_tol": fab["err_over_tol"],
+         "ms": fab["ms"], "plain_ms": fab["plain_ms"], "bound_ms": fab["bound_ms"],
+         "bound_by": fab["bound_by"], "library_ms": fab["library_ms"]},
+        {"name": "newton_schulz_isqrt_fwd", "route": "cuda", "source": src + "newton_schulz.cu",
+         "replaces": NS_REPLACES, "launches": srv_448["launches"]["newton_schulz_isqrt_fwd"],
+         "train_launches": trn_448["launches"]["newton_schulz_isqrt_fwd"],
+         "max_abs_err": ns["max_abs_err"], "ms": ns["ms"], "plain_ms": ns["plain_ms"],
+         "bound_ms": ns["bound_ms"], "bound_by": ns["bound_by"],
+         "library_ms": ns["library_ms"]},
     ]
     for entry in kernels:
         if entry["launches"] < 1:
             fail(f"kernel {entry['name']} was launched no time on its main path")
-    for label, s_res, t_res in (("Swin-Base/224", srv, trn), ("ViT-Base/224", srv_vit, trn_vit)):
+    for label, s_res, t_res in (("Swin-Base/224", srv, trn), ("ViT-Base/224", srv_vit, trn_vit),
+                                ("ViT-Base/448", srv_448, trn_448)):
         log(f"  {label}: serving {s_res['images_per_s']:.1f} images/s (peak "
             f"{s_res['peak_gib']:.2f} GiB), training {t_res['images_per_s']:.1f} images/s "
             f"({t_res['step_ms']:.1f} ms/step, peak {t_res['peak_gib']:.2f} GiB)")

@@ -28,7 +28,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 KERNEL_SOURCES = ("window_attention_fwd", "window_attention_bwd", "gpf_fwd", "gpf_bwd",
-                  "packed_attention_fwd", "packed_attention_bwd")
+                  "packed_attention_fwd", "packed_attention_bwd", "flash_attention_fwd",
+                  "flash_attention_bwd", "newton_schulz")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

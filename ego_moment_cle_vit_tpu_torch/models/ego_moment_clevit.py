@@ -17,17 +17,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..losses import graph_alignment_mse_loss, roll_negative_triplet_loss
+from ..ops.moments import _wide
 from ..utils.device import pin_fp32_precision, resolve_device
 from .backbone import CLEViTDualStream, backbone_num_features, backbone_num_patches
 from .classifier_head import ClassifierHead, _not_ported
 from .gpf import GraphPolynomialFusion
 from .layers import Dense, init_parameters
-from .moment_head import MomentHead
+from .moment_head import MomentHead, check_dense_route
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean negative log-likelihood, taken in fp32."""
-    logp = F.log_softmax(logits.float(), dim=-1)
+    """Mean negative log-likelihood, taken in fp32 (fp64 for fp64 logits)."""
+    logp = F.log_softmax(_wide(logits), dim=-1)
     return -torch.gather(logp, 1, labels[:, None].long())[:, 0].mean()
 
 
@@ -153,11 +154,11 @@ class EGOMomentCLEViT(nn.Module):
         }
         if self.lambda_triplet > 0:
             loss_dict["loss_triplet"] = self.lambda_triplet * roll_negative_triplet_loss(
-                anchor_global.float(), positive_global.float(), margin=self.margin
+                _wide(anchor_global), _wide(positive_global), margin=self.margin
             )
         if self.lambda_align > 0:
             loss_dict["loss_align"] = self.lambda_align * graph_alignment_mse_loss(
-                fused_graph.float(), labels
+                _wide(fused_graph), labels
             )
         return loss_dict
 
@@ -181,14 +182,20 @@ class EGOMomentCLEViT(nn.Module):
 
 def create_model(
     config: Dict[str, Any], num_classes: int, *, device: str | torch.device = "cuda",
-    seed: int = 0,
+    seed: int = 0, dtype: torch.dtype | None = None,
 ) -> EGOMomentCLEViT:
     """Build the model from a config dict shaped like configs/ufg_base.yaml,
     with random weights drawn from ``seed`` on ``device``.
 
+    ``dtype`` overrides the compute type the config gives (bf16 where
+    ``model.bf16``, else fp32).  ``torch.float64`` also holds every parameter
+    and buffer in fp64: a reference free of fp32 rounding, for the kernels'
+    plain versions (the CUDA kernels take no fp64).
+
     Runs on the GPU unless ``device='cpu'``; raises without a GPU.  On the
     GPU it pins full-fp32 matmuls and convolutions (no TF32).  Options whose
-    path is not ported yet raise ``NotImplementedError``.
+    path is not ported yet raise ``NotImplementedError``, among them, on the
+    GPU, a dense moment route (N >= D) wider than the Newton–Schulz kernel.
     """
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -211,13 +218,11 @@ def create_model(
         )
     backbone_name = mcfg.get("backbone_name", "swin_base_patch4_window7_224")
     img_size = config.get("data", {}).get("input_size")
-    n_tok, d_tok = backbone_num_patches(backbone_name, img_size), backbone_num_features(backbone_name)
-    if n_tok >= d_tok:
-        raise NotImplementedError(
-            f"'{backbone_name}' at input size {img_size} gives N={n_tok} >= D={d_tok} tokens, "
-            "which takes the moment head's dense Newton–Schulz route; it is not ported yet "
-            "(ROADMAP.md, 'TPU kernels to port', newton_schulz_isqrt_pallas)"
-        )
+    d_tok = backbone_num_features(backbone_name)
+    if backbone_num_patches(backbone_name, img_size) >= d_tok:  # the dense route
+        check_dense_route(d_tok, dev)
+    if dtype is None:
+        dtype = torch.bfloat16 if mcfg.get("bf16", False) else torch.float32
     model = EGOMomentCLEViT(
         num_classes=num_classes,
         backbone_name=backbone_name,
@@ -241,8 +246,10 @@ def create_model(
         norm=mcfg.get("norm", "layer"),
         backbone_remat=mcfg.get("backbone_remat", "attn"),
         moment_bf16_params=moment.get("bf16_params", False),
-        dtype=torch.bfloat16 if mcfg.get("bf16", False) else torch.float32,
+        dtype=dtype,
         device=dev,
     )
+    if dtype == torch.float64:
+        model.double()  # the leaves the JAX package keeps in fp32 whatever the compute type
     model.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
     return model.eval()

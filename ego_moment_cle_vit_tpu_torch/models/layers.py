@@ -42,8 +42,9 @@ class Dense(nn.Module):
 
 class LayerNorm(nn.Module):
     """LayerNorm with fp32 statistics and parameters; output in ``out_dtype``
-    (None: the input's dtype).  ``eps`` has no default on purpose: flax
-    defaults to 1e-6 (head norms), Swin passes 1e-5."""
+    (None: the input's dtype).  fp64 input stays fp64 throughout (a model
+    built in fp64 holds its parameters in fp64 too).  ``eps`` has no default
+    on purpose: flax defaults to 1e-6 (head norms), Swin passes 1e-5."""
 
     def __init__(self, dim: int, *, eps: float, out_dtype: torch.dtype | None = None,
                  device=None):
@@ -54,6 +55,8 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim, dtype=torch.float32, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float64:
+            return F.layer_norm(x, self.weight.shape, self.weight, self.bias, self.eps)
         out_dtype = self.out_dtype or x.dtype
         # CUDA layer_norm takes no bf16 input with fp32 parameters
         y = F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias, self.eps)

@@ -2,9 +2,11 @@
 
 Counterpart of ``ego_moment_cle_vit_tpu/models/moment_head.py:73-233``
 (``MomentHead``): symmetric graph normalization, weighted mean and
-centering, iSQRT-COV in the token subspace (N < D), paired
-half-vectorization, ``second_proj`` -> LayerNorm -> GELU -> Dropout, and the
-third-order Tensor-Sketch branch.  The dense Newton–Schulz route (N >= D),
+centering, iSQRT-COV in the token subspace (N < D) or on the dense route
+(N >= D: ``M2 = Zc^T W Zc`` formed in fp32, cast to the tokens' dtype and
+handed to the Newton–Schulz kernel, as the JAX head hands it to
+``newton_schulz_isqrt_pallas``), paired half-vectorization, ``second_proj``
+-> LayerNorm -> GELU -> Dropout, and the third-order Tensor-Sketch branch.
 ``norm='batch'`` and ``SimplifiedMomentHead`` are not ported yet.
 """
 
@@ -14,8 +16,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels import newton_schulz as _ns
 from ..ops.graph import normalize_graph
 from ..ops.moments import (
+    _wide,
     degree_weighted_centered_mean,
     graph_weighted_mean,
     half_vectorize_paired,
@@ -26,6 +30,19 @@ from .layers import Dense, Dropout, LayerNorm
 
 # flax nn.LayerNorm's default epsilon, which the JAX head norms keep
 HEAD_NORM_EPS = 1e-6
+
+
+def check_dense_route(d: int, device: str | torch.device) -> None:
+    """Raise where the dense route cannot run: on the card, a width past the
+    fp32 Newton–Schulz kernel.  The TPU package takes such widths with its
+    bf16 variants, which are not ported; the plain iteration is never
+    substituted on the card."""
+    if torch.device(device).type == "cuda" and not _ns.kernel_supports(d):
+        raise NotImplementedError(
+            f"the dense Newton–Schulz route at D={d} is past the fp32 kernel (D <= 825); the "
+            "TPU package's bf16 variants for wider matrices are not ported yet (ROADMAP.md, "
+            "'TPU kernels to port', 5′ _ns_kernel_bf16 and 5″ _ns_kernel_bf16_streamed)"
+        )
 
 
 def _head_norm(kind: str, dim: int, device) -> nn.Module:
@@ -91,16 +108,19 @@ class MomentHead(nn.Module):
     def forward(self, tokens: torch.Tensor, graph: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         n_tok, d_tok = tokens.shape[-2], tokens.shape[-1]
-        if n_tok >= d_tok:
-            raise NotImplementedError(
-                f"the dense Newton–Schulz route (N={n_tok} >= D={d_tok}) is not ported yet "
-                "(ROADMAP.md, 'TPU kernels to port', newton_schulz_isqrt_pallas)"
-            )
+        dense = n_tok >= d_tok
+        if dense:
+            check_dense_route(d_tok, tokens.device)
         w = normalize_graph(graph, "symmetric", eps=self.eps)
         mu = graph_weighted_mean(tokens, w, eps=self.eps)
         centered = tokens - mu[:, None, :]
-        weighted = torch.matmul(w.float(), centered.float()).to(tokens.dtype)
-        m2 = isqrt_cov_subspace(centered, weighted, self.isqrt_iterations, self.eps)
+        weighted = torch.matmul(_wide(w), _wide(centered)).to(tokens.dtype)
+        if dense:
+            m2 = torch.matmul(_wide(centered).transpose(-1, -2), _wide(weighted))
+            m2 = _ns.newton_schulz_isqrt_kernel(m2.to(tokens.dtype), self.isqrt_iterations,
+                                                self.eps)
+        else:
+            m2 = isqrt_cov_subspace(centered, weighted, self.isqrt_iterations, self.eps)
         m2_vec = half_vectorize_paired(m2).to(self.dtype)
         x = F.gelu(self.second_norm(self.second_proj(m2_vec)), approximate="none")
         x = self.drop(x, generator)

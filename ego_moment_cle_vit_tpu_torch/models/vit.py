@@ -7,15 +7,21 @@ parameter names follow the flax tree (``blocks_{i}.attn.qkv``,
 ...), so the weight converter maps one to the other name for name.
 
 LayerNorm, the qkv / proj / MLP products and the patch convolution stay plain
-PyTorch; the attention itself goes through
-``kernels.packed_attention.packed_attention`` with one token group per image
-and neither bias nor mask (forward and backward CUDA kernels on the card,
-their plain versions on the CPU), as the JAX package's ViT runs
-``flash_window_attention`` with ``W = 1`` and zero bias and mask.  The TPU
-kernel's ``C % 128`` rule is the TPU's lane width and does not apply here: any
-width with heads of 32 or 64 takes the kernel.  Sequences longer than the
-kernel admits (a 448 input: 785 tokens) ran ``flash_attention_tiled`` on the
-TPU, which is not ported yet: CUDA tensors raise there.
+PyTorch; the attention goes through one of two kernels, as the JAX package's
+``_resolve_attn_path`` picks one (forward and backward CUDA kernels on the
+card, their plain versions on the CPU):
+
+* up to ``packed_attention.MAX_TOKENS`` tokens (a 224 input: 197),
+  ``kernels.packed_attention.packed_attention`` with one token group per
+  image and neither bias nor mask, as the JAX ViT runs
+  ``flash_window_attention`` with ``W = 1`` and zero bias and mask;
+* longer sequences (a 448 input: 785 tokens),
+  ``kernels.flash_attention.flash_attention_tiled``, as the JAX ViT runs
+  ``flash_attention_tiled``.
+
+The TPU kernels' ``C % 128`` and VMEM rules are the TPU's and do not apply
+here: any width with heads of 32 or 64 takes a kernel, and on the card other
+head widths raise.
 
 Training: ``drop_rate`` dropout after the position embedding (the backbone
 has nothing else stochastic) and ``remat='block'``, which checkpoints every
@@ -33,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels import flash_attention as _fa
 from ..kernels import packed_attention as _pa
 from .layers import Dense, Dropout, LayerNorm
 
@@ -79,8 +86,26 @@ class PatchEmbed(nn.Module):
         return x.flatten(2).transpose(1, 2)
 
 
+def resolve_attn_path(tokens: int, channels: int, num_heads: int,
+                      device: str | torch.device) -> str:
+    """'packed' (kernel 3, up to ``MAX_TOKENS`` tokens) or 'tiled' (kernel 6,
+    longer sequences) for heads the kernels take.  Other head widths raise on
+    the card; on the CPU, where both run their plain versions, they take the
+    path their length would."""
+    if _pa.kernel_supports(tokens, channels, num_heads):
+        return "packed"
+    if _fa.kernel_supports(tokens, channels, num_heads):
+        return "tiled"
+    if torch.device(device).type == "cuda":
+        raise NotImplementedError(
+            f"attention at C={channels}, heads={num_heads} has heads of neither "
+            f"{_pa.HEAD_DIMS}, the widths the attention kernels are compiled for"
+        )
+    return "packed" if tokens <= _pa.MAX_TOKENS else "tiled"
+
+
 class Attention(nn.Module):
-    """qkv -> packed attention over the whole sequence -> proj."""
+    """qkv -> attention over the whole sequence (packed or q-tiled kernel) -> proj."""
 
     def __init__(self, dim: int, num_heads: int, dtype, device):
         super().__init__()
@@ -91,13 +116,8 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, c = x.shape
         qkv = self.qkv(x)
-        if qkv.device.type == "cuda" and not _pa.kernel_supports(t, c, self.num_heads):
-            raise NotImplementedError(
-                f"attention over T={t} tokens at C={c}, heads={self.num_heads} is outside the "
-                f"packed-attention kernel (heads of {_pa.HEAD_DIMS}, T <= {_pa.MAX_TOKENS}); the "
-                "kernel for long sequences is not ported yet (ROADMAP.md, 'TPU kernels to "
-                "port', flash_attention_tiled)"
-            )
+        if resolve_attn_path(t, c, self.num_heads, qkv.device) == "tiled":
+            return self.proj(_fa.flash_attention_tiled(qkv, self.num_heads))
         out = _pa.packed_attention(qkv.reshape(b, 1, t, 3 * c), None, None, self.num_heads)
         return self.proj(out.reshape(b, t, c))
 

@@ -3,11 +3,11 @@
 Counterpart of ``ego_moment_cle_vit_tpu/ops/moments.py:192-225, 291-307,
 336-413``: the paired half-vectorization, the graph-weighted means and the
 token-subspace iSQRT-COV.  Products accumulate in fp32 and results are cast
-back to the token dtype, as in the JAX package.  The dense Newton–Schulz
-route (N >= D) is not ported yet.  Everything here is differentiable by plain
-autograd (fp64 inputs stay fp64, so ``gradcheck`` applies); the one in-place
-update, on the diagonal of a fresh matmul result, touches nothing that
-autograd saved.
+back to the token dtype, as in the JAX package.  The dense route (N >= D)
+takes its Newton–Schulz iteration from ``kernels/newton_schulz.py``.
+Everything here is differentiable by plain autograd (fp64 inputs stay fp64,
+so ``gradcheck`` applies); the one in-place update, on the diagonal of a
+fresh matmul result, touches nothing that autograd saved.
 """
 
 from __future__ import annotations

@@ -23,12 +23,25 @@ P v on both sides; the kernel rounds the unnormalized probabilities of its
 online softmax); backward as above.  Two runs of the backward give the same
 bits.  The GPF kernels are tiled, so they are held at a ViT's 196 tokens and at
 784 as well as at 49.
+
+q-tiled attention (kernels 6, 6b; a ViT at 448, 785 tokens): forward fp32
+1e-4, bf16 2e-3 + 2^-7 |ref| per element (one ulp of the output's rounding
+over a pre-rounding difference far under 2e-3; atol stays under a long
+sequence's typical output, ~0.06, so the padded-keys control fails); the
+log-sum-exp within 1e-4 of its largest; backward fp32 1e-4 + 1e-4 |ref|, bf16
+4e-3 + 2^-6 |ref| (ds rounded on both sides, then the output).  Two runs of
+the backward give the same bits.  Newton-Schulz (kernel 5, fp32 inside):
+|err| <= rtol |ref| + atol max |ref| with (0, 1e-5) for fp32 M (sum order over
+14 chained products) and (2^-7, 1e-4) for bf16 M (one ulp of the output's
+rounding); four iterations instead of five fail that.
 """
 
 import pytest
 import torch
 
+from ego_moment_cle_vit_tpu_torch.kernels import flash_attention as tfa
 from ego_moment_cle_vit_tpu_torch.kernels import gpf as tgpf
+from ego_moment_cle_vit_tpu_torch.kernels import newton_schulz as tns
 from ego_moment_cle_vit_tpu_torch.kernels import packed_attention as tpa
 from ego_moment_cle_vit_tpu_torch.kernels import window_attention as twa
 from ego_moment_cle_vit_tpu_torch.models.swin import _attn_mask, _relative_position_index
@@ -258,3 +271,102 @@ def test_cuda_packed_attention_rejects_bad_inputs(cuda_device):
         tpa.packed_attention_fwd(ok, torch.zeros(3, 9, 9, device=cuda_device), None, 2)
     with pytest.raises(ValueError, match="dout must be"):
         tpa.packed_attention_bwd(ok, None, None, torch.zeros(1, 2, 9, 32, device=cuda_device), 2)
+
+
+# (B, T, C, heads): the ViT-Base call at 448, two heads of 64 and of 32 past
+# the packed kernel's 256 tokens, a sequence under one query block, one tile
+FLASH = [(2, 785, 768, 12), (2, 300, 128, 2), (3, 325, 64, 2), (2, 100, 64, 2), (2, 64, 128, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-4, 0.0),
+                                               (torch.bfloat16, 2e-3, 2.0**-7)])
+@pytest.mark.parametrize("b, t, c, heads", FLASH)
+def test_cuda_flash_attention_matches_plain(cuda_device, dtype, atol, rtol, b, t, c, heads):
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    qkv = torch.randn(b, t, 3 * c, generator=g, device=cuda_device).to(dtype)
+    before = tfa.flash_attention_tiled_fwd.launches
+    out, lse = tfa.flash_attention_tiled_fwd(qkv, heads)
+    assert tfa.flash_attention_tiled_fwd.launches == before + 1
+    ref, ref_lse = tfa.flash_attention_tiled_plain(qkv, heads)
+    assert out.dtype == dtype and out.shape == (b, t, c) and lse.shape == (b, heads, t)
+    assert _close(out, ref, atol, rtol)
+    assert (lse - ref_lse).abs().max().item() <= 1e-4 * ref_lse.abs().max().item()
+    # a control: the keys padded to the kernel's tile and left unmasked
+    pad = -(-t // tfa.TILE) * tfa.TILE - t
+    if pad:
+        padded = torch.nn.functional.pad(qkv, (0, 0, 0, pad))
+        assert not _close(tfa.flash_attention_tiled_plain(padded, heads)[0][:, :t], ref, atol,
+                          rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-4, 1e-4),
+                                               (torch.bfloat16, 4e-3, 2.0**-6)])
+@pytest.mark.parametrize("b, t, c, heads", FLASH)
+def test_cuda_flash_attention_bwd_matches_plain(cuda_device, dtype, atol, rtol, b, t, c, heads):
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    qkv = torch.randn(b, t, 3 * c, generator=g, device=cuda_device).to(dtype)
+    dout = torch.randn(b, t, c, generator=g, device=cuda_device).to(dtype)
+    out, lse = tfa.flash_attention_tiled_fwd(qkv, heads)
+    before = tfa.flash_attention_tiled_bwd.launches
+    dqkv = tfa.flash_attention_tiled_bwd(qkv, out, lse, dout, heads)
+    assert tfa.flash_attention_tiled_bwd.launches == before + 1
+    ref = tfa.flash_attention_tiled_bwd_plain(qkv, dout, heads)
+    assert dqkv.dtype == dtype and _close(dqkv, ref, atol, rtol)
+    ctrl = ref.clone()
+    ctrl[..., c:2 * c] = 0  # a control: dK zeroed falls outside
+    assert not _close(ctrl, ref, atol, rtol)
+    # the same gradient twice, bit for bit
+    assert torch.equal(tfa.flash_attention_tiled_bwd(qkv, out, lse, dout, heads), dqkv)
+    # and the Function routes autograd through the same kernels
+    q2 = qkv.clone().requires_grad_()
+    tfa.flash_attention_tiled(q2, heads).backward(dout)
+    assert torch.equal(q2.grad, dqkv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, rtol, atol", [(torch.float32, 0.0, 1e-5),
+                                               (torch.bfloat16, 2.0**-7, 1e-4)])
+@pytest.mark.parametrize("b, d", [(4, 768), (2, 192), (2, 100), (3, 64)])
+def test_cuda_newton_schulz_matches_plain(cuda_device, dtype, rtol, atol, b, d):
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    z = torch.randn(b, d + 16, d, generator=g, device=cuda_device)
+    m = (z.transpose(1, 2) @ z / d).to(dtype)
+
+    def close(out, ref):
+        ref = ref.float()
+        return bool(((out.float() - ref).abs() <= rtol * ref.abs() + atol * ref.abs().max()).all())
+
+    before = tns.newton_schulz_isqrt_fwd.launches
+    out = tns.newton_schulz_isqrt_fwd(m, 5, 1e-5)
+    assert tns.newton_schulz_isqrt_fwd.launches == before + 1
+    ref = tns.newton_schulz_isqrt_plain(m, 5, 1e-5)
+    assert out.dtype == dtype and close(out, ref)
+    assert not close(tns.newton_schulz_isqrt_plain(m, 4, 1e-5), ref)  # a control
+    # the Function: the kernel's forward, the plain iteration's gradient
+    x = m.clone().requires_grad_()
+    y = tns.newton_schulz_isqrt_kernel(x, 5, 1e-5)
+    assert torch.equal(y, out)
+    y.float().square().sum().backward()
+    x_ref = m.clone().requires_grad_()
+    tns.newton_schulz_isqrt_plain(x_ref, 5, 1e-5).float().square().sum().backward()
+    assert torch.isfinite(x.grad).all()
+    torch.testing.assert_close(x.grad.float(), x_ref.grad.float(), rtol=1e-2, atol=1e-2 * float(
+        x_ref.grad.float().abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_long_sequence_wrappers_reject_bad_inputs(cuda_device):
+    qkv = torch.zeros(1, 785, 3 * 96, device=cuda_device)  # head dim 48 is not compiled
+    with pytest.raises(ValueError, match="C / heads"):
+        tfa.flash_attention_tiled_fwd(qkv, 2)
+    ok = torch.zeros(1, 300, 3 * 64, device=cuda_device)
+    out, lse = tfa.flash_attention_tiled_fwd(ok, 2)
+    with pytest.raises(ValueError, match="lse must be"):
+        tfa.flash_attention_tiled_bwd(ok, out, lse.double(), torch.zeros_like(out), 2)
+    with pytest.raises(ValueError, match="D <= 825"):
+        tns.newton_schulz_isqrt_fwd(torch.zeros(1, 1024, 1024, device=cuda_device))
+    with pytest.raises(TypeError, match="not supported"):
+        tns.newton_schulz_isqrt_fwd(torch.zeros(1, 64, 64, device=cuda_device,
+                                                dtype=torch.float16))

@@ -1,7 +1,8 @@
 """The port's serving path against the JAX package, and its boundaries.
 
-ViT backbones are ported (tests/test_torch_vit.py); a ViT whose token count
-reaches its width (N >= D, the dense Newton-Schulz route) still raises.
+ViT backbones are ported (tests/test_torch_vit.py), and so is the dense
+Newton-Schulz route that a ViT whose token count reaches its width takes
+(N >= D; tests/test_torch_newton_schulz.py).
 
 ``make_infer_fn`` of the port (uint8 -> eval preprocess -> Swin -> fused GPF
 -> moment head -> classifier) against the JAX ``bench_core.make_infer_fn``
@@ -27,6 +28,7 @@ from ego_moment_cle_vit_tpu.data import dual_view_eval_batch as j_eval_batch
 from ego_moment_cle_vit_tpu.models import create_model as j_create_model
 from ego_moment_cle_vit_tpu_torch import create_model, make_infer_fn
 from ego_moment_cle_vit_tpu_torch.data import AugmentConfig, dual_view_eval_batch
+from ego_moment_cle_vit_tpu_torch.models.moment_head import check_dense_route
 from ego_moment_cle_vit_tpu_torch.utils.convert import torch_state_dict_from_flax
 
 # the test workers share the cores, and these sizes are tiny: one intra-op thread
@@ -97,7 +99,7 @@ def test_fresh_model_is_seeded_and_finite():
 
 
 @pytest.mark.parametrize("change", [
-    {"model": {"backbone_name": "vit_tiny_patch16_224"}, "data": {"input_size": 224}},
+    {"model": {"gpf": {"adaptive_type": "spatial"}}},
     {"model": {"gpf": {"adaptive_type": "global"}}},
     {"model": {"classifier": {"type": "multiscale"}}},
     {"model": {"classifier": {"type": "adaptive"}}},
@@ -122,7 +124,8 @@ def test_unported_paths_raise(change):
 def test_unported_forwards_raise():
     """The dual-view forwards are ported now: with one image as both views they
     give ``inference``'s logits, and the backbone pass gives the single pass's
-    features twice.  The dense Newton–Schulz route still raises."""
+    features twice.  The dense Newton–Schulz route runs on the CPU; on the
+    card it raises only past the fp32 kernel's widths."""
     model = create_model(_config("dot"), num_classes=10, device="cpu")
     x = torch.from_numpy(np.random.default_rng(6).normal(size=(2, 56, 56, 3)).astype(np.float32))
     with torch.no_grad():
@@ -136,9 +139,15 @@ def test_unported_forwards_raise():
         for key in ("patch_tokens", "global_features"):
             torch.testing.assert_close(anchor_features[key], single[key], rtol=1e-4, atol=1e-5)
             torch.testing.assert_close(positive_features[key], single[key], rtol=1e-4, atol=1e-5)
-    # the dense Newton–Schulz route (N >= D) is not ported
+    # the dense Newton–Schulz route (N >= D) runs on the CPU
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.normal(size=(1, 300, 256)).astype(np.float32))
+    with torch.no_grad():
+        moments = model.moment_head(tokens, torch.ones(1, 300, 300))
+    assert moments.shape == (1, model.moment_head.d_out) and torch.isfinite(moments).all()
+    check_dense_route(256, "cuda")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.moment_head(torch.zeros(1, 300, 256), torch.ones(1, 300, 300))
+        check_dense_route(1024, "cuda")
 
 
 def test_port_imports_no_jax():
