@@ -64,6 +64,23 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    equal bit for bit), and the Newton-Schulz iteration at [64, 768, 768] with
    M built as the head builds it and at [64, 192, 192] (control: four
    iterations instead of five), bf16 and fp32.
+   Phase 2 / 2b also hold the fused attention half (LayerNorm, qkv, window
+   attention, proj and residual in one kernel) at Swin-Base's stages 0 and 1,
+   [64, 56, 56, 128] with 4 heads and [64, 28, 28, 256] with 8, unshifted and
+   shifted, bf16 and fp32 (controls: bias omitted, residual dropped), and its
+   backward at batch 128: dx per element, each parameter gradient within a
+   fraction of its largest entry, two runs equal bit for bit (controls: one
+   token chunk's dwqkv partial dropped, dbias dropped).  Beside kernel and
+   plain times they time PyTorch's own calls for the block (layer_norm,
+   linear, SDPA, linear, add; autograd of them) and the port's default route
+   (LayerNorm, Dense, kernel 1 / 1b, Dense, add).
+3f, 4f. Phases 3 and 4 on Swin-Base/224 under backbone_attn_kernel
+   'fused_half': 4 fused attention-half launches (stages 0-1), 20 window
+   attention and 1 GPF per forward; 4 + 4, 20 + 20 and 1 + 1 per train step.
+   Controls: the fused kernel without its bias (serving), its dwqkv dropped
+   (training).  The logits are also held against the default path on the same
+   weights: 2e-2 relative L2 in bf16 (batch 64), 1e-3 of max |logit| in fp32
+   (batch 8).
 6. A JSON line of the kernels, then the contract's last line.
 """
 
@@ -89,6 +106,7 @@ from ego_moment_cle_vit_tpu_torch import (
 )
 from ego_moment_cle_vit_tpu_torch.data import AugmentConfig, dual_view_train_batch
 from ego_moment_cle_vit_tpu_torch.kernels import _build
+from ego_moment_cle_vit_tpu_torch.kernels import attn_half as _ah
 from ego_moment_cle_vit_tpu_torch.kernels import flash_attention as _fa
 from ego_moment_cle_vit_tpu_torch.kernels import gpf as _gpf
 from ego_moment_cle_vit_tpu_torch.kernels import newton_schulz as _ns
@@ -174,6 +192,11 @@ TOL_GRADS_REL = {torch.bfloat16: 0.1, torch.float32: 2e-3}
 # tightly on shared inputs in phase 2; here it must be finite and of the
 # reference's order of magnitude.
 TOL_GRADS_REL_ILL_CONDITIONED = {"gpf.alpha_coeffs": {torch.bfloat16: 3.0}}
+# The fused path rounds the attention half's residual once from fp32 where
+# the default path adds in bf16, so its bf16 tokens carry other noise, and
+# this leaf, decided by that noise, read 3.04 relative (chip run, H100); it
+# is held to its order of magnitude.  Every other leaf keeps TOL_GRADS_REL.
+TOL_GRADS_REL_ILL_CONDITIONED_FUSED = {"gpf.alpha_coeffs": {torch.bfloat16: 10.0}}
 # At a 448 input the GPF Grams are 784 x 784, so each dc[p, q] cancels 16x the
 # terms it does at 196 tokens, and fp32 rounding alone decides its third digit
 # (kernel path vs plain path 1.5e-3 relative, against 6.1e-5 at 224; every
@@ -198,6 +221,18 @@ TOL_FA_BWD = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (4e-3, 2.0**-6)}
 # max |ref|.  fp32: sum order over 14 chained products; bf16: one ulp of the
 # output's rounding over the same fp32 difference.
 TOL_NS = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2.0**-7, 1e-4)}
+# fused attention half, kernel vs plain, |err| <= atol + rtol |ref| per
+# element.  fp32: sum order.  bf16: both sides round xn, qkv, P and om, and an
+# fp32 sum that lands on the other side of a rounding moves one bf16 ulp
+# through the proj product, then y's own rounding adds one ulp (2^-8 |y|).
+# Backward: dx likewise; each parameter gradient within gtol of its own
+# largest entry (sums over 10^5 tokens of rounded products).
+TOL_AH = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 2.0**-6)}
+TOL_AH_BWD = {torch.float32: (1e-4, 1e-4, 1e-3), torch.bfloat16: (3e-2, 2.0**-6, 2e-2)}
+# the fused path against the default path on the same weights: bf16 logits
+# within 2e-2 relative L2 (the JAX package's bar, tests/test_attn_half.py);
+# fp32 logits within 1e-3 of max |logit|
+TOL_FUSED_VS_DEFAULT = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
 
 WA_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/window_attention.py:361"
 GPF_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/gpf.py:41"
@@ -208,6 +243,8 @@ PA_BWD_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/window_attention.py:155"
 FA_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/flash_attention.py:75"
 FA_BWD_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/flash_attention.py:94"
 NS_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/newton_schulz.py:43"
+AH_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/attn_half.py:73"
+AH_BWD_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/attn_half.py:128"
 WA_KERNEL = _wa.window_attention_fwd
 GPF_KERNEL = _gpf.gpf_fwd
 WA_BWD_KERNEL = _wa.window_attention_bwd
@@ -217,11 +254,14 @@ PA_BWD_KERNEL = _pa.packed_attention_bwd
 FA_KERNEL = _fa.flash_attention_tiled_fwd
 FA_BWD_KERNEL = _fa.flash_attention_tiled_bwd
 NS_KERNEL = _ns.newton_schulz_isqrt_fwd
+AH_KERNEL = _ah.attn_half_fwd
+AH_BWD_KERNEL = _ah.attn_half_bwd
 KERNELS = {"window_attention_fwd": WA_KERNEL, "window_attention_bwd": WA_BWD_KERNEL,
            "gpf_fwd": GPF_KERNEL, "gpf_bwd": GPF_BWD_KERNEL,
            "packed_attention_fwd": PA_KERNEL, "packed_attention_bwd": PA_BWD_KERNEL,
            "flash_attention_tiled_fwd": FA_KERNEL, "flash_attention_tiled_bwd": FA_BWD_KERNEL,
-           "newton_schulz_isqrt_fwd": NS_KERNEL}
+           "newton_schulz_isqrt_fwd": NS_KERNEL, "attn_half_fwd": AH_KERNEL,
+           "attn_half_bwd": AH_BWD_KERNEL}
 
 
 def log(*a):
@@ -261,7 +301,8 @@ def plain_kernels():
     """Swap every kernel wrapper the model calls for its plain version."""
     saved = (_wa.window_attention_fwd, _wa.window_attention_bwd, _gpf.gpf_fwd, _gpf.gpf_bwd,
              _pa.packed_attention_fwd, _pa.packed_attention_bwd, _fa.flash_attention_tiled_fwd,
-             _fa.flash_attention_tiled_bwd, _ns.newton_schulz_isqrt_fwd)
+             _fa.flash_attention_tiled_bwd, _ns.newton_schulz_isqrt_fwd, _ah.attn_half_fwd,
+             _ah.attn_half_bwd)
     _wa.window_attention_fwd = _wa.window_attention_plain
     _wa.window_attention_bwd = _wa.window_attention_bwd_plain
     _gpf.gpf_fwd = _gpf.gpf_plain
@@ -274,12 +315,15 @@ def plain_kernels():
         lambda qkv, out, lse, dout, num_heads: _fa.flash_attention_tiled_bwd_plain(
             qkv, dout, num_heads))
     _ns.newton_schulz_isqrt_fwd = _ns.newton_schulz_isqrt_plain
+    _ah.attn_half_fwd = _ah.attn_half_plain
+    _ah.attn_half_bwd = _ah.attn_half_bwd_plain
     try:
         yield
     finally:
         (_wa.window_attention_fwd, _wa.window_attention_bwd, _gpf.gpf_fwd, _gpf.gpf_bwd,
          _pa.packed_attention_fwd, _pa.packed_attention_bwd, _fa.flash_attention_tiled_fwd,
-         _fa.flash_attention_tiled_bwd, _ns.newton_schulz_isqrt_fwd) = saved
+         _fa.flash_attention_tiled_bwd, _ns.newton_schulz_isqrt_fwd, _ah.attn_half_fwd,
+         _ah.attn_half_bwd) = saved
 
 
 @contextlib.contextmanager
@@ -421,6 +465,43 @@ def bias_gradient_dropped():
         yield
     finally:
         _wa.window_attention_bwd = saved
+
+
+@contextlib.contextmanager
+def fused_bias_omitted(model: torch.nn.Module):
+    """Control for the fused path: the attention-half kernel runs with its
+    relative-position bias at zero (the other blocks keep theirs), a fault the
+    serving check must see."""
+    del model
+    saved = _ah.attn_half_fwd
+
+    def omitted(x, ln_g, ln_b, wqkv, bqkv, wproj, bproj, bias, *rest):
+        return saved(x, ln_g, ln_b, wqkv, bqkv, wproj, bproj, torch.zeros_like(bias), *rest)
+
+    omitted.launches = 0  # the wrapper counts on whatever the module name holds
+    _ah.attn_half_fwd = omitted
+    try:
+        yield
+    finally:
+        _ah.attn_half_fwd = saved
+
+
+@contextlib.contextmanager
+def qkv_weight_gradient_dropped():
+    """Control for the fused path: the attention-half backward kernel runs but
+    its dwqkv is thrown away, a fault the training gradient check must see."""
+    saved = _ah.attn_half_bwd
+
+    def dropped(*args):
+        grads = saved(*args)
+        return (*grads[:3], torch.zeros_like(grads[3]), *grads[4:])
+
+    dropped.launches = 0  # the wrapper counts on whatever the module name holds
+    _ah.attn_half_bwd = dropped
+    try:
+        yield
+    finally:
+        _ah.attn_half_bwd = saved
 
 
 def reset_launches() -> None:
@@ -1194,6 +1275,243 @@ def check_newton_schulz(g: torch.Generator) -> dict:
     return main
 
 
+# the fused attention half at Swin-Base's stages 0 and 1, the blocks that
+# fuse: (Hp = Wp, C, heads); block 0 of each stage is unshifted, block 1
+# shifted (with a mask), one of each per forward
+AH_STAGES = ((56, 128, 4), (28, 256, 8))
+
+
+def attn_half_inputs(g: torch.Generator, batch: int, hp: int, c: int, heads: int,
+                     shifted: bool, dtype) -> tuple:
+    """(x, ln_g, ln_b, wqkv, bqkv, wproj, bproj, bias, mask) for one block:
+    LayerNorm parameters near their init, Dense weights at lecun scale, the
+    bias table at BIAS_TABLE_STD."""
+    dev = torch.device("cuda")
+    nt = WS * WS
+    idx = torch.as_tensor(_relative_position_index(WS).reshape(-1), device=dev)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    table = randn((2 * WS - 1) ** 2, heads, scale=BIAS_TABLE_STD)
+    bias = table[idx].reshape(nt, nt, heads).permute(2, 0, 1).contiguous()
+    mask = (torch.as_tensor(_attn_mask(hp, hp, hp, hp, WS, WS // 2), device=dev)
+            if shifted else None)
+    return (randn(batch, hp, hp, c).to(dtype), 1.0 + randn(c, scale=0.1), randn(c, scale=0.1),
+            randn(3 * c, c, scale=c ** -0.5).to(dtype), randn(3 * c, scale=0.1).to(dtype),
+            randn(c, c, scale=c ** -0.5).to(dtype), randn(c, scale=0.1).to(dtype), bias, mask)
+
+
+def attention_half_by_library(args: tuple, heads: int) -> torch.Tensor:
+    """The same block as PyTorch's own calls: layer_norm, linear, SDPA over
+    the partitioned windows with bias + mask as its float mask (partition and
+    reverse copies included), linear, add.  A yardstick, never the port's."""
+    x, ln_g, ln_b, wqkv, bqkv, wproj, bproj, bias, mask = args
+    b, hp, wp, c = x.shape
+    nw, nt, d = (hp // WS) * (wp // WS), WS * WS, c // heads
+    xn = torch.nn.functional.layer_norm(x.float(), (c,), ln_g, ln_b, 1e-5).to(x.dtype)
+    qkv = torch.nn.functional.linear(xn, wqkv, bqkv)
+    qkv = qkv.reshape(b, hp // WS, WS, wp // WS, WS, 3, heads, d)
+    qkv = qkv.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, b * nw, heads, nt, d)
+    am = bias[None] + (mask[:, None] if mask is not None else 0.0)
+    am = am.expand(b, nw, heads, nt, nt).reshape(b * nw, heads, nt, nt).to(x.dtype)
+    o = torch.nn.functional.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], attn_mask=am,
+                                                         scale=d ** -0.5)
+    om = o.reshape(b, hp // WS, wp // WS, heads, WS, WS, d).permute(0, 1, 4, 2, 5, 3, 6)
+    return x + torch.nn.functional.linear(om.reshape(b, hp, wp, c), wproj, bproj)
+
+
+def attention_half_unfused(args: tuple, heads: int) -> torch.Tensor:
+    """The port's default route for the same block: LayerNorm, Dense, kernel
+    1 (1b under autograd), Dense, add."""
+    x, ln_g, ln_b, wqkv, bqkv, wproj, bproj, bias, mask = args
+    c = x.shape[-1]
+    xn = torch.nn.functional.layer_norm(x.float(), (c,), ln_g, ln_b, 1e-5).to(x.dtype)
+    qkv = torch.nn.functional.linear(xn, wqkv, bqkv)
+    om = _wa.window_attention(qkv, bias, mask, heads, WS, (c // heads) ** -0.5)
+    return x + torch.nn.functional.linear(om, wproj, bproj)
+
+
+def attn_half_bound(args: tuple, heads: int, backward: bool) -> tuple[float, str]:
+    """Least time for the block: x read and y written (backward: x, dy read,
+    dx written), weights and tables once; operations 2 M C 4C + 4 M T C
+    forward, 22 M C^2 + 12 M T C backward (qkv and the attention recomputed,
+    then dom, the attention's four products, dwproj, dwqkv and dxn)."""
+    x, bias, mask = args[0], args[7], args[8]
+    m, c, nt = x.numel() // x.shape[-1], x.shape[-1], WS * WS
+    es = x.element_size()
+    params = (4 * c * c + 4 * c) * es + 2 * c * 4 + bias.numel() * 4 + (
+        mask.numel() * 4 if mask is not None else 0)
+    if backward:
+        return bound_ms(3 * x.numel() * es + 2 * params, 22.0 * m * c * c + 12.0 * m * nt * c,
+                        x.dtype)
+    return bound_ms(2 * x.numel() * es + params, 8.0 * m * c * c + 4.0 * m * nt * c, x.dtype)
+
+
+def check_attn_half(g: torch.Generator) -> dict:
+    """Kernel 4 at the serving calls: [64, 56, 56, 128] with 4 heads and
+    [64, 28, 28, 256] with 8, unshifted and shifted, bf16 and fp32."""
+    per_forward = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                   "unfused_ms": 0.0}
+    max_err, min_control = 0.0, math.inf
+    bound_kinds = {"bytes": 0.0, "operations": 0.0}
+    for hp, c, heads in AH_STAGES:
+        for shifted in (False, True):
+            for dtype in (torch.bfloat16, torch.float32):
+                atol, rtol = TOL_AH[dtype]
+                args = attn_half_inputs(g, BATCH, hp, c, heads, shifted, dtype)
+                out = AH_KERNEL(*args, heads, WS)
+                ref = _ah.attn_half_plain(*args, heads, WS)
+                torch.cuda.synchronize()
+                what = f"attention half {hp}x{hp} C={c} shift={shifted} {dtype}"
+                err = (out.float() - ref.float()).abs().max().item()
+                excess = close_excess(out, ref, atol, rtol)
+                if not math.isfinite(excess) or excess > 1.0:
+                    fail(f"{what}: error {excess:.3f}x its tolerance {TOL_AH[dtype]} "
+                         f"(max abs err {err})")
+                max_err = max(max_err, err)
+                # controls: the bias omitted, and the residual dropped
+                no_bias = args[:7] + (torch.zeros_like(args[7]), args[8])
+                controls = (_ah.attn_half_plain(*no_bias, heads, WS),
+                            (ref.float() - args[0].float()).to(dtype))
+                ctrl_excess = min(close_excess(ctrl, ref, atol, rtol) for ctrl in controls)
+                if ctrl_excess <= 1.0:
+                    fail(f"{what}: a control (bias omitted, residual dropped) passes the check")
+                min_control = min(min_control, ctrl_excess)
+                del controls, no_bias, out, ref
+                what_log = (f"  attn_half [{BATCH},{hp},{hp},{c}] H={heads} shift={int(shifted)} "
+                            f"{str(dtype)[6:]}: max_abs_err={err:.3e} err/tol={excess:.3f} (tol "
+                            f"atol+rtol|ref| {TOL_AH[dtype]}) control err/tol>={ctrl_excess:.1f}")
+                if dtype != torch.bfloat16:  # timed in the serving path's dtype only
+                    log(what_log)
+                    del args
+                    continue
+                k_ms = time_ms(lambda: AH_KERNEL(*args, heads, WS), reps=20, samples=3)
+                p_ms = time_ms(lambda: _ah.attn_half_plain(*args, heads, WS), reps=3, samples=3)
+                l_ms = time_ms(lambda: attention_half_by_library(args, heads), reps=5, samples=3)
+                u_ms = time_ms(lambda: attention_half_unfused(args, heads), reps=5, samples=3)
+                b_ms, kind = attn_half_bound(args, heads, backward=False)
+                log(f"{what_log} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms(LN+linear+"
+                    f"SDPA+linear)={l_ms:.4f} unfused_ms(LN+linear+kernel 1+linear)={u_ms:.4f} "
+                    f"bound_ms={b_ms:.4f} ({kind})")
+                for key, val in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
+                                 ("unfused_ms", u_ms), ("bound_ms", b_ms)):
+                    per_forward[key] += val  # one block of each per forward
+                bound_kinds[kind] += b_ms
+                del args
+                torch.cuda.empty_cache()
+    log(f"  attention half controls: smallest err/tol {min_control:.1f} (must be > 1)")
+    return {"max_abs_err": max_err, "bound_by": max(bound_kinds, key=bound_kinds.get),
+            **per_forward}
+
+
+def first_chunk_qkv_gradient(args: tuple, dy: torch.Tensor, heads: int) -> torch.Tensor:
+    """The first token chunk's share of dwqkv = dqkv^T xn, as the backward's
+    weight-gradient kernel sums it into one partial, in plain PyTorch (xn,
+    qkv, do and dqkv rounded as in the kernels)."""
+    x, ln_g, ln_b, wqkv, bqkv, wproj, _, bias, mask = args
+    b, hp, wp, c = x.shape
+    m, dt = b * hp * wp, x.dtype
+    geo = _ah.bwd_geometry(b, m, c, (hp // WS) * (wp // WS), heads)
+    chunk = -(-m // 64 // geo["w_chunks"]) * 64
+    xn = torch.nn.functional.layer_norm(x.float(), (c,), ln_g, ln_b, 1e-5).to(dt)
+    qkv = (xn.float() @ wqkv.float().T + bqkv.float()).to(dt)
+    dom = (dy.float() @ wproj.float()).to(dt)
+    dqkv, _ = _wa.window_attention_bwd_plain(qkv, bias, mask, dom, heads, WS,
+                                             (c // heads) ** -0.5)
+    return dqkv.reshape(m, 3 * c)[:chunk].float().T @ xn.reshape(m, c)[:chunk].float()
+
+
+AH_GRAD_NAMES = ("dx", "dln_g", "dln_b", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias")
+
+
+def check_attn_half_bwd(g: torch.Generator) -> dict:
+    """Kernel 4b at the training calls (batch 128): dx per element, every
+    parameter gradient within a fraction of its own largest entry; two runs
+    bit for bit.  Also times the forward kernel at that batch."""
+    per_step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                "unfused_ms": 0.0, "fwd_ms": 0.0}
+    max_err, worst, min_control = 0.0, 0.0, math.inf
+    bound_kinds = {"bytes": 0.0, "operations": 0.0}
+    batch = TRAIN_VIEWS
+    for hp, c, heads in AH_STAGES:
+        for shifted in (False, True):
+            for dtype in (torch.bfloat16, torch.float32):
+                atol, rtol, gtol = TOL_AH_BWD[dtype]
+                args = attn_half_inputs(g, batch, hp, c, heads, shifted, dtype)
+                dy = torch.randn(args[0].shape, generator=g, device="cuda").to(dtype)
+                got = AH_BWD_KERNEL(*args, dy, heads, WS)
+                ref = _ah.attn_half_bwd_plain(*args, dy, heads, WS)
+                again = AH_BWD_KERNEL(*args, dy, heads, WS)
+                torch.cuda.synchronize()
+                what = f"attention half backward {hp}x{hp} C={c} shift={shifted} {dtype}"
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"{what}: two runs of the backward kernel differ")
+                del again
+                err = (got[0].float() - ref[0].float()).abs().max().item()
+                excess = close_excess(got[0], ref[0], atol, rtol)
+                if not math.isfinite(excess) or excess > 1.0:
+                    fail(f"{what}: dx error {excess:.3f}x its tolerance (max abs err {err})")
+                rels = {}
+                for name, a, r in zip(AH_GRAD_NAMES[1:], got[1:], ref[1:]):
+                    rels[name] = (a - r).abs().max().item() / r.abs().max().item()
+                    if not math.isfinite(rels[name]) or rels[name] > gtol:
+                        fail(f"{what}: {name} off by {rels[name]:.3e} of its largest entry "
+                             f"(tol {gtol})")
+                max_err = max(max_err, err)
+                worst = max(worst, excess, max(rels.values()) / gtol)
+                # controls: one chunk's dwqkv partial dropped (the share of
+                # the first chunk of tokens taken away), and dbias dropped
+                share = first_chunk_qkv_gradient(args, dy, heads)
+                ctrl_w = share.abs().max().item() / ref[3].abs().max().item()
+                ctrl = min(ctrl_w, 1.0) / gtol  # dbias dropped: |0 - ref| is 1.0 of its max
+                if ctrl <= 1.0:
+                    fail(f"{what}: a control (one chunk's dwqkv dropped, dbias dropped) passes "
+                         f"the check")
+                min_control = min(min_control, ctrl)
+                del got, ref, share
+                what_log = (f"  attn_half_bwd [{batch},{hp},{hp},{c}] H={heads} shift="
+                            f"{int(shifted)} {str(dtype)[6:]}: dx max_abs_err={err:.3e} err/tol="
+                            f"{excess:.3f} (tol {atol}+{rtol:.4f}|ref|) gradients off by (of their "
+                            f"largest entry) {', '.join(f'{k} {v:.2e}' for k, v in rels.items())} "
+                            f"(tol {gtol}); two runs equal; control err/tol>={ctrl:.1f} (one "
+                            f"chunk's dwqkv {ctrl_w:.3e})")
+                if dtype != torch.bfloat16:  # timed in the training path's dtype only
+                    log(what_log)
+                    del args, dy
+                    continue
+                k_ms = time_ms(lambda: AH_BWD_KERNEL(*args, dy, heads, WS), reps=5, samples=3)
+                p_ms = time_ms(lambda: _ah.attn_half_bwd_plain(*args, dy, heads, WS), reps=2,
+                               samples=3)
+                f_ms = time_ms(lambda: AH_KERNEL(*args, heads, WS), reps=5, samples=3)
+                grads_of = {}
+                for route, fn in (("library", attention_half_by_library),
+                                  ("unfused", attention_half_unfused)):
+                    leaves = [t.detach().clone().requires_grad_() for t in args[:8]]
+                    y = fn((*leaves, args[8]), heads)
+                    grads_of[route] = time_ms(
+                        lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True), reps=3,
+                        samples=3)
+                    del leaves, y
+                b_ms, kind = attn_half_bound(args, heads, backward=True)
+                log(f"{what_log} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms(autograd of "
+                    f"LN+linear+SDPA+linear)={grads_of['library']:.4f} unfused_ms(autograd of "
+                    f"LN+linear+kernel 1b+linear)={grads_of['unfused']:.4f} bound_ms={b_ms:.4f} "
+                    f"({kind}) fwd_kernel_ms={f_ms:.4f} scratch "
+                    f"{sum(_ah.scratch_bytes(args[0], heads, WS).values()) / 1e6:.1f} MB")
+                for key, val in (("ms", k_ms), ("plain_ms", p_ms),
+                                 ("library_ms", grads_of["library"]),
+                                 ("unfused_ms", grads_of["unfused"]), ("bound_ms", b_ms),
+                                 ("fwd_ms", f_ms)):
+                    per_step[key] += val  # one block of each per train step
+                bound_kinds[kind] += b_ms
+                del args, dy
+                torch.cuda.empty_cache()
+    log(f"  attention half backward controls: smallest err/tol {min_control:.1f} (must be > 1)")
+    return {"max_abs_err": max_err, "err_over_tol": worst,
+            "bound_by": max(bound_kinds, key=bound_kinds.get), **per_step}
+
+
 # ----------------------------------------------------------------------------
 # phase 3: serving end to end
 # ----------------------------------------------------------------------------
@@ -1229,6 +1547,26 @@ VIT = {
     "train_check_batch": {torch.bfloat16: BATCH, torch.float32: 4},
     "ill_conditioned": TOL_GRADS_REL_ILL_CONDITIONED,
 }
+# Swin-Base/224 under backbone_attn_kernel 'fused_half': stages 0-1 (4 blocks)
+# take the fused attention half, stages 2-3 (20 blocks) kernel 1
+FH_FLAGSHIP = json.loads(json.dumps(FLAGSHIP))
+FH_FLAGSHIP["model"]["backbone_attn_kernel"] = "fused_half"
+N_FUSED = 4
+SWIN_FH = {
+    "label": "Swin-Base/224 fused_half", "config": FH_FLAGSHIP, "profile_prefix": "fused_",
+    "serve_launches": zero_launches(attn_half_fwd=N_FUSED, window_attention_fwd=24 - N_FUSED,
+                                    gpf_fwd=1),
+    "train_launches": zero_launches(attn_half_fwd=N_FUSED, attn_half_bwd=N_FUSED,
+                                    window_attention_fwd=24 - N_FUSED,
+                                    window_attention_bwd=24 - N_FUSED, gpf_fwd=1, gpf_bwd=1),
+    "serve_control": fused_bias_omitted,
+    "serve_control_name": "fused kernel without its bias",
+    "grad_control": qkv_weight_gradient_dropped, "grad_control_name": "fused dwqkv dropped",
+    "serve_check_batch": {torch.bfloat16: BATCH, torch.float32: 8},
+    "train_check_batch": {torch.bfloat16: BATCH, torch.float32: 4},
+    "ill_conditioned": TOL_GRADS_REL_ILL_CONDITIONED_FUSED,
+    "default_config": FLAGSHIP,
+}
 # ViT-Base at 448: 785 tokens take kernel 6, and N = 784 >= D = 768 takes the
 # moment head's dense route through kernel 5.  The plain path's attention
 # holds [B, 12, 785, 785] fp32 probabilities (3.8 GB per tensor at 128
@@ -1258,6 +1596,55 @@ def family_inputs(family: dict, g: torch.Generator):
     images = torch.randint(0, 256, (BATCH, size, size, 3), generator=g, device="cuda",
                            dtype=torch.uint8)
     return aug, images
+
+
+def in_turns(runs: dict, reps: int) -> dict:
+    """Host-clock seconds per call of each of two callables, timed in turns
+    (a, b, b, a, a, b) so that drift of the shared host hits both alike:
+    {name: median seconds}."""
+    (na, fa), (nb, fb) = runs.items()
+    times = {na: [], nb: []}
+    for name, fn in ((na, fa), (nb, fb), (nb, fb), (na, fa), (na, fa), (nb, fb)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t) / reps)
+    return {name: statistics.median(v) for name, v in times.items()}
+
+
+def default_twin(model, family: dict, dtype=torch.bfloat16):
+    """The default path's model on the same weights as ``model``."""
+    cfg = json.loads(json.dumps(family["default_config"]))
+    if dtype == torch.float32:
+        cfg["model"]["bf16"] = False
+        cfg["model"]["moment"]["bf16_params"] = False
+    default = create_model(cfg, num_classes=80, device="cuda", seed=0)
+    default.load_state_dict(model.state_dict())
+    return default, cfg
+
+
+def against_default(model, family: dict, aug, images, out, dtype) -> float:
+    """The family's path against the default path on the same weights and
+    images: the logits' relative L2 distance (bf16) or largest difference
+    over max |logit| (fp32), which must lie within TOL_FUSED_VS_DEFAULT."""
+    default, _ = default_twin(model, family, dtype)
+    ref = make_infer_fn(default, aug)(images).float()
+    torch.cuda.synchronize()
+    out = out.float()
+    if dtype == torch.bfloat16:
+        err, what = ((out - ref).norm() / ref.norm()).item(), "relative L2"
+    else:
+        err, what = (out - ref).abs().max().item() / max(1.0, ref.abs().max().item()), \
+            "of max |logit|"
+    tol = TOL_FUSED_VS_DEFAULT[dtype]
+    log(f"  {str(dtype)[6:]} logits (batch {images.shape[0]}) {family['label']} vs the default "
+        f"path on the same weights: {err:.4e} {what} (tol {tol})")
+    if not err <= tol:
+        fail(f"{family['label']} {dtype} logits are {err} ({what}) from the default path's")
+    del default
+    return err
 
 
 def serve(card: str, profile_dir: str | None, family: dict) -> dict:
@@ -1305,6 +1692,9 @@ def serve(card: str, profile_dir: str | None, family: dict) -> dict:
         fail("bf16 serving logits disagree with the plain path")
     if err_ctrl <= tol * scale:
         fail(f"bf16 serving check passes its control ({family['serve_control_name']})")
+    vs_default = {}
+    if family.get("default_config"):
+        vs_default["bf16"] = against_default(model, family, aug, images, logits, torch.bfloat16)
 
     torch.cuda.reset_peak_memory_stats()
     rates = []
@@ -1320,6 +1710,16 @@ def serve(card: str, profile_dir: str | None, family: dict) -> dict:
     ips = statistics.median(rates)
     log(f"  serving images/s = {ips:.1f} (loops: {', '.join(f'{r:.1f}' for r in rates)}), "
         f"peak memory {peak:.2f} GiB, batch {BATCH}, on {card}")
+    turns = None
+    if family.get("default_config"):  # the two paths' serving speed, timed in turns
+        infer_d = make_infer_fn(default_twin(model, family)[0], aug)
+        sec = in_turns({"default": lambda: infer_d(images), "fused": lambda: infer(images)},
+                       n_batches)
+        turns = {k: BATCH / v for k, v in sec.items()}
+        log(f"  serving images/s in turns (default, fused, fused, default, default, fused; "
+            f"medians): default path {turns['default']:.1f}, {family['label']} "
+            f"{turns['fused']:.1f}")
+        del infer_d
 
     if profile_dir:
         os.makedirs(profile_dir, exist_ok=True)
@@ -1355,7 +1755,11 @@ def serve(card: str, profile_dir: str | None, family: dict) -> dict:
         f"{scale32:.4e} (tol {TOL_LOGITS_REL[torch.float32]} x max)")
     if not torch.isfinite(out32).all() or err32 > TOL_LOGITS_REL[torch.float32] * scale32:
         fail("fp32 serving logits disagree with the plain path")
-    return {"launches": launches, "images_per_s": ips, "peak_gib": peak}
+    if family.get("default_config"):
+        vs_default["fp32"] = against_default(model32, family, aug, images[:nf], out32,
+                                             torch.float32)
+    return {"launches": launches, "images_per_s": ips, "peak_gib": peak,
+            "vs_default": vs_default, "turns": turns}
 
 
 # ----------------------------------------------------------------------------
@@ -1401,8 +1805,11 @@ def check_gradients(model, anchor, positive, labels, dtype, what: str, family: d
     ill = family["ill_conditioned"]
     worst, where, rel = worst_leaf(grads, ref, dtype, ill)
     worst_ctrl, where_ctrl, rel_ctrl = worst_leaf(ctrl, ref, dtype, ill)
+    _, where_well, rel_well = worst_leaf(grads, {k: v for k, v in ref.items() if k not in ill},
+                                         dtype, {})
     log(f"  {what} gradients kernel vs plain, {len(ref)} leaves: worst err/tol {worst:.4f} "
-        f"(relative error {rel:.4e}) at {where}; control ({family['grad_control_name']}) err/tol "
+        f"(relative error {rel:.4e}) at {where}, among the well-conditioned leaves "
+        f"{rel_well:.4e} at {where_well}; control ({family['grad_control_name']}) err/tol "
         f"{worst_ctrl:.2f} (relative error {rel_ctrl:.4e}) at {where_ctrl}; tol {tol} per leaf, "
         f"{ill} apart")
     if worst > 1.0:
@@ -1532,6 +1939,19 @@ def train(card: str, profile_dir: str | None, family: dict) -> dict:
         f"{statistics.median(step_ms):.1f} (loops: {', '.join(f'{m:.1f}' for m in step_ms)}), "
         f"peak memory {peak:.2f} GiB, batch {BATCH} ({TRAIN_VIEWS} images through the "
         f"backbone), on {card}")
+    turns = None
+    if family.get("default_config"):  # the two paths' step time, timed in turns
+        default, cfg_d = default_twin(model, family)
+        state_d = create_train_state(default, cfg_d, TRAIN_STEPS_PER_EPOCH)
+        step_d = make_train_step(default, aug)
+        sec = in_turns({"default": lambda: step_d(state_d, images, labels, seed_gen),
+                        "fused": lambda: train_step(state, images, labels, seed_gen)}, 3)
+        turns = {k: v * 1e3 for k, v in sec.items()}
+        log(f"  train step ms in turns (default, fused, fused, default, default, fused; "
+            f"medians): default path {turns['default']:.1f}, {family['label']} "
+            f"{turns['fused']:.1f}")
+        del default, state_d, step_d
+        torch.cuda.empty_cache()
 
     if profile_dir:
         os.makedirs(profile_dir, exist_ok=True)
@@ -1566,7 +1986,7 @@ def train(card: str, profile_dir: str | None, family: dict) -> dict:
     witness = (coefficient_gradient_witness(model32, images, labels, aug, family)
                if family.get("coefficient_witness") else None)
     return {"launches": launches, "images_per_s": ips, "step_ms": statistics.median(step_ms),
-            "peak_gib": peak, "losses": losses, "grad_err_bf16": grad_err,
+            "peak_gib": peak, "losses": losses, "grad_err_bf16": grad_err, "turns": turns,
             "grad_err_f32": grad_err32, "coefficient_witness": witness}
 
 
@@ -1579,13 +1999,17 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.time()
+
+    def phase(msg: str) -> None:
+        log(f"{msg} (at {time.time() - t_start:.1f} s)")
+
     pin_fp32_precision()  # the plain versions' fp32 products in true fp32, as the entry points do
     card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    log("[1] building kernels")
+    phase("[1] building kernels")
     t0 = time.time()
     paths = _build.build()
     log(f"  built {len(paths)} kernels in {time.time() - t0:.1f} s")
@@ -1596,7 +2020,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log("[2] kernels against their plain versions, batch 64")
+    phase("[2] kernels against their plain versions, batch 64")
     g = torch.Generator(device="cuda").manual_seed(1234)
     with torch.inference_mode():
         wa = check_window_attention(g)
@@ -1606,39 +2030,50 @@ def main() -> int:
         gp_448 = check_gpf(g, VIT448_T - 1, VIT_C)
         fa = check_flash_attention(g)
         ns = check_newton_schulz(g)
+        ah = check_attn_half(g)
 
-    log(f"[2b] backward kernels against their plain versions, batch {TRAIN_VIEWS} / {BATCH}")
+    phase(f"[2b] backward kernels against their plain versions, batch {TRAIN_VIEWS} / {BATCH}")
     wab = check_window_attention_bwd(g)
     pab = check_packed_attention_bwd(g)
     gpb = check_gpf_bwd(g, 49, 1024)
     gpb_vit = check_gpf_bwd(g, VIT_T - 1, VIT_C)
     gpb_448 = check_gpf_bwd(g, VIT448_T - 1, VIT_C)
     fab = check_flash_attention_bwd(g)
+    ahb = check_attn_half_bwd(g)
     torch.cuda.empty_cache()
 
-    log("[3] serving, Swin-Base/224 flagship, batch 64")
+    phase("[3] serving, Swin-Base/224 flagship, batch 64")
     srv = serve(card, args.profile, SWIN)
     torch.cuda.empty_cache()
 
-    log(f"[4] training, Swin-Base/224 flagship, batch {BATCH}")
+    phase(f"[4] training, Swin-Base/224 flagship, batch {BATCH}")
     trn = train(card, args.profile, SWIN)
     torch.cuda.empty_cache()
 
-    log("[5] serving, ViT-Base/224 with the flagship heads, batch 64")
+    phase("[3f] serving, Swin-Base/224 flagship under backbone_attn_kernel fused_half, batch 64")
+    srv_fh = serve(card, args.profile, SWIN_FH)
+    torch.cuda.empty_cache()
+
+    phase(f"[4f] training, Swin-Base/224 flagship under backbone_attn_kernel fused_half, batch "
+        f"{BATCH}")
+    trn_fh = train(card, args.profile, SWIN_FH)
+    torch.cuda.empty_cache()
+
+    phase("[5] serving, ViT-Base/224 with the flagship heads, batch 64")
     srv_vit = serve(card, args.profile, VIT)
     torch.cuda.empty_cache()
 
-    log(f"[5b] training, ViT-Base/224 with the flagship heads, batch {BATCH}")
+    phase(f"[5b] training, ViT-Base/224 with the flagship heads, batch {BATCH}")
     trn_vit = train(card, args.profile, VIT)
     torch.cuda.empty_cache()
 
-    log("[5c] serving, ViT-Base/448 with the flagship heads, batch 64 (kernel path vs plain "
+    phase("[5c] serving, ViT-Base/448 with the flagship heads, batch 64 (kernel path vs plain "
         "path at batch 8 in bf16 and 2 in fp32: the plain attention's probabilities are "
         "[B, 12, 785, 785] fp32)")
     srv_448 = serve(card, args.profile, VIT448)
     torch.cuda.empty_cache()
 
-    log(f"[5d] training, ViT-Base/448 with the flagship heads, batch {BATCH} (gradients vs the "
+    phase(f"[5d] training, ViT-Base/448 with the flagship heads, batch {BATCH} (gradients vs the "
         "plain path at batch 8 in bf16 and 2 in fp32)")
     trn_448 = train(card, args.profile, VIT448)
 
@@ -1649,8 +2084,10 @@ def main() -> int:
     # launches: the count from the main path that runs the kernel (Swin-Base
     # for window attention, ViT-Base/224 for packed attention and for GPF, whose
     # Swin-path and 448-path numbers ride along under swin_* and vit448_*,
-    # ViT-Base/448 for q-tiled attention and Newton-Schulz); every path was
-    # driven with the counts at 0 just before and read just after.
+    # ViT-Base/448 for q-tiled attention and Newton-Schulz, Swin-Base under
+    # fused_half for the fused attention half, whose unfused_ms is the port's
+    # default route for the same blocks); every path was driven with the
+    # counts at 0 just before and read just after.
     src = "ego_moment_cle_vit_tpu_torch/csrc/"
 
     def other_gpf(prefix: str, res: dict) -> dict:
@@ -1724,11 +2161,26 @@ def main() -> int:
          "max_abs_err": ns["max_abs_err"], "ms": ns["ms"], "plain_ms": ns["plain_ms"],
          "bound_ms": ns["bound_ms"], "bound_by": ns["bound_by"],
          "library_ms": ns["library_ms"]},
+        {"name": "attn_half_fwd", "route": "cuda", "source": src + "attn_half_fwd.cu",
+         "replaces": AH_REPLACES, "launches": srv_fh["launches"]["attn_half_fwd"],
+         "train_launches": trn_fh["launches"]["attn_half_fwd"],
+         "max_abs_err": ah["max_abs_err"], "ms": ah["ms"], "plain_ms": ah["plain_ms"],
+         "bound_ms": ah["bound_ms"], "bound_by": ah["bound_by"],
+         "library_ms": ah["library_ms"], "unfused_ms": ah["unfused_ms"],
+         "train_ms": ahb["fwd_ms"]},
+        {"name": "attn_half_bwd", "route": "cuda", "source": src + "attn_half_bwd.cu",
+         "replaces": AH_BWD_REPLACES, "launches": trn_fh["launches"]["attn_half_bwd"],
+         "max_abs_err": ahb["max_abs_err"], "err_over_tol": ahb["err_over_tol"],
+         "ms": ahb["ms"], "plain_ms": ahb["plain_ms"], "bound_ms": ahb["bound_ms"],
+         "bound_by": ahb["bound_by"], "library_ms": ahb["library_ms"],
+         "unfused_ms": ahb["unfused_ms"]},
     ]
     for entry in kernels:
         if entry["launches"] < 1:
             fail(f"kernel {entry['name']} was launched no time on its main path")
-    for label, s_res, t_res in (("Swin-Base/224", srv, trn), ("ViT-Base/224", srv_vit, trn_vit),
+    for label, s_res, t_res in (("Swin-Base/224", srv, trn),
+                                ("Swin-Base/224 fused_half", srv_fh, trn_fh),
+                                ("ViT-Base/224", srv_vit, trn_vit),
                                 ("ViT-Base/448", srv_448, trn_448)):
         log(f"  {label}: serving {s_res['images_per_s']:.1f} images/s (peak "
             f"{s_res['peak_gib']:.2f} GiB), training {t_res['images_per_s']:.1f} images/s "

@@ -3,15 +3,22 @@
 Every wrapper takes its plain version for CPU tensors only; for CUDA tensors
 it launches its kernel or raises.  Each counts its launches in a plain
 integer attribute, ``<wrapper>.launches``.  The differentiable entry points
-are ``gpf.gpf``, ``window_attention.window_attention``,
+are ``gpf.gpf``, ``window_attention.window_attention``, ``attn_half.attn_half``,
 ``packed_attention.packed_attention``,
 ``flash_attention.flash_attention_tiled`` and
 ``newton_schulz.newton_schulz_isqrt_kernel`` (``torch.autograd.Function``s
 whose forward and backward go through those wrappers; the Newton–Schulz
-backward differentiates the plain iteration, as on the TPU); the first three
+backward differentiates the plain iteration, as on the TPU); the first four
 are not re-exported here, where their names are the modules'.
 """
 
+from .attn_half import (
+    AttnHalfFunction,
+    attn_half_bwd,
+    attn_half_bwd_plain,
+    attn_half_fwd,
+    attn_half_plain,
+)
 from .flash_attention import (
     FlashAttentionTiledFunction,
     flash_attention_tiled,
@@ -43,6 +50,11 @@ from .window_attention import (
 )
 
 __all__ = [
+    "AttnHalfFunction",
+    "attn_half_bwd",
+    "attn_half_bwd_plain",
+    "attn_half_fwd",
+    "attn_half_plain",
     "FlashAttentionTiledFunction",
     "flash_attention_tiled",
     "flash_attention_tiled_bwd",

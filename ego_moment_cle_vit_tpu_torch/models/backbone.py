@@ -48,7 +48,7 @@ class CLEViTBackbone(nn.Module):
 
     def __init__(self, model_name: str, img_size: int | None = None,
                  dtype=torch.float32, device="cpu", drop_rate: float = 0.0,
-                 remat: str = "none"):
+                 remat: str = "none", attn_kernel: str = "auto"):
         super().__init__()
         if model_name in VIT_CONFIGS:
             cfg = VIT_CONFIGS[model_name]
@@ -60,6 +60,8 @@ class CLEViTBackbone(nn.Module):
             raise _unknown(model_name)
         cfg = dataclasses.replace(cfg, img_size=img_size or cfg.img_size, drop_rate=drop_rate,
                                   remat=remat)
+        if not self.has_cls_token:  # Swin only: the fused attention half
+            cfg = dataclasses.replace(cfg, attn_kernel=attn_kernel)
         # the module is named like the flax tree: ``vit`` or ``swin``
         self.add_module("vit" if self.has_cls_token else "swin",
                         net(cfg, dtype=dtype, device=device))
@@ -81,9 +83,10 @@ class CLEViTDualStream(nn.Module):
 
     def __init__(self, model_name: str, img_size: int | None = None,
                  dtype=torch.float32, device="cpu", drop_rate: float = 0.0,
-                 remat: str = "none"):
+                 remat: str = "none", attn_kernel: str = "auto"):
         super().__init__()
-        self.backbone = CLEViTBackbone(model_name, img_size, dtype, device, drop_rate, remat)
+        self.backbone = CLEViTBackbone(model_name, img_size, dtype, device, drop_rate, remat,
+                                       attn_kernel)
         self.num_features = self.backbone.num_features
 
     def forward(

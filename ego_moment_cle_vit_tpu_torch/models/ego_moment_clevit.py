@@ -61,6 +61,7 @@ class EGOMomentCLEViT(nn.Module):
         dropout: float = 0.1,
         norm: str = "layer",
         backbone_remat: str = "attn",
+        backbone_attn_kernel: str = "auto",
         moment_bf16_params: bool = False,
         dtype: torch.dtype = torch.float32,
         device: str | torch.device = "cpu",
@@ -71,7 +72,8 @@ class EGOMomentCLEViT(nn.Module):
         self.lambda_align = lambda_align
         self.margin = margin
         self.backbone = CLEViTDualStream(backbone_name, img_size, dtype, device,
-                                         drop_rate=dropout, remat=backbone_remat)
+                                         drop_rate=dropout, remat=backbone_remat,
+                                         attn_kernel=backbone_attn_kernel)
         d = self.backbone.num_features
         self.gpf = GraphPolynomialFusion(
             gpf_degree_p, gpf_degree_q, gpf_similarity,
@@ -211,11 +213,6 @@ def create_model(
         raise _not_ported(f"moment variant {moment.get('variant')!r}")
     if classifier.get("type", "standard") != "standard":
         raise _not_ported(f"classifier type {classifier.get('type')!r}")
-    if mcfg.get("backbone_attn_kernel") == "fused_half":
-        raise NotImplementedError(
-            "attn_kernel='fused_half' is not ported yet (ROADMAP.md, 'TPU kernels to port', "
-            "fused_attn_half_spatial)"
-        )
     backbone_name = mcfg.get("backbone_name", "swin_base_patch4_window7_224")
     img_size = config.get("data", {}).get("input_size")
     d_tok = backbone_num_features(backbone_name)
@@ -245,6 +242,7 @@ def create_model(
         dropout=classifier.get("dropout", 0.1),
         norm=mcfg.get("norm", "layer"),
         backbone_remat=mcfg.get("backbone_remat", "attn"),
+        backbone_attn_kernel=mcfg.get("backbone_attn_kernel", "auto"),
         moment_bf16_params=moment.get("bf16_params", False),
         dtype=dtype,
         device=dev,

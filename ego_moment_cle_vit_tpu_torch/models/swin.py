@@ -4,14 +4,19 @@ Counterpart of ``ego_moment_cle_vit_tpu/models/swin.py``.  Parameter names
 follow the flax tree (``stage{s}_block{b}.attn.qkv`` ...), so the weight
 converter maps one to the other name for name.
 
-Every block runs one attention path: LayerNorm, pad, roll and the qkv/proj
-products stay plain PyTorch, and the attention itself goes through
-``kernels.window_attention.window_attention`` (forward and backward CUDA
-kernels on the card, their plain versions on the CPU), as the JAX package's
-spatial-kernel path does (``swin.py:620-678``).  The relative-position bias is
-an index gather from the ``[(2ws-1)^2, H]`` table, differentiable to the table
-by plain autograd; the shift mask keeps the -100 floor.  The TPU-only window
-packing and the fused attention-half kernel are not ported.
+A block's attention half runs one of two paths.  By default LayerNorm, pad,
+roll and the qkv/proj products stay plain PyTorch, and the attention itself
+goes through ``kernels.window_attention.window_attention`` (forward and
+backward CUDA kernels on the card, their plain versions on the CPU), as the
+JAX package's spatial-kernel path does (``swin.py:620-678``).  Under
+``attn_kernel='fused_half'`` the blocks the JAX package fuses (C <= 256,
+C % 128 == 0: Swin-Base stages 0-1) pad and roll the pre-LN activation and
+hand it to ``kernels.attn_half.attn_half``, which applies LayerNorm, qkv,
+attention, proj and the residual in one kernel (``swin.py:570-619``); every
+other block keeps the default path.  The relative-position bias is an index
+gather from the ``[(2ws-1)^2, H]`` table, differentiable to the table by
+plain autograd; the shift mask keeps the -100 floor.  The TPU-only window
+packing is not ported.
 
 Training: ``drop_rate`` dropout after ``patch_embed_norm`` (the backbone has
 nothing else stochastic) and ``remat='block'``, which checkpoints every
@@ -31,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels import attn_half as _ah
 from ..kernels import window_attention as _wa
 from .layers import Dense, Dropout, LayerNorm
 
@@ -47,6 +53,9 @@ class SwinConfig:
     drop_rate: float = 0.0
     layer_norm_eps: float = 1e-5
     remat: str = "none"  # 'none' | 'attn' (same as 'none' here) | 'block'
+    # 'fused_half' fuses the attention half where use_fused_half says so; the
+    # JAX package's other modes pick TPU kernels, and here all run kernel 1
+    attn_kernel: str = "auto"
 
     @property
     def num_features(self) -> int:
@@ -113,6 +122,19 @@ def _attn_mask(h: int, w: int, hp: int, wp: int, ws: int, shift: int) -> np.ndar
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
+ATTN_KERNELS = ("auto", "on", "off", "spatial", "fused_half")
+
+
+def use_fused_half(mode: str, hp: int, wp: int, ws: int, c: int, num_heads: int) -> bool:
+    """Whether a block runs the fused attention half: under 'fused_half', the
+    blocks the CUDA kernels take.  Their widths are those of the JAX package's
+    gate in ``_use_fused_half`` (C <= 256 with C % 128 == 0 and C % heads ==
+    0, on a canvas that windows tile; the TPU's VMEM estimate has no
+    counterpart), and every registered Swin has heads of 32 there, so the
+    same blocks fuse.  No other mode fuses."""
+    return mode == "fused_half" and _ah.kernel_supports(hp, wp, ws, c, num_heads)
+
+
 class WindowAttentionParams(nn.Module):
     """qkv / proj / relative-position table of one block (flax ``attn``)."""
 
@@ -128,7 +150,7 @@ class WindowAttentionParams(nn.Module):
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int, shift_size: int,
                  mlp_ratio: float, input_resolution: Tuple[int, int], layer_norm_eps: float,
-                 dtype, device):
+                 dtype, device, attn_kernel: str = "auto"):
         super().__init__()
         h, w = input_resolution
         ws = min(window_size, h, w)
@@ -140,6 +162,7 @@ class SwinBlock(nn.Module):
         self.hp, self.wp = -(-h // ws) * ws, -(-w // ws) * ws
         self.num_heads = num_heads
         self.scale = (dim // num_heads) ** -0.5
+        self.fused = use_fused_half(attn_kernel, self.hp, self.wp, ws, dim, num_heads)
 
         self.norm1 = LayerNorm(dim, eps=layer_norm_eps, device=device)
         self.attn = WindowAttentionParams(dim, num_heads, ws, dtype, device)
@@ -164,11 +187,19 @@ class SwinBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: [B, H*W, C]."""
+        if self.fused:
+            x = self._fused_attention_half(x)
+        else:
+            x = x + self._attention(self.norm1(x))
+        y = self.mlp_fc2(F.gelu(self.mlp_fc1(self.norm2(x)), approximate="none"))
+        return x + y
+
+    def _attention(self, xn: torch.Tensor) -> torch.Tensor:
+        """proj(window_attention(qkv(xn))) with pad, roll and their undoing."""
         h, w = self.res
-        b, n, c = x.shape
+        b, n, c = xn.shape
         hp, wp, shift = self.hp, self.wp, self.shift
-        shortcut = x
-        xm = self.norm1(x).reshape(b, h, w, c)
+        xm = xn.reshape(b, h, w, c)
         if hp != h or wp != w:
             xm = F.pad(xm, (0, 0, 0, wp - w, 0, hp - h))
         if shift > 0:
@@ -183,9 +214,35 @@ class SwinBlock(nn.Module):
             om = torch.roll(om, shifts=(shift, shift), dims=(1, 2))
         if hp != h or wp != w:
             om = om[:, :h, :w]
-        x = shortcut + om.reshape(b, n, c)
-        y = self.mlp_fc2(F.gelu(self.mlp_fc1(self.norm2(x)), approximate="none"))
-        return x + y
+        return om.reshape(b, n, c)
+
+    def _fused_attention_half(self, x: torch.Tensor) -> torch.Tensor:
+        """x + proj(window_attention(qkv(LN(x)))) in one kernel.  As in the
+        JAX package, the pre-LN activation is padded with zeros before the
+        LayerNorm, so pad tokens carry ``xn = ln_b``; the -100 pad mask seals
+        them off and the slice drops them, so real tokens agree with the
+        default path up to e^-100 terms."""
+        h, w = self.res
+        b, n, c = x.shape
+        hp, wp, shift = self.hp, self.wp, self.shift
+        qkv, proj = self.attn.qkv, self.attn.proj
+        dt = qkv.compute_dtype
+        xm = x.to(dt).reshape(b, h, w, c)
+        if hp != h or wp != w:
+            xm = F.pad(xm, (0, 0, 0, wp - w, 0, hp - h))
+        if shift > 0:
+            xm = torch.roll(xm, shifts=(-shift, -shift), dims=(1, 2))
+        ym = _ah.attn_half(
+            xm.contiguous(), self.norm1.weight, self.norm1.bias, qkv.weight.to(dt),
+            qkv.bias.to(dt), proj.weight.to(dt), proj.bias.to(dt),
+            self.relative_position_bias(), self.attn_mask, self.num_heads, self.ws,
+            self.norm1.eps,
+        )
+        if shift > 0:
+            ym = torch.roll(ym, shifts=(shift, shift), dims=(1, 2))
+        if hp != h or wp != w:
+            ym = ym[:, :h, :w]
+        return ym.reshape(b, n, c)  # the residual is applied in the kernel
 
 
 class PatchMerging(nn.Module):
@@ -216,6 +273,8 @@ class Swin(nn.Module):
         cfg = config
         if cfg.remat not in ("none", "attn", "block"):
             raise ValueError(f"Unknown remat policy: {cfg.remat!r}")
+        if cfg.attn_kernel not in ATTN_KERNELS:
+            raise ValueError(f"Unknown attn_kernel {cfg.attn_kernel!r}; one of {ATTN_KERNELS}")
         self.config = cfg
         self.dtype = dtype
         self.drop = Dropout(cfg.drop_rate)
@@ -231,7 +290,7 @@ class Swin(nn.Module):
                 name = f"stage{stage}_block{blk}"
                 self.add_module(name, SwinBlock(
                     dim, heads, cfg.window_size, 0 if blk % 2 == 0 else cfg.window_size // 2,
-                    cfg.mlp_ratio, res, cfg.layer_norm_eps, dtype, device,
+                    cfg.mlp_ratio, res, cfg.layer_norm_eps, dtype, device, cfg.attn_kernel,
                 ))
                 self.layer_names.append(name)
             if stage < len(cfg.depths) - 1:

@@ -34,11 +34,19 @@ the backward give the same bits.  Newton-Schulz (kernel 5, fp32 inside):
 |err| <= rtol |ref| + atol max |ref| with (0, 1e-5) for fp32 M (sum order over
 14 chained products) and (2^-7, 1e-4) for bf16 M (one ulp of the output's
 rounding); four iterations instead of five fail that.
+
+The fused attention half (kernels 4, 4b): forward fp32 1e-4 + 1e-4 |ref|,
+bf16 3e-2 + 2^-6 |ref| per element (both sides round xn, qkv, P and om; an
+fp32 sum landing on the other side of a rounding moves an ulp through the
+proj product, then y rounds); the bias omitted and the residual dropped fall
+outside.  Backward: dx as the forward; every parameter gradient within 1e-3
+(fp32) / 2e-2 (bf16) of its largest entry; two runs give the same bits.
 """
 
 import pytest
 import torch
 
+from ego_moment_cle_vit_tpu_torch.kernels import attn_half as tah
 from ego_moment_cle_vit_tpu_torch.kernels import flash_attention as tfa
 from ego_moment_cle_vit_tpu_torch.kernels import gpf as tgpf
 from ego_moment_cle_vit_tpu_torch.kernels import newton_schulz as tns
@@ -370,3 +378,78 @@ def test_cuda_long_sequence_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(TypeError, match="not supported"):
         tns.newton_schulz_isqrt_fwd(torch.zeros(1, 64, 64, device=cuda_device,
                                                 dtype=torch.float16))
+
+
+# (B, Hp, C, heads, shifted): stage 0 and stage 1 shapes of Swin-Base at a
+# small batch, and a padded canvas (16 tokens pad to 21)
+ATTN_HALF = [(2, 14, 128, 4, True), (2, 7, 256, 8, False), (1, 21, 128, 4, True)]
+
+
+def _attn_half_inputs(device, dtype, b, hp, c, heads, shifted):
+    g = torch.Generator(device=device).manual_seed(7)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=device) * scale
+
+    table = randn((2 * WS - 1) ** 2, heads)
+    idx = torch.as_tensor(_relative_position_index(WS).reshape(-1), device=device)
+    bias = table[idx].reshape(WS * WS, WS * WS, heads).permute(2, 0, 1).contiguous()
+    mask = (torch.as_tensor(_attn_mask(hp, hp, hp, hp, WS, 3), device=device)
+            if shifted else None)
+    args = (randn(b, hp, hp, c).to(dtype), 1.0 + randn(c, scale=0.1), randn(c, scale=0.1),
+            randn(3 * c, c, scale=c ** -0.5).to(dtype), randn(3 * c, scale=0.1).to(dtype),
+            randn(c, c, scale=c ** -0.5).to(dtype), randn(c, scale=0.1).to(dtype), bias, mask)
+    return args, randn(b, hp, hp, c).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-4, 1e-4),
+                                               (torch.bfloat16, 3e-2, 2.0**-6)])
+@pytest.mark.parametrize("b, hp, c, heads, shifted", ATTN_HALF)
+def test_cuda_attn_half_matches_plain(cuda_device, dtype, atol, rtol, b, hp, c, heads, shifted):
+    args, _ = _attn_half_inputs(cuda_device, dtype, b, hp, c, heads, shifted)
+    before = tah.attn_half_fwd.launches
+    out = tah.attn_half_fwd(*args, heads, WS)
+    assert tah.attn_half_fwd.launches == before + 1
+    ref = tah.attn_half_plain(*args, heads, WS)
+    assert out.dtype == dtype and _close(out, ref, atol, rtol)
+    # controls: the bias omitted, and the residual dropped, both fall outside
+    no_bias = args[:7] + (torch.zeros_like(args[7]), args[8])
+    assert not _close(tah.attn_half_plain(*no_bias, heads, WS), ref, atol, rtol)
+    assert not _close(ref.float() - args[0].float(), ref, atol, rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, atol, rtol, gtol", [(torch.float32, 1e-4, 1e-4, 1e-3),
+                                                     (torch.bfloat16, 3e-2, 2.0**-6, 2e-2)])
+@pytest.mark.parametrize("b, hp, c, heads, shifted", ATTN_HALF)
+def test_cuda_attn_half_bwd_matches_plain(cuda_device, dtype, atol, rtol, gtol, b, hp, c, heads,
+                                          shifted):
+    args, dy = _attn_half_inputs(cuda_device, dtype, b, hp, c, heads, shifted)
+    before = tah.attn_half_bwd.launches
+    got = tah.attn_half_bwd(*args, dy, heads, WS)
+    assert tah.attn_half_bwd.launches == before + 1
+    ref = tah.attn_half_bwd_plain(*args, dy, heads, WS)
+    assert got[0].dtype == dtype and _close(got[0], ref[0], atol, rtol)
+    for a, r in zip(got[1:], ref[1:]):
+        assert a.dtype == torch.float32 and a.shape == r.shape
+        assert (a - r).abs().max().item() <= gtol * r.abs().max().item()
+    # the same gradients twice, bit for bit
+    assert all(torch.equal(a, r) for a, r in zip(tah.attn_half_bwd(*args, dy, heads, WS), got))
+    # and the Function routes autograd through the same kernels
+    leaves = [t.clone().requires_grad_() for t in args[:8]]
+    tah.attn_half(*leaves, args[8], heads, WS).backward(dy)
+    for leaf, want in zip(leaves, got):
+        assert torch.equal(leaf.grad, want.to(leaf.dtype))
+
+
+@pytest.mark.cuda
+def test_cuda_attn_half_rejects_bad_inputs(cuda_device):
+    args, _ = _attn_half_inputs(cuda_device, torch.float32, 1, 7, 128, 4, False)
+    with pytest.raises(ValueError, match="C / heads"):
+        tah.attn_half_fwd(*args, 2, WS)  # head dim 64 is not compiled
+    with pytest.raises(ValueError, match="wqkv must be"):
+        tah.attn_half_fwd(args[0], args[1], args[2], args[3].bfloat16(), *args[4:], 4, WS)
+    with pytest.raises(TypeError, match="not supported"):
+        tah.attn_half_fwd(args[0].double(), *args[1:3], *(t.double() for t in args[3:7]),
+                          *args[7:], 4, WS)

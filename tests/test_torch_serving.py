@@ -107,7 +107,6 @@ def test_fresh_model_is_seeded_and_finite():
     {"model": {"norm": "batch"}},
     {"model": {"norm": "none"}},
     {"model": {"moment": {"variant": "simplified"}}},
-    {"model": {"backbone_attn_kernel": "fused_half"}},
 ])
 def test_unported_paths_raise(change):
     cfg = _config("dot")
@@ -119,6 +118,26 @@ def test_unported_paths_raise(change):
             cfg["model"][section] = values
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         create_model(cfg, num_classes=10, device="cpu")
+
+
+def test_fused_half_model_serves_like_the_default_mode():
+    """``backbone_attn_kernel: fused_half`` builds and serves on the CPU (both
+    swin_micro blocks take the fused attention half); on the same weights its
+    logits match the default mode's within 1e-4 of max |logit| in fp32 (the
+    two differ by sum order and e^-100 terms)."""
+    cfg = _config("dot")
+    fused = {**cfg, "model": {**cfg["model"], "backbone_attn_kernel": "fused_half"}}
+    x = torch.from_numpy(_images(8))
+    logits = {}
+    for name, c in (("default", cfg), ("fused", fused)):
+        model = create_model(c, num_classes=10, device="cpu", seed=5)
+        swin = model.backbone.backbone.swin
+        assert [swin.stage0_block0.fused, swin.stage1_block0.fused] == [name == "fused"] * 2
+        logits[name] = make_infer_fn(model, AugmentConfig(56, 64), device="cpu")(x)
+    ref = logits["default"].numpy()
+    assert torch.isfinite(logits["fused"]).all()
+    np.testing.assert_allclose(logits["fused"].numpy(), ref, rtol=0,
+                               atol=1e-4 * max(1.0, np.abs(ref).max()))
 
 
 def test_unported_forwards_raise():
