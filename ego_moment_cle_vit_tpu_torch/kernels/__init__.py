@@ -8,7 +8,8 @@ are ``gpf.gpf``, ``window_attention.window_attention``, ``attn_half.attn_half``,
 ``flash_attention.flash_attention_tiled`` and
 ``newton_schulz.newton_schulz_isqrt_kernel`` (``torch.autograd.Function``s
 whose forward and backward go through those wrappers; the Newton–Schulz
-backward differentiates the plain iteration, as on the TPU); the first four
+forward dispatches by width to its fp32, bf16 or bf16-streamed kernel, and its
+backward differentiates the plain fp32 iteration, as on the TPU); the first four
 are not re-exported here, where their names are the modules'.
 """
 
@@ -30,6 +31,11 @@ from .flash_attention import (
 from .gpf import GPFFunction, gpf_bwd, gpf_bwd_plain, gpf_fwd, gpf_plain
 from .newton_schulz import (
     NewtonSchulzFunction,
+    newton_schulz_isqrt_bf16_fwd,
+    newton_schulz_isqrt_bf16_plain,
+    newton_schulz_isqrt_bf16_streamed_fwd,
+    newton_schulz_isqrt_bf16_streamed_plain,
+    newton_schulz_isqrt_fp32_fwd,
     newton_schulz_isqrt_fwd,
     newton_schulz_isqrt_kernel,
     newton_schulz_isqrt_plain,
@@ -67,6 +73,11 @@ __all__ = [
     "gpf_fwd",
     "gpf_plain",
     "NewtonSchulzFunction",
+    "newton_schulz_isqrt_bf16_fwd",
+    "newton_schulz_isqrt_bf16_plain",
+    "newton_schulz_isqrt_bf16_streamed_fwd",
+    "newton_schulz_isqrt_bf16_streamed_plain",
+    "newton_schulz_isqrt_fp32_fwd",
     "newton_schulz_isqrt_fwd",
     "newton_schulz_isqrt_kernel",
     "newton_schulz_isqrt_plain",

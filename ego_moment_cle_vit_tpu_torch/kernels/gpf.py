@@ -40,11 +40,12 @@ _BWD_SIGNATURES = {
 }
 TILE = 64  # output rows and columns per block
 # The tiled kernels have no token limit of their own; this is the largest
-# count they are held to.  The TPU kernel's envelope (``fused_gpf_fits``:
-# (2*N*D + 6*N*N) * 4 bytes < 12 MiB) ends earlier: it admits a ViT at 224
-# (N = 196, D up to 1024) and not one at 448 (N = 784: its six [N, N] work
-# tiles alone pass the limit).
-MAX_TOKENS = 1024
+# count they are held to on the card (chip_smoke.py: Swin-Large at 1280, N =
+# 1600).  The TPU kernel's envelope (``fused_gpf_fits``: (2*N*D + 6*N*N) * 4
+# bytes < 12 MiB) ends earlier: it admits a ViT at 224 (N = 196, D up to
+# 1024) and not one at 448 (N = 784: its six [N, N] work tiles alone pass the
+# limit), where the TPU package computes the same function in XLA.
+MAX_TOKENS = 1600
 MAX_DEGREE = 3  # the backward kernel's compiled polynomial degree limit
 
 
@@ -189,8 +190,8 @@ def _check(tokens_a, tokens_p, coeffs, similarity):
         raise TypeError(f"token dtypes differ: {tokens_a.dtype} vs {tokens_p.dtype}")
     if not 1 <= tokens_a.shape[1] <= MAX_TOKENS:
         raise ValueError(
-            f"kernel takes 1..{MAX_TOKENS} tokens, got N={tokens_a.shape[1]} (the TPU kernel it "
-            "replaces ends at (2*N*D + 6*N*N) * 4 bytes < 12 MiB)")
+            f"kernel takes 1..{MAX_TOKENS} tokens (the largest count it is held to on the "
+            f"card), got N={tokens_a.shape[1]}")
     if coeffs.dim() != 2 or coeffs.dtype != torch.float32:
         raise ValueError(f"coeffs must be float32 [P+1, Q+1], got {coeffs.dtype} "
                          f"{tuple(coeffs.shape)}")

@@ -62,6 +62,7 @@ class EGOMomentCLEViT(nn.Module):
         norm: str = "layer",
         backbone_remat: str = "attn",
         backbone_attn_kernel: str = "auto",
+        moment_remat: bool = False,
         moment_bf16_params: bool = False,
         dtype: torch.dtype = torch.float32,
         device: str | torch.device = "cpu",
@@ -82,7 +83,7 @@ class EGOMomentCLEViT(nn.Module):
         self.moment_head = MomentHead(
             d, moment_d_out, use_third_order, isqrt_iterations, sketch_dim, sketch_mode,
             norm=norm, bf16_params=moment_bf16_params, dtype=dtype, device=device,
-            dropout=dropout,
+            dropout=dropout, remat=moment_remat,
         )
         self.classifier = ClassifierHead(
             d, moment_d_out, num_classes, classifier_hidden, classifier_fusion, norm,
@@ -197,7 +198,8 @@ def create_model(
     Runs on the GPU unless ``device='cpu'``; raises without a GPU.  On the
     GPU it pins full-fp32 matmuls and convolutions (no TF32).  Options whose
     path is not ported yet raise ``NotImplementedError``, among them, on the
-    GPU, a dense moment route (N >= D) wider than the Newton–Schulz kernel.
+    GPU, a dense moment route (N >= D) at a width no Newton–Schulz kernel
+    takes (none of the registered backbones has one).
     """
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -243,6 +245,7 @@ def create_model(
         norm=mcfg.get("norm", "layer"),
         backbone_remat=mcfg.get("backbone_remat", "attn"),
         backbone_attn_kernel=mcfg.get("backbone_attn_kernel", "auto"),
+        moment_remat=moment.get("remat", False),
         moment_bf16_params=moment.get("bf16_params", False),
         dtype=dtype,
         device=dev,

@@ -4,9 +4,10 @@ Counterpart of ``ego_moment_cle_vit_tpu/models/moment_head.py:73-233``
 (``MomentHead``): symmetric graph normalization, weighted mean and
 centering, iSQRT-COV in the token subspace (N < D) or on the dense route
 (N >= D: ``M2 = Zc^T W Zc`` formed in fp32, cast to the tokens' dtype and
-handed to the Newton–Schulz kernel, as the JAX head hands it to
+handed to the Newton–Schulz kernels, as the JAX head hands it to
 ``newton_schulz_isqrt_pallas``), paired half-vectorization, ``second_proj``
 -> LayerNorm -> GELU -> Dropout, and the third-order Tensor-Sketch branch.
+``remat`` checkpoints the iSQRT step, as the JAX head's ``jax.checkpoint``.
 ``norm='batch'`` and ``SimplifiedMomentHead`` are not ported yet.
 """
 
@@ -15,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import newton_schulz as _ns
 from ..ops.graph import normalize_graph
@@ -33,16 +35,12 @@ HEAD_NORM_EPS = 1e-6
 
 
 def check_dense_route(d: int, device: str | torch.device) -> None:
-    """Raise where the dense route cannot run: on the card, a width past the
-    fp32 Newton–Schulz kernel.  The TPU package takes such widths with its
-    bf16 variants, which are not ported; the plain iteration is never
-    substituted on the card."""
-    if torch.device(device).type == "cuda" and not _ns.kernel_supports(d):
-        raise NotImplementedError(
-            f"the dense Newton–Schulz route at D={d} is past the fp32 kernel (D <= 825); the "
-            "TPU package's bf16 variants for wider matrices are not ported yet (ROADMAP.md, "
-            "'TPU kernels to port', 5′ _ns_kernel_bf16 and 5″ _ns_kernel_bf16_streamed)"
-        )
+    """Raise where the dense route cannot run: on the card, a width that none
+    of the three Newton–Schulz kernels takes (``variant_for(d)`` is None: D
+    past 1059 other than 1536).  The TPU package runs its XLA iteration there;
+    the plain iteration is never substituted on the card."""
+    if torch.device(device).type == "cuda" and _ns.variant_for(d) is None:
+        raise NotImplementedError(f"the dense moment route: {_ns.unsupported_width(d)}")
 
 
 def _head_norm(kind: str, dim: int, device) -> nn.Module:
@@ -69,7 +67,7 @@ class MomentHead(nn.Module):
                  isqrt_iterations: int = 3, sketch_dim: int = 2048, sketch_mode: str = "fft",
                  eps: float = 1e-5, norm: str = "layer",
                  bf16_params: bool = False, dtype=torch.float32, device="cpu",
-                 dropout: float = 0.1):
+                 dropout: float = 0.1, remat: bool = False):
         super().__init__()
         if sketch_mode not in ("fft", "faithful"):
             raise ValueError(f"Unknown tensor-sketch mode: {sketch_mode}")
@@ -78,6 +76,7 @@ class MomentHead(nn.Module):
         self.isqrt_iterations = isqrt_iterations
         self.sketch_mode = sketch_mode
         self.eps = eps
+        self.remat = remat
         self.dtype = dtype
         self.d_second = d_out // 2 if use_third_order else d_out
         self.d_third = d_out - self.d_second if use_third_order else 0
@@ -105,22 +104,32 @@ class MomentHead(nn.Module):
                 device=self.sketch_matrices.device,
             ))
 
+    def _isqrt(self, centered: torch.Tensor, weighted: torch.Tensor) -> torch.Tensor:
+        """The iSQRT step, JAX's ``isqrt_fn``: on the dense route (N >= D)
+        M2 = Zc^T W Zc in fp32, cast to the tokens' dtype, then Newton–Schulz;
+        else the token-subspace iteration."""
+        if centered.shape[-2] >= centered.shape[-1]:
+            m2 = torch.matmul(_wide(centered).transpose(-1, -2), _wide(weighted))
+            return _ns.newton_schulz_isqrt_kernel(m2.to(centered.dtype), self.isqrt_iterations,
+                                                  self.eps)
+        return isqrt_cov_subspace(centered, weighted, self.isqrt_iterations, self.eps)
+
     def forward(self, tokens: torch.Tensor, graph: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         n_tok, d_tok = tokens.shape[-2], tokens.shape[-1]
-        dense = n_tok >= d_tok
-        if dense:
+        if n_tok >= d_tok:  # the dense route
             check_dense_route(d_tok, tokens.device)
         w = normalize_graph(graph, "symmetric", eps=self.eps)
         mu = graph_weighted_mean(tokens, w, eps=self.eps)
         centered = tokens - mu[:, None, :]
         weighted = torch.matmul(_wide(w), _wide(centered)).to(tokens.dtype)
-        if dense:
-            m2 = torch.matmul(_wide(centered).transpose(-1, -2), _wide(weighted))
-            m2 = _ns.newton_schulz_isqrt_kernel(m2.to(tokens.dtype), self.isqrt_iterations,
-                                                self.eps)
+        if self.remat and torch.is_grad_enabled():
+            # saves centered and weighted, recomputes the step in backward;
+            # nothing in it is stochastic
+            m2 = checkpoint(self._isqrt, centered, weighted, use_reentrant=False,
+                            preserve_rng_state=False)
         else:
-            m2 = isqrt_cov_subspace(centered, weighted, self.isqrt_iterations, self.eps)
+            m2 = self._isqrt(centered, weighted)
         m2_vec = half_vectorize_paired(m2).to(self.dtype)
         x = F.gelu(self.second_norm(self.second_proj(m2_vec)), approximate="none")
         x = self.drop(x, generator)

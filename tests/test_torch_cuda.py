@@ -33,7 +33,9 @@ log-sum-exp within 1e-4 of its largest; backward fp32 1e-4 + 1e-4 |ref|, bf16
 the backward give the same bits.  Newton-Schulz (kernel 5, fp32 inside):
 |err| <= rtol |ref| + atol max |ref| with (0, 1e-5) for fp32 M (sum order over
 14 chained products) and (2^-7, 1e-4) for bf16 M (one ulp of the output's
-rounding); four iterations instead of five fail that.
+rounding); four iterations instead of five fail that.  Kernels 5′ and 5″
+(bf16 storage, fp32 sums) are held to (2^-7, 1e-4) against plain versions
+that round at the same points, M in either type.
 
 The fused attention half (kernels 4, 4b): forward fp32 1e-4 + 1e-4 |ref|,
 bf16 3e-2 + 2^-6 |ref| per element (both sides round xn, qkv, P and om; an
@@ -90,7 +92,7 @@ def test_cuda_window_attention_matches_plain(cuda_device, dtype, tol, hp, c, hea
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("similarity", ["dot", "cosine"])
-@pytest.mark.parametrize("n, d", [(49, 256), (196, 192), (784, 40)])
+@pytest.mark.parametrize("n, d", [(49, 256), (196, 192), (784, 40), (1600, 48)])
 def test_cuda_gpf_matches_plain(cuda_device, dtype, similarity, n, d):
     g = torch.Generator(device=cuda_device).manual_seed(0)
     ta = torch.randn(4, n, d, generator=g, device=cuda_device).to(dtype)
@@ -346,9 +348,9 @@ def test_cuda_newton_schulz_matches_plain(cuda_device, dtype, rtol, atol, b, d):
         ref = ref.float()
         return bool(((out.float() - ref).abs() <= rtol * ref.abs() + atol * ref.abs().max()).all())
 
-    before = tns.newton_schulz_isqrt_fwd.launches
-    out = tns.newton_schulz_isqrt_fwd(m, 5, 1e-5)
-    assert tns.newton_schulz_isqrt_fwd.launches == before + 1
+    before = tns.newton_schulz_isqrt_fp32_fwd.launches
+    out = tns.newton_schulz_isqrt_fwd(m, 5, 1e-5)  # the dispatch: the fp32 kernel at D <= 825
+    assert tns.newton_schulz_isqrt_fp32_fwd.launches == before + 1
     ref = tns.newton_schulz_isqrt_plain(m, 5, 1e-5)
     assert out.dtype == dtype and close(out, ref)
     assert not close(tns.newton_schulz_isqrt_plain(m, 4, 1e-5), ref)  # a control
@@ -374,10 +376,75 @@ def test_cuda_long_sequence_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="lse must be"):
         tfa.flash_attention_tiled_bwd(ok, out, lse.double(), torch.zeros_like(out), 2)
     with pytest.raises(ValueError, match="D <= 825"):
-        tns.newton_schulz_isqrt_fwd(torch.zeros(1, 1024, 1024, device=cuda_device))
+        tns.newton_schulz_isqrt_fp32_fwd(torch.zeros(1, 1024, 1024, device=cuda_device))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tns.newton_schulz_isqrt_fwd(torch.zeros(1, 1100, 1100, device=cuda_device))
     with pytest.raises(TypeError, match="not supported"):
         tns.newton_schulz_isqrt_fwd(torch.zeros(1, 64, 64, device=cuda_device,
                                                 dtype=torch.float16))
+
+
+# (variant, B, D): the two model widths, a width the bf16 kernels pad (900 ->
+# 1024) and the streamed grouping at its TPU grid's smallest width
+NS_BF16 = [("bf16", 2, 1024), ("bf16_streamed", 1, 1536), ("bf16", 2, 900),
+           ("bf16_streamed", 2, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant, b, d", NS_BF16)
+def test_cuda_newton_schulz_bf16_matches_plain(cuda_device, dtype, variant, b, d):
+    """Kernels 5′ / 5″ against their plain versions, which round at the same
+    points: |err| <= 2^-7 |ref| + 1e-4 max |ref| per element (an fp32 sum
+    taken in another order lands on the other side of a bf16 rounding, one
+    ulp, carried at the size of the entries); four iterations fail that; two
+    runs give the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    z = torch.randn(b, d + 64, d, generator=g, device=cuda_device)
+    m = (z.transpose(1, 2) @ z / (d + 64)).to(dtype)
+    fwd, plain = {
+        "bf16": (tns.newton_schulz_isqrt_bf16_fwd, tns.newton_schulz_isqrt_bf16_plain),
+        "bf16_streamed": (tns.newton_schulz_isqrt_bf16_streamed_fwd,
+                          tns.newton_schulz_isqrt_bf16_streamed_plain),
+    }[variant]
+
+    def close(out, ref):
+        ref = ref.float()
+        return bool(((out.float() - ref).abs()
+                     <= 2.0**-7 * ref.abs() + 1e-4 * ref.abs().max()).all())
+
+    before = fwd.launches
+    out = fwd(m, 5, 1e-5)
+    assert fwd.launches == before + 1
+    ref = plain(m, 5, 1e-5)
+    assert out.dtype == dtype and out.shape == m.shape and close(out, ref)
+    assert torch.equal(fwd(m, 5, 1e-5), out)
+    assert not close(plain(m, 4, 1e-5), ref)  # a control
+    assert close(fwd(m, 0, 1e-5), plain(m, 0, 1e-5))  # I / sqrt(tr), no product
+    if tns.variant_for(d) == variant:
+        # the dispatch picks this kernel, and the Function differentiates the
+        # plain fp32 iteration
+        x = m.clone().requires_grad_()
+        y = tns.newton_schulz_isqrt_kernel(x, 5, 1e-5)
+        assert torch.equal(y, out) and fwd.launches == before + 4
+        cot = torch.randn(m.shape, generator=g, device=cuda_device).to(dtype)
+        y.backward(cot)
+        x_ref = m.clone().requires_grad_()
+        tns.newton_schulz_isqrt_plain(x_ref, 5, 1e-5).backward(cot)
+        assert torch.equal(x.grad, x_ref.grad)
+
+
+@pytest.mark.cuda
+def test_cuda_newton_schulz_bf16_rejects_bad_inputs(cuda_device):
+    for fwd in (tns.newton_schulz_isqrt_bf16_fwd, tns.newton_schulz_isqrt_bf16_streamed_fwd):
+        with pytest.raises(TypeError, match="not supported"):
+            fwd(torch.zeros(1, 64, 64, device=cuda_device, dtype=torch.float16))
+        with pytest.raises(ValueError, match="B, D, D"):
+            fwd(torch.zeros(1, 64, 32, device=cuda_device))
+        with pytest.raises(ValueError, match="contiguous"):
+            fwd(torch.zeros(1, 64, 64, device=cuda_device).transpose(1, 2))
+        with pytest.raises(ValueError, match="num_iterations"):
+            fwd(torch.zeros(1, 64, 64, device=cuda_device), -1)
 
 
 # (B, Hp, C, heads, shifted): stage 0 and stage 1 shapes of Swin-Base at a

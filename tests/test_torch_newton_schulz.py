@@ -20,7 +20,10 @@ On the CPU, numpy inputs from a seed:
   the same flax weights and sketch matrices: features within 1e-4 of their
   largest entry, the gradients to tokens and graph within 2e-4 of theirs
   (fp32 sum order through the covariance, five NS steps and the head MLP).
-* ``kernel_supports`` is the TPU kernel's ``_fp32_fits``.
+* The width predicates are the TPU package's (``_fp32_fits``,
+  ``_bf16_resident_fits``, ``_bf16_streamed_fits``), and the card's dense
+  route takes every width one of them takes (the bf16 variants in
+  ``tests/test_torch_newton_schulz_bf16.py``).
 """
 
 import numpy as np
@@ -33,6 +36,8 @@ import jax.numpy as jnp
 from ego_moment_cle_vit_tpu.models.moment_head import MomentHead as JMomentHead
 from ego_moment_cle_vit_tpu.ops import moments as jmoments
 from ego_moment_cle_vit_tpu.ops.pallas.newton_schulz import (
+    _bf16_resident_fits,
+    _bf16_streamed_fits,
     _fp32_fits,
     newton_schulz_isqrt_pallas,
 )
@@ -92,27 +97,36 @@ def test_function_gradcheck_fp64():
 
 
 def test_kernel_supports_is_fp32_fits():
-    for d in (1, 64, 192, 768, 824, 825, 826, 1024, 1536):
-        assert tns.kernel_supports(d) == _fp32_fits(d), d
-    assert tns.kernel_supports(768) and not tns.kernel_supports(1024)
+    """Each kernel variant's width predicate is its TPU kernel's."""
+    for d in (1, 64, 192, 768, 824, 825, 826, 1024, 1059, 1060, 1536, 2048):
+        assert tns.fp32_fits(d) == _fp32_fits(d), d
+        assert tns.bf16_resident_fits(d) == _bf16_resident_fits(d), d
+        assert tns.bf16_streamed_fits(d) == _bf16_streamed_fits(d), d
+    assert tns.fp32_fits(768) and not tns.fp32_fits(1024)
+    assert [tns.variant_for(d) for d in (768, 1024, 1536, 1100)] == [
+        "fp32", "bf16", "bf16_streamed", None]
 
 
 def test_wrapper_takes_the_plain_version_on_the_cpu_without_counting():
     m = torch.from_numpy(_spd(2, 24, 15))
-    before = tns.newton_schulz_isqrt_fwd.launches
-    assert torch.equal(tns.newton_schulz_isqrt_fwd(m, 5, 1e-5),
-                       tns.newton_schulz_isqrt_plain(m, 5, 1e-5))
-    assert tns.newton_schulz_isqrt_fwd.launches == before
+    before = tns.newton_schulz_isqrt_fp32_fwd.launches
+    for fwd in (tns.newton_schulz_isqrt_fp32_fwd, tns.newton_schulz_isqrt_fwd):
+        assert torch.equal(fwd(m, 5, 1e-5), tns.newton_schulz_isqrt_plain(m, 5, 1e-5))
+    assert tns.newton_schulz_isqrt_fp32_fwd.launches == before
 
 
 def test_dense_route_raises_on_the_card_only_past_the_fp32_kernel():
-    """Checked through the rule the head and ``create_model`` apply."""
+    """Checked through the rule the head and ``create_model`` apply: the card
+    takes the fp32 kernel's widths and the bf16 variants' (5′ at 826-1059,
+    5″ at 1536), and raises, naming ROADMAP, only where no variant fits."""
     check_dense_route(768, "cuda")  # ViT-Base at 448: the fp32 kernel
     check_dense_route(1024, "cpu")  # the plain iteration on the CPU
-    with pytest.raises(NotImplementedError, match="ROADMAP.*5′.*5″"):
-        check_dense_route(1024, "cuda")  # ViT-Large at 512: kernel 5′, not ported
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_dense_route(1536, torch.device("cuda"))  # Swin-Large: kernel 5″
+    check_dense_route(1024, "cuda")  # ViT-Large at 512: kernel 5′
+    check_dense_route(1536, torch.device("cuda"))  # Swin-Large at 1280: kernel 5″
+    for d in (1100, 2048):  # past 5′ and off 5″'s grid: no variant
+        check_dense_route(d, "cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            check_dense_route(d, "cuda")
 
 
 @pytest.mark.parametrize("use_third_order", [False, True])

@@ -144,7 +144,7 @@ def test_unported_forwards_raise():
     """The dual-view forwards are ported now: with one image as both views they
     give ``inference``'s logits, and the backbone pass gives the single pass's
     features twice.  The dense Newton–Schulz route runs on the CPU; on the
-    card it raises only past the fp32 kernel's widths."""
+    card it raises only at widths no Newton–Schulz kernel takes."""
     model = create_model(_config("dot"), num_classes=10, device="cpu")
     x = torch.from_numpy(np.random.default_rng(6).normal(size=(2, 56, 56, 3)).astype(np.float32))
     with torch.no_grad():
@@ -165,8 +165,9 @@ def test_unported_forwards_raise():
         moments = model.moment_head(tokens, torch.ones(1, 300, 300))
     assert moments.shape == (1, model.moment_head.d_out) and torch.isfinite(moments).all()
     check_dense_route(256, "cuda")
+    check_dense_route(1024, "cuda")  # kernel 5′
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_dense_route(1024, "cuda")
+        check_dense_route(1100, "cuda")  # no kernel variant takes it
 
 
 def test_port_imports_no_jax():

@@ -500,8 +500,9 @@ def test_long_sequences_take_the_tiled_kernel(long_path_spies):
 @pytest.mark.parametrize("size", [224, 448, 512])
 def test_dense_route_past_the_fp32_kernel_raises_on_the_card_only(size):
     """Every registered ViT at a common input: on the dense route (N >= D) the
-    card takes widths up to the fp32 kernel's and raises, naming ROADMAP, for
-    wider ones (ViT-Large at 512: N = D = 1024); the CPU takes them all."""
+    card takes the fp32 kernel's widths and, past them, the bf16 variant's
+    (ViT-Large at 512: N = D = 1024, kernel 5′), as the CPU does; a width no
+    variant takes raises on the card, naming ROADMAP."""
     dense = []
     for name in sorted(VIT_CONFIGS):
         d = backbone_num_features(name)
@@ -509,13 +510,12 @@ def test_dense_route_past_the_fp32_kernel_raises_on_the_card_only(size):
             continue
         dense.append(name)
         check_dense_route(d, "cpu")
-        if d <= 825:
-            check_dense_route(d, "cuda")
-        else:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                check_dense_route(d, "cuda")
+        check_dense_route(d, "cuda")
+        assert tns.variant_for(d) == ("fp32" if d <= 825 else "bf16")
     assert ("vit_base_patch16_224" in dense) == (size >= 448)
     assert ("vit_large_patch16_224" in dense) == (size >= 512)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        check_dense_route(1100, "cuda")
 
 
 def test_converter_carries_a_vit_at_448():
