@@ -6,7 +6,9 @@
 
 Phases (any failed check exits non-zero; no phase catches and continues):
 
-1. Setup: card name and power limit, kernel build from ``csrc/`` (seconds).
+1. Setup: card name and power limit, kernel build from ``csrc/`` (seconds),
+   and the SASS of the attention backward (3b, 6b) read for its wgmma
+   (HGMMA) instructions, which must be there.
 2. Kernels against their plain PyTorch versions on the card.  Forward, at the
    serving paths' shapes for batch 64: window attention at the four Swin-Base
    stage geometries (shifted and unshifted, bf16 and fp32), packed-layout
@@ -18,7 +20,10 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    bytes-or-operations bound.  Backward, at the training paths' shapes: both
    attentions for batch 128 (two views of 64) with a random output cotangent,
    and fused GPF at all three shapes with two distinct token sets (and once with one
-   tensor twice).  Each check is run on a control too (bias or mask dropped,
+   tensor twice).  The attention backward kernels start from the forward
+   kernels' out and log-sum-exp (the packed forward is also held to the plain
+   log-sum-exp) and print TFLOP/s on their 14 T^2 d flops beside SDPA's
+   backward.  Each check is run on a control too (bias or mask dropped,
    padded keys left unmasked, off-diagonal GPF entries zeroed; bias gradient
    dropped, dK zeroed, coefficient gradient zeroed, half of dX dropped), which
    it must reject; two runs of the packed backward must agree bit for bit.
@@ -80,7 +85,9 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    Controls: the fused kernel without its bias (serving), its dwqkv dropped
    (training).  The logits are also held against the default path on the same
    weights: 2e-2 relative L2 in bf16 (batch 64), 1e-3 of max |logit| in fp32
-   (batch 8).
+   (batch 8).  The training phase also times, without a profiler, the host's
+   time from each step call to its return on both paths in turns (20 steps
+   each).
 5e, 5f, 5g. The dense route's bf16 Newton-Schulz variants on their paths:
    ViT-Large/16 at 512 (uint8 [64, 600, 600, 3], 1025 tokens of 1024, N = D
    = 1024) served and trained under block checkpointing, and Swin-Large at
@@ -99,7 +106,8 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    version; control: four iterations; the other grouping printed), the
    window attention at Swin-Large stage 0's padded canvas [8, 322, 322, 576]
    with the pad sentinel in the mask (control: the sentinel removed), q-tiled
-   attention at [64, 1025, 3072] with 16 heads, GPF at [64, 1024, 1024] and
+   attention at [64, 1025, 3072] with 16 heads and its backward at batch 128
+   (bf16, the plain version on the first 16 images), GPF at [64, 1024, 1024] and
    [64, 1600, 1536] and its backward at [64, 1024, 1024], and the iSQRT's
    backward (autograd over the plain fp32 iteration) at [64, 1024, 1024].
 6. A JSON line of the thirteen kernels, then the contract's last line.
@@ -112,10 +120,12 @@ import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -413,11 +423,12 @@ def only_first_keys_attended(model: torch.nn.Module):
     del model
     saved = _pa.packed_attention_fwd
 
-    def truncated(qkv, bias, mask, num_heads, scale=None):
+    def truncated(qkv, bias, mask, num_heads, scale=None, return_lse=False):
         t = qkv.shape[2]
         hide = torch.zeros(1, t, t, dtype=torch.float32, device=qkv.device)
         hide[:, :, _pa.TILE:] = -100.0
-        return saved(qkv, bias, hide if mask is None else mask + hide, num_heads, scale)
+        return saved(qkv, bias, hide if mask is None else mask + hide, num_heads, scale,
+                     return_lse)
 
     truncated.launches = 0  # the wrapper counts on whatever the module name holds
     _pa.packed_attention_fwd = truncated
@@ -1042,7 +1053,8 @@ def check_packed_attention(g: torch.Generator) -> dict:
             qkv, bias, mask = packed_inputs(g, BATCH, w, t, c, heads, hb, wm, dtype)
             args = (qkv, bias, mask, heads)
             out = PA_KERNEL(*args)
-            ref = _pa.packed_attention_plain(*args)
+            ref, ref_lse = _pa.packed_attention_plain(*args, return_lse=True)
+            out_lse, lse = PA_KERNEL(*args, return_lse=True)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             excess = wa_excess(out, ref, dtype)
@@ -1050,6 +1062,11 @@ def check_packed_attention(g: torch.Generator) -> dict:
             if not math.isfinite(excess) or excess > 1.0:
                 fail(f"{what}: error {excess:.3f}x its tolerance {TOL_WA[dtype]} (max abs err "
                      f"{err})")
+            # the log-sum-exp the training forward writes, and the same output
+            lse_err = (lse - ref_lse).abs().max().item()
+            if not torch.equal(out_lse, out) or not lse_err <= 1e-4 * ref_lse.abs().max().item():
+                fail(f"{what}: with lse the output differs or lse is off by {lse_err}")
+            del out_lse, lse, ref_lse
             # controls: the keys padded up to the kernel's tile and left
             # unmasked (zero keys join the softmax), and the bias dropped
             pad = -(-t // _pa.TILE) * _pa.TILE - t
@@ -1079,8 +1096,9 @@ def check_packed_attention(g: torch.Generator) -> dict:
             b_ms, kind = bound_ms(nbytes, flops, dtype)
             log(f"  packed_attention {name} [{BATCH},{w},{t},{3 * c}] H={heads} "
                 f"{str(dtype)[6:]}: max_abs_err={err:.3e} err/tol={excess:.3f} (tol atol+rtol|ref| "
-                f"{TOL_WA[dtype]}) control err/tol>={ctrl_excess:.1f} kernel_ms={k_ms:.4f} "
-                f"plain_ms={p_ms:.4f} library_ms(SDPA)={l_ms:.4f} bound_ms={b_ms:.4f} ({kind})")
+                f"{TOL_WA[dtype]}) lse max_abs_err={lse_err:.3e} "
+                f"control err/tol>={ctrl_excess:.1f} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms(SDPA)={l_ms:.4f} "
+                f"bound_ms={b_ms:.4f} ({kind})")
             if per_forward and dtype == torch.bfloat16:  # the serving path's call
                 main = {"max_abs_err": err, "ms": per_forward * k_ms,
                         "plain_ms": per_forward * p_ms, "library_ms": per_forward * l_ms,
@@ -1091,10 +1109,28 @@ def check_packed_attention(g: torch.Generator) -> dict:
     return main
 
 
+def issued_tflops(batch: int, heads: int, t: int, d: int, ms: float) -> float:
+    """The attention backward's seven T x T x d products (two rebuilt, none
+    skipped), 14 T^2 d flops per (image, head), over ``ms``: TFLOP/s."""
+    return 14.0 * batch * heads * t * t * d / ms / 1e9
+
+
+def sdpa_backward_ms(qkv: torch.Tensor, bias, mask, heads: int, reps: int) -> float:
+    """Library yardstick: the backward of SDPA on the same inputs (dq, dk, dv;
+    no bias gradient, so with a bias it does part of the work only)."""
+    d = qkv.shape[-1] // 3 // heads
+    q, k, v, am = sdpa_inputs(qkv, bias, mask, heads)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    o = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=d ** -0.5)
+    do = torch.randn_like(o)
+    return time_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True), reps=reps,
+                   samples=3)
+
+
 def check_packed_attention_bwd(g: torch.Generator) -> dict:
     """Backward kernel vs its plain version at the training shapes (batch 128
-    for the ViT calls, 64 for the Swin packed shape); also times the forward
-    kernel at that batch."""
+    for the ViT calls, 64 for the Swin packed shape), both from the forward
+    kernel's out and lse; also times the forward kernel at that batch."""
     main = {}
     worst = 0.0
     min_control = math.inf
@@ -1105,7 +1141,8 @@ def check_packed_attention_bwd(g: torch.Generator) -> dict:
             atol, rtol, btol = TOL_WA_BWD[dtype]
             qkv, bias, mask = packed_inputs(g, batch, w, t, c, heads, hb, wm, dtype)
             dout = torch.randn(batch, w, t, c, generator=g, device=qkv.device).to(dtype)
-            args = (qkv, bias, mask, dout, heads)
+            out, lse = PA_KERNEL(qkv, bias, mask, heads, return_lse=True)
+            args = (qkv, bias, mask, out, lse, dout, heads)
             dqkv, dbias = PA_BWD_KERNEL(*args)
             ref_dqkv, ref_dbias = _pa.packed_attention_bwd_plain(*args)
             torch.cuda.synchronize()
@@ -1141,18 +1178,14 @@ def check_packed_attention_bwd(g: torch.Generator) -> dict:
             reps = 10 if dtype == torch.bfloat16 else 3
             k_ms = time_ms(lambda: PA_BWD_KERNEL(*args), reps=reps, samples=3)
             p_ms = time_ms(lambda: _pa.packed_attention_bwd_plain(*args), reps=2, samples=3)
-            f_ms = time_ms(lambda: PA_KERNEL(qkv, bias, mask, heads), reps=reps, samples=3)
-            # library yardstick: the backward of SDPA; it returns dq, dk, dv but
-            # no bias gradient, so with a bias it does part of the work only
-            q, k, v, am = sdpa_inputs(qkv, bias, mask, heads)
-            q, k, v = (x.requires_grad_() for x in (q, k, v))
-            o = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=am,
-                                                                 scale=d ** -0.5)
-            do = torch.randn_like(o)
-            l_ms = time_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True),
-                           reps=5, samples=3)
+            f_ms = time_ms(lambda: PA_KERNEL(qkv, bias, mask, heads, return_lse=True), reps=reps,
+                           samples=3)
+            l_ms = sdpa_backward_ms(qkv, bias, mask, heads, reps=5)
             es = qkv.element_size()
-            nbytes = (2 * qkv.numel() + dout.numel()) * es + (
+            # qkv, out, dout and lse read, dqkv written (bias and mask read,
+            # dbias written); the minimal work is the five products of the
+            # backward, 10 T^2 d flops per (image, group, head)
+            nbytes = (2 * qkv.numel() + 2 * dout.numel()) * es + lse.numel() * 4 + (
                 2 * bias.numel() * 4 if bias is not None else 0) + (
                 mask.numel() * 4 if mask is not None else 0)
             flops = 10.0 * batch * w * heads * t * t * d
@@ -1162,12 +1195,14 @@ def check_packed_attention_bwd(g: torch.Generator) -> dict:
                 f"{atol}+{rtol:.4f}|ref|) dbias err={bias_err:.3e} of max {bias_scale:.3e} "
                 f"err/tol={bias_excess:.3f} two runs equal; control err/tol>={ctrl_excess:.1f} "
                 f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms(SDPA backward)={l_ms:.4f} "
-                f"bound_ms={b_ms:.4f} ({kind}) fwd_kernel_ms={f_ms:.4f}")
+                f"bound_ms={b_ms:.4f} ({kind}) "
+                f"TFLOP/s(14T^2d)={issued_tflops(batch * w, heads, t, d, k_ms):.1f} "
+                f"fwd_kernel_ms={f_ms:.4f}")
             if per_step and dtype == torch.bfloat16:  # the training path's call
                 main = {"max_abs_err": err, "ms": per_step * k_ms, "plain_ms": per_step * p_ms,
                         "library_ms": per_step * l_ms, "bound_ms": per_step * b_ms,
                         "bound_by": kind, "fwd_ms": per_step * f_ms}
-            del qkv, dout, q, k, v, o, do, am, args
+            del qkv, dout, out, lse, args
             torch.cuda.empty_cache()
     log(f"  packed attention backward controls: smallest err/tol {min_control:.1f} (must be > 1)")
     return {"err_over_tol": worst, **main}
@@ -1231,31 +1266,37 @@ def check_flash_attention(g: torch.Generator, t: int = VIT448_T, c: int = VIT_C,
     return main
 
 
-def check_flash_attention_bwd(g: torch.Generator) -> dict:
-    """Kernel 6b at the 448 training call (batch 128), from the forward
-    kernel's out and lse; also times the forward kernel at that batch."""
-    t, c, heads = VIT448_T, VIT_C, VIT_H
+def check_flash_attention_bwd(g: torch.Generator, t: int = VIT448_T, c: int = VIT_C,
+                              heads: int = VIT_H, depth: int = VIT_DEPTH,
+                              plain_batch: int = TRAIN_VIEWS) -> dict:
+    """Kernel 6b at a training call (batch 128), from the forward kernel's out
+    and lse: ViT-Base at 448, qkv [128, 785, 2304] (the default), or
+    ViT-Large at 512, [128, 1025, 3072] with 16 heads, bf16 only (its fp32
+    plain version would hold ~45 GB).  The plain version runs on the first
+    ``plain_batch`` images; the per-step sums count ``depth`` launches.  Also
+    times the forward kernel at that batch."""
     d = c // heads
     batch = TRAIN_VIEWS
     main = {}
     worst = 0.0
     min_control = math.inf
-    for dtype in (torch.bfloat16, torch.float32):
+    dtypes = (torch.bfloat16, torch.float32) if plain_batch == batch else (torch.bfloat16,)
+    for dtype in dtypes:
         atol, rtol = TOL_FA_BWD[dtype]
         qkv = torch.randn(batch, t, 3 * c, generator=g, device="cuda").to(dtype)
         dout = torch.randn(batch, t, c, generator=g, device="cuda").to(dtype)
         out, lse = FA_KERNEL(qkv, heads)
         args = (qkv, out, lse, dout, heads)
-        dqkv = FA_BWD_KERNEL(*args)
-        ref = _fa.flash_attention_tiled_bwd_plain(qkv, dout, heads)
+        dqkv = FA_BWD_KERNEL(*args)[:plain_batch]
+        ref = _fa.flash_attention_tiled_bwd_plain(qkv[:plain_batch], dout[:plain_batch], heads)
         torch.cuda.synchronize()
-        what = f"q-tiled attention backward [{batch},{t},{3 * c}] {dtype}"
+        what = f"q-tiled attention backward [{batch},{t},{3 * c}] H={heads} {dtype}"
         err = (dqkv.float() - ref.float()).abs().max().item()
         excess = close_excess(dqkv, ref, atol, rtol)
         if not math.isfinite(excess) or excess > 1.0:
             fail(f"{what}: dqkv error {excess:.3f}x its tolerance (max abs err {err})")
         worst = max(worst, excess)
-        if not torch.equal(FA_BWD_KERNEL(*args), dqkv):  # the same gradient twice, bit for bit
+        if not torch.equal(FA_BWD_KERNEL(*args)[:plain_batch], dqkv):  # twice, bit for bit
             fail(f"{what}: two runs of the backward kernel differ")
         ctrl = ref.clone()
         ctrl[..., c:2 * c] = 0  # control: dK zeroed
@@ -1266,29 +1307,26 @@ def check_flash_attention_bwd(g: torch.Generator) -> dict:
         del ctrl, ref, dqkv
         reps = 5 if dtype == torch.bfloat16 else 2
         k_ms = time_ms(lambda: FA_BWD_KERNEL(*args), reps=reps, samples=3)
-        p_ms = time_ms(lambda: _fa.flash_attention_tiled_bwd_plain(qkv, dout, heads), reps=2,
-                       samples=3)
+        p_ms = time_ms(lambda: _fa.flash_attention_tiled_bwd_plain(
+            qkv[:plain_batch], dout[:plain_batch], heads), reps=2, samples=3)
         f_ms = time_ms(lambda: FA_KERNEL(qkv, heads), reps=reps, samples=3)
-        q, k, v, _ = sdpa_inputs(qkv[:, None], None, None, heads)
-        q, k, v = (x.requires_grad_() for x in (q, k, v))
-        o = torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=d ** -0.5)
-        do = torch.randn_like(o)
-        l_ms = time_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True),
-                       reps=3, samples=3)
+        l_ms = sdpa_backward_ms(qkv[:, None], None, None, heads, reps=3)
         es = qkv.element_size()
         nbytes = (2 * qkv.numel() + 2 * dout.numel()) * es + lse.numel() * 4
         flops = 10.0 * batch * heads * t * t * d
         b_ms, kind = bound_ms(nbytes, flops, dtype)
         log(f"  flash_attention_tiled_bwd [{batch},{t},{3 * c}] H={heads} {str(dtype)[6:]}: "
-            f"dqkv max_abs_err={err:.3e} err/tol={excess:.3f} (tol {atol}+{rtol:.4f}|ref|) "
-            f"two runs equal; control err/tol>={ctrl_excess:.1f} kernel_ms={k_ms:.4f} "
-            f"plain_ms={p_ms:.4f} library_ms(SDPA backward)={l_ms:.4f} bound_ms={b_ms:.4f} "
-            f"({kind}) fwd_kernel_ms={f_ms:.4f}")
-        if dtype == torch.bfloat16:  # the training path's call, 12 per step
-            main = {"max_abs_err": err, "ms": VIT_DEPTH * k_ms, "plain_ms": VIT_DEPTH * p_ms,
-                    "library_ms": VIT_DEPTH * l_ms, "bound_ms": VIT_DEPTH * b_ms,
-                    "bound_by": kind, "fwd_ms": VIT_DEPTH * f_ms}
-        del qkv, dout, out, lse, q, k, v, o, do, args
+            f"dqkv max_abs_err={err:.3e} err/tol={excess:.3f} (tol {atol}+{rtol:.4f}|ref|, "
+            f"first {plain_batch} images) two runs equal; control err/tol>={ctrl_excess:.1f} "
+            f"kernel_ms={k_ms:.4f} plain_ms(batch {plain_batch})={p_ms:.4f} "
+            f"library_ms(SDPA backward)={l_ms:.4f} bound_ms={b_ms:.4f} ({kind}) "
+            f"TFLOP/s(14T^2d)={issued_tflops(batch, heads, t, d, k_ms):.1f} "
+            f"fwd_kernel_ms={f_ms:.4f}")
+        if dtype == torch.bfloat16:  # the training path's call, depth per step
+            main = {"max_abs_err": err, "ms": depth * k_ms, "plain_ms": depth * p_ms,
+                    "plain_batch": plain_batch, "library_ms": depth * l_ms,
+                    "bound_ms": depth * b_ms, "bound_by": kind, "fwd_ms": depth * f_ms}
+        del qkv, dout, out, lse, args
         torch.cuda.empty_cache()
     log(f"  q-tiled attention backward controls: smallest err/tol {min_control:.1f} "
         "(must be > 1)")
@@ -1496,7 +1534,7 @@ def check_window_attention_padded(g: torch.Generator) -> dict:
     table = torch.randn((2 * WS - 1) ** 2, heads, generator=g, device=dev) * BIAS_TABLE_STD
     bias = table[idx].reshape(nt, nt, heads).permute(2, 0, 1).contiguous()
     scale = (c // heads) ** -0.5
-    max_err, min_control, timed = 0.0, math.inf, {}
+    max_err, min_control, timed, library = 0.0, math.inf, {}, {}
     for shift in (0, WS // 2):
         mask = torch.as_tensor(_attn_mask(h, h, hp, hp, WS, shift), device=dev)
         no_pad = _attn_mask(hp, hp, hp, hp, WS, shift)
@@ -1529,13 +1567,25 @@ def check_window_attention_padded(g: torch.Generator) -> dict:
                     mask.numel() * 4
                 b_ms, kind = bound_ms(nbytes, 4.0 * batch * (hp // WS) ** 2 * heads * nt * nt
                                       * (c // heads), dtype)
-                msg += f" kernel_ms={k_ms:.4f} bound_ms={b_ms:.4f} ({kind})"
+                # library yardstick, as in check_window_attention: SDPA on
+                # pre-partitioned q / k / v, bias + mask as a float mask
+                nw, d = (hp // WS) ** 2, c // heads
+                x = qkv.reshape(batch, hp // WS, WS, hp // WS, WS, 3, heads, d)
+                x = x.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, batch, nw * heads, nt, d)
+                q, k, v = x[0].contiguous(), x[1].contiguous(), x[2].contiguous()
+                am = (bias[None] + mask[:, None]).reshape(nw * heads, nt, nt).to(dtype)
+                l_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=am, scale=scale), reps=5, samples=3)
+                msg += (f" kernel_ms={k_ms:.4f} library_ms(SDPA)={l_ms:.4f} bound_ms={b_ms:.4f} "
+                        f"({kind})")
                 timed[shift] = k_ms
+                library[shift] = l_ms
+                del x, q, k, v, am
             log(msg)
             del qkv, out, ref, ctrl, args
         torch.cuda.empty_cache()
     log(f"  padded window attention controls: smallest err/tol {min_control:.1f} (must be > 1)")
-    return {"max_abs_err": max_err, "ms": timed}
+    return {"max_abs_err": max_err, "ms": timed, "library_ms": library}
 
 
 # the fused attention half at Swin-Base's stages 0 and 1, the blocks that
@@ -1909,6 +1959,25 @@ def in_turns(runs: dict, reps: int) -> dict:
     return {name: statistics.median(v) for name, v in times.items()}
 
 
+def host_ms_in_turns(runs: dict, steps: int) -> dict:
+    """Host milliseconds from each call to its return, before the
+    synchronize that follows it, for ``steps`` calls of each of two
+    callables in turns (a, b, b, a; steps / 2 calls a turn), the device
+    drained before every call: {name: (median, min, max)}.  Without a
+    profiler attached this is the dispatch the call costs the host (and any
+    wait the call itself makes on the device)."""
+    (na, fa), (nb, fb) = runs.items()
+    times = {na: [], nb: []}
+    for name, fn in ((na, fa), (nb, fb), (nb, fb), (na, fa)):
+        for _ in range(steps // 2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            times[name].append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    return {name: (statistics.median(v), min(v), max(v)) for name, v in times.items()}
+
+
 def default_twin(model, family: dict, dtype=torch.bfloat16):
     """The default path's model on the same weights as ``model``."""
     cfg = json.loads(json.dumps(family["default_config"]))
@@ -2247,6 +2316,15 @@ def train(card: str, profile_dir: str | None, family: dict) -> dict:
         log(f"  train step ms in turns (default, fused, fused, default, default, fused; "
             f"medians): default path {turns['default']:.1f}, {family['label']} "
             f"{turns['fused']:.1f}")
+        host = host_ms_in_turns({"default": lambda: step_d(state_d, images, labels, seed_gen),
+                                 "fused": lambda: train_step(state, images, labels, seed_gen)},
+                                20)
+        turns["host"] = host
+        log(f"  host ms a train step, call to return before synchronize, no profiler, in turns "
+            f"(default, fused, fused, default; 20 steps each; median, min, max): default path "
+            f"{host['default'][0]:.1f} ({host['default'][1]:.1f}, {host['default'][2]:.1f}), "
+            f"{family['label']} {host['fused'][0]:.1f} ({host['fused'][1]:.1f}, "
+            f"{host['fused'][2]:.1f})")
         del default, state_d, step_d
         torch.cuda.empty_cache()
 
@@ -2317,6 +2395,19 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    # the bf16 attention backward (3b, 6b) runs on wgmma: its SASS holds HGMMA
+    cuobjdump = shutil.which("cuobjdump") or str(Path(_build.nvcc_path()).parent / "cuobjdump")
+    for name in ("packed_attention_bwd", "flash_attention_bwd"):
+        if not os.path.exists(cuobjdump):
+            log(f"  {name}: cuobjdump not found, SASS not read")
+            continue
+        sass = subprocess.run([cuobjdump, "-sass", str(paths[name])], capture_output=True,
+                              text=True, check=True).stdout
+        n_hgmma = sum("HGMMA" in line for line in sass.splitlines())
+        log(f"  {name}: {n_hgmma} HGMMA instructions in its SASS (cuobjdump -sass)")
+        if n_hgmma == 0:
+            fail(f"{name} holds no wgmma (HGMMA) instruction")
+
     phase("[2] kernels against their plain versions, batch 64")
     g = torch.Generator(device="cuda").manual_seed(1234)
     with torch.inference_mode():
@@ -2342,6 +2433,11 @@ def main() -> int:
     gpb_448 = check_gpf_bwd(g, VIT448_T - 1, VIT_C)
     gpb_vitl = check_gpf_bwd(g, VITL_T - 1, VITL_C)
     fab = check_flash_attention_bwd(g)
+    fab_vitl = check_flash_attention_bwd(g, VITL_T, VITL_C, VITL_H, VITL_DEPTH, plain_batch=16)
+    occ = _fa.bwd_occupancy()
+    log(f"  attention backward (3b, 6b) at d = 64: dq kernel {occ['dq_registers']} registers a "
+        f"thread, {occ['dq_blocks_per_sm']} blocks an SM; dk/dv kernel {occ['dkv_registers']}, "
+        f"{occ['dkv_blocks_per_sm']}; {occ['smem']} bytes of shared memory a block")
     ahb = check_attn_half_bwd(g)
     ns_bwd_ms = time_newton_schulz_bwd(g)
     torch.cuda.empty_cache()
@@ -2432,7 +2528,8 @@ def main() -> int:
          "library_ms": wa["library_ms"], "train_ms": wab["fwd_ms"],
          "swinL1280_launches": srv_swinl["launches"]["window_attention_fwd"],
          "swinL1280_padded_max_abs_err": wa_pad["max_abs_err"],
-         "swinL1280_stage0_padded_ms_b8": wa_pad["ms"]},
+         "swinL1280_stage0_padded_ms_b8": wa_pad["ms"],
+         "swinL1280_stage0_padded_library_ms_b8": wa_pad["library_ms"]},
         {"name": "window_attention_bwd", "route": "cuda",
          "source": src + "window_attention_bwd.cu",
          "replaces": WA_BWD_REPLACES, "launches": trn["launches"]["window_attention_bwd"],
@@ -2494,7 +2591,10 @@ def main() -> int:
          "max_abs_err": fab["max_abs_err"], "err_over_tol": fab["err_over_tol"],
          "ms": fab["ms"], "plain_ms": fab["plain_ms"], "bound_ms": fab["bound_ms"],
          "bound_by": fab["bound_by"], "library_ms": fab["library_ms"],
-         "vitL512_launches": trn_vitl["launches"]["flash_attention_tiled_bwd"]},
+         "vitL512_launches": trn_vitl["launches"]["flash_attention_tiled_bwd"],
+         "vitL512_max_abs_err": fab_vitl["max_abs_err"], "vitL512_ms": fab_vitl["ms"],
+         "vitL512_plain_ms_b16": fab_vitl["plain_ms"], "vitL512_bound_ms": fab_vitl["bound_ms"],
+         "vitL512_library_ms": fab_vitl["library_ms"], "occupancy": occ},
         {"name": "newton_schulz_isqrt_fp32_fwd", "route": "cuda",
          "source": src + "newton_schulz.cu", "replaces": NS_REPLACES,
          "launches": srv_448["launches"]["newton_schulz_isqrt_fp32_fwd"],

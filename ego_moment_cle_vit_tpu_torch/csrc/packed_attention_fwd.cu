@@ -7,9 +7,12 @@
 // Computes, per image b, group w and head h (T tokens, d = C/H in {32, 64}):
 //   P   = softmax(q k^T * scale + bias[h % Hb] + mask[w % Wm])     (fp32)
 //   out = P~ v,  P~ = the probabilities rounded to the input type
+//   lse = log(sum_j exp(logit_j))  per query row, fp32 [B*W, H, T], when asked
 // with q, k, v read from qkv[B, W, T, 3C] (head h in columns h*d .. (h+1)*d of
 // each third) and out written as [B, W, T, C].  bias and mask may be null,
-// which stands for zeros.
+// which stands for zeros.  lse may be null (serving): then nothing is
+// written; training asks for it, so the backward rebuilds P without a
+// statistics pass of its own.
 //
 // What bounds it on an H100: memory at the ViT shapes.  Per token and head it
 // reads 3d values and writes d, and does 4*T*d flops: ~100 flops per byte of
@@ -53,8 +56,9 @@ struct Smem {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, MinBlocks<T>::value)
 packed_attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__ bias,
-                            const float* __restrict__ mask, T* __restrict__ out, int W, int Tn,
-                            int C, int H, int Hb, int Wm, float scale, int n_qt) {
+                            const float* __restrict__ mask, T* __restrict__ out,
+                            float* __restrict__ lse, int W, int Tn, int C, int H, int Hb, int Wm,
+                            float scale, int n_qt) {
   using S = Smem<T, D>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sq = reinterpret_cast<T*>(smem_raw);  // [kRows][LDD]
@@ -145,8 +149,10 @@ packed_attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__
     mma_from_acc<1, D / 8>(o, s, sp_w, StripElems<T>::per_row, sv, S::LDD, g, tg);
   }
 
-  const float inv0 = 1.f / quad_sum(l0);
-  const float inv1 = 1.f / quad_sum(l1);
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float inv0 = 1.f / l0;
+  const float inv1 = 1.f / l1;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + half * 8;
@@ -157,13 +163,17 @@ packed_attention_fwd_kernel(const T* __restrict__ qkv, const float* __restrict__
       for (int dn = 0; dn < D / 8; ++dn) {
         store_pair(dst + dn * 8 + tg * 2, o[0][dn][half * 2] * inv, o[0][dn][half * 2 + 1] * inv);
       }
+      if (lse && tg == 0) {
+        lse[(static_cast<size_t>(bw) * H + h) * Tn + r] = half ? m1 + logf(l1) : m0 + logf(l0);
+      }
     }
   }
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* qkv, const float* bias, const float* mask, void* out, int BW,
-                   int W, int Tn, int C, int H, int Hb, int Wm, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* qkv, const float* bias, const float* mask, void* out, float* lse,
+                   int BW, int W, int Tn, int C, int H, int Hb, int Wm, float scale,
+                   cudaStream_t stream) {
   auto kernel = packed_attention_fwd_kernel<T, D>;
   const size_t smem = Smem<T, D>::bytes;
   cudaError_t err = emct_allow_smem(kernel, smem);
@@ -171,18 +181,19 @@ cudaError_t launch(const void* qkv, const float* bias, const float* mask, void* 
   const int n_qt = (Tn + kRows - 1) / kRows;
   const unsigned blocks = static_cast<unsigned>(BW) * H * n_qt;
   kernel<<<blocks, kThreads, smem, stream>>>(static_cast<const T*>(qkv), bias, mask,
-                                             static_cast<T*>(out), W, Tn, C, H, Hb, Wm, scale,
-                                             n_qt);
+                                             static_cast<T*>(out), lse, W, Tn, C, H, Hb, Wm,
+                                             scale, n_qt);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // qkv [B, W, T, 3C] and out [B, W, T, C] (dtype); bias [Hb, T, T] f32 or null
-// (Hb = H or 1); mask [Wm, T, T] f32 or null (Wm = W or 1).  Requires C / H in
-// {32, 64}; the Python wrapper checks shapes, contiguity and alignment first.
+// (Hb = H or 1); mask [Wm, T, T] f32 or null (Wm = W or 1); lse [B*W, H, T]
+// f32 or null.  Requires C / H in {32, 64}; the Python wrapper checks shapes,
+// contiguity and alignment first.
 extern "C" int packed_attention_fwd(const void* qkv, const void* bias, const void* mask, void* out,
-                                    int B, int W, int Tn, int C, int H, int Hb, int Wm,
+                                    void* lse, int B, int W, int Tn, int C, int H, int Hb, int Wm,
                                     float scale, int dtype, void* stream) {
   if (B < 1 || W < 1 || Tn < 1 || H < 1 || C % H != 0 || Hb < 1 || Wm < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -193,7 +204,8 @@ extern "C" int packed_attention_fwd(const void* qkv, const void* bias, const voi
   const float* mask_f = static_cast<const float*>(mask);
   cudaError_t err = cudaErrorInvalidValue;
 #define EMCT_LAUNCH(TYPE, DIM) \
-  err = launch<TYPE, DIM>(qkv, bias_f, mask_f, out, B * W, W, Tn, C, H, Hb, Wm, scale, s)
+  err = launch<TYPE, DIM>(qkv, bias_f, mask_f, out, static_cast<float*>(lse), B * W, W, Tn, C, H, \
+                         Hb, Wm, scale, s)
   if (dtype == EMCT_DTYPE_BF16 && d == 64) {
     EMCT_LAUNCH(__nv_bfloat16, 64);
   } else if (dtype == EMCT_DTYPE_BF16 && d == 32) {

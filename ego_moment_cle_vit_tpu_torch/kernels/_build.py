@@ -4,7 +4,7 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu -lcuda
 
 at first use, into ``ego_moment_cle_vit_tpu_torch/_build/`` (git-ignored),
 keyed on a hash of the sources and flags so an edit rebuilds.  ``build()``
@@ -36,6 +36,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# after the source: the attention backward encodes TMA tensor maps with the
+# cuTensorMapEncodeTiled from libcuda
+LINK_FLAGS = ("-lcuda",)
 # dtype codes understood by the C entry points (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -55,7 +58,7 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     h.update((CSRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
@@ -76,7 +79,7 @@ def build(names=KERNEL_SOURCES) -> dict[str, Path]:
         if path.exists():
             continue
         tmp = path.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu"), *LINK_FLAGS]
         jobs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp)

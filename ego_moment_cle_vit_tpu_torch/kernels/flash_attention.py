@@ -10,14 +10,17 @@ mask but the padding of the key axis.  The ViT backbone calls it where a
 sequence is past the packed-attention kernel: a 448 input gives 785 tokens.
 
 The kernel sources and their design notes are in
-``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``: a block
-owns 128 query rows (128 keys for dk / dv) and walks the other axis in tiles
-of 64, so nothing of size ``T x T`` is ever held.  The forward also writes
-each row's log-sum-exp; ``FlashAttentionTiledFunction`` saves
-``(qkv, out, lse)`` (``out`` is kept alive by the ``proj`` product anyway), so
-the backward rebuilds the probabilities exactly, takes
-``delta = rowsum(dout * out)`` and needs no statistics pass.  Every sum stays
-inside one block, so gradients are the same from run to run.
+``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``: a forward
+block owns 128 query rows and walks the keys in tiles of 64, so nothing of
+size ``T x T`` is ever held.  The forward also writes each row's log-sum-exp;
+``FlashAttentionTiledFunction`` saves ``(qkv, out, lse)`` (``out`` is kept
+alive by the ``proj`` product anyway), so the backward rebuilds the
+probabilities exactly, takes ``delta = rowsum(dout * out)`` and needs no
+statistics pass.  The layout is the packed attention's with one group per
+image, so the bf16 backward runs the same Hopper kernels
+(``csrc/attention_bwd_sm90.cuh``) with the launch geometry of
+``packed_attention.bwd_geometry``.  Every sum stays inside one block, so
+gradients are the same from run to run.
 ``flash_attention_tiled`` is the differentiable entry point the model calls,
 with the JAX function's signature.
 """
@@ -29,6 +32,7 @@ import ctypes
 import torch
 
 from . import _build
+from .packed_attention import bwd_geometry, check_saved, geometry_args
 
 _SIGNATURES = {
     "flash_attention_fwd": (
@@ -38,13 +42,15 @@ _SIGNATURES = {
 }
 _BWD_SIGNATURES = {
     "flash_attention_bwd": (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 5
+        + [ctypes.c_void_p],
         ctypes.c_int,
-    )
+    ),
+    "flash_attention_bwd_occupancy": ([ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
 }
 HEAD_DIMS = (32, 64)  # the kernels' compiled head widths
-ROWS = 128  # tokens a block owns (queries; keys in the dk / dv kernel)
-TILE = 64  # tokens per tile of the axis a block walks; keys are padded to it
+ROWS = 128  # query rows a forward block owns
+TILE = 64  # tokens per tile of the axis a forward block walks; keys are padded to it
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
@@ -127,15 +133,6 @@ def _check(qkv: torch.Tensor, num_heads: int) -> None:
         raise ValueError("qkv must start on a 16-byte boundary (the kernel loads 16-byte rows)")
 
 
-def _check_like(name: str, x: torch.Tensor, qkv: torch.Tensor, shape: tuple, dtype) -> None:
-    if (x.device != qkv.device or x.dtype != dtype or tuple(x.shape) != shape
-            or not x.is_contiguous()):
-        raise ValueError(f"{name} must be a contiguous {dtype} {list(shape)} on {qkv.device}, got "
-                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
-    if x.data_ptr() % 16:
-        raise ValueError(f"{name} must start on a 16-byte boundary")
-
-
 def flash_attention_tiled_fwd(
     qkv: torch.Tensor, num_heads: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -190,23 +187,37 @@ def flash_attention_tiled_bwd(
     _check(qkv, num_heads)
     b, t, c3 = qkv.shape
     c = c3 // 3
-    _check_like("out", out, qkv, (b, t, c), qkv.dtype)
-    _check_like("dout", dout, qkv, (b, t, c), qkv.dtype)
-    _check_like("lse", lse, qkv, (b, num_heads, t), torch.float32)
+    check_saved("out", out, qkv, (b, t, c), qkv.dtype)
+    check_saved("dout", dout, qkv, (b, t, c), qkv.dtype)
+    check_saved("lse", lse, qkv, (b, num_heads, t), torch.float32)
     code = _build.dtype_code(qkv, "flash_attention_tiled_bwd")
     scale = (c // num_heads) ** -0.5
+    geo = bwd_geometry(t, c // num_heads)
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((b, num_heads, t), dtype=torch.float32, device=qkv.device)
     lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
     rc = lib.flash_attention_bwd(
         qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dqkv.data_ptr(),
-        delta.data_ptr(), b, t, c, num_heads, float(scale), code, _build.stream_ptr(qkv.device))
+        delta.data_ptr(), b, t, c, num_heads, float(scale), *geometry_args(geo), code,
+        _build.stream_ptr(qkv.device))
     _build.check(lib, rc, "flash_attention_tiled_bwd")
     flash_attention_tiled_bwd.launches += 1
     return dqkv
 
 
 flash_attention_tiled_bwd.launches = 0
+
+
+def bwd_occupancy(head_dim: int = 64, tokens: int = 785) -> dict:
+    """Registers a thread and blocks an SM of the bf16 backward kernels at d =
+    64, with the shared memory ``bwd_geometry`` gives at ``tokens``: for
+    reports (``chip_smoke.py``).  Needs the card."""
+    smem = bwd_geometry(tokens, head_dim)["smem"]
+    out = (ctypes.c_int * 4)()
+    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
+    _build.check(lib, lib.flash_attention_bwd_occupancy(smem, out), "bwd_occupancy")
+    return {"dq_registers": out[0], "dq_blocks_per_sm": out[1], "dkv_registers": out[2],
+            "dkv_blocks_per_sm": out[3], "smem": smem}
 
 
 class FlashAttentionTiledFunction(torch.autograd.Function):

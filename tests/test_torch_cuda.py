@@ -20,8 +20,9 @@ dc within 1e-3 relative.  Each check also rejects a control.
 Packed-layout attention (the ViT's kernels) is held like window attention:
 forward fp32 1e-4, bf16 1e-2 + 2^-7 |ref| per element (P rounded to bf16 before
 P v on both sides; the kernel rounds the unnormalized probabilities of its
-online softmax); backward as above.  Two runs of the backward give the same
-bits.  The GPF kernels are tiled, so they are held at a ViT's 196 tokens and at
+online softmax), its log-sum-exp within 1e-4 of its largest; backward as
+above, both sides from the kernel forward's out and lse, also at the edges of
+the Hopper kernels' tiles.  Two runs of the backward give the same bits.  The GPF kernels are tiled, so they are held at a ViT's 196 tokens and at
 784 as well as at 49.
 
 q-tiled attention (kernels 6, 6b; a ViT at 448, 785 tokens): forward fp32
@@ -218,9 +219,13 @@ def test_cuda_packed_attention_matches_plain(cuda_device, dtype, atol, rtol, b, 
     before = tpa.packed_attention_fwd.launches
     out = tpa.packed_attention_fwd(qkv, bias, mask, heads)
     assert tpa.packed_attention_fwd.launches == before + 1
-    ref = tpa.packed_attention_plain(qkv, bias, mask, heads)
+    ref, ref_lse = tpa.packed_attention_plain(qkv, bias, mask, heads, return_lse=True)
     assert out.dtype == dtype and out.shape == (b, w, t, c)
     assert _close(out, ref, atol, rtol)
+    # the log-sum-exp the training forward asks for, and the same output with it
+    out_lse, lse = tpa.packed_attention_fwd(qkv, bias, mask, heads, return_lse=True)
+    assert torch.equal(out_lse, out) and lse.shape == (b * w, heads, t)
+    assert (lse - ref_lse).abs().max().item() <= 1e-4 * ref_lse.abs().max().item()
     # controls: the padded keys left unmasked (zero keys join the softmax), and
     # the bias dropped, both fall outside
     pad = -(-t // 64) * 64 - t
@@ -241,10 +246,11 @@ def test_cuda_packed_attention_matches_plain(cuda_device, dtype, atol, rtol, b, 
 def test_cuda_packed_attention_bwd_matches_plain(cuda_device, dtype, atol, rtol, btol, b, w, t,
                                                  c, heads, hb, wm):
     qkv, dout, bias, mask = _packed(cuda_device, dtype, b, w, t, c, heads, hb, wm)
+    out, lse = tpa.packed_attention_fwd(qkv, bias, mask, heads, return_lse=True)
     before = tpa.packed_attention_bwd.launches
-    dqkv, dbias = tpa.packed_attention_bwd(qkv, bias, mask, dout, heads)
+    dqkv, dbias = tpa.packed_attention_bwd(qkv, bias, mask, out, lse, dout, heads)
     assert tpa.packed_attention_bwd.launches == before + 1
-    ref_dqkv, ref_dbias = tpa.packed_attention_bwd_plain(qkv, bias, mask, dout, heads)
+    ref_dqkv, ref_dbias = tpa.packed_attention_bwd_plain(qkv, bias, mask, out, lse, dout, heads)
     assert dqkv.dtype == dtype and _close(dqkv, ref_dqkv, atol, rtol)
     ctrl = ref_dqkv.clone()
     ctrl[..., c:2 * c] = 0  # a control: dK zeroed falls outside
@@ -256,9 +262,10 @@ def test_cuda_packed_attention_bwd_matches_plain(cuda_device, dtype, atol, rtol,
         top = ref_dbias.abs().max().item()
         assert (dbias - ref_dbias).abs().max().item() <= btol * top
         assert top > btol * top  # a control: the bias gradient dropped falls outside
-        assert tpa.packed_attention_bwd(qkv, bias, mask, dout, heads, need_dbias=False)[1] is None
+        assert tpa.packed_attention_bwd(qkv, bias, mask, out, lse, dout, heads,
+                                        need_dbias=False)[1] is None
     # the same gradient twice, bit for bit
-    again, dbias_again = tpa.packed_attention_bwd(qkv, bias, mask, dout, heads)
+    again, dbias_again = tpa.packed_attention_bwd(qkv, bias, mask, out, lse, dout, heads)
     assert torch.equal(again, dqkv)
     assert dbias is None or torch.equal(dbias_again, dbias)
     # and the Function routes autograd through the same kernels
@@ -279,8 +286,77 @@ def test_cuda_packed_attention_rejects_bad_inputs(cuda_device):
     ok = torch.zeros(1, 2, 9, 3 * 64, device=cuda_device)
     with pytest.raises(ValueError, match="bias must be float32"):
         tpa.packed_attention_fwd(ok, torch.zeros(3, 9, 9, device=cuda_device), None, 2)
+    out, lse = tpa.packed_attention_fwd(ok, None, None, 2, return_lse=True)
     with pytest.raises(ValueError, match="dout must be"):
-        tpa.packed_attention_bwd(ok, None, None, torch.zeros(1, 2, 9, 32, device=cuda_device), 2)
+        tpa.packed_attention_bwd(ok, None, None, out, lse,
+                                 torch.zeros(1, 2, 9, 32, device=cuda_device), 2)
+    with pytest.raises(ValueError, match="lse must be"):
+        tpa.packed_attention_bwd(ok, None, None, out, lse.double(), torch.zeros_like(out), 2)
+
+
+# The Hopper backward (csrc/attention_bwd_sm90.cuh) at the edges of its tiles:
+# one token, one under, at and over a 64-token tile, ViT-Base/224's 197, 200
+# (a whole 16-column last tile) and the longest packed group; heads of 32 and
+# 64; without and with bias and mask.
+SM90_T = (1, 63, 64, 65, 197, 200, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extras", [False, True])
+@pytest.mark.parametrize("c, heads", [(128, 4), (128, 2)])
+@pytest.mark.parametrize("t", SM90_T)
+def test_cuda_packed_attention_bwd_sm90_edges(cuda_device, t, c, heads, extras):
+    """bf16 3b against its plain version from the kernel forward's out and
+    lse, dqkv per element within 2e-2 + 2^-6 |ref| and dbias within 2e-2 of
+    its largest entry (the tolerances above); at one token the exact dbias is
+    zero (P = 1, ds = dp - delta = 0), so both sides hold rounding noise only
+    and dbias is held to 1e-4 absolute there.  Two runs give the same bits;
+    dK zeroed falls outside."""
+    atol, rtol, btol = 2e-2, 2.0**-6, 2e-2
+    w = 2 if extras else 1
+    qkv, dout, bias, mask = _packed(cuda_device, torch.bfloat16, 3, w, t, c, heads,
+                                    heads if extras else None, w if extras else None)
+    out, lse = tpa.packed_attention_fwd(qkv, bias, mask, heads, return_lse=True)
+    dqkv, dbias = tpa.packed_attention_bwd(qkv, bias, mask, out, lse, dout, heads)
+    ref, ref_dbias = tpa.packed_attention_bwd_plain(qkv, bias, mask, out, lse, dout, heads)
+    assert torch.isfinite(dqkv.float()).all() and _close(dqkv, ref, atol, rtol)
+    ctrl = ref.clone()
+    ctrl[..., c:2 * c] = 0
+    assert t == 1 or not _close(ctrl, ref, atol, rtol)
+    if extras:
+        err = (dbias - ref_dbias).abs().max().item()
+        assert err <= (1e-4 if t == 1 else btol * ref_dbias.abs().max().item())
+    again, dbias_again = tpa.packed_attention_bwd(qkv, bias, mask, out, lse, dout, heads)
+    assert torch.equal(again, dqkv) and (dbias is None or torch.equal(dbias_again, dbias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [257, 785, 1025])
+def test_cuda_flash_attention_bwd_sm90_long(cuda_device, t):
+    """bf16 6b past the packed kernel's 256 tokens, at ViT-Base/448's and
+    ViT-Large/512's lengths, two heads of 64: within 4e-3 + 2^-6 |ref| of the
+    plain version (as above), the same bits twice, dK zeroed outside."""
+    atol, rtol = 4e-3, 2.0**-6
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    qkv = torch.randn(2, t, 3 * 128, generator=g, device=cuda_device).to(torch.bfloat16)
+    dout = torch.randn(2, t, 128, generator=g, device=cuda_device).to(torch.bfloat16)
+    out, lse = tfa.flash_attention_tiled_fwd(qkv, 2)
+    dqkv = tfa.flash_attention_tiled_bwd(qkv, out, lse, dout, 2)
+    ref = tfa.flash_attention_tiled_bwd_plain(qkv, dout, 2)
+    assert _close(dqkv, ref, atol, rtol)
+    ctrl = ref.clone()
+    ctrl[..., 128:256] = 0
+    assert not _close(ctrl, ref, atol, rtol)
+    assert torch.equal(tfa.flash_attention_tiled_bwd(qkv, out, lse, dout, 2), dqkv)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_bwd_sm90_two_blocks_an_sm(cuda_device):
+    """The register cap holds: two blocks of each bf16 backward kernel share
+    an SM (uncapped, the dk/dv kernel takes ~186 registers a thread and runs
+    one)."""
+    occ = tfa.bwd_occupancy()
+    assert occ["dq_blocks_per_sm"] >= 2 and occ["dkv_blocks_per_sm"] >= 2, occ
 
 
 # (B, T, C, heads): the ViT-Base call at 448, two heads of 64 and of 32 past

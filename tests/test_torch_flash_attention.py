@@ -77,7 +77,9 @@ def test_plain_versions_equal_packed_attention_where_both_apply(t):
     ref = tpa.packed_attention_plain(qkv[:, None], None, None, 2)[:, 0]
     torch.testing.assert_close(out, ref, rtol=1e-12, atol=1e-12)
     dq = tfa.flash_attention_tiled_bwd_plain(qkv, dout, 2)
-    ref_dq, _ = tpa.packed_attention_bwd_plain(qkv[:, None], None, None, dout[:, None], 2)
+    out4, lse = tpa.packed_attention_plain(qkv[:, None], None, None, 2, return_lse=True)
+    ref_dq, _ = tpa.packed_attention_bwd_plain(qkv[:, None], None, None, out4, lse, dout[:, None],
+                                               2)
     torch.testing.assert_close(dq, ref_dq[:, 0], rtol=1e-12, atol=1e-12)
 
 

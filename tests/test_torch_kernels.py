@@ -17,8 +17,8 @@ and against ``torch.autograd.grad`` of the forward plain versions in fp64
 ``torch.autograd.Function``s pass ``gradcheck`` on the CPU.
 
 Packed-layout attention (the ViT's kernel): ``packed_attention_plain`` /
-``packed_attention_bwd_plain`` against ``flash_window_attention`` and its
-``jax.vjp`` in interpret mode (forward 2e-5 absolute, dqkv 5e-5, dbias 2e-4:
+``packed_attention_bwd_plain`` (from the forward's out and log-sum-exp)
+against ``flash_window_attention`` and its ``jax.vjp`` in interpret mode (forward 2e-5 absolute, dqkv 5e-5, dbias 2e-4:
 fp32 sum order over up to 197 keys and up to 16 (image, group) pairs), against
 fp64 autograd (1e-9 relative) and under ``gradcheck``; GPF at a ViT's 196
 tokens against ``fused_gpf_pallas`` as at 49.
@@ -400,8 +400,10 @@ def test_packed_attention_bwd_plain_matches_pallas_vjp(b, w, t, c, heads, hb, wm
     out = tpa.packed_attention(t_qkv, t_bias, _opt(mask), heads)
     out.backward(torch.from_numpy(dout))
     np.testing.assert_allclose(t_qkv.grad.numpy(), ref_dqkv, rtol=0, atol=5e-5)
+    fwd_out, lse = tpa.packed_attention_plain(torch.from_numpy(qkv), _opt(bias), _opt(mask), heads,
+                                              return_lse=True)
     dqkv, dbias = tpa.packed_attention_bwd_plain(torch.from_numpy(qkv), _opt(bias), _opt(mask),
-                                                 torch.from_numpy(dout), heads)
+                                                 fwd_out, lse, torch.from_numpy(dout), heads)
     assert torch.equal(dqkv, t_qkv.grad)
     if bias is None:
         assert dbias is None
@@ -419,10 +421,11 @@ def test_packed_attention_bwd_plain_matches_autograd_fp64(hb, wm):
     leaves = [qkv]
     if bias is not None:
         leaves.append(bias.requires_grad_())
-    out = tpa.packed_attention_plain(qkv, bias, mask, 2, 0.21)
+    out, lse = tpa.packed_attention_plain(qkv, bias, mask, 2, 0.21, return_lse=True)
     refs = torch.autograd.grad(out, leaves, dout)
     dqkv, dbias = tpa.packed_attention_bwd_plain(
-        qkv.detach(), None if bias is None else bias.detach(), mask, dout, 2, 0.21)
+        qkv.detach(), None if bias is None else bias.detach(), mask, out.detach(), lse.detach(),
+        dout, 2, 0.21)
     torch.testing.assert_close(dqkv, refs[0], rtol=1e-9, atol=1e-12)
     if bias is not None:
         torch.testing.assert_close(dbias, refs[1], rtol=1e-9, atol=1e-12)
@@ -455,16 +458,21 @@ def test_packed_attention_wrappers_dispatch():
     before = (tpa.packed_attention_fwd.launches, tpa.packed_attention_bwd.launches)
     out = tpa.packed_attention_fwd(qkv, bias, None, 2)
     assert torch.equal(out, tpa.packed_attention_plain(qkv, bias, None, 2))
-    dqkv, dbias = tpa.packed_attention_bwd(qkv, bias, None, dout, 2)
-    ref = tpa.packed_attention_bwd_plain(qkv, bias, None, dout, 2)
+    out, lse = tpa.packed_attention_fwd(qkv, bias, None, 2, return_lse=True)
+    ref_out, ref_lse = tpa.packed_attention_plain(qkv, bias, None, 2, return_lse=True)
+    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+    dqkv, dbias = tpa.packed_attention_bwd(qkv, bias, None, out, lse, dout, 2)
+    ref = tpa.packed_attention_bwd_plain(qkv, bias, None, out, lse, dout, 2)
     assert torch.equal(dqkv, ref[0]) and torch.equal(dbias, ref[1])
-    assert tpa.packed_attention_bwd(qkv, bias, None, dout, 2, need_dbias=False)[1] is None
+    assert tpa.packed_attention_bwd(qkv, bias, None, out, lse, dout, 2, need_dbias=False)[1] is None
     assert (tpa.packed_attention_fwd.launches, tpa.packed_attention_bwd.launches) == before
     meta = torch.empty(1, 1, 9, 3 * 64, device="meta")
     with pytest.raises(RuntimeError, match="unsupported device"):
         tpa.packed_attention_fwd(meta, None, None, 2)
+    meta_out = torch.empty(1, 1, 9, 64, device="meta")
+    meta_lse = torch.empty(1, 2, 9, device="meta")
     with pytest.raises(RuntimeError, match="unsupported device"):
-        tpa.packed_attention_bwd(meta, None, None, torch.empty(1, 1, 9, 64, device="meta"), 2)
+        tpa.packed_attention_bwd(meta, None, None, meta_out, meta_lse, meta_out, 2)
     # no gradient can be asked for: the forward wrapper is called directly
     assert tpa.packed_attention(qkv, bias, None, 2).grad_fn is None
     assert tpa.packed_attention(qkv.clone().requires_grad_(), None, None, 2).grad_fn is not None
