@@ -7,8 +7,8 @@
 Phases (any failed check exits non-zero; no phase catches and continues):
 
 1. Setup: card name and power limit, kernel build from ``csrc/`` (seconds),
-   and the SASS of the attention backward (3b, 6b) read for its wgmma
-   (HGMMA) instructions, which must be there.
+   and the SASS of the bf16 attention kernels, forward and backward (3, 6,
+   3b, 6b), read for their wgmma (HGMMA) instructions, which must be there.
 2. Kernels against their plain PyTorch versions on the card.  Forward, at the
    serving paths' shapes for batch 64: window attention at the four Swin-Base
    stage geometries (shifted and unshifted, bf16 and fp32), packed-layout
@@ -23,7 +23,10 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    tensor twice).  The attention backward kernels start from the forward
    kernels' out and log-sum-exp (the packed forward is also held to the plain
    log-sum-exp) and print TFLOP/s on their 14 T^2 d flops beside SDPA's
-   backward.  Each check is run on a control too (bias or mask dropped,
+   backward; the attention forwards print TFLOP/s on 4 T^2 d (kernel 6) or
+   GB/s on the bytes they must move (kernel 3) beside SDPA's, and their
+   registers and blocks an SM, and two runs of each must agree bit for bit.
+   Each check is run on a control too (bias or mask dropped,
    padded keys left unmasked, off-diagonal GPF entries zeroed; bias gradient
    dropped, dK zeroed, coefficient gradient zeroed, half of dX dropped), which
    it must reject; two runs of the packed backward must agree bit for bit.
@@ -1066,7 +1069,10 @@ def check_packed_attention(g: torch.Generator) -> dict:
             lse_err = (lse - ref_lse).abs().max().item()
             if not torch.equal(out_lse, out) or not lse_err <= 1e-4 * ref_lse.abs().max().item():
                 fail(f"{what}: with lse the output differs or lse is off by {lse_err}")
-            del out_lse, lse, ref_lse
+            again, lse_again = PA_KERNEL(*args, return_lse=True)  # twice, bit for bit
+            if not torch.equal(again, out) or not torch.equal(lse_again, lse):
+                fail(f"{what}: two runs of the forward kernel differ")
+            del out_lse, lse, ref_lse, again, lse_again
             # controls: the keys padded up to the kernel's tile and left
             # unmasked (zero keys join the softmax), and the bias dropped
             pad = -(-t // _pa.TILE) * _pa.TILE - t
@@ -1096,13 +1102,16 @@ def check_packed_attention(g: torch.Generator) -> dict:
             b_ms, kind = bound_ms(nbytes, flops, dtype)
             log(f"  packed_attention {name} [{BATCH},{w},{t},{3 * c}] H={heads} "
                 f"{str(dtype)[6:]}: max_abs_err={err:.3e} err/tol={excess:.3f} (tol atol+rtol|ref| "
-                f"{TOL_WA[dtype]}) lse max_abs_err={lse_err:.3e} "
+                f"{TOL_WA[dtype]}) lse max_abs_err={lse_err:.3e} two runs equal; "
                 f"control err/tol>={ctrl_excess:.1f} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms(SDPA)={l_ms:.4f} "
-                f"bound_ms={b_ms:.4f} ({kind})")
+                f"bound_ms={b_ms:.4f} ({kind}) GB/s={nbytes / k_ms / 1e6:.0f} "
+                f"(SDPA {nbytes / l_ms / 1e6:.0f}) TFLOP/s(4T^2d)={flops / k_ms / 1e9:.1f} "
+                f"(SDPA {flops / l_ms / 1e9:.1f})")
             if per_forward and dtype == torch.bfloat16:  # the serving path's call
                 main = {"max_abs_err": err, "ms": per_forward * k_ms,
                         "plain_ms": per_forward * p_ms, "library_ms": per_forward * l_ms,
-                        "bound_ms": per_forward * b_ms, "bound_by": kind}
+                        "bound_ms": per_forward * b_ms, "bound_by": kind,
+                        "gb_per_s": nbytes / k_ms / 1e6, "library_gb_per_s": nbytes / l_ms / 1e6}
             del qkv, out, ref, q, k, v, am
             torch.cuda.empty_cache()
     log(f"  packed attention controls: smallest err/tol {min_control:.1f} (must be > 1)")
@@ -1113,6 +1122,15 @@ def issued_tflops(batch: int, heads: int, t: int, d: int, ms: float) -> float:
     """The attention backward's seven T x T x d products (two rebuilt, none
     skipped), 14 T^2 d flops per (image, head), over ``ms``: TFLOP/s."""
     return 14.0 * batch * heads * t * t * d / ms / 1e9
+
+
+def sdpa_forward_ms(qkv: torch.Tensor, bias, mask, heads: int) -> float:
+    """Library yardstick of the forward at a training call: SDPA on the same
+    inputs (without the log-sum-exp the kernel also writes there)."""
+    d = qkv.shape[-1] // 3 // heads
+    q, k, v, am = sdpa_inputs(qkv, bias, mask, heads)
+    return time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=am, scale=d ** -0.5), reps=5, samples=3)
 
 
 def sdpa_backward_ms(qkv: torch.Tensor, bias, mask, heads: int, reps: int) -> float:
@@ -1180,6 +1198,7 @@ def check_packed_attention_bwd(g: torch.Generator) -> dict:
             p_ms = time_ms(lambda: _pa.packed_attention_bwd_plain(*args), reps=2, samples=3)
             f_ms = time_ms(lambda: PA_KERNEL(qkv, bias, mask, heads, return_lse=True), reps=reps,
                            samples=3)
+            fl_ms = sdpa_forward_ms(qkv, bias, mask, heads)
             l_ms = sdpa_backward_ms(qkv, bias, mask, heads, reps=5)
             es = qkv.element_size()
             # qkv, out, dout and lse read, dqkv written (bias and mask read,
@@ -1197,11 +1216,12 @@ def check_packed_attention_bwd(g: torch.Generator) -> dict:
                 f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms(SDPA backward)={l_ms:.4f} "
                 f"bound_ms={b_ms:.4f} ({kind}) "
                 f"TFLOP/s(14T^2d)={issued_tflops(batch * w, heads, t, d, k_ms):.1f} "
-                f"fwd_kernel_ms={f_ms:.4f}")
+                f"fwd_kernel_ms={f_ms:.4f} (SDPA {fl_ms:.4f})")
             if per_step and dtype == torch.bfloat16:  # the training path's call
                 main = {"max_abs_err": err, "ms": per_step * k_ms, "plain_ms": per_step * p_ms,
                         "library_ms": per_step * l_ms, "bound_ms": per_step * b_ms,
-                        "bound_by": kind, "fwd_ms": per_step * f_ms}
+                        "bound_by": kind, "fwd_ms": per_step * f_ms,
+                        "fwd_library_ms": per_step * fl_ms}
             del qkv, dout, out, lse, args
             torch.cuda.empty_cache()
     log(f"  packed attention backward controls: smallest err/tol {min_control:.1f} (must be > 1)")
@@ -1231,6 +1251,10 @@ def check_flash_attention(g: torch.Generator, t: int = VIT448_T, c: int = VIT_C,
             fail(f"{what}: error {excess:.3f}x its tolerance {TOL_FA[dtype]} (max abs err {err})")
         if not lse_err <= 1e-4 * ref_lse.abs().max().item():
             fail(f"{what}: log-sum-exp off by {lse_err}")
+        again, lse_again = FA_KERNEL(qkv, heads)  # twice, bit for bit
+        if not torch.equal(again, out) or not torch.equal(lse_again, lse):
+            fail(f"{what}: two runs of the forward kernel differ")
+        del again, lse_again
         # controls: the keys padded up to the kernel's tile and left unmasked
         # (zero keys join the softmax), and only the first tile of keys
         pad = -(-t // _fa.TILE) * _fa.TILE - t
@@ -1253,13 +1277,15 @@ def check_flash_attention(g: torch.Generator, t: int = VIT448_T, c: int = VIT_C,
         b_ms, kind = bound_ms(nbytes, flops, dtype)
         log(f"  flash_attention_tiled [{BATCH},{t},{3 * c}] H={heads} {str(dtype)[6:]}: "
             f"max_abs_err={err:.3e} err/tol={excess:.3f} (tol atol+rtol|ref| {TOL_FA[dtype]}) "
-            f"lse max_abs_err={lse_err:.3e} control err/tol>={ctrl_excess:.1f} "
+            f"lse max_abs_err={lse_err:.3e} two runs equal; control err/tol>={ctrl_excess:.1f} "
             f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms(SDPA)={l_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({kind})")
+            f"bound_ms={b_ms:.4f} ({kind}) TFLOP/s(4T^2d)={flops / k_ms / 1e9:.1f} "
+            f"(SDPA {flops / l_ms / 1e9:.1f})")
         if dtype == torch.bfloat16:  # the serving path's call, depth per forward
             main = {"max_abs_err": err, "ms": depth * k_ms, "plain_ms": depth * p_ms,
                     "library_ms": depth * l_ms, "bound_ms": depth * b_ms,
-                    "bound_by": kind}
+                    "bound_by": kind, "tflops": flops / k_ms / 1e9,
+                    "library_tflops": flops / l_ms / 1e9}
         del qkv, out, lse, ref, ref_lse, q, k, v
         torch.cuda.empty_cache()
     log(f"  q-tiled attention controls: smallest err/tol {min_control:.1f} (must be > 1)")
@@ -1310,6 +1336,7 @@ def check_flash_attention_bwd(g: torch.Generator, t: int = VIT448_T, c: int = VI
         p_ms = time_ms(lambda: _fa.flash_attention_tiled_bwd_plain(
             qkv[:plain_batch], dout[:plain_batch], heads), reps=2, samples=3)
         f_ms = time_ms(lambda: FA_KERNEL(qkv, heads), reps=reps, samples=3)
+        fl_ms = sdpa_forward_ms(qkv[:, None], None, None, heads)
         l_ms = sdpa_backward_ms(qkv[:, None], None, None, heads, reps=3)
         es = qkv.element_size()
         nbytes = (2 * qkv.numel() + 2 * dout.numel()) * es + lse.numel() * 4
@@ -1321,11 +1348,12 @@ def check_flash_attention_bwd(g: torch.Generator, t: int = VIT448_T, c: int = VI
             f"kernel_ms={k_ms:.4f} plain_ms(batch {plain_batch})={p_ms:.4f} "
             f"library_ms(SDPA backward)={l_ms:.4f} bound_ms={b_ms:.4f} ({kind}) "
             f"TFLOP/s(14T^2d)={issued_tflops(batch, heads, t, d, k_ms):.1f} "
-            f"fwd_kernel_ms={f_ms:.4f}")
+            f"fwd_kernel_ms={f_ms:.4f} (SDPA {fl_ms:.4f})")
         if dtype == torch.bfloat16:  # the training path's call, depth per step
             main = {"max_abs_err": err, "ms": depth * k_ms, "plain_ms": depth * p_ms,
                     "plain_batch": plain_batch, "library_ms": depth * l_ms,
-                    "bound_ms": depth * b_ms, "bound_by": kind, "fwd_ms": depth * f_ms}
+                    "bound_ms": depth * b_ms, "bound_by": kind, "fwd_ms": depth * f_ms,
+                    "fwd_library_ms": depth * fl_ms}
         del qkv, dout, out, lse, args
         torch.cuda.empty_cache()
     log(f"  q-tiled attention backward controls: smallest err/tol {min_control:.1f} "
@@ -2391,13 +2419,14 @@ def main() -> int:
     for name, path in paths.items():
         report = path.with_suffix(".log")
         lines = report.read_text().splitlines() if report.exists() else []
-        for line in lines:
-            if "registers" in line or "spill" in line:
+        for line in lines:  # ptxas: registers, spills, wgmma serialized
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"  {name}: {line.strip()}")
 
-    # the bf16 attention backward (3b, 6b) runs on wgmma: its SASS holds HGMMA
+    # the bf16 attention kernels (3, 6, 3b, 6b) run on wgmma: their SASS holds HGMMA
     cuobjdump = shutil.which("cuobjdump") or str(Path(_build.nvcc_path()).parent / "cuobjdump")
-    for name in ("packed_attention_bwd", "flash_attention_bwd"):
+    for name in ("packed_attention_fwd", "flash_attention_fwd", "packed_attention_bwd",
+                 "flash_attention_bwd"):
         if not os.path.exists(cuobjdump):
             log(f"  {name}: cuobjdump not found, SASS not read")
             continue
@@ -2434,6 +2463,10 @@ def main() -> int:
     gpb_vitl = check_gpf_bwd(g, VITL_T - 1, VITL_C)
     fab = check_flash_attention_bwd(g)
     fab_vitl = check_flash_attention_bwd(g, VITL_T, VITL_C, VITL_H, VITL_DEPTH, plain_batch=16)
+    occ_fwd = _fa.fwd_occupancy()
+    log(f"  attention forward (3, 6) at d = 64: {occ_fwd['registers']} registers a thread, "
+        f"{occ_fwd['blocks_per_sm']} blocks an SM; {occ_fwd['smem']} bytes of shared memory a "
+        "block")
     occ = _fa.bwd_occupancy()
     log(f"  attention backward (3b, 6b) at d = 64: dq kernel {occ['dq_registers']} registers a "
         f"thread, {occ['dq_blocks_per_sm']} blocks an SM; dk/dv kernel {occ['dkv_registers']}, "
@@ -2567,7 +2600,9 @@ def main() -> int:
          "train_launches": trn_vit["launches"]["packed_attention_fwd"],
          "max_abs_err": pa["max_abs_err"], "ms": pa["ms"], "plain_ms": pa["plain_ms"],
          "bound_ms": pa["bound_ms"], "bound_by": pa["bound_by"],
-         "library_ms": pa["library_ms"], "train_ms": pab["fwd_ms"]},
+         "library_ms": pa["library_ms"], "train_ms": pab["fwd_ms"],
+         "train_library_ms": pab["fwd_library_ms"], "gb_per_s": pa["gb_per_s"],
+         "library_gb_per_s": pa["library_gb_per_s"], "occupancy": occ_fwd},
         {"name": "packed_attention_bwd", "route": "cuda",
          "source": src + "packed_attention_bwd.cu",
          "replaces": PA_BWD_REPLACES, "launches": trn_vit["launches"]["packed_attention_bwd"],
@@ -2581,7 +2616,11 @@ def main() -> int:
          "max_abs_err": fa["max_abs_err"], "ms": fa["ms"], "plain_ms": fa["plain_ms"],
          "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
          "library_ms": fa["library_ms"], "train_ms": fab["fwd_ms"],
-         **other_gpf("vitL512", fa_vitl),
+         "train_library_ms": fab["fwd_library_ms"], "tflops": fa["tflops"],
+         "library_tflops": fa["library_tflops"], "occupancy": occ_fwd,
+         **other_gpf("vitL512", fa_vitl), "vitL512_train_ms": fab_vitl["fwd_ms"],
+         "vitL512_train_library_ms": fab_vitl["fwd_library_ms"],
+         "vitL512_tflops": fa_vitl["tflops"],
          "vitL512_launches": srv_vitl["launches"]["flash_attention_tiled_fwd"],
          "vitL512_train_launches": trn_vitl["launches"]["flash_attention_tiled_fwd"]},
         {"name": "flash_attention_tiled_bwd", "route": "cuda",

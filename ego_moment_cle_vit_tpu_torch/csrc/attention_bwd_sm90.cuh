@@ -60,34 +60,22 @@
 // zero key row would give dq nothing anyway: its k and v are zero); query rows
 // past T get lse = +inf and delta = 0, so their P and ds are zero and they add
 // nothing to dk or dv.  Rows past T of a block's own axis are computed but
-// never stored.
+// never stored.  The mbarriers, TMA loads, wgmma wrappers and descriptors
+// are sm90.cuh's, shared with the forward (attention_fwd_sm90.cuh).
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and cuTensorMapEncodeTiled (the library links -lcuda)
-
 #include "packed_attention.cuh"
+#include "sm90.cuh"
 
 namespace sm90_bwd {
 
-using bf16 = __nv_bfloat16;
+using namespace sm90;
 
 constexpr int kRowsOwned = 64;                  // rows a block owns: one warpgroup's wgmma M
 constexpr int kWalk = 64;                       // tokens per tile of the walked axis
 constexpr int kConsumers = 128;                 // one consumer warpgroup
 constexpr int kBlockThreads = kConsumers + 32;  // and one producer warp
 constexpr int kMaxStages = 8;
-constexpr size_t kMaxSmem = 232448;  // what a block may use on an H100
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x on the special-function unit, what __expf runs after its multiply by
-// log2(e): the kernels fold that multiply, the scale and lse into one fmaf.
-// ex2 of -inf is +0, so masked keys and query rows past T (lse = +inf) give
-// P = 0.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 template <int D>
 struct Layout {
@@ -119,212 +107,6 @@ struct Params {
   int stages;  // walked tiles in flight
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// --- mbarriers and TMA -------------------------------------------------------
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// arrives and announces ``bytes`` of copies that complete on this phase
-__device__ __forceinline__ void bar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits until the phase of parity ``parity`` has completed.  A barrier that
-// never completes is a fault of this code: after 2^26 polls (each of which
-// waits a while in the hardware) the kernel traps, which the wrapper reports
-// as an error, instead of hanging the card.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  for (uint32_t polls = 0;; ++polls) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 26)) __trap();
-  }
-}
-
-// one [64][d] box of a 3-D tensor map at (column, token, group); rows past T
-// arrive as zeros, and the copy completes on ``bar``
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int col,
-                                         int row, int group) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(group), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// --- wgmma -------------------------------------------------------------------
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// waits until at most N committed groups of this warpgroup's products are
-// still running (groups complete in the order they were committed)
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous products (the wgmma statements name them as
-// outputs, but the values land only at the wg_wait that covers them).
-template <int K>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// Shared-memory matrix descriptor of a [rows][d] bf16 tile whose rows of 2d
-// bytes are swizzled in 8-row atoms (128-byte swizzle at d = 64, 64-byte at
-// d = 32), as TMA lays it down.
-template <int D>
-__device__ __forceinline__ uint64_t descriptor(uint32_t addr, uint32_t lead, uint32_t stride) {
-  constexpr uint64_t kSwizzle = D == 64 ? 1 : 2;  // layout type: 1 = 128-byte, 2 = 64-byte
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lead >> 4) << 16) |
-         (static_cast<uint64_t>(stride >> 4) << 32) | (kSwizzle << 62);
-}
-
-// The tile as a K-major operand (contraction over d): k-step ks is the 16
-// columns that start 32 bytes into each row; 8-row groups lie 16d bytes apart.
-template <int D>
-__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int ks) {
-  return descriptor<D>(smem_u32(tile) + ks * 32, 16, 8 * D * 2);
-}
-
-// The tile as an MN-major operand (contraction over its rows, N = d): k-step
-// ks is rows 16 ks .. 16 ks + 15.  N is one swizzle atom wide, so only the
-// stride between 8-row groups matters; both offsets carry it.
-template <int D>
-__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int ks) {
-  return descriptor<D>(smem_u32(tile) + ks * 16 * D * 2, 8 * D * 2, 8 * D * 2);
-}
-
-// d[N/2] += A B^T over one k-step of 16, m64nNk16, fp32 sums.  ss: A and B
-// from shared memory, both K-major; acc = 0 overwrites d instead.  rs: A
-// from registers (four bf16 pairs in the mma.m16n8k16 A-fragment layout, per
-// warp rows 16w .. 16w + 15), B MN-major.  The accumulators of warp w hold rows 16w + g and 16w + g + 8
-// (g = lane / 4), columns 8j + 2(lane % 4) + {0, 1} in d[4j .. 4j + 3].
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<16> {
-  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
-                                            int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7"
-        "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7])
-        : "l"(a), "l"(b), "r"(acc));
-  }
-};
-
-template <>
-struct Wgmma<32> {
-  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
-                                            int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(acc));
-  }
-  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<48> {
-  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
-                                            int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23"
-        "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-        : "l"(a), "l"(b), "r"(acc));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
-                                            int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(acc));
-  }
-  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
 // The smem_raw of a block, carved as Layout says.
 template <int D>
 struct Block {
@@ -346,19 +128,6 @@ struct Block {
                                        stages * L::kStatBytes);
   }
 };
-
-// bf16 A fragments of k-step t from the fp32 accumulators of an m64nN
-// product: column chunks 2t and 2t + 1 are the k-step's 16 columns.
-template <int NC>
-__device__ __forceinline__ void to_fragments(uint32_t (*a)[4], float (*acc)[4]) {
-#pragma unroll
-  for (int t = 0; t < NC / 2; ++t) {
-    a[t][0] = pack_bf16(acc[2 * t][0], acc[2 * t][1]);
-    a[t][1] = pack_bf16(acc[2 * t][2], acc[2 * t][3]);
-    a[t][2] = pack_bf16(acc[2 * t + 1][0], acc[2 * t + 1][1]);
-    a[t][3] = pack_bf16(acc[2 * t + 1][2], acc[2 * t + 1][3]);
-  }
-}
 
 // One walked tile of N keys in the dq kernel.  sq, sdo: the block's 64 query
 // rows; sk, sv: the tile.  r0: this thread's first query row; k0: the tile's
@@ -691,23 +460,6 @@ attention_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tm_qkv,
   }
   store_rows<D>(p.dqkv, dk, bw, p.Tn, p.C, r0, p.C + h * D, tg, p.scale);
   store_rows<D>(p.dqkv, dv, bw, p.Tn, p.C, r0, 2 * p.C + h * D, tg, 1.f);
-}
-
-// A 3-D tensor map over a [groups, T, cols] bf16 array: boxes of d columns x
-// 64 tokens x 1 group, swizzled as the descriptors above read them, rows past
-// T filled with zeros.
-inline bool encode_map(CUtensorMap* map, const void* ptr, int cols, int Tn, int groups, int D) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(Tn),
-                              static_cast<cuuint64_t>(groups)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
-                                 static_cast<cuuint64_t>(cols) * 2 * Tn};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(D), kWalk, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-                                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                                D == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // dq (and delta), then dk / dv.  The geometry (row blocks, the last walked

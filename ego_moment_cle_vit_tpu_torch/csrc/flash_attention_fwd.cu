@@ -1,8 +1,10 @@
-// q-tiled multi-head self-attention over long token sequences, forward.
+// q-tiled multi-head self-attention over long token sequences, forward
+// (kernel 6).
 //
-// Replaces: ego_moment_cle_vit_tpu/ops/pallas/flash_attention.py, _fwd_kernel
-//   (called by flash_attention_tiled; the ViT backbone runs it at a 448
-//   input: T = 785 tokens, 12 heads of 64, no bias, keys past T masked).
+// Replaces: ego_moment_cle_vit_tpu/ops/pallas/flash_attention.py:75,
+//   _fwd_kernel (its pallas_call at :152; called by flash_attention_tiled).
+//   The ViT backbone runs it at a 448 input (T = 785, 12 heads of 64) and at
+//   ViT-Large/512 (T = 1025, 16 heads of 64), no bias, keys past T masked.
 //
 // Computes, per image b and head h (T tokens, d = C/H in {32, 64}), from
 // qkv[B, T, 3C] (head h in columns h*d .. (h+1)*d of each third):
@@ -19,182 +21,53 @@
 //
 // Design.  The TPU kernel keeps the whole key and value sequence of a head
 // resident in VMEM and computes a [128, T] logit tile per grid step; here a
-// [128, 785] fp32 tile fits neither registers nor shared memory.  One block
-// of eight warps owns 128 query rows of one (image, head), 16 per warp, and
-// walks the keys in tiles of 64 with an online softmax (running row maximum
-// and sum, output rescaled when the maximum moves): a warp holds a 16 x 64
-// logit strip and a 16 x d output strip in registers and nothing of size T.
-// The tile code is the packed-attention kernels' (packed_attention.cuh,
-// mma_tiles.cuh): q, k and v tiles lie in shared memory as they lie in qkv,
-// [token][d]; the next (k, v) tile arrives by cp.async into a second buffer
-// under the products of the current one, one barrier per tile; fragments
-// reach the tensor cores through ldmatrix (transposed for v).  bf16 runs
-// mma.sync m16n8k16 with fp32 sums and is compiled for two blocks per SM;
-// fp32 runs the same tiles on the CUDA cores.  At T = 785 a head has 7 query
-// blocks and 13 key tiles, the last holding 17 real keys: keys past T are
-// zero padding masked to -inf (the TPU kernel's -1e9 gives the same zeros),
-// warps whose 16 queries all lie past T take part in the copies only, and
-// query rows past T are not stored.
+// [128, 785] fp32 tile fits neither registers nor shared memory, so blocks
+// walk the keys in tiles of 64 with an online softmax.  The layout is the
+// packed one with one group per image, so bf16 runs the packed forward's
+// Hopper kernel (attention_fwd_sm90.cuh: wgmma for both products, a TMA ring
+// of four key tiles refilled by the last warp done with a stage, blocks of
+// two 64-row warpgroups, the last key tile cut to the next multiple of 16: T
+// = 785 runs as 832 x 800), with the launch geometry of
+// kernels/packed_attention.py:fwd_geometry.  fp32, off every main path, runs
+// attention_fwd_fp32.cuh on the CUDA cores.
 
-#include "packed_attention.cuh"
+#include "attention_fwd_fp32.cuh"
+#include "attention_fwd_sm90.cuh"
 
-namespace {
-
-template <typename T, int D>
-struct Smem {
-  static constexpr int LDD = D + TilePad<T>::value;  // [token][d] tiles
-  static constexpr size_t bytes =
-      (static_cast<size_t>(kRows + 4 * kCols) * LDD +
-       static_cast<size_t>(kRows) * StripElems<T>::per_row) *
-      sizeof(T);
-};
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, MinBlocks<T>::value)
-flash_attention_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out,
-                           float* __restrict__ lse, int Tn, int C, int H, float scale, int n_qt) {
-  using S = Smem<T, D>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sq = reinterpret_cast<T*>(smem_raw);  // [kRows][LDD]
-  T* skv = sq + kRows * S::LDD;            // two buffers of k [kCols][LDD], v [kCols][LDD]
-  T* sp = skv + 4 * kCols * S::LDD;        // fp32 only: [kWarps][16][per_row], P~ per warp
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int tg = lane & 3;
-  const int qt = blockIdx.x % n_qt;
-  const int h = (blockIdx.x / n_qt) % H;
-  const int b = blockIdx.x / (n_qt * H);
-  const int q0 = qt * kRows;
-  const size_t c3 = 3 * static_cast<size_t>(C);
-  const T* base = qkv + static_cast<size_t>(b) * Tn * c3 + h * D;
-
-  stage_tile_async<T, kRows, D, kThreads>(sq, base, c3, q0, Tn, tid);
-  stage_tile_async<T, kCols, D, kThreads>(skv, base + C, c3, 0, Tn, tid);
-  stage_tile_async<T, kCols, D, kThreads>(skv + kCols * S::LDD, base + 2 * C, c3, 0, Tn, tid);
-  cp_async_commit();
-
-  T* sp_w = sp + warp * 16 * StripElems<T>::per_row;
-  const T* sq_w = sq + warp * 16 * S::LDD;
-  const int r0 = q0 + warp * 16 + g;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  float o[1][D / 8][4];
-  zero_acc<D / 8>(o[0]);
-
-  const int n_kt = (Tn + kCols - 1) / kCols;
-  const bool active = q0 + warp * 16 < Tn;  // a warp whose 16 queries all lie past T only stages
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kCols;
-    const T* sk = skv + (kt & 1) * 2 * kCols * S::LDD;
-    const T* sv = sk + kCols * S::LDD;
-    // this tile has landed, and the other buffer's products are done: the
-    // next tile is fetched into it under this tile's products
-    cp_async_wait_all();
-    __syncthreads();
-    if (kt + 1 < n_kt) {
-      T* nk = skv + ((kt + 1) & 1) * 2 * kCols * S::LDD;
-      stage_tile_async<T, kCols, D, kThreads>(nk, base + C, c3, k0 + kCols, Tn, tid);
-      stage_tile_async<T, kCols, D, kThreads>(nk + kCols * S::LDD, base + 2 * C, c3, k0 + kCols,
-                                              Tn, tid);
-      cp_async_commit();
-    }
-    if (!active) continue;
-
-    float s[1][8][4];
-    zero_acc<8>(s[0]);
-    mma_nt<8, D>(s[0], sq_w, S::LDD, sk, S::LDD, g, tg);
-    to_logits<false>(s[0], nullptr, nullptr, Tn, scale, r0, k0, tg, k0 + kCols <= Tn);
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      mx0 = fmaxf(mx0, fmaxf(s[0][n][0], s[0][n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[0][n][2], s[0][n][3]));
-    }
-    // every tile holds at least one key below T, so the new maxima are finite
-    const float mn0 = fmaxf(m0, quad_max(mx0));
-    const float mn1 = fmaxf(m1, quad_max(mx1));
-    const float corr0 = soft_exp<T>(m0 - mn0);
-    const float corr1 = soft_exp<T>(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    l0 *= corr0;
-    l1 *= corr1;
-#pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      o[0][dn][0] *= corr0;
-      o[0][dn][1] *= corr0;
-      o[0][dn][2] *= corr1;
-      o[0][dn][3] *= corr1;
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {  // s becomes the unnormalized P
-      s[0][n][0] = soft_exp<T>(s[0][n][0] - mn0);
-      s[0][n][1] = soft_exp<T>(s[0][n][1] - mn0);
-      s[0][n][2] = soft_exp<T>(s[0][n][2] - mn1);
-      s[0][n][3] = soft_exp<T>(s[0][n][3] - mn1);
-      l0 += s[0][n][0] + s[0][n][1];
-      l1 += s[0][n][2] + s[0][n][3];
-    }
-    mma_from_acc<1, D / 8>(o, s, sp_w, StripElems<T>::per_row, sv, S::LDD, g, tg);
-  }
-
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  const float inv0 = 1.f / l0;
-  const float inv1 = 1.f / l1;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r0 + half * 8;
-    if (r < Tn) {
-      const float inv = half ? inv1 : inv0;
-      T* dst = out + (static_cast<size_t>(b) * Tn + r) * C + h * D;
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        store_pair(dst + dn * 8 + tg * 2, o[0][dn][half * 2] * inv, o[0][dn][half * 2 + 1] * inv);
-      }
-      if (tg == 0) {
-        lse[(static_cast<size_t>(b) * H + h) * Tn + r] = half ? m1 + logf(l1) : m0 + logf(l0);
-      }
-    }
-  }
-}
-
-template <typename T, int D>
-cudaError_t launch(const void* qkv, void* out, float* lse, int B, int Tn, int C, int H,
-                   float scale, cudaStream_t stream) {
-  auto kernel = flash_attention_fwd_kernel<T, D>;
-  const size_t smem = Smem<T, D>::bytes;
-  cudaError_t err = emct_allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const int n_qt = (Tn + kRows - 1) / kRows;
-  const unsigned blocks = static_cast<unsigned>(B) * H * n_qt;
-  kernel<<<blocks, kThreads, smem, stream>>>(static_cast<const T*>(qkv), static_cast<T*>(out), lse,
-                                             Tn, C, H, scale, n_qt);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-// qkv [B, T, 3C] and out [B, T, C] (dtype), lse [B, H, T] f32.  Requires
+// qkv [B, T, 3C] and out [B, T, C] (dtype), lse [B, H, T] f32.  bf16 takes
+// the launch geometry of kernels/packed_attention.py:fwd_geometry.  Requires
 // C / H in {32, 64}; the Python wrapper checks shapes, contiguity and
 // alignment first.
 extern "C" int flash_attention_fwd(const void* qkv, void* out, void* lse, int B, int Tn, int C,
-                                   int H, float scale, int dtype, void* stream) {
+                                   int H, float scale, int row_blocks, int last, int stages,
+                                   int smem, int dtype, void* stream) {
   if (B < 1 || Tn < 1 || H < 1 || C % H != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int d = C / H;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
   cudaError_t err = cudaErrorInvalidValue;
+#define EMCT_BF16(DIM)                                                                        \
+  err = sm90_fwd::launch<DIM>(qkv, nullptr, nullptr, out, lse_f, B, 1, Tn, C, H, 1, 1, scale, \
+                              row_blocks, last, stages, static_cast<size_t>(smem), s)
+#define EMCT_F32(DIM) \
+  err = fp32_fwd::launch<DIM>(qkv, nullptr, nullptr, out, lse_f, B, 1, Tn, C, H, 1, 1, scale, s)
   if (dtype == EMCT_DTYPE_BF16 && d == 64) {
-    err = launch<__nv_bfloat16, 64>(qkv, out, lse_f, B, Tn, C, H, scale, s);
+    EMCT_BF16(64);
   } else if (dtype == EMCT_DTYPE_BF16 && d == 32) {
-    err = launch<__nv_bfloat16, 32>(qkv, out, lse_f, B, Tn, C, H, scale, s);
+    EMCT_BF16(32);
   } else if (dtype == EMCT_DTYPE_F32 && d == 64) {
-    err = launch<float, 64>(qkv, out, lse_f, B, Tn, C, H, scale, s);
+    EMCT_F32(64);
   } else if (dtype == EMCT_DTYPE_F32 && d == 32) {
-    err = launch<float, 32>(qkv, out, lse_f, B, Tn, C, H, scale, s);
+    EMCT_F32(32);
   }
+#undef EMCT_BF16
+#undef EMCT_F32
   return static_cast<int>(err);
+}
+
+// Registers a thread and blocks an SM of the bf16 kernel at d = 64, at
+// ``smem`` bytes of shared memory: out = {registers, blocks}.  chip_smoke.py
+// prints them.
+extern "C" int flash_attention_fwd_occupancy(int smem, int* out) {
+  return static_cast<int>(sm90_fwd::occupancy(static_cast<size_t>(smem), out));
 }

@@ -9,17 +9,8 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kWarps * 16;  // rows a block owns, 16 per warp (queries; keys for dk / dv)
 constexpr int kCols = 64;           // tokens per tile of the axis a block walks
-
-// Blocks per SM the bf16 kernels are compiled for (128 registers per thread);
-// the fp32 kernels, which keep their strips in more registers, take what they need.
-template <typename T>
-struct MinBlocks {
-  static constexpr int value = 1;
-};
-template <>
-struct MinBlocks<__nv_bfloat16> {
-  static constexpr int value = 2;
-};
+// (kWarps, kRows and kCols size the fp32 kernels and the bias-gradient
+// kernel; the bf16 Hopper kernels have their own tiles)
 
 // exp for the softmax.  bf16: the fast intrinsic (its ~2^-21 relative error
 // vanishes under the bf16 rounding of P); fp32: the exact one.

@@ -17,10 +17,11 @@ size ``T x T`` is ever held.  The forward also writes each row's log-sum-exp;
 alive by the ``proj`` product anyway), so the backward rebuilds the
 probabilities exactly, takes ``delta = rowsum(dout * out)`` and needs no
 statistics pass.  The layout is the packed attention's with one group per
-image, so the bf16 backward runs the same Hopper kernels
-(``csrc/attention_bwd_sm90.cuh``) with the launch geometry of
-``packed_attention.bwd_geometry``.  Every sum stays inside one block, so
-gradients are the same from run to run.
+image, so bf16 runs the same Hopper kernels in both directions
+(``csrc/attention_fwd_sm90.cuh``, ``csrc/attention_bwd_sm90.cuh``) with the
+launch geometry of ``packed_attention.fwd_geometry`` and ``bwd_geometry``.
+Every sum stays inside one block, so outputs and gradients are the same from
+run to run.
 ``flash_attention_tiled`` is the differentiable entry point the model calls,
 with the JAX function's signature.
 """
@@ -32,13 +33,15 @@ import ctypes
 import torch
 
 from . import _build
-from .packed_attention import bwd_geometry, check_saved, geometry_args
+from .packed_attention import bwd_geometry, check_saved, fwd_geometry, geometry_args
 
 _SIGNATURES = {
     "flash_attention_fwd": (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 5
+        + [ctypes.c_void_p],
         ctypes.c_int,
-    )
+    ),
+    "flash_attention_fwd_occupancy": ([ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
 }
 _BWD_SIGNATURES = {
     "flash_attention_bwd": (
@@ -49,8 +52,8 @@ _BWD_SIGNATURES = {
     "flash_attention_bwd_occupancy": ([ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
 }
 HEAD_DIMS = (32, 64)  # the kernels' compiled head widths
-ROWS = 128  # query rows a forward block owns
-TILE = 64  # tokens per tile of the axis a forward block walks; keys are padded to it
+ROWS = 128  # query rows an fp32 forward block owns
+TILE = 64  # tokens per tile of the axis an fp32 forward block walks; keys are padded to it
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
@@ -156,7 +159,9 @@ def flash_attention_tiled_fwd(
     lse = torch.empty((b, num_heads, t), dtype=torch.float32, device=qkv.device)
     lib = _build.load("flash_attention_fwd", _SIGNATURES)
     rc = lib.flash_attention_fwd(qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, t, c,
-                                 num_heads, float(scale), code, _build.stream_ptr(qkv.device))
+                                 num_heads, float(scale),
+                                 *geometry_args(fwd_geometry(t, c // num_heads)), code,
+                                 _build.stream_ptr(qkv.device))
     _build.check(lib, rc, "flash_attention_tiled_fwd")
     flash_attention_tiled_fwd.launches += 1
     return out, lse
@@ -218,6 +223,17 @@ def bwd_occupancy(head_dim: int = 64, tokens: int = 785) -> dict:
     _build.check(lib, lib.flash_attention_bwd_occupancy(smem, out), "bwd_occupancy")
     return {"dq_registers": out[0], "dq_blocks_per_sm": out[1], "dkv_registers": out[2],
             "dkv_blocks_per_sm": out[3], "smem": smem}
+
+
+def fwd_occupancy(head_dim: int = 64, tokens: int = 785) -> dict:
+    """Registers a thread and blocks an SM of the bf16 forward kernel at d =
+    64, with the shared memory ``fwd_geometry`` gives at ``tokens``: for
+    reports (``chip_smoke.py``).  Needs the card."""
+    smem = fwd_geometry(tokens, head_dim)["smem"]
+    out = (ctypes.c_int * 2)()
+    lib = _build.load("flash_attention_fwd", _SIGNATURES)
+    _build.check(lib, lib.flash_attention_fwd_occupancy(smem, out), "fwd_occupancy")
+    return {"registers": out[0], "blocks_per_sm": out[1], "smem": smem}
 
 
 class FlashAttentionTiledFunction(torch.autograd.Function):

@@ -11,18 +11,20 @@ zeros.  The ViT backbone calls it with one group per image, ``T = 1 + N``
 tokens, no bias and no mask.
 
 The kernel sources and their design notes are in
-``csrc/packed_attention_fwd.cu`` and ``csrc/packed_attention_bwd.cu``.  The
-forward's blocks own 128 query rows and walk the keys in tiles with an online
-softmax; asked for it, the forward also writes each row's log-sum-exp.
+``csrc/packed_attention_fwd.cu`` and ``csrc/packed_attention_bwd.cu``.  In
+bf16 both directions run Hopper kernels shared with the q-tiled attention:
+the forward ``csrc/attention_fwd_sm90.cuh`` (blocks of 128 query rows walking
+the keys with an online softmax, ``wgmma`` products, a TMA ring of key tiles;
+asked for it, it also writes each row's log-sum-exp), the backward
+``csrc/attention_bwd_sm90.cuh``; :func:`fwd_geometry` and
+:func:`bwd_geometry` compute their launch geometry.  fp32 runs the CUDA-core
+kernels of ``csrc/attention_fwd_fp32.cuh`` and ``attention_bwd_fp32.cuh``.
 ``packed_attention`` is the differentiable entry point the model calls, a
 ``torch.autograd.Function`` that saves ``(qkv, bias, mask, out, lse)``
 (``out`` is kept alive by the ``proj`` product anyway), so the backward
 rebuilds the probabilities exactly and takes ``delta = rowsum(dout * out)``
-without a statistics pass.  The bf16 backward runs the Hopper kernels of
-``csrc/attention_bwd_sm90.cuh`` (shared with the q-tiled attention's), whose
-launch geometry :func:`bwd_geometry` computes; every sum stays inside one
-block or goes through ordered partials, so gradients are the same from run
-to run.
+without a statistics pass.  Every sum stays inside one block or goes through
+ordered partials, so outputs and gradients are the same from run to run.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from . import _build
 
 _SIGNATURES = {
     "packed_attention_fwd": (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 5
+        + [ctypes.c_void_p],
         ctypes.c_int,
     )
 }
@@ -48,11 +51,17 @@ _BWD_SIGNATURES = {
 }
 HEAD_DIMS = (32, 64)  # the kernels' compiled head widths
 MAX_TOKENS = 256  # tokens per group the wrappers admit; longer sequences are another kernel's
-ROWS = 128  # query rows a forward block owns (and a bias-gradient block)
-TILE = 64  # tokens per tile of the axis a forward block walks; keys are padded to it
+ROWS = 128  # query rows an fp32 forward block owns (and a bias-gradient block)
+TILE = 64  # tokens per tile of the axis an fp32 forward block walks; keys are padded to it
 # the bias-gradient kernel aims at this many blocks per launch: each block
 # walks a chunk of (image, group) pairs for one (128 queries, 64 keys, head)
 _DBIAS_TARGET_BLOCKS = 1024
+# the bf16 forward (csrc/attention_fwd_sm90.cuh): query rows a block owns (two
+# consumer warpgroups of 64), keys per walked tile, the key tiles a block keeps
+# in flight at most
+FWD_ROWS = 128
+FWD_WALK = 64
+FWD_MAX_STAGES = 4
 # the bf16 backward (csrc/attention_bwd_sm90.cuh): rows a block owns (one
 # warpgroup's wgmma M), tokens per walked tile, the walked tiles a block keeps
 # in flight at most, and the shared memory a block may use on an H100
@@ -225,7 +234,8 @@ def packed_attention_fwd(
     rc = lib.packed_attention_fwd(
         qkv.data_ptr(), _ptr(bias), _ptr(mask), out.data_ptr(), _ptr(lse), b, w, t, c, num_heads,
         bias.shape[0] if bias is not None else 1, mask.shape[0] if mask is not None else 1,
-        float(scale), code, _build.stream_ptr(qkv.device),
+        float(scale), *geometry_args(fwd_geometry(t, c // num_heads)), code,
+        _build.stream_ptr(qkv.device),
     )
     _build.check(lib, rc, "packed_attention_fwd")
     packed_attention_fwd.launches += 1
@@ -242,6 +252,29 @@ def _dbias_chunks(pairs: int, blocks_per_pair: int) -> int:
     want = max(1, -(-_DBIAS_TARGET_BLOCKS // blocks_per_pair))
     per_chunk = -(-pairs // min(pairs, want))
     return -(-pairs // per_chunk)
+
+
+def fwd_geometry(tokens: int, head_dim: int) -> dict:
+    """How the bf16 forward kernel (``csrc/attention_fwd_sm90.cuh``, both the
+    packed and the q-tiled attention's) cuts one (group, head) of ``tokens``
+    tokens.
+
+    A block owns ``rows`` = 128 query rows (two consumer warpgroups of 64; one
+    whose rows all lie past the tokens does nothing), so the grid is groups x
+    heads x ``row_blocks``.  The keys come in ``walk_tiles`` tiles of 64, the
+    last read to ``last``, the next multiple of 16 past the keys left
+    (wgmma's N and k-step), with ``stages`` tiles in flight: every tile at once
+    up to 256 tokens.  ``smem`` is the shared memory a block asks for, the C
+    side's ``Layout::bytes``: alignment slack, a q tile per warpgroup, a k and
+    a v tile a stage, the barriers and a release count a stage.
+    """
+    walk = -(-tokens // FWD_WALK)
+    rest = tokens - (walk - 1) * FWD_WALK
+    stages = min(FWD_MAX_STAGES, walk)
+    tile = FWD_WALK * head_dim * 2  # one [64, d] bf16 tile
+    smem = 1024 + tile * (2 + 2 * stages) + 8 * (1 + stages) + 4 * stages
+    return {"row_blocks": -(-tokens // FWD_ROWS), "rows": FWD_ROWS, "walk_tiles": walk,
+            "tile": FWD_WALK, "last": -(-rest // 16) * 16, "stages": stages, "smem": smem}
 
 
 def bwd_geometry(tokens: int, head_dim: int) -> dict:

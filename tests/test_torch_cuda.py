@@ -22,7 +22,8 @@ forward fp32 1e-4, bf16 1e-2 + 2^-7 |ref| per element (P rounded to bf16 before
 P v on both sides; the kernel rounds the unnormalized probabilities of its
 online softmax), its log-sum-exp within 1e-4 of its largest; backward as
 above, both sides from the kernel forward's out and lse, also at the edges of
-the Hopper kernels' tiles.  Two runs of the backward give the same bits.  The GPF kernels are tiled, so they are held at a ViT's 196 tokens and at
+the Hopper kernels' tiles, forward and backward.  Two runs of either give the
+same bits.  The GPF kernels are tiled, so they are held at a ViT's 196 tokens and at
 784 as well as at 49.
 
 q-tiled attention (kernels 6, 6b; a ViT at 448, 785 tokens): forward fp32
@@ -357,6 +358,81 @@ def test_cuda_attention_bwd_sm90_two_blocks_an_sm(cuda_device):
     one)."""
     occ = tfa.bwd_occupancy()
     assert occ["dq_blocks_per_sm"] >= 2 and occ["dkv_blocks_per_sm"] >= 2, occ
+
+
+# The Hopper forward (csrc/attention_fwd_sm90.cuh) at the edges of its tiles:
+# one token, one under, at and over 16 (wgmma's N and k-step), 64 (a key tile,
+# a warpgroup's rows) and 128 (a block's rows), ViT-Base/224's 197, 200 and
+# around the longest packed group; heads of 32 and 64; without and with bias
+# and mask; without and with the log-sum-exp.
+SM90_FWD_T = (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 197, 200, 255, 256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("extras", [False, True])
+@pytest.mark.parametrize("c, heads", [(128, 4), (128, 2)])
+@pytest.mark.parametrize("t", SM90_FWD_T)
+def test_cuda_packed_attention_fwd_sm90_edges(cuda_device, t, c, heads, extras, with_lse):
+    """bf16 kernel 3 against its plain version per element within 1e-2 +
+    2^-7 |ref| (the tolerance above), its lse within 1e-4 of the largest
+    plain log-sum-exp; two runs give the same bits.  A control: the keys
+    padded to 64 and left unmasked fall outside the lse check, and outside
+    the output check too unless a single key is padded (one zero key among
+    64 or more moves an output by less than its tolerance)."""
+    atol, rtol = 1e-2, 2.0**-7
+    w = 2 if extras else 1
+    qkv, _, bias, mask = _packed(cuda_device, torch.bfloat16, 3, w, t, c, heads,
+                                 heads if extras else None, w if extras else None)
+    res = tpa.packed_attention_fwd(qkv, bias, mask, heads, return_lse=with_lse)
+    out, lse = res if with_lse else (res, None)
+    ref, ref_lse = tpa.packed_attention_plain(qkv, bias, mask, heads, return_lse=True)
+    assert out.shape == (3, w, t, c) and torch.isfinite(out.float()).all()
+    assert _close(out, ref, atol, rtol)
+    if with_lse:
+        assert lse.shape == (3 * w, heads, t)
+        assert (lse - ref_lse).abs().max().item() <= 1e-4 * ref_lse.abs().max().item()
+    again = tpa.packed_attention_fwd(qkv, bias, mask, heads, return_lse=with_lse)
+    assert torch.equal(again[0] if with_lse else again, out)
+    assert lse is None or torch.equal(again[1], lse)
+    pad = -(-t // 64) * 64 - t
+    if pad:
+        padded = torch.nn.functional.pad(qkv, (0, 0, 0, pad))
+        pb = None if bias is None else torch.nn.functional.pad(bias, (0, pad, 0, pad))
+        pm = None if mask is None else torch.nn.functional.pad(mask, (0, pad, 0, pad))
+        ctrl, ctrl_lse = tpa.packed_attention_plain(padded, pb, pm, heads, return_lse=True)
+        lse_off = (ctrl_lse[..., :t] - ref_lse).abs().max().item()
+        assert lse_off > 1e-4 * ref_lse.abs().max().item()
+        assert pad == 1 or not _close(ctrl[:, :, :t], ref, atol, rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [257, 785, 800, 1025])
+def test_cuda_flash_attention_fwd_sm90_long(cuda_device, t):
+    """bf16 kernel 6 past the packed kernel's 256 tokens (785 at ViT-Base/448,
+    800 a whole last key tile, 1025 at ViT-Large/512), two heads of 64:
+    within 2e-3 + 2^-7 |ref| of the plain version (as above), lse within 1e-4
+    of the largest plain log-sum-exp, the same bits twice, the keys padded to
+    64 and left unmasked outside."""
+    atol, rtol = 2e-3, 2.0**-7
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    qkv = torch.randn(2, t, 3 * 128, generator=g, device=cuda_device).to(torch.bfloat16)
+    out, lse = tfa.flash_attention_tiled_fwd(qkv, 2)
+    ref, ref_lse = tfa.flash_attention_tiled_plain(qkv, 2)
+    assert _close(out, ref, atol, rtol)
+    assert (lse - ref_lse).abs().max().item() <= 1e-4 * ref_lse.abs().max().item()
+    again, lse_again = tfa.flash_attention_tiled_fwd(qkv, 2)
+    assert torch.equal(again, out) and torch.equal(lse_again, lse)
+    padded = torch.nn.functional.pad(qkv, (0, 0, 0, -(-t // 64) * 64 - t))
+    assert not _close(tfa.flash_attention_tiled_plain(padded, 2)[0][:, :t], ref, atol, rtol)
+
+
+@pytest.mark.cuda
+def test_cuda_attention_fwd_sm90_two_blocks_an_sm(cuda_device):
+    """The design's occupancy holds: the bf16 forward fits 128 registers a
+    thread, and two blocks (two consumer warpgroups each) share an SM."""
+    occ = tfa.fwd_occupancy()
+    assert occ["registers"] <= 128 and occ["blocks_per_sm"] >= 2, occ
 
 
 # (B, T, C, heads): the ViT-Base call at 448, two heads of 64 and of 32 past
