@@ -7,8 +7,10 @@
 Phases (any failed check exits non-zero; no phase catches and continues):
 
 1. Setup: card name and power limit, kernel build from ``csrc/`` (seconds),
-   and the SASS of the bf16 attention kernels, forward and backward (3, 6,
-   3b, 6b), read for their wgmma (HGMMA) instructions, which must be there.
+   ptxas's register, spill and wgmma notes, and the SASS of the Hopper
+   kernels (the bf16 attention forward and backward 3, 6, 3b, 6b, the GPF
+   backward 2b and the streamed bf16 Newton-Schulz 5″) read for their wgmma
+   (HGMMA) instructions, which must be there.
 2. Kernels against their plain PyTorch versions on the card.  Forward, at the
    serving paths' shapes for batch 64: window attention at the four Swin-Base
    stage geometries (shifted and unshifted, bf16 and fp32), packed-layout
@@ -20,7 +22,8 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    bytes-or-operations bound.  Backward, at the training paths' shapes: both
    attentions for batch 128 (two views of 64) with a random output cotangent,
    and fused GPF at all three shapes with two distinct token sets (and once with one
-   tensor twice).  The attention backward kernels start from the forward
+   tensor twice); for the bf16 training call it prints the times of its two
+   launches apart (torch.profiler: the w kernel, the dX kernel).  The attention backward kernels start from the forward
    kernels' out and log-sum-exp (the packed forward is also held to the plain
    log-sum-exp) and print TFLOP/s on their 14 T^2 d flops beside SDPA's
    backward; the attention forwards print TFLOP/s on 4 T^2 d (kernel 6) or
@@ -106,7 +109,8 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    Phase 2 / 2b hold their kernels at these paths' shapes: kernels 5′ at
    [64, 1024, 1024] and 5″ at [64, 1536, 1536] (M as the head builds it, bf16
    and fp32, two runs bit for bit, one step bit for bit with the plain
-   version; control: four iterations; the other grouping printed), the
+   version; control: four iterations; the other grouping printed; TFLOP/s
+   beside the cuBLAS iteration's), the
    window attention at Swin-Large stage 0's padded canvas [8, 322, 322, 576]
    with the pad sentinel in the mask (control: the sentinel removed), q-tiled
    attention at [64, 1025, 3072] with 16 heads and its backward at batch 128
@@ -158,6 +162,7 @@ from ego_moment_cle_vit_tpu_torch.ops.graph import (
 )
 from ego_moment_cle_vit_tpu_torch.ops.moments import graph_weighted_mean
 from ego_moment_cle_vit_tpu_torch.utils.device import pin_fp32_precision
+from kernel_turns import launch_split
 
 BATCH = 64
 TRAIN_VIEWS = 2 * BATCH  # the dual-view step runs both views as one backbone batch
@@ -1000,8 +1005,13 @@ def check_gpf_bwd(g: torch.Generator, n: int, d: int) -> dict:
                     f"bound_ms={b_ms:.4f} ({kind}, {nbytes / 1e6:.1f} MB)")
                 if dtype == torch.bfloat16 and sim == "dot" and not same:  # the training call
                     f_ms = time_ms(lambda: GPF_KERNEL(ta, tp, coeffs, sim, 1e-6, True))
+                    # its two launches apart: the w kernel, the dX kernel
+                    split = launch_split(lambda: GPF_BWD_KERNEL(*args))
+                    log(f"  gpf_bwd [{BATCH},{n},{d}] launches a call (torch.profiler): "
+                        + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
                     main = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                            "bound_ms": b_ms, "bound_by": kind, "fwd_ms": f_ms}
+                            "bound_ms": b_ms, "bound_by": kind, "fwd_ms": f_ms,
+                            "launch_ms": split}
     return {"err_over_tol": worst, **main}
 
 
@@ -1516,11 +1526,13 @@ def check_newton_schulz_bf16(g: torch.Generator) -> dict:
                 f"grouping err/tol={other_excess:.3f} (printed, not enforced); library "
                 f"err/tol={lib_excess:.3f} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
                 f"library_ms(cuBLAS bf16 bmm/baddbmm iteration)={l_ms:.4f} bound_ms={b_ms:.4f} "
-                f"({kind}) TFLOP/s={flops / k_ms / 1e9:.1f}")
+                f"({kind}) TFLOP/s={flops / k_ms / 1e9:.1f} (cuBLAS iteration "
+                f"{flops / l_ms / 1e9:.1f})")
             if dtype == torch.bfloat16:  # the serving paths' call, 1 per forward
                 results[variant] = {"max_abs_err": err, "err_over_tol": excess, "ms": k_ms,
                                     "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
-                                    "bound_by": kind}
+                                    "bound_by": kind, "tflops": flops / k_ms / 1e9,
+                                    "library_tflops": flops / l_ms / 1e9}
             del m, out, ref
         del m32
         torch.cuda.empty_cache()
@@ -2419,14 +2431,15 @@ def main() -> int:
     for name, path in paths.items():
         report = path.with_suffix(".log")
         lines = report.read_text().splitlines() if report.exists() else []
-        for line in lines:  # ptxas: registers, spills, wgmma serialized
-            if "registers" in line or "spill" in line or "wgmma" in line:
+        for line in lines:  # ptxas: registers, spills, wgmma serialized (C7511) or fenced
+            if any(k in line for k in ("registers", "spill", "wgmma", "GMMA")):
                 log(f"  {name}: {line.strip()}")
 
-    # the bf16 attention kernels (3, 6, 3b, 6b) run on wgmma: their SASS holds HGMMA
+    # the Hopper kernels run on wgmma: their SASS holds HGMMA (the bf16
+    # attention 3, 6, 3b, 6b; 2b's bf16 w and dX kernels; 5″'s GEMM)
     cuobjdump = shutil.which("cuobjdump") or str(Path(_build.nvcc_path()).parent / "cuobjdump")
     for name in ("packed_attention_fwd", "flash_attention_fwd", "packed_attention_bwd",
-                 "flash_attention_bwd"):
+                 "flash_attention_bwd", "gpf_bwd", "newton_schulz_bf16_streamed"):
         if not os.path.exists(cuobjdump):
             log(f"  {name}: cuobjdump not found, SASS not read")
             continue
@@ -2541,15 +2554,15 @@ def main() -> int:
     src = "ego_moment_cle_vit_tpu_torch/csrc/"
 
     def other_gpf(prefix: str, res: dict) -> dict:
-        return {f"{prefix}_{k}": res[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                  "library_ms")}
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms", "launch_ms")
+        return {f"{prefix}_{k}": res[k] for k in keys if k in res}
 
     def ns_row(name: str, variant: str, source: str, replaces: str, launches: int) -> dict:
         res = ns_wide[variant]
         return {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
                 "launches": launches, **{k: res[k] for k in (
                     "max_abs_err", "err_over_tol", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")}}
+                    "library_ms", "tflops", "library_tflops")}}
 
     kernels = [
         {"name": "window_attention_fwd", "route": "cuda",
@@ -2592,6 +2605,7 @@ def main() -> int:
                              gpb_448["err_over_tol"]),
          "ms": gpb_vit["ms"], "plain_ms": gpb_vit["plain_ms"], "bound_ms": gpb_vit["bound_ms"],
          "bound_by": gpb_vit["bound_by"], "library_ms": gpb_vit["library_ms"],
+         "launch_ms": gpb_vit["launch_ms"],
          **other_gpf("swin", gpb), **other_gpf("vit448", gpb_448),
          **other_gpf("vitL512", gpb_vitl), "vitL512_launches": trn_vitl["launches"]["gpf_bwd"]},
         {"name": "packed_attention_fwd", "route": "cuda",

@@ -98,3 +98,36 @@ __device__ __forceinline__ void powers(float r, float* values, float* grads) {
     rc_pow *= rc;
   }
 }
+
+// The backward's dX kernels (gpf_bwd_fp32.cuh, gpf_bwd_sm90.cuh) finish what
+// the w kernel left in partials, in the same order.
+//
+// dc[b] = the w kernel's per-tile partials summed in tile order, by the
+// first kMaxCoef threads of one block per batch element.
+__device__ __forceinline__ void sum_dc(const float* __restrict__ dc_part, float* __restrict__ dc,
+                                       int b, int P, int Q, int tiles) {
+  const int tid = threadIdx.x;
+  if (tid < kMaxCoef) {
+    const int p = tid / (kMaxDeg + 1);
+    const int q = tid % (kMaxDeg + 1);
+    if (p <= P && q <= Q) {
+      const float* part = dc_part + static_cast<size_t>(b) * tiles * tiles * kMaxCoef + tid;
+      float v = 0.f;
+      for (int t = 0; t < tiles * tiles; ++t) v += part[static_cast<size_t>(t) * kMaxCoef];
+      dc[(static_cast<size_t>(b) * (P + 1) + p) * (Q + 1) + q] = v;
+    }
+  }
+}
+
+// gate_i proj_i / m_i^2 of row i of token set ``set``: proj_i summed over the
+// w kernel's column tiles in order.
+__device__ __forceinline__ float cosine_fold(const float* __restrict__ proj_part,
+                                             const float* __restrict__ norms, int b, int set,
+                                             int i, int N, int tiles) {
+  const float* nb = norms + (static_cast<size_t>(b) * 4 + 2 * set) * N;
+  const float* pb = proj_part + (static_cast<size_t>(b) * 2 + set) * tiles * N;
+  float proj = 0.f;
+  for (int jt = 0; jt < tiles; ++jt) proj += pb[static_cast<size_t>(jt) * N + i];
+  const float m = nb[i];
+  return nb[N + i] * proj / (m * m);
+}

@@ -31,14 +31,19 @@
 // here: nothing is resident (a 1536^2 bf16 matrix is 4.7 MB, twenty times a
 // block's shared memory), and in-place updates would race, since blocks run
 // in no order and a tile of P Y reads whole rows of P and columns of Y that
-// other blocks are still reading or writing.  So this is kernel 5′'s design
-// with the regrouped products: each is one launch of the batched tiled GEMM of
-// ns_bf16.cuh on the tensor cores, P goes to its own buffer, Y ping-pongs
-// between two, and the update 1.5 Y - 0.5 P Y is the third product's
-// epilogue.  The values do not depend on the buffering.  3k - 1 launches, which
-// the wrapper counts as one.
+// other blocks are still reading or writing.  So each product is one launch
+// of a batched Hopper GEMM (ns_sm90.cuh: [128][256] tiles, two consumer
+// warpgroups on wgmma m64n256k16, a producer warp feeding a four-stage TMA
+// ring), P goes to its own buffer, Y ping-pongs between two, and the update
+// 1.5 Y - 0.5 P Y is the third product's epilogue.  The values do not depend
+// on the buffering.  The tile needs D to be a multiple of 256 (the variant
+// runs at D % 512 == 0 only, kernels/newton_schulz.py:bf16_streamed_fits);
+// the entry refuses any other D.  Mn, the first step and the rescale are
+// ns_bf16.cuh's, shared with 5′.  3k - 1 launches, which the wrapper counts
+// as one.
 
 #include "ns_bf16.cuh"
+#include "ns_sm90.cuh"
 
 namespace {
 
@@ -49,16 +54,20 @@ cudaError_t steps(const ns_bf16::Buffers& buf, int Bn, int Dp, int iters, cudaSt
                   int* cur) {
   bf16* p = buf.t1;
   bf16* py = buf.t2;
+  if (iters > 1) {
+    const cudaError_t err = ns_sm90::prepare();
+    if (err != cudaSuccess) return err;
+  }
   for (int it = 1; it < iters; ++it) {
     bf16* y = buf.y[*cur];
     // P = Y Mn
-    cudaError_t err = ns_bf16::gemm(y, buf.mn, nullptr, p, Bn, Dp, 0.f, 1.f, stream);
+    cudaError_t err = ns_sm90::gemm(y, buf.mn, nullptr, p, Bn, Dp, 0.f, 1.f, stream);
     if (err != cudaSuccess) return err;
     // P <- P Y
-    err = ns_bf16::gemm(p, y, nullptr, py, Bn, Dp, 0.f, 1.f, stream);
+    err = ns_sm90::gemm(p, y, nullptr, py, Bn, Dp, 0.f, 1.f, stream);
     if (err != cudaSuccess) return err;
     // Y <- 1.5 Y - 0.5 P Y, into the other Y buffer
-    err = ns_bf16::gemm(py, y, y, buf.y[*cur ^ 1], Bn, Dp, 1.5f, -0.5f, stream);
+    err = ns_sm90::gemm(py, y, y, buf.y[*cur ^ 1], Bn, Dp, 1.5f, -0.5f, stream);
     if (err != cudaSuccess) return err;
     *cur ^= 1;
   }
@@ -67,12 +76,13 @@ cudaError_t steps(const ns_bf16::Buffers& buf, int Bn, int Dp, int iters, cudaSt
 
 }  // namespace
 
-// m, out [B, D, D] (dtype); tr: B floats, trace(M) + eps; work: 5 * B * Dp *
-// Dp bf16 scratch, Dp = D rounded up to a multiple of 128 (Mn, Y twice, two
-// products).  The Python wrapper checks shapes and contiguity first.
+// m, out [B, D, D] (dtype); tr: B floats, trace(M) + eps; work: 5 * B * D *
+// D bf16 scratch (Mn, Y twice, two products).  D must be a multiple of 256.
+// The Python wrapper checks shapes and contiguity first.
 extern "C" int newton_schulz_isqrt_bf16_streamed(const void* m, void* out, void* work,
                                                  const void* tr, int B, int D, int iters,
                                                  int dtype, void* stream) {
+  if (D % ns_sm90::kCols != 0) return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   return ns_bf16::entry(m, out, work, tr, B, D, iters, dtype, stream,
                         [&](const ns_bf16::Buffers& buf, int Dp, int* cur) {

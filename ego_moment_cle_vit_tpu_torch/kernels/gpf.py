@@ -10,7 +10,11 @@ whatever the token dtype, as on the TPU.
 
 ``gpf_bwd`` replaces ``_gpf_bwd_kernel`` of the same file
 (``csrc/gpf_bwd.cu``): the analytic VJP in two tiled kernels, token gradients
-for both views and per-batch coefficient gradients.  ``gpf`` is the
+for both views and per-batch coefficient gradients.  The second forms dX = W X
+from the first's [N, N] factor W: for bf16 tokens on the tensor cores through
+wgmma, from W split in two bf16 terms (``csrc/gpf_bwd_sm90.cuh``, its launch
+geometry :func:`bwd_geometry`), for fp32 tokens on the CUDA cores
+(``csrc/gpf_bwd_fp32.cuh``).  ``gpf`` is the
 differentiable entry point the model calls, a ``torch.autograd.Function``
 that saves ``(tokens_a, tokens_p, coeffs)``.
 """
@@ -33,8 +37,8 @@ _SIGNATURES = {
 }
 _BWD_SIGNATURES = {
     "gpf_bwd": (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2
-        + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 4
+        + [ctypes.c_longlong, ctypes.c_void_p],
         ctypes.c_int,
     )
 }
@@ -47,6 +51,32 @@ TILE = 64  # output rows and columns per block
 # limit), where the TPU package computes the same function in XLA.
 MAX_TOKENS = 1600
 MAX_DEGREE = 3  # the backward kernel's compiled polynomial degree limit
+# The bf16 dX kernel's block (csrc/gemm_sm90.cuh): a [128 rows][256 features]
+# tile of dX, the contraction over tokens in stages of 64, three stages in
+# flight, each W_hi and W_lo [128][64] and a token tile [64][256] in shared
+# memory, behind 1024 bytes of alignment slack and a full and an empty
+# barrier a stage.
+BWD_ROWS, BWD_COLS, BWD_K, BWD_STAGES = 128, 256, 64, 3
+SMEM_LIMIT = 232448  # what a block may use on an H100
+
+
+def bwd_geometry(tokens: int, features: int) -> dict:
+    """How the bf16 dX kernel (``csrc/gpf_bwd_sm90.cuh``) cuts dX = W X of
+    one (batch element, token set) with ``tokens`` tokens of ``features``.
+
+    ``row_blocks`` x ``col_blocks`` blocks of ``rows`` x ``cols`` cover dX;
+    each walks the ``k_tiles`` tiles of ``k`` tokens.  The w kernel writes
+    W_hi and W_lo with rows ``pitch`` elements apart, the tokens rounded up to
+    a multiple of 8, so that the W tensor maps' row stride is a multiple of 16
+    bytes as TMA requires; ``tma_tokens`` says whether the token rows keep
+    that rule too (else the producer warp stages them by hand).  ``smem`` is
+    the shared memory a block asks for, the C side's ``Layout<2>::bytes``.
+    """
+    stage = 2 * BWD_ROWS * BWD_K * 2 + BWD_K * BWD_COLS * 2
+    return {"rows": BWD_ROWS, "row_blocks": -(-tokens // BWD_ROWS), "cols": BWD_COLS,
+            "col_blocks": -(-features // BWD_COLS), "k": BWD_K, "k_tiles": -(-tokens // BWD_K),
+            "pitch": -(-tokens // 8) * 8, "tma_tokens": features % 8 == 0,
+            "stages": BWD_STAGES, "smem": 1024 + BWD_STAGES * stage + 16 * BWD_STAGES}
 
 
 def gpf_plain(
@@ -271,17 +301,24 @@ def gpf_bwd(
     dta = torch.empty_like(tokens_a)
     dtp = torch.empty_like(tokens_p)
     dc = torch.empty((b, *coeffs.shape), dtype=torch.float32, device=tokens_a.device)
-    # W [B,2,N,N], row-reduction partials [B,2,tiles,N], norms and gates
+    if tokens_a.dtype == torch.bfloat16:
+        geo = bwd_geometry(n, d)
+        pitch, stages, smem = geo["pitch"], geo["stages"], geo["smem"]
+    else:
+        pitch, stages, smem = n, 0, 0
+    # W (fp32 [B,2,N,N], or bf16 W_hi and W_lo [B,2,N,pitch]: 4 bytes an entry
+    # either way), row-reduction partials [B,2,tiles,N], norms and gates
     # [B,4,N], coefficient partials [B,tiles^2,16]: see csrc/gpf_bwd.cu
     tiles = -(-n // TILE)
-    scratch = torch.empty(b * (2 * n * n + 2 * tiles * n + 4 * n + 16 * tiles * tiles),
+    scratch = torch.empty(b * (2 * n * pitch + 2 * tiles * n + 4 * n + 16 * tiles * tiles),
                           dtype=torch.float32, device=tokens_a.device)
     lib = _build.load("gpf_bwd", _BWD_SIGNATURES)
     rc = lib.gpf_bwd(
         tokens_a.data_ptr(), tokens_p.data_ptr(), coeffs.data_ptr(), g.data_ptr(),
         dta.data_ptr(), dtp.data_ptr(), dc.data_ptr(), scratch.data_ptr(),
         b, n, d, coeffs.shape[0] - 1, coeffs.shape[1] - 1, int(similarity == "cosine"),
-        float(eps), int(symmetric_enforce), code, _build.stream_ptr(tokens_a.device),
+        float(eps), int(symmetric_enforce), code, pitch, stages, smem,
+        _build.stream_ptr(tokens_a.device),
     )
     _build.check(lib, rc, "gpf_bwd")
     gpf_bwd.launches += 1

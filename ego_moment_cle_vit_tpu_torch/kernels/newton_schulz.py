@@ -19,8 +19,9 @@ makes the same choice (:func:`variant_for`):
 * ``"bf16_streamed"``, D % 512 == 0 past those, up to 1536
   (``_bf16_streamed_fits``): :func:`newton_schulz_isqrt_bf16_streamed_fwd`
   replaces ``_ns_kernel_bf16_streamed``, the same fixed point with its
-  products regrouped.  Swin-Large at a 1280 input: ``[64, 1536, 1536]``.
-  Source ``csrc/newton_schulz_bf16_streamed.cu``.
+  products regrouped, on a Hopper GEMM (``csrc/ns_sm90.cuh``: wgmma fed by a
+  TMA ring; its tiles :func:`streamed_gemm_geometry`).  Swin-Large at a 1280
+  input: ``[64, 1536, 1536]``.  Source ``csrc/newton_schulz_bf16_streamed.cu``.
 
 On the card a width that no variant takes raises (the TPU package runs its
 plain XLA iteration there; no registered backbone has such a width).  On the
@@ -60,6 +61,13 @@ _BF16_STREAMED_SIGNATURES = {"newton_schulz_isqrt_bf16_streamed": (_BF16_ARGTYPE
 # two products).
 BF16_TILE = 128
 BF16_SCRATCH_MATRICES = 5
+# The streamed kernel's products (csrc/ns_sm90.cuh on csrc/gemm_sm90.cuh): a
+# block owns a [128][256] tile of C and walks the contraction in stages of
+# 64, four in flight, an A tile [128][64] and a B tile [64][256] a stage,
+# behind 1024 bytes of alignment slack and a full and an empty barrier a
+# stage.
+STREAMED_ROWS, STREAMED_COLS, STREAMED_K, STREAMED_STAGES = 128, 256, 64, 4
+SMEM_LIMIT = 232448  # what a block may use on an H100
 
 # The TPU kernels' VMEM envelopes, which decide the variant.  The CUDA kernels
 # keep their matrices in device memory and have no limit of their own; each
@@ -97,6 +105,23 @@ def variant_for(d: int) -> str | None:
     if bf16_streamed_fits(d):
         return "bf16_streamed"
     return None
+
+
+def streamed_gemm_geometry(d: int) -> dict:
+    """How the streamed kernel's GEMM (``csrc/ns_sm90.cuh``) cuts one D x D
+    product: ``row_blocks`` x ``col_blocks`` blocks of ``rows`` x ``cols``,
+    each walking ``k_tiles`` stages of ``k``, ``stages`` in flight, ``smem``
+    bytes of shared memory (the C side's ``Layout<1>::bytes``).  The tile
+    takes no ragged edge: D must be a multiple of 256 (the variant runs at
+    D % 512 == 0 only, :func:`bf16_streamed_fits`), else ValueError."""
+    if d < STREAMED_COLS or d % STREAMED_COLS:
+        raise ValueError(f"the streamed kernel's GEMM takes D a multiple of {STREAMED_COLS}, "
+                         f"got {d}")
+    stage = STREAMED_ROWS * STREAMED_K * 2 + STREAMED_K * STREAMED_COLS * 2
+    return {"rows": STREAMED_ROWS, "row_blocks": d // STREAMED_ROWS, "cols": STREAMED_COLS,
+            "col_blocks": d // STREAMED_COLS, "k": STREAMED_K, "k_tiles": d // STREAMED_K,
+            "stages": STREAMED_STAGES,
+            "smem": 1024 + STREAMED_STAGES * stage + 16 * STREAMED_STAGES}
 
 
 def unsupported_width(d: int) -> str:
@@ -283,14 +308,16 @@ def newton_schulz_isqrt_bf16_streamed_fwd(
     matrix: torch.Tensor, num_iterations: int = 5, eps: float = 1e-5
 ) -> torch.Tensor:
     """Kernel 5″: as :func:`newton_schulz_isqrt_bf16_fwd` with the products
-    regrouped (the model reaches it at D = 1536).
+    regrouped, for D a multiple of 256 (the model reaches it at D = 1536).
 
-    CPU tensors take :func:`newton_schulz_isqrt_bf16_streamed_plain`; CUDA
-    tensors launch the kernel or raise.  Counts one launch per call in
+    CPU tensors take :func:`newton_schulz_isqrt_bf16_streamed_plain` at any
+    D; CUDA tensors launch the kernel or raise.  Counts one launch per call in
     ``newton_schulz_isqrt_bf16_streamed_fwd.launches``.
     """
     if matrix.device.type == "cpu":
         return newton_schulz_isqrt_bf16_streamed_plain(matrix, num_iterations, eps)
+    _checked(matrix, num_iterations, "newton_schulz_isqrt_bf16_streamed_fwd")
+    streamed_gemm_geometry(matrix.shape[-1])
     out = _bf16_launch("newton_schulz_bf16_streamed", _BF16_STREAMED_SIGNATURES, matrix,
                        num_iterations, eps, "newton_schulz_isqrt_bf16_streamed_fwd")
     newton_schulz_isqrt_bf16_streamed_fwd.launches += 1

@@ -1,0 +1,335 @@
+#!/usr/bin/env python3
+"""Time the redesigned kernels of this checkout against another's, in turns.
+
+    python3 kernel_turns.py --other DIR [--only KERNELS] [--out FILE]
+
+DIR is another checkout of this repository (for example the parent commit,
+unpacked with ``git archive``).  On one GPU, each turn is a fresh process that
+imports the port from one checkout, builds the kernels it times there (all
+nvcc runs at once), and times, with CUDA events (median of 5 samples of 10
+launches, after 3 warm-up launches), these kernels at the main paths' calls,
+in bf16, and some at a call in fp32:
+
+    3   packed attention forward   qkv [64, 1, 197, 2304], 12 heads (serving)
+    3   packed attention forward   qkv [128, 1, 197, 2304], with lse (training)
+    6   q-tiled attention forward  qkv [64, 785, 2304] and [128, 785, 2304], 12 heads
+    6   q-tiled attention forward  qkv [64, 1025, 3072] and [128, 1025, 3072], 16 heads
+    3b  packed attention backward  qkv [128, 1, 197, 2304], 12 heads
+    6b  q-tiled attention backward qkv [128, 785, 2304], 12 heads
+    6b  q-tiled attention backward qkv [128, 1025, 3072], 16 heads
+    2b  GPF backward               tokens [64, 784, 768] and [64, 1024, 1024] x2, dot
+    5'' streamed bf16 Newton-Schulz M [64, 1536, 1536] bf16, 5 steps
+    3, 6 in fp32 (off the main paths) at [8, 1, 197, 2304] and [4, 785, 2304]
+    2b in fp32 (off the main paths) at [4, 784, 768]
+
+and, in the same turn and process, a library yardstick on the same inputs,
+whose own spread across turns decides whether a kernel is at or under it:
+SDPA (``scaled_dot_product_attention``, forward or backward) for attention,
+autograd of one fp32 ``bmm`` Gram for 2b (part of its work only), and the
+same bf16 iteration on cuBLAS (``bmm``, ``baddbmm``, the kernel's rounding
+points) for 5''.  2b and 5'' are also profiled once a turn (torch.profiler,
+5 calls), which splits their time among the launches inside one call.  Each
+turn hashes what its kernels return at every call (out and lse, dqkv; for 2b
+dc and the token gradients apart), from the same seeded inputs, so the two
+checkouts are compared bit for bit too.
+
+The turns run other, this, this, other, so that drift of the card hits both
+alike.  ``--only`` takes a comma-separated list of kernel names (3, 6, 3b, 6b,
+2b, 5'') and times only their calls.  Prints the card's name and power limit,
+each turn's times, the best of each side, and a last line of JSON {"card":
+..., "shapes": {shape: {"other": [ms, ms], "this": [ms, ms], "library": [ms,
+ms, ms, ms], "same_bits": {part: bool}, "split": {"other": {launch: ms},
+"this": {...}}}}}; --out writes that JSON to a file too.  Needs one GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import inspect
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+
+# (name, kind, batch, tokens or N, width C or D, heads)
+SHAPES = (("3 [64,1,197,2304] H12", "packed_fwd", 64, 197, 768, 12),
+          ("3 [128,1,197,2304] H12 lse", "packed_fwd_lse", 128, 197, 768, 12),
+          ("6 [64,785,2304] H12", "tiled_fwd", 64, 785, 768, 12),
+          ("6 [128,785,2304] H12", "tiled_fwd", 128, 785, 768, 12),
+          ("6 [64,1025,3072] H16", "tiled_fwd", 64, 1025, 1024, 16),
+          ("6 [128,1025,3072] H16", "tiled_fwd", 128, 1025, 1024, 16),
+          ("3b [128,1,197,2304] H12", "packed_bwd", 128, 197, 768, 12),
+          ("6b [128,785,2304] H12", "tiled_bwd", 128, 785, 768, 12),
+          ("6b [128,1025,3072] H16", "tiled_bwd", 128, 1025, 1024, 16),
+          ("2b [64,784,768] x2 dot", "gpf_bwd", 64, 784, 768, 0),
+          ("2b [64,1024,1024] x2 dot", "gpf_bwd", 64, 1024, 1024, 0),
+          ("5'' [64,1536,1536] k5", "ns_streamed", 64, 1536, 1536, 0),
+          ("3 fp32 [8,1,197,2304] H12 lse", "packed_fwd_lse", 8, 197, 768, 12),
+          ("6 fp32 [4,785,2304] H12", "tiled_fwd", 4, 785, 768, 12),
+          ("2b fp32 [4,784,768] x2 dot", "gpf_bwd", 4, 784, 768, 0))
+SOURCES = {"packed": ("packed_attention_fwd", "packed_attention_bwd"),
+           "tiled": ("flash_attention_fwd", "flash_attention_bwd"),
+           "gpf": ("gpf_bwd",), "ns": ("newton_schulz_bf16_streamed",)}
+ORDER = ("other", "this", "this", "other")
+NS_ITERS, NS_EPS = 5, 1e-5
+
+
+def kernel_of(name: str) -> str:
+    return name.split()[0]
+
+
+def time_ms(fn) -> float:
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 10)
+    return statistics.median(times)
+
+
+def launch_split(fn, reps: int = 5) -> dict:
+    """Device ms a call of each kernel that ``fn`` launches (torch.profiler
+    over ``reps`` calls), keyed by the kernel function's short name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split: dict = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = getattr(ev, "cuda_time_total", 0)
+        if not us or ev.key.startswith(("aten::", "cuda", "Memcpy", "Memset")):
+            continue
+        # "void (anonymous namespace)::gpf_bwd_w_kernel<__nv_bfloat16>(...)" -> gpf_bwd_w_kernel
+        head = re.split(r"[<(]", ev.key.replace("(anonymous namespace)::", ""), maxsplit=1)[0]
+        short = head.split()[-1].split("::")[-1] if head.split() else ev.key[:40]
+        split[short] = split.get(short, 0.0) + us / 1e3 / reps
+    return split
+
+
+def digest(result) -> str:
+    """sha256 of the bits of a kernel's result: a tensor, or a tuple of them
+    (None entries skipped)."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in result if isinstance(result, tuple) else (result,):
+        if t is not None:
+            bits = {2: torch.int16, 4: torch.int32}[t.element_size()]  # read as integers
+            h.update(t.contiguous().view(-1).view(bits).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def sdpa(qkv, heads: int, backward: bool):
+    """SDPA on the same inputs, the forward or its backward (dq, dk, dv)."""
+    import torch
+
+    b, t, c3 = qkv.shape[0], qkv.shape[-2], qkv.shape[-1]
+    d = c3 // 3 // heads
+    x = qkv.reshape(b, t, 3, heads, d).permute(2, 0, 3, 1, 4)
+    q, k, v = (x[i].contiguous().requires_grad_(backward) for i in range(3))
+    o = torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=d ** -0.5)
+    if not backward:
+        return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=d ** -0.5)
+    do = torch.randn_like(o)
+    return lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True)
+
+
+def gram_backward(tokens, cot):
+    """Autograd of one fp32 bmm Gram (2b's yardstick; part of its work only)."""
+    import torch
+
+    tf = tokens.float().requires_grad_()
+    gram = torch.bmm(tf, tf.transpose(1, 2))
+    return lambda: torch.autograd.grad(gram, tf, cot, retain_graph=True)
+
+
+def ns_bf16_streamed_library(m):
+    """5'''s iteration on cuBLAS at the kernel's rounding points: bf16 ``bmm``
+    for the products, ``baddbmm`` for the update, the first step's exact
+    copies skipped.  A yardstick, never the port's."""
+    import torch
+
+    mf = m.float()
+    tr = torch.diagonal(mf, dim1=-2, dim2=-1).sum(-1)[:, None, None] + NS_EPS
+    mn = (mf / tr).to(torch.bfloat16)
+    eye = torch.eye(m.shape[-1], device=m.device)
+    y = (1.5 * eye - 0.5 * mn.float()).to(torch.bfloat16)
+    for _ in range(NS_ITERS - 1):
+        p = torch.bmm(torch.bmm(y, mn), y)
+        y = torch.baddbmm(y, p, y, beta=1.5, alpha=-0.5)
+    return (y.float() / torch.sqrt(tr)).to(m.dtype)
+
+
+def worker(only: set) -> None:
+    """One turn: time every shape with the port of the working directory (put
+    ahead of this script's own directory, which Python searches first)."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    from ego_moment_cle_vit_tpu_torch.kernels import _build
+    from ego_moment_cle_vit_tpu_torch.kernels import flash_attention as fa
+    from ego_moment_cle_vit_tpu_torch.kernels import gpf
+    from ego_moment_cle_vit_tpu_torch.kernels import newton_schulz as ns
+    from ego_moment_cle_vit_tpu_torch.kernels import packed_attention as pa
+
+    shapes = [s for s in SHAPES if kernel_of(s[0]) in only]
+    sources = {src for _, kind, *_ in shapes for src in SOURCES[kind.split("_")[0]]}
+    _build.build(tuple(sorted(sources)))  # all nvcc runs at once
+
+    # the backward of earlier checkouts took no out and lse
+    takes_lse = "lse" in inspect.signature(pa.packed_attention_bwd).parameters
+    print(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(pa.__file__)))),
+          flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    res = {}
+    for name, kind, b, t, c, h in shapes:
+        dtype = torch.float32 if "fp32" in name else torch.bfloat16
+        split = None
+        if kind == "gpf_bwd":
+            ta = torch.randn(b, t, c, generator=g, device="cuda").to(dtype)
+            tp = torch.randn(b, t, c, generator=g, device="cuda").to(dtype)
+            coeffs = torch.nn.functional.softplus(torch.rand(3, 3, generator=g, device="cuda")
+                                                  * 0.1)
+            cot = torch.randn(b, t, t, generator=g, device="cuda")
+            fn = lambda: gpf.gpf_bwd(ta, tp, coeffs, cot, "dot", 1e-6, True)  # noqa: E731
+            lib = gram_backward(ta, cot)
+            dta, dtp, dc = fn()
+            digests = {"dc": digest(dc), "dX": digest((dta, dtp))}
+            split = launch_split(fn)
+        elif kind == "ns_streamed":
+            z = torch.randn(b, 1600, c, generator=g, device="cuda")
+            m = (torch.matmul(z.transpose(1, 2), z) / 1600).to(dtype)
+            del z
+            fn = lambda: ns.newton_schulz_isqrt_bf16_streamed_fwd(m, NS_ITERS, NS_EPS)  # noqa
+            lib = lambda: ns_bf16_streamed_library(m)  # noqa: E731
+            digests = {"out": digest(fn())}
+            split = launch_split(fn)
+        else:
+            shape = (b, 1, t, 3 * c) if kind.startswith("packed") else (b, t, 3 * c)
+            qkv = torch.randn(*shape, generator=g, device="cuda").to(dtype)
+            dout = torch.randn(*shape[:-1], c, generator=g, device="cuda").to(dtype)
+            if kind == "packed_fwd":
+                fn = lambda: pa.packed_attention_fwd(qkv, None, None, h)  # noqa: E731
+            elif kind == "packed_fwd_lse":
+                fn = lambda: pa.packed_attention_fwd(qkv, None, None, h,  # noqa: E731
+                                                     return_lse=True)
+            elif kind == "tiled_fwd":
+                fn = lambda: fa.flash_attention_tiled_fwd(qkv, h)  # noqa: E731
+            elif kind == "packed_bwd" and takes_lse:
+                out, lse = pa.packed_attention_fwd(qkv, None, None, h, return_lse=True)
+                fn = lambda: pa.packed_attention_bwd(qkv, None, None, out, lse,  # noqa: E731
+                                                     dout, h)
+            elif kind == "packed_bwd":
+                fn = lambda: pa.packed_attention_bwd(qkv, None, None, dout, h)  # noqa: E731
+            else:
+                out, lse = fa.flash_attention_tiled_fwd(qkv, h)
+                fn = lambda: fa.flash_attention_tiled_bwd(qkv, out, lse, dout, h)  # noqa: E731
+            lib = sdpa(qkv, h, kind.endswith("bwd"))
+            digests = {"out": digest(fn())}
+        res[name] = {"ms": time_ms(fn), "library": time_ms(lib), "digests": digests,
+                     "split": split}
+        del fn, lib
+        torch.cuda.empty_cache()
+    print(json.dumps(res), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--other", help="another checkout of the repository")
+    ap.add_argument("--only", default="3,6,3b,6b,2b,5''",
+                    help="comma-separated kernels to time (default: all)")
+    ap.add_argument("--out", help="also write the JSON result here")
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_turns: needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    only = set(args.only.split(","))
+    if args.worker:
+        worker(only)
+        return 0
+    port = "ego_moment_cle_vit_tpu_torch"
+    if not args.other or not os.path.isdir(os.path.join(args.other, port)):
+        print("kernel_turns: --other must name a checkout of this repository", file=sys.stderr)
+        return 2
+    shapes = [s[0] for s in SHAPES if kernel_of(s[0]) in only]
+    if not shapes:
+        print(f"kernel_turns: --only names no kernel of {sorted({kernel_of(s[0]) for s in SHAPES})}",
+              file=sys.stderr)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    print(card, flush=True)
+    trees = {"this": os.path.dirname(os.path.abspath(__file__)),
+             "other": os.path.abspath(args.other)}
+    result = {"card": card, "shapes": {name: {"other": [], "this": [], "library": [],
+                                              "split": {}} for name in shapes}}
+    digests: dict = {}
+    for turn in ORDER:
+        env = {**os.environ, "PYTHONPATH": trees[turn]}
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
+                               "--only", args.only], cwd=trees[turn], env=env,
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return 1
+        lines = proc.stdout.strip().splitlines()
+        times = json.loads(lines[-1])
+        if not lines[0].startswith(trees[turn]):
+            print(f"the {turn} turn imported the port from {lines[0]}", file=sys.stderr)
+            return 1
+        for name in shapes:
+            r = result["shapes"][name]
+            r[turn].append(times[name]["ms"])
+            r["library"].append(times[name]["library"])
+            if times[name]["split"] is not None:
+                r["split"].setdefault(turn, times[name]["split"])
+            for part, hexd in times[name]["digests"].items():
+                digests.setdefault(name, {}).setdefault(part, {}).setdefault(turn, set()).add(hexd)
+        print(f"{turn:5s} " + "  ".join(f"{k}: {v['ms']:.4f} ms (library {v['library']:.4f})"
+                                         for k, v in times.items()), flush=True)
+    for name, t in result["shapes"].items():
+        t["same_bits"] = {part: len(d["this"]) == 1 and d["this"] == d["other"]
+                          for part, d in digests[name].items()}
+        print(f"{name}: bits " + ", ".join(f"{part} {'the same' if same else 'different'}"
+                                           for part, same in t["same_bits"].items())
+              + " in both checkouts")
+        print(f"{name}: other {min(t['other']):.4f} ms, this {min(t['this']):.4f} ms "
+              f"(this / other {min(t['this']) / min(t['other']):.3f}); library "
+              f"{min(t['library']):.4f}-{max(t['library']):.4f} ms (this / best library "
+              f"{min(t['this']) / min(t['library']):.3f})")
+        for turn, split in t["split"].items():
+            print(f"{name}: {turn} launches a call: "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(split.items(),
+                                                                   key=lambda kv: -kv[1])))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

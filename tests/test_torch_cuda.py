@@ -57,6 +57,7 @@ from ego_moment_cle_vit_tpu_torch.kernels import newton_schulz as tns
 from ego_moment_cle_vit_tpu_torch.kernels import packed_attention as tpa
 from ego_moment_cle_vit_tpu_torch.kernels import window_attention as twa
 from ego_moment_cle_vit_tpu_torch.models.swin import _attn_mask, _relative_position_index
+from ego_moment_cle_vit_tpu_torch.ops.graph import gpf_fuse, token_similarity_graph
 
 WS = 7
 
@@ -191,6 +192,107 @@ def test_cuda_gpf_bwd_matches_plain(cuda_device, dtype, tol, similarity, b, n, d
     tgpf.gpf(x, x, c, similarity).backward(cot)
     rta, rtp, _ = tgpf.gpf_bwd_plain(ta, ta, c, cot, similarity)
     assert rows_close(x.grad, rta.float() + rtp.float())
+
+
+# The Hopper backward of kernel 2b (csrc/gpf_bwd_sm90.cuh, the bf16 dX on
+# wgmma from W split in two bf16 terms, and gpf_bwd.cu's wgmma Gram) at the
+# edges of its tiles: one token, one under, at and over a 64-token tile, the
+# Swin, ViT/224, ViT/448 and ViT-Large/512 token counts and 785; widths of
+# one 64-feature box, one TMA cannot take (100), ViT-Base's and ViT-Large's.
+# fp32 (the CUDA-core bodies) at the same shapes.
+GPF_BWD_N = (1, 49, 63, 64, 65, 196, 784, 785, 1024)
+GPF_BWD_D = (64, 100, 768, 1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-3), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("similarity", ["dot", "cosine"])
+@pytest.mark.parametrize("d", GPF_BWD_D)
+@pytest.mark.parametrize("n", GPF_BWD_N)
+def test_cuda_gpf_bwd_sm90_edges(cuda_device, n, d, similarity, dtype, tol):
+    """2b against its plain version, two distinct token sets and one tensor
+    twice: token gradients within tol of each row's largest entry and dc
+    within 1e-3 of its largest (the tolerances above), one launch a call, the
+    same bits twice.  The cotangent is zeroed where the pre-activation lies
+    within 1e-4 of its error scale of zero, as chip_smoke.py does: on the
+    clamp's kink the two sides' Grams, summed in other orders, may take
+    different branches.  With one token under cosine the exact token
+    gradients are zero (a single token's cosine Gram is 1 whatever the
+    token), so both sides hold rounding noise and are held to 1e-5 absolute
+    there."""
+    b = 2 if n <= 196 else 1
+    g = torch.Generator(device=cuda_device).manual_seed(n * 7 + d)
+    ta = torch.randn(b, n, d, generator=g, device=cuda_device).to(dtype)
+    tp = torch.randn(b, n, d, generator=g, device=cuda_device).to(dtype)
+    c = torch.rand(3, 3, generator=g, device=cuda_device) + 0.05
+    cot = torch.randn(b, n, n, generator=g, device=cuda_device)
+    zero_exact = n == 1 and similarity == "cosine"
+
+    def off_the_kink(pos):
+        pre = gpf_fuse(token_similarity_graph(ta, similarity, 1e-6),
+                       token_similarity_graph(pos, similarity, 1e-6), c, symmetric_enforce=True,
+                       clamp=False)
+        band = 1e-4 * tgpf.gpf_error_scale(ta, pos, c, similarity, 1e-6, True)
+        return torch.where(pre.abs() <= band, torch.zeros_like(cot), cot)
+
+    def rows_close(out, ref):
+        if zero_exact:
+            return bool((out.float().abs() <= 1e-5).all() and (ref.float().abs() <= 1e-5).all())
+        scale = ref.float().abs().amax(dim=-1, keepdim=True)
+        return bool(((out.float() - ref.float()).abs() <= tol * scale).all())
+
+    for pos in (tp, ta):
+        cot_pos = off_the_kink(pos)
+        before = tgpf.gpf_bwd.launches
+        dta, dtp, dc = tgpf.gpf_bwd(ta, pos, c, cot_pos, similarity)
+        assert tgpf.gpf_bwd.launches == before + 1
+        rta, rtp, rdc = tgpf.gpf_bwd_plain(ta, pos, c, cot_pos, similarity)
+        assert dta.dtype == dtype and dtp.shape == (b, n, d)
+        assert rows_close(dta, rta) and rows_close(dtp, rtp)
+        assert ((dc - rdc).abs() <= 1e-3 * rdc.abs().amax()).all()
+        if not zero_exact:  # a control: half the gradient
+            assert not rows_close(0.5 * rta.float(), rta)
+        again = tgpf.gpf_bwd(ta, pos, c, cot_pos, similarity)
+        assert all(torch.equal(x, y) for x, y in zip(again, (dta, dtp, dc)))
+
+
+def _sass_functions(path):
+    """{kernel's mangled name: its SASS} of a built library (cuobjdump)."""
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    from ego_moment_cle_vit_tpu_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or str(Path(_build.nvcc_path()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            out[name] = ""
+        elif name:
+            out[name] += line + "\n"
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_new_hopper_kernels_hold_wgmma(cuda_device):
+    """The bf16 w and dX kernels of 2b and 5″'s GEMM issue HGMMA, and the
+    CUDA-core bodies (2b's fp32 kernels, 5″'s Mn / rescale kernels) do not."""
+    from ego_moment_cle_vit_tpu_torch.kernels import _build
+
+    paths = _build.build(("gpf_bwd", "newton_schulz_bf16_streamed"))
+    gpf_fns = _sass_functions(paths["gpf_bwd"])
+    ns_fns = _sass_functions(paths["newton_schulz_bf16_streamed"])
+    wgmma = {name: "HGMMA" in sass for name, sass in {**gpf_fns, **ns_fns}.items()}
+    for key in ("gpf_bwd_w_sm90", "gpf_sm909dx_kernel", "gemm_sm90_kernel"):
+        hits = [has for name, has in wgmma.items() if key in name]
+        assert hits and all(hits), (key, wgmma)
+    for key in ("gpf_bwd_w_kernel", "gpf_fp329dx_kernel", "init_kernel", "finish_kernel"):
+        hits = [has for name, has in wgmma.items() if key in name]
+        assert hits and not any(hits), (key, wgmma)
 
 
 # (B, W, T, C, heads, bias heads or None, mask groups or None): the ViT call at
@@ -597,6 +699,59 @@ def test_cuda_newton_schulz_bf16_rejects_bad_inputs(cuda_device):
             fwd(torch.zeros(1, 64, 64, device=cuda_device).transpose(1, 2))
         with pytest.raises(ValueError, match="num_iterations"):
             fwd(torch.zeros(1, 64, 64, device=cuda_device), -1)
+
+
+# 5″ on its Hopper GEMM (csrc/ns_sm90.cuh): the TPU grid's widths up to the
+# model's, M in either type
+NS_STREAMED = [(1, 512), (3, 1024), (2, 1536)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, d", NS_STREAMED)
+def test_cuda_newton_schulz_streamed_sm90(cuda_device, b, d, dtype):
+    """5″ against its plain version at chip_smoke.py's TOL_NS_BF16, |err| <=
+    2^-7 |ref| + 5e-4 max |ref| (both sides round at the same points); four
+    iterations fail that; two runs give the same bits; one step, which runs
+    no product, the plain version's bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(11 + d)
+    z = torch.randn(b, d + 64, d, generator=g, device=cuda_device)
+    m = (z.transpose(1, 2) @ z / (d + 64)).to(dtype)
+
+    def close(out, ref):
+        ref = ref.float()
+        return bool(((out.float() - ref).abs()
+                     <= 2.0**-7 * ref.abs() + 5e-4 * ref.abs().max()).all())
+
+    fwd = tns.newton_schulz_isqrt_bf16_streamed_fwd
+    out = fwd(m, 5, 1e-5)
+    ref = tns.newton_schulz_isqrt_bf16_streamed_plain(m, 5, 1e-5)
+    assert out.dtype == dtype and close(out, ref)
+    assert not close(tns.newton_schulz_isqrt_bf16_streamed_plain(m, 4, 1e-5), ref)
+    assert torch.equal(fwd(m, 5, 1e-5), out)
+    assert torch.equal(fwd(m, 1, 1e-5), tns.newton_schulz_isqrt_bf16_streamed_plain(m, 1, 1e-5))
+
+
+@pytest.mark.cuda
+def test_cuda_newton_schulz_streamed_refuses_a_ragged_width(cuda_device):
+    """D = 640 is no multiple of the GEMM's 256-column tile: the wrapper
+    raises, and the C entry refuses it too (cudaErrorInvalidValue) rather
+    than run it another way."""
+    import ctypes
+
+    from ego_moment_cle_vit_tpu_torch.kernels import _build
+
+    m = torch.eye(640, device=cuda_device)[None]
+    with pytest.raises(ValueError, match="multiple of 256"):
+        tns.newton_schulz_isqrt_bf16_streamed_fwd(m)
+    lib = _build.load("newton_schulz_bf16_streamed", tns._BF16_STREAMED_SIGNATURES)
+    work = torch.empty(5 * 640 * 640, dtype=torch.bfloat16, device=cuda_device)
+    out = torch.empty_like(m)
+    tr = torch.full((1,), 640.0, device=cuda_device)
+    rc = lib.newton_schulz_isqrt_bf16_streamed(m.data_ptr(), out.data_ptr(), work.data_ptr(),
+                                               tr.data_ptr(), 1, 640, 5, 0,
+                                               ctypes.c_void_p(_build.stream_ptr(m.device)))
+    assert rc == 1  # cudaErrorInvalidValue
 
 
 # (B, Hp, C, heads, shifted): stage 0 and stage 1 shapes of Swin-Base at a

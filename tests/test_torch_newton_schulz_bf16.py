@@ -31,6 +31,12 @@ On the CPU, numpy inputs from a seed:
   products and the head MLP).
 * ``remat``: the head's output and every gradient equal those without it,
   bit for bit, on both routes.
+* ``streamed_gemm_geometry``, the tiles of kernel 5″'s Hopper GEMM
+  (``csrc/ns_sm90.cuh``): at every width it takes (multiples of 256 up to
+  2048) its blocks and stages cover every row, column and contraction step,
+  the TMA row strides stay on the 16-byte grain and a block fits an H100's
+  shared memory; every other width in 1..2048 is refused, on the card's path
+  only (the CPU wrapper takes the plain version at any width).
 """
 
 import numpy as np
@@ -222,3 +228,31 @@ def test_moment_head_remat_changes_nothing(n, d):
     assert torch.equal(out0, out1) and torch.equal(dt0, dt1) and torch.equal(dg0, dg1)
     assert grads0.keys() == grads1.keys()
     assert all(grads0[k] is not None and torch.equal(grads0[k], grads1[k]) for k in grads0)
+
+
+def test_streamed_gemm_geometry_covers_every_row_and_column():
+    for d in range(256, 2049, 256):
+        geo = tns.streamed_gemm_geometry(d)
+        assert (geo["rows"], geo["cols"], geo["k"]) == (128, 256, 64)
+        assert geo["row_blocks"] * geo["rows"] == d and geo["col_blocks"] * geo["cols"] == d
+        assert geo["k_tiles"] * geo["k"] == d and (2 * d) % 16 == 0
+        # alignment slack, an A tile [128][64] and a B tile [64][256] a stage,
+        # a full and an empty barrier a stage
+        stages = geo["stages"]
+        assert geo["smem"] == 1024 + stages * (128 * 64 * 2 + 64 * 256 * 2) + 16 * stages
+        assert stages == 4 and geo["smem"] <= tns.SMEM_LIMIT
+    # Swin-Large at 1280: [64, 1536, 1536], 12 x 6 blocks a matrix
+    assert tns.streamed_gemm_geometry(1536) == {
+        "rows": 128, "row_blocks": 12, "cols": 256, "col_blocks": 6, "k": 64, "k_tiles": 24,
+        "stages": 4, "smem": 197696}
+
+
+def test_streamed_gemm_geometry_refuses_a_ragged_width_on_the_card_path_only():
+    for d in range(1, 2049):
+        if d % 256:
+            with pytest.raises(ValueError, match="multiple of 256"):
+                tns.streamed_gemm_geometry(d)
+    # the CPU wrapper takes the plain version at any width, 640 too
+    m = torch.from_numpy(_spd(1, 640, 24, rank=32))
+    assert torch.equal(tns.newton_schulz_isqrt_bf16_streamed_fwd(m, 2, 1e-5),
+                       tns.newton_schulz_isqrt_bf16_streamed_plain(m, 2, 1e-5))
