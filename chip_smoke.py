@@ -7,10 +7,12 @@
 Phases (any failed check exits non-zero; no phase catches and continues):
 
 1. Setup: card name and power limit, kernel build from ``csrc/`` (seconds),
-   ptxas's register, spill and wgmma notes, and the SASS of the Hopper
-   kernels (the bf16 attention forward and backward 3, 6, 3b, 6b, the GPF
-   backward 2b and the streamed bf16 Newton-Schulz 5″) read for their wgmma
-   (HGMMA) instructions, which must be there.
+   ptxas's register, spill and wgmma notes (a C7511 note says a wgmma was
+   serialized), and the SASS of the Hopper kernels (the bf16 attention
+   forward and backward 3, 6, 3b, 6b, the GPF backward 2b, the streamed bf16
+   Newton-Schulz 5″, the window-attention backward 1b and the fused
+   attention half's backward 4b) read for their wgmma (HGMMA) instructions,
+   which must be there.
 2. Kernels against their plain PyTorch versions on the card.  Forward, at the
    serving paths' shapes for batch 64: window attention at the four Swin-Base
    stage geometries (shifted and unshifted, bf16 and fp32), packed-layout
@@ -20,7 +22,9 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    fp32), with
    errors, kernel / plain / library times from CUDA events and the
    bytes-or-operations bound.  Backward, at the training paths' shapes: both
-   attentions for batch 128 (two views of 64) with a random output cotangent,
+   attentions for batch 128 (two views of 64) with a random output cotangent
+   (window attention beside SDPA's backward with the bias gradient, the same
+   function, and without it),
    and fused GPF at all three shapes with two distinct token sets (and once with one
    tensor twice); for the bf16 training call it prints the times of its two
    launches apart (torch.profiler: the w kernel, the dX kernel).  The attention backward kernels start from the forward
@@ -84,7 +88,8 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    token chunk's dwqkv partial dropped, dbias dropped).  Beside kernel and
    plain times they time PyTorch's own calls for the block (layer_norm,
    linear, SDPA, linear, add; autograd of them) and the port's default route
-   (LayerNorm, Dense, kernel 1 / 1b, Dense, add).
+   (LayerNorm, Dense, kernel 1 / 1b, Dense, add); the backward's bf16 call
+   also prints its time split among its launches (torch.profiler).
 3f, 4f. Phases 3 and 4 on Swin-Base/224 under backbone_attn_kernel
    'fused_half': 4 fused attention-half launches (stages 0-1), 20 window
    attention and 1 GPF per forward; 4 + 4, 20 + 20 and 1 + 1 per train step.
@@ -162,7 +167,12 @@ from ego_moment_cle_vit_tpu_torch.ops.graph import (
 )
 from ego_moment_cle_vit_tpu_torch.ops.moments import graph_weighted_mean
 from ego_moment_cle_vit_tpu_torch.utils.device import pin_fp32_precision
-from kernel_turns import launch_split
+from kernel_turns import (
+    attention_half_unfused,
+    attn_half_inputs,
+    launch_split,
+    window_sdpa_backward,
+)
 
 BATCH = 64
 TRAIN_VIEWS = 2 * BATCH  # the dual-view step runs both views as one backbone batch
@@ -833,7 +843,8 @@ def check_window_attention_bwd(g: torch.Generator) -> dict:
     nt = WS * WS
     batch = TRAIN_VIEWS
     idx = torch.as_tensor(_relative_position_index(WS).reshape(-1), device=dev)
-    per_step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "fwd_ms": 0.0}
+    per_step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                "library_no_dbias_ms": 0.0, "fwd_ms": 0.0}
     max_err = 0.0
     worst = 0.0
     min_control = math.inf
@@ -882,19 +893,13 @@ def check_window_attention_bwd(g: torch.Generator) -> dict:
                 p_ms = time_ms(lambda: _wa.window_attention_bwd_plain(*args), reps=3, samples=3)
                 f_ms = time_ms(lambda: WA_KERNEL(qkv, bias, mask, heads, WS, scale), reps=10,
                                samples=3)
-                # library yardstick: the backward of SDPA on pre-partitioned
-                # q/k/v with bias + mask as a float mask; it returns dq, dk, dv
-                # but no bias gradient, so it does part of the work only
-                x = qkv.reshape(batch, hp // WS, WS, hp // WS, WS, 3, heads, d)
-                x = x.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, batch, nw * heads, nt, d)
-                q, k, v = (x[i].contiguous().requires_grad_() for i in range(3))
-                am = bias[None] + (mask[:, None] if mask is not None else 0.0)
-                am = am.expand(nw, heads, nt, nt).reshape(nw * heads, nt, nt).to(dtype)
-                o = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=am,
-                                                                     scale=scale)
-                do = torch.randn_like(o)
-                l_ms = time_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True),
-                               reps=5, samples=3)
+                # library yardsticks: the backward of SDPA on pre-partitioned
+                # q/k/v with bias + mask as a float mask, with the bias
+                # gradient (the same function) and without it (part of it)
+                l_ms = time_ms(window_sdpa_backward(qkv, bias, mask, heads, dbias=False), reps=5,
+                               samples=3)
+                ld_ms = time_ms(window_sdpa_backward(qkv, bias, mask, heads, dbias=True), reps=5,
+                                samples=3)
                 es = qkv.element_size()
                 nbytes = (2 * qkv.numel() + dout.numel()) * es + 2 * bias.numel() * 4 + (
                     mask.numel() * 4 if mask is not None else 0)
@@ -905,16 +910,18 @@ def check_window_attention_bwd(g: torch.Generator) -> dict:
                     f"err/tol={excess:.3f} (tol {atol}+{rtol:.4f}|ref|) dbias err={bias_err:.3e} "
                     f"of max {bias_scale:.3e} err/tol={bias_excess:.3f} control err/tol>="
                     f"{min(ctrl_excess, ctrl_bias):.1f} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                    f"library_ms(SDPA backward, no dbias)={l_ms:.4f} bound_ms={b_ms:.4f} ({kind}) "
+                    f"library_ms(SDPA backward, no dbias)={l_ms:.4f} (with dbias {ld_ms:.4f}) "
+                    f"bound_ms={b_ms:.4f} ({kind}) "
                     f"fwd_kernel_ms={f_ms:.4f} blocks/step={n_blocks}")
                 if dtype == torch.bfloat16:  # the training path's dtype
                     per_step["ms"] += n_blocks * k_ms
                     per_step["plain_ms"] += n_blocks * p_ms
-                    per_step["library_ms"] += n_blocks * l_ms
+                    per_step["library_ms"] += n_blocks * ld_ms
+                    per_step["library_no_dbias_ms"] += n_blocks * l_ms
                     per_step["bound_ms"] += n_blocks * b_ms
                     per_step["fwd_ms"] += n_blocks * f_ms
                     bound_kinds[kind] += n_blocks * b_ms
-                del qkv, dout, q, k, v, o, do, am, x, args
+                del qkv, dout, args
                 torch.cuda.empty_cache()
     log(f"  window attention backward controls: smallest err/tol {min_control:.1f} (must be > 1)")
     return {"max_abs_err": max_err, "err_over_tol": worst,
@@ -1634,27 +1641,6 @@ def check_window_attention_padded(g: torch.Generator) -> dict:
 AH_STAGES = ((56, 128, 4), (28, 256, 8))
 
 
-def attn_half_inputs(g: torch.Generator, batch: int, hp: int, c: int, heads: int,
-                     shifted: bool, dtype) -> tuple:
-    """(x, ln_g, ln_b, wqkv, bqkv, wproj, bproj, bias, mask) for one block:
-    LayerNorm parameters near their init, Dense weights at lecun scale, the
-    bias table at BIAS_TABLE_STD."""
-    dev = torch.device("cuda")
-    nt = WS * WS
-    idx = torch.as_tensor(_relative_position_index(WS).reshape(-1), device=dev)
-
-    def randn(*shape, scale=1.0):
-        return torch.randn(*shape, generator=g, device=dev) * scale
-
-    table = randn((2 * WS - 1) ** 2, heads, scale=BIAS_TABLE_STD)
-    bias = table[idx].reshape(nt, nt, heads).permute(2, 0, 1).contiguous()
-    mask = (torch.as_tensor(_attn_mask(hp, hp, hp, hp, WS, WS // 2), device=dev)
-            if shifted else None)
-    return (randn(batch, hp, hp, c).to(dtype), 1.0 + randn(c, scale=0.1), randn(c, scale=0.1),
-            randn(3 * c, c, scale=c ** -0.5).to(dtype), randn(3 * c, scale=0.1).to(dtype),
-            randn(c, c, scale=c ** -0.5).to(dtype), randn(c, scale=0.1).to(dtype), bias, mask)
-
-
 def attention_half_by_library(args: tuple, heads: int) -> torch.Tensor:
     """The same block as PyTorch's own calls: layer_norm, linear, SDPA over
     the partitioned windows with bias + mask as its float mask (partition and
@@ -1672,17 +1658,6 @@ def attention_half_by_library(args: tuple, heads: int) -> torch.Tensor:
                                                          scale=d ** -0.5)
     om = o.reshape(b, hp // WS, wp // WS, heads, WS, WS, d).permute(0, 1, 4, 2, 5, 3, 6)
     return x + torch.nn.functional.linear(om.reshape(b, hp, wp, c), wproj, bproj)
-
-
-def attention_half_unfused(args: tuple, heads: int) -> torch.Tensor:
-    """The port's default route for the same block: LayerNorm, Dense, kernel
-    1 (1b under autograd), Dense, add."""
-    x, ln_g, ln_b, wqkv, bqkv, wproj, bproj, bias, mask = args
-    c = x.shape[-1]
-    xn = torch.nn.functional.layer_norm(x.float(), (c,), ln_g, ln_b, 1e-5).to(x.dtype)
-    qkv = torch.nn.functional.linear(xn, wqkv, bqkv)
-    om = _wa.window_attention(qkv, bias, mask, heads, WS, (c // heads) ** -0.5)
-    return x + torch.nn.functional.linear(om, wproj, bproj)
 
 
 def attn_half_bound(args: tuple, heads: int, backward: bool) -> tuple[float, str]:
@@ -1765,7 +1740,7 @@ def first_chunk_qkv_gradient(args: tuple, dy: torch.Tensor, heads: int) -> torch
     x, ln_g, ln_b, wqkv, bqkv, wproj, _, bias, mask = args
     b, hp, wp, c = x.shape
     m, dt = b * hp * wp, x.dtype
-    geo = _ah.bwd_geometry(b, m, c, (hp // WS) * (wp // WS), heads)
+    geo = _ah.bwd_geometry(b, m, c, (hp // WS) * (wp // WS), heads, dt)
     chunk = -(-m // 64 // geo["w_chunks"]) * 64
     xn = torch.nn.functional.layer_norm(x.float(), (c,), ln_g, ln_b, 1e-5).to(dt)
     qkv = (xn.float() @ wqkv.float().T + bqkv.float()).to(dt)
@@ -1847,6 +1822,9 @@ def check_attn_half_bwd(g: torch.Generator) -> dict:
                         samples=3)
                     del leaves, y
                 b_ms, kind = attn_half_bound(args, heads, backward=True)
+                split = launch_split(lambda: AH_BWD_KERNEL(*args, dy, heads, WS))
+                log(f"{what_log} launches a call: " + ", ".join(
+                    f"{k} {v:.4f} ms" for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
                 log(f"{what_log} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms(autograd of "
                     f"LN+linear+SDPA+linear)={grads_of['library']:.4f} unfused_ms(autograd of "
                     f"LN+linear+kernel 1b+linear)={grads_of['unfused']:.4f} bound_ms={b_ms:.4f} "
@@ -2436,10 +2414,12 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     # the Hopper kernels run on wgmma: their SASS holds HGMMA (the bf16
-    # attention 3, 6, 3b, 6b; 2b's bf16 w and dX kernels; 5″'s GEMM)
+    # attention 3, 6, 3b, 6b; 2b's bf16 w and dX kernels; 5″'s GEMM; 1b's
+    # window-attention core; 4b's qkv / do, dx and weight-gradient products)
     cuobjdump = shutil.which("cuobjdump") or str(Path(_build.nvcc_path()).parent / "cuobjdump")
     for name in ("packed_attention_fwd", "flash_attention_fwd", "packed_attention_bwd",
-                 "flash_attention_bwd", "gpf_bwd", "newton_schulz_bf16_streamed"):
+                 "flash_attention_bwd", "gpf_bwd", "newton_schulz_bf16_streamed",
+                 "window_attention_bwd", "attn_half_bwd"):
         if not os.path.exists(cuobjdump):
             log(f"  {name}: cuobjdump not found, SASS not read")
             continue
@@ -2581,7 +2561,8 @@ def main() -> int:
          "replaces": WA_BWD_REPLACES, "launches": trn["launches"]["window_attention_bwd"],
          "max_abs_err": wab["max_abs_err"], "err_over_tol": wab["err_over_tol"],
          "ms": wab["ms"], "plain_ms": wab["plain_ms"], "bound_ms": wab["bound_ms"],
-         "bound_by": wab["bound_by"], "library_ms": wab["library_ms"]},
+         "bound_by": wab["bound_by"], "library_ms": wab["library_ms"],
+         "library_no_dbias_ms": wab["library_no_dbias_ms"]},
         {"name": "gpf_fwd", "route": "cuda", "source": src + "gpf_fwd.cu",
          "replaces": GPF_REPLACES, "launches": srv_vit["launches"]["gpf_fwd"],
          "train_launches": trn_vit["launches"]["gpf_fwd"],

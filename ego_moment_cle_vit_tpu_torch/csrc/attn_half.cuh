@@ -1,6 +1,7 @@
 // Shared by the fused attention-half kernels (forward and backward): block
 // and tile sizes, the LayerNorm of a window's rows, the softmax of one
-// 16 x 64 logit strip, and the two products mma_tiles.cuh lacks.
+// 16 x 64 logit strip, and the two fp32 products mma_tiles.cuh lacks (the
+// fp32 backward's; the bf16 backward runs on wgmma, attn_half_bwd_sm90.cuh).
 //
 // A window's ws*ws <= 64 tokens are padded to 64 rows, 16 per warp.  Row r of
 // a block's [64][C] tile is token r of the window, which lies at pixel
@@ -163,34 +164,9 @@ __device__ __forceinline__ void window_probs(float (*s)[4], const float* __restr
   }
 }
 
-// acc[NT][4] += A[16 x K] B[K x NT*8]: A with the contraction contiguous
-// ([row][k], as mma_nt takes it), B with it running down the rows ([k][n]).
-// bf16: B's fragments come transposed out of ldmatrix, as in mma_from_acc
-// (NT even, rows 16-byte aligned).
-template <int NT, int K>
-__device__ __forceinline__ void mma_nn(float (*acc)[4], const __nv_bfloat16* a, int lda,
-                                       const __nv_bfloat16* b, int ldb, int g, int tg) {
-  static_assert(NT % 2 == 0, "B fragments are loaded for two column tiles at a time");
-  const int lane = g * 4 + tg;
-  const int r = lane & 7;
-  const int m = lane >> 3;
-  const __nv_bfloat16* pa = a + ((m & 1) * 8 + r) * lda + (m >> 1) * 8;
-  // matrices (k 0-7, tile n), (k 8-15, tile n), (k 0-7, tile n + 1), (k 8-15, tile n + 1)
-  const __nv_bfloat16* pb = b + ((m & 1) * 8 + r) * ldb + (m >> 1) * 8;
-#pragma unroll
-  for (int ks = 0; ks < K / 16; ++ks) {
-    uint32_t fa[4];
-    ldmatrix_x4(fa, pa + ks * 16);
-#pragma unroll
-    for (int n = 0; n < NT; n += 2) {
-      uint32_t fb[4];
-      ldmatrix_x4_trans(fb, pb + ks * 16 * ldb + n * 8);
-      mma_16816(acc[n], fa, fb);
-      mma_16816(acc[n + 1], fa, fb + 2);
-    }
-  }
-}
-
+// acc[NT][4] += A[16 x K] B[K x NT*8] on the CUDA cores (fp32): A with the
+// contraction contiguous ([row][k], as mma_nt takes it), B with it running
+// down the rows ([k][n]).
 template <int NT, int K>
 __device__ __forceinline__ void mma_nn(float (*acc)[4], const float* a, int lda, const float* b,
                                        int ldb, int g, int tg) {
@@ -212,36 +188,11 @@ __device__ __forceinline__ void mma_nn(float (*acc)[4], const float* a, int lda,
   }
 }
 
-// acc[NT][4] += A[16 x K] B[K x NT*8] with both operands stored with the
-// contraction running down their rows: A as [k][row] (``a`` points at the
-// warp's first row, row stride lda between consecutive k), B as [k][n].  This
-// is the product X^T Y of two token-major tiles.  bf16: both operands'
-// fragments come transposed out of ldmatrix.
-template <int NT, int K>
-__device__ __forceinline__ void mma_tn(float (*acc)[4], const __nv_bfloat16* a, int lda,
-                                       const __nv_bfloat16* b, int ldb, int g, int tg) {
-  static_assert(NT % 2 == 0, "B fragments are loaded for two column tiles at a time");
-  const int lane = g * 4 + tg;
-  const int r = lane & 7;
-  const int m = lane >> 3;
-  // A: matrices (rows 0-7, k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15),
-  // (rows 8-15, k 8-15), each stored as 8 k rows of 8 consecutive A rows
-  const __nv_bfloat16* pa = a + ((m >> 1) * 8 + r) * lda + (m & 1) * 8;
-  const __nv_bfloat16* pb = b + ((m & 1) * 8 + r) * ldb + (m >> 1) * 8;
-#pragma unroll
-  for (int ks = 0; ks < K / 16; ++ks) {
-    uint32_t fa[4];
-    ldmatrix_x4_trans(fa, pa + ks * 16 * lda);
-#pragma unroll
-    for (int n = 0; n < NT; n += 2) {
-      uint32_t fb[4];
-      ldmatrix_x4_trans(fb, pb + ks * 16 * ldb + n * 8);
-      mma_16816(acc[n], fa, fb);
-      mma_16816(acc[n + 1], fa, fb + 2);
-    }
-  }
-}
-
+// acc[NT][4] += A[16 x K] B[K x NT*8] on the CUDA cores (fp32) with both
+// operands stored with the contraction running down their rows: A as
+// [k][row] (``a`` points at the warp's first row, row stride lda between
+// consecutive k), B as [k][n].  This is the product X^T Y of two token-major
+// tiles.
 template <int NT, int K>
 __device__ __forceinline__ void mma_tn(float (*acc)[4], const float* a, int lda, const float* b,
                                        int ldb, int g, int tg) {

@@ -1,8 +1,8 @@
-// Hopper (sm_90a) pieces shared by the bf16 attention kernels, forward
-// (attention_fwd_sm90.cuh) and backward (attention_bwd_sm90.cuh): mbarriers,
-// TMA loads of [64][d] boxes through 3-D tensor maps, warpgroup wgmma
-// products on those tiles, the 2^x of the softmax, and the bf16 A fragments
-// taken from fp32 accumulators.
+// Hopper (sm_90a) pieces shared by the bf16 Hopper kernels (the attention
+// forward and backward, the window-attention and attention-half backwards,
+// the GEMM tiles): mbarriers, TMA loads through 3-D and 4-D tensor maps,
+// warpgroup wgmma products on those tiles, the 2^x of the softmax, and the
+// bf16 A fragments taken from fp32 accumulators.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and cuTensorMapEncodeTiled (the library links -lcuda)
@@ -77,6 +77,24 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(group), "r"(smem_u32(bar))
       : "memory");
+}
+
+// one box of a 4-D tensor map at (c0, c1, c2, c3), innermost first
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Orders this thread's ordinary shared-memory writes before later reads by
+// the async proxy (wgmma operands, TMA stores); a barrier then publishes
+// them to the other threads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // A 3-D tensor map over a [groups, T, cols] bf16 array: boxes of d columns x
@@ -164,6 +182,21 @@ template <int N>
 struct Wgmma;
 
 template <>
+struct Wgmma<8> {
+  // A MN-major (TA = 1) or K-major, B K-major
+  template <int TA>
+  static __device__ __forceinline__ void ss_t(float* d, uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p, 1, 1, %7, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(a), "l"(b), "r"(acc), "n"(TA));
+  }
+};
+
+template <>
 struct Wgmma<16> {
   static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b,
                                             int acc) {
@@ -202,6 +235,18 @@ struct Wgmma<32> {
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+  // both operands MN-major (read transposed) from shared memory
+  static __device__ __forceinline__ void ss_tt(float* d, uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(acc));
   }
 };
 
@@ -255,6 +300,35 @@ struct Wgmma<64> {
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// m64n128k16 from shared memory, A MN-major when TA = 1 (else K-major), B
+// MN-major when TB = 1 (else K-major)
+template <>
+struct Wgmma<128> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss_t(float* d, uint64_t a, uint64_t b, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+        "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+        "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+          "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+          "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+          "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+          "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
   }
 };
 

@@ -10,7 +10,10 @@ from the pre-LN activation in image layout ``[B, Hp, Wp, C]``
 (``csrc/attn_half_fwd.cu``).  ``attn_half_bwd`` replaces ``_bwd_kernel`` of
 the same file (``csrc/attn_half_bwd.cu``): it recomputes LayerNorm, qkv and
 the probabilities from the saved inputs and returns ``dx`` and the seven
-parameter gradients, each sum over tokens taken in a fixed order.
+parameter gradients, each sum over tokens taken in a fixed order (bf16:
+``csrc/attn_half_bwd_sm90.cuh``, every product on wgmma, the attention on
+kernel 1b's Hopper core; fp32: CUDA cores).  :func:`bwd_geometry` is how a
+launch cuts its work.
 ``attn_half`` is the differentiable entry point the Swin calls, a
 ``torch.autograd.Function`` that saves its inputs only, as the TPU VJP does.
 
@@ -36,6 +39,7 @@ import ctypes
 import torch
 
 from . import _build
+from . import window_attention as _wa
 from .window_attention import (
     _partition,
     _probabilities,
@@ -47,10 +51,22 @@ from .window_attention import (
 HEAD_DIM = 32  # the kernels' compiled head width
 WIDTHS = (128, 256)  # the kernels' compiled channel counts
 MAX_WINDOW = 8  # T = ws*ws <= 64 tokens per window
-_BWD_TARGET_BLOCKS = 2048  # blocks of the backward's per-window kernel
-_WGRAD_TARGET_BLOCKS = 1024  # blocks of its weight-gradient kernel
-_DX_MAX_BLOCKS = 1024  # blocks of its dx kernel (each walks row tiles)
-_ROWS = 64  # token rows of one tile in the backward's reduction kernels
+# fp32 backward (CUDA cores): blocks of its per-window kernel, of its
+# weight-gradient kernel (64 x 64 output tiles), of its dx kernel (each walks
+# 64-row tiles)
+_BWD_TARGET_BLOCKS = 2048
+_WGRAD_TARGET_BLOCKS = 1024
+_DX_MAX_BLOCKS = 1024
+_ROWS = 64  # token rows a step of the weight-gradient sums, a tile of the fp32 dx
+# bf16 backward (csrc/attn_half_bwd_sm90.cuh): [128][128] qkv / do tiles
+# walked by one block an SM; [128][128] weight-gradient tiles, two blocks an
+# SM; dx tiles of whole rows ([128][128] at C = 128, [64][256] at 256) walked
+# by one block an SM; the rings' stages and shared memory (the header's
+# constants)
+SMS = 132  # an H100's SMs
+_WGRAD_TARGET_BLOCKS_SM90 = 2 * SMS
+_BOX = 64 * 64 * 2
+_STAGES_SM90 = {"qkv": 4, "dx": 4, "wgrad": 3}
 
 _SIGNATURES = {
     "attn_half_fwd": (
@@ -61,8 +77,8 @@ _SIGNATURES = {
 }
 _BWD_SIGNATURES = {
     "attn_half_bwd": (
-        [ctypes.c_void_p] * 25 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 26 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+        + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int,
     )
 }
@@ -254,24 +270,49 @@ def scratch_bytes(x: torch.Tensor, num_heads: int, window_size: int) -> dict:
     m = b * hp * wp
     nt = window_size * window_size
     n_win = (hp // window_size) * (wp // window_size)
-    geo = bwd_geometry(b, m, c, n_win, num_heads)
+    geo = bwd_geometry(b, m, c, n_win, num_heads, x.dtype)
     return {
         "xn, om, dqkv (compute type)": m * 5 * c * x.element_size(),
+        "LayerNorm statistics": m * 8 if x.dtype == torch.bfloat16 else 0,
         "dbias partials": geo["attn_chunks"] * n_win * num_heads * nt * nt * 4,
         "weight-gradient partials": geo["w_chunks"] * (4 * c * c + 4 * c) * 4,
         "LayerNorm partials": geo["dx_blocks"] * 2 * c * 4,
     }
 
 
-def bwd_geometry(b: int, m: int, c: int, n_win: int, heads: int) -> dict:
+def bwd_geometry(b: int, m: int, c: int, n_win: int, heads: int,
+                 dtype: torch.dtype = torch.bfloat16) -> dict:
     """How :func:`attn_half_bwd` cuts its work: image chunks of the
-    per-window kernel, token chunks (of 64-token tiles) of the
-    weight-gradient kernel, blocks of the dx kernel."""
-    tiles = (3 * c // 64) * (c // 64) + (c // 64) ** 2
+    per-window attention, token chunks (of 64-token tiles) of the weight
+    gradients, blocks of the dx pass; for bf16 also the blocks of the qkv /
+    do and weight-gradient launches, each launch's ring stages and shared
+    memory (what ``csrc/attn_half_bwd_sm90.cuh`` and the window-attention
+    core ask for)."""
     row_tiles = -(-m // _ROWS)
-    return {"attn_chunks": _chunks(b, _BWD_TARGET_BLOCKS, n_win * heads),
-            "w_chunks": _chunks(row_tiles, _WGRAD_TARGET_BLOCKS, tiles),
-            "dx_blocks": min(row_tiles, _DX_MAX_BLOCKS)}
+    if dtype != torch.bfloat16:
+        tiles = (3 * c // 64) * (c // 64) + (c // 64) ** 2
+        return {"attn_chunks": _chunks(b, _BWD_TARGET_BLOCKS, n_win * heads),
+                "w_chunks": _chunks(row_tiles, _WGRAD_TARGET_BLOCKS, tiles),
+                "dx_blocks": min(row_tiles, _DX_MAX_BLOCKS)}
+    w_tiles = 4 * (c // 128) ** 2
+    m_tiles = -(-m // 128)
+    dx_rows = 128 if c == 128 else 64
+    dx_tiles = -(-m // dx_rows)
+
+    def smem(head, stage, stages):
+        return 1024 + head + stage * stages + 16 * stages
+
+    attn_chunks = _wa._bwd_chunks(b, n_win * heads, _wa._BWD_TARGET_BLOCKS[torch.bfloat16])
+    return {"attn_chunks": attn_chunks, "attn_stages": _wa.SM90_STAGES,
+            "w_chunks": _chunks(row_tiles, _WGRAD_TARGET_BLOCKS_SM90, w_tiles),
+            "w_tiles": w_tiles, "dx_blocks": min(dx_tiles, SMS), "dx_tiles": dx_tiles,
+            "m_tiles": m_tiles,
+            "qkv_blocks": min(m_tiles * (4 * c // 128), SMS),
+            "smem": {"attention": _wa.SM90_SMEM,
+                     "qkv": smem(0, 4 * _BOX, _STAGES_SM90["qkv"]),
+                     "dx": smem(8 * 2 * c * 4 + 2048, dx_rows * 128 + (c // 64) * _BOX,
+                                _STAGES_SM90["dx"]),
+                     "wgrad": smem(1024, 4 * _BOX, _STAGES_SM90["wgrad"])}}
 
 
 def attn_half_bwd(
@@ -309,7 +350,8 @@ def attn_half_bwd(
     m = b * hp * wp
     nt = window_size * window_size
     n_win = (hp // window_size) * (wp // window_size)
-    geo = bwd_geometry(b, m, c, n_win, num_heads)
+    geo = bwd_geometry(b, m, c, n_win, num_heads, x.dtype)
+    sm90 = x.dtype == torch.bfloat16
     dev = x.device
 
     def f32(*shape):
@@ -325,12 +367,15 @@ def attn_half_bwd(
                f32(geo["w_chunks"], 4 * c * c),                      # dwqkv | dwproj partials
                f32(geo["w_chunks"], 4 * c),                          # dbqkv | dbproj partials
                f32(geo["dx_blocks"], 2 * c))                         # dln_g | dln_b partials
+    stats = f32(m, 2) if sm90 else None  # each row's LayerNorm mean and rstd
     lib = _build.load("attn_half_bwd", _BWD_SIGNATURES)
     rc = lib.attn_half_bwd(
         *(_pointer(t) for t in args), dy.data_ptr(), dx.data_ptr(),
-        *(t.data_ptr() for t in grads), *(t.data_ptr() for t in scratch),
+        *(t.data_ptr() for t in grads), *(t.data_ptr() for t in scratch), _pointer(stats),
         b, hp, wp, c, num_heads, window_size, float((c // num_heads) ** -0.5), float(ln_eps),
-        geo["attn_chunks"], geo["w_chunks"], geo["dx_blocks"], code, _build.stream_ptr(dev),
+        geo["attn_chunks"], geo["w_chunks"], geo["dx_blocks"], geo.get("qkv_blocks", 0),
+        geo.get("attn_stages", 0),
+        geo["smem"]["attention"] if sm90 else 0, code, _build.stream_ptr(dev),
     )
     _build.check(lib, rc, "attn_half_bwd")
     attn_half_bwd.launches += 1

@@ -10,10 +10,11 @@ memory, CUDA cores).
 
 ``window_attention_bwd`` replaces ``_bwd_kernel_spatial`` of the same file
 (``csrc/window_attention_bwd.cu``): it recomputes the probabilities from qkv,
-writes dqkv in the spatial layout (bf16: all five products on the tensor
-cores, logits, P and ds in registers; fp32: CUDA cores) and sums the bias
-gradient through per-block partials and a second, ordered reduction kernel,
-so the gradient is the same from run to run.
+writes dqkv in the spatial layout (bf16: ``csrc/window_attention_bwd_sm90.cuh``,
+windows fed by a TMA ring, all five products on wgmma; fp32: CUDA cores) and
+sums the bias gradient through per-block partials and a second, ordered
+reduction kernel, so the gradient is the same from run to run.
+:func:`bwd_geometry` is how the bf16 launch cuts its work.
 ``window_attention`` is the differentiable entry point the model calls: a
 ``torch.autograd.Function`` that saves ``(qkv, bias, mask)`` only, never the
 ``[T, T]`` probabilities.
@@ -39,16 +40,25 @@ _SIGNATURES = {
 }
 _BWD_SIGNATURES = {
     "window_attention_bwd": (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                                      ctypes.c_void_p],
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+           ctypes.c_void_p],
         ctypes.c_int,
     )
 }
 # the backward aims at this many blocks per launch: each block walks a chunk
-# of images for one (window, head) and writes one [T, T] bias-gradient partial
-_BWD_TARGET_BLOCKS = 2048
+# of images for one (window, head) and writes one [T, T] bias-gradient
+# partial.  bf16: one-warpgroup blocks, three an SM, so that each block's
+# TMA ring runs over enough images; fp32 keeps its chunks.
+_BWD_TARGET_BLOCKS = {torch.bfloat16: 512, torch.float32: 2048}
 HEAD_DIM = 32  # the kernel's compiled head width (every Swin stage in the registry)
 MAX_WINDOW = 8  # T = ws*ws <= 64 tokens per window
+# the bf16 backward's ring and shared memory (csrc/window_attention_bwd_sm90.cuh):
+# three blocks an SM
+SM90_STAGES = 2  # images in flight a block
+# 1024 bytes of alignment slack, the ring of q, k, v, do tiles of 64 rows and
+# a barrier a stage, P~ and ds~, the logit terms
+SM90_SMEM = 1024 + SM90_STAGES * (4 * 64 * HEAD_DIM * 2 + 8) + 2 * 64 * 64 * 2 + 128 * 32 * 4
 
 
 def window_attention_plain(
@@ -197,12 +207,34 @@ def window_attention_fwd(
 window_attention_fwd.launches = 0
 
 
-def _bwd_chunks(batch: int, blocks_per_image: int) -> int:
-    """How many image chunks the backward grid gets: enough blocks to fill the
-    card, few enough that the bias-gradient partials stay small."""
-    want = max(1, -(-_BWD_TARGET_BLOCKS // blocks_per_image))
+def _bwd_chunks(batch: int, blocks_per_image: int,
+                target: int = _BWD_TARGET_BLOCKS[torch.float32]) -> int:
+    """How many image chunks the backward grid gets: about ``target``
+    blocks, few enough that the bias-gradient partials stay small, no chunk
+    empty."""
+    want = max(1, -(-target // blocks_per_image))
     per_block = -(-batch // min(batch, want))
     return -(-batch // per_block)
+
+
+def bwd_geometry(b: int, hp: int, wp: int, c: int, heads: int, ws: int,
+                 dtype: torch.dtype = torch.bfloat16) -> dict:
+    """How :func:`window_attention_bwd` cuts its work: one block per (window
+    position, head) and chunk of images.  For bf16 also the TMA ring's
+    stages, the shared memory a block asks for (what the kernel checks) and
+    the byte strides of the two 4-D tensor maps over qkv and dout, which TMA
+    needs in multiples of 16."""
+    n_win = (hp // ws) * (wp // ws)
+    pairs = n_win * heads
+    chunks = _bwd_chunks(b, pairs, _BWD_TARGET_BLOCKS[dtype])
+    per = -(-b // chunks)
+    geo = {"windows": n_win, "pairs": pairs, "chunks": chunks, "images_per_block": per,
+           "blocks": pairs * chunks, "stages": 0, "smem": 0, "tma_strides": ()}
+    if dtype == torch.bfloat16:
+        geo["stages"] = SM90_STAGES
+        geo["smem"] = SM90_SMEM
+        geo["tma_strides"] = tuple(cols * 2 * f for cols in (3 * c, c) for f in (1, wp, wp * hp))
+    return geo
 
 
 def window_attention_bwd(
@@ -235,18 +267,17 @@ def window_attention_bwd(
         raise ValueError("dout must start on a 16-byte boundary")
     code = _build.dtype_code(qkv, "window_attention_bwd")
     nt = window_size * window_size
-    n_win = (hp // window_size) * (wp // window_size)
-    n_chunks = _bwd_chunks(b, n_win * num_heads)
+    geo = bwd_geometry(b, hp, wp, c, num_heads, window_size, qkv.dtype)
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty((num_heads, nt, nt), dtype=torch.float32, device=qkv.device)
-    partial = torch.empty((n_chunks, n_win, num_heads, nt, nt), dtype=torch.float32,
-                          device=qkv.device)
+    partial = torch.empty((geo["chunks"], geo["windows"], num_heads, nt, nt),
+                          dtype=torch.float32, device=qkv.device)
     lib = _build.load("window_attention_bwd", _BWD_SIGNATURES)
     rc = lib.window_attention_bwd(
         qkv.data_ptr(), bias.data_ptr(), mask.data_ptr() if mask is not None else None,
         dout.data_ptr(), dqkv.data_ptr(), partial.data_ptr(), dbias.data_ptr(),
-        b, hp, wp, c, num_heads, window_size, float(scale), n_chunks, code,
-        _build.stream_ptr(qkv.device),
+        b, hp, wp, c, num_heads, window_size, float(scale), geo["chunks"], geo["stages"],
+        geo["smem"], code, _build.stream_ptr(qkv.device),
     )
     _build.check(lib, rc, "window_attention_bwd")
     window_attention_bwd.launches += 1

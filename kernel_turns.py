@@ -21,25 +21,35 @@ in bf16, and some at a call in fp32:
     5'' streamed bf16 Newton-Schulz M [64, 1536, 1536] bf16, 5 steps
     3, 6 in fp32 (off the main paths) at [8, 1, 197, 2304] and [4, 785, 2304]
     2b in fp32 (off the main paths) at [4, 784, 768]
+    1b  window attention backward  qkv [128, 56, 56, 384] H4 ... [128, 7, 7, 3072] H32,
+                                   the four Swin-Base stages, windows of 7, shift 0 and 1
+    4b  fused attention half bwd   x [128, 56, 56, 128] H4 and [128, 28, 28, 256] H8,
+                                   shift 0 and 1
 
 and, in the same turn and process, a library yardstick on the same inputs,
 whose own spread across turns decides whether a kernel is at or under it:
 SDPA (``scaled_dot_product_attention``, forward or backward) for attention,
 autograd of one fp32 ``bmm`` Gram for 2b (part of its work only), and the
 same bf16 iteration on cuBLAS (``bmm``, ``baddbmm``, the kernel's rounding
-points) for 5''.  2b and 5'' are also profiled once a turn (torch.profiler,
-5 calls), which splits their time among the launches inside one call.  Each
+points) for 5'', SDPA's backward on the partitioned windows for 1b (without
+the bias gradient, and again with the float mask a leaf that takes one:
+``library_dbias``), and for 4b autograd of the port's unfused route
+(LayerNorm, ``linear``, kernel 1 / 1b of the same checkout, ``linear``,
+add).  2b, 5'', 1b and 4b are also profiled once a turn (torch.profiler, 5
+calls), which splits their time among the launches inside one call.  Each
 turn hashes what its kernels return at every call (out and lse, dqkv; for 2b
-dc and the token gradients apart), from the same seeded inputs, so the two
+dc and the token gradients apart; for 1b dqkv and dbias apart; for 4b dx and
+each parameter gradient apart), from the same seeded inputs, so the two
 checkouts are compared bit for bit too.
 
 The turns run other, this, this, other, so that drift of the card hits both
 alike.  ``--only`` takes a comma-separated list of kernel names (3, 6, 3b, 6b,
-2b, 5'') and times only their calls.  Prints the card's name and power limit,
-each turn's times, the best of each side, and a last line of JSON {"card":
-..., "shapes": {shape: {"other": [ms, ms], "this": [ms, ms], "library": [ms,
-ms, ms, ms], "same_bits": {part: bool}, "split": {"other": {launch: ms},
-"this": {...}}}}}; --out writes that JSON to a file too.  Needs one GPU.
+2b, 5'', 1b, 4b) and times only their calls.  Prints the card's name and
+power limit, each turn's times, the best of each side, and a last line of
+JSON {"card": ..., "shapes": {shape: {"other": [ms, ms], "this": [ms, ms],
+"library": [ms, ms, ms, ms], "library_dbias": [...] (1b only), "same_bits":
+{part: bool}, "split": {"other": {launch: ms}, "this": {...}}}}}; --out
+writes that JSON to a file too.  Needs one GPU.
 """
 
 from __future__ import annotations
@@ -69,10 +79,24 @@ SHAPES = (("3 [64,1,197,2304] H12", "packed_fwd", 64, 197, 768, 12),
           ("5'' [64,1536,1536] k5", "ns_streamed", 64, 1536, 1536, 0),
           ("3 fp32 [8,1,197,2304] H12 lse", "packed_fwd_lse", 8, 197, 768, 12),
           ("6 fp32 [4,785,2304] H12", "tiled_fwd", 4, 785, 768, 12),
-          ("2b fp32 [4,784,768] x2 dot", "gpf_bwd", 4, 784, 768, 0))
+          ("2b fp32 [4,784,768] x2 dot", "gpf_bwd", 4, 784, 768, 0),
+          ("1b [128,56,56,384] H4 s0", "wa_bwd", 128, 56, 128, 4),
+          ("1b [128,56,56,384] H4 s1", "wa_bwd", 128, 56, 128, 4),
+          ("1b [128,28,28,768] H8 s0", "wa_bwd", 128, 28, 256, 8),
+          ("1b [128,28,28,768] H8 s1", "wa_bwd", 128, 28, 256, 8),
+          ("1b [128,14,14,1536] H16 s0", "wa_bwd", 128, 14, 512, 16),
+          ("1b [128,14,14,1536] H16 s1", "wa_bwd", 128, 14, 512, 16),
+          ("1b [128,7,7,3072] H32 s0", "wa_bwd", 128, 7, 1024, 32),
+          ("4b [128,56,56,128] H4 s0", "ah_bwd", 128, 56, 128, 4),
+          ("4b [128,56,56,128] H4 s1", "ah_bwd", 128, 56, 128, 4),
+          ("4b [128,28,28,256] H8 s0", "ah_bwd", 128, 28, 256, 8),
+          ("4b [128,28,28,256] H8 s1", "ah_bwd", 128, 28, 256, 8))
+WS = 7  # Swin's window
 SOURCES = {"packed": ("packed_attention_fwd", "packed_attention_bwd"),
            "tiled": ("flash_attention_fwd", "flash_attention_bwd"),
-           "gpf": ("gpf_bwd",), "ns": ("newton_schulz_bf16_streamed",)}
+           "gpf": ("gpf_bwd",), "ns": ("newton_schulz_bf16_streamed",),
+           "wa": ("window_attention_bwd",),
+           "ah": ("attn_half_bwd", "window_attention_fwd", "window_attention_bwd")}
 ORDER = ("other", "this", "this", "other")
 NS_ITERS, NS_EPS = 5, 1e-5
 
@@ -180,6 +204,73 @@ def ns_bf16_streamed_library(m):
     return (y.float() / torch.sqrt(tr)).to(m.dtype)
 
 
+def window_bias_mask(g, hp: int, heads: int, shifted: bool):
+    """A Swin block's relative-position bias [H, 49, 49] (its table drawn at
+    std 1, as trained tables reach) and, when shifted, its shift mask."""
+    import torch
+
+    from ego_moment_cle_vit_tpu_torch.models.swin import _attn_mask, _relative_position_index
+
+    nt = WS * WS
+    idx = torch.as_tensor(_relative_position_index(WS).reshape(-1), device="cuda")
+    table = torch.randn((2 * WS - 1) ** 2, heads, generator=g, device="cuda")
+    bias = table[idx].reshape(nt, nt, heads).permute(2, 0, 1).contiguous()
+    mask = (torch.as_tensor(_attn_mask(hp, hp, hp, hp, WS, WS // 2), device="cuda")
+            if shifted else None)
+    return bias, mask
+
+
+def window_sdpa_backward(qkv, bias, mask, heads: int, dbias: bool):
+    """SDPA's backward on the same windows, partitioned beforehand, with bias
+    + mask as its float mask: dq, dk, dv, and with ``dbias`` the mask's
+    gradient too (the mask a leaf that takes one).  A yardstick, never the
+    port's."""
+    import torch
+
+    b, hp, wp, c3 = qkv.shape
+    c = c3 // 3
+    d, nt, nw = c // heads, WS * WS, (hp // WS) * (wp // WS)
+    x = qkv.reshape(b, hp // WS, WS, wp // WS, WS, 3, heads, d)
+    x = x.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, b, nw * heads, nt, d)
+    q, k, v = (x[i].contiguous().requires_grad_() for i in range(3))
+    am = bias[None] + (mask[:, None] if mask is not None else 0.0)
+    am = am.expand(nw, heads, nt, nt).reshape(nw * heads, nt, nt).to(qkv.dtype)
+    leaves = (q, k, v, am.requires_grad_()) if dbias else (q, k, v)
+    o = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=d ** -0.5)
+    do = torch.randn_like(o)
+    return lambda: torch.autograd.grad(o, leaves, do, retain_graph=True)
+
+
+def attn_half_inputs(g, batch: int, hp: int, c: int, heads: int, shifted: bool, dtype) -> tuple:
+    """(x, ln_g, ln_b, wqkv, bqkv, wproj, bproj, bias, mask) for one fused
+    Swin block: LayerNorm parameters near their init, Dense weights at lecun
+    scale, the bias table at std 1."""
+    import torch
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * scale
+
+    bias, mask = window_bias_mask(g, hp, heads, shifted)
+    return (randn(batch, hp, hp, c).to(dtype), 1.0 + randn(c, scale=0.1), randn(c, scale=0.1),
+            randn(3 * c, c, scale=c ** -0.5).to(dtype), randn(3 * c, scale=0.1).to(dtype),
+            randn(c, c, scale=c ** -0.5).to(dtype), randn(c, scale=0.1).to(dtype), bias, mask)
+
+
+def attention_half_unfused(args: tuple, heads: int):
+    """The port's default route for a fused block: LayerNorm, Dense, kernel 1
+    (1b under autograd), Dense, add."""
+    import torch
+
+    from ego_moment_cle_vit_tpu_torch.kernels.window_attention import window_attention
+
+    x, ln_g, ln_b, wqkv, bqkv, wproj, bproj, bias, mask = args
+    c = x.shape[-1]
+    xn = torch.nn.functional.layer_norm(x.float(), (c,), ln_g, ln_b, 1e-5).to(x.dtype)
+    qkv = torch.nn.functional.linear(xn, wqkv, bqkv)
+    om = window_attention(qkv, bias, mask, heads, WS, (c // heads) ** -0.5)
+    return x + torch.nn.functional.linear(om, wproj, bproj)
+
+
 def worker(only: set) -> None:
     """One turn: time every shape with the port of the working directory (put
     ahead of this script's own directory, which Python searches first)."""
@@ -187,10 +278,12 @@ def worker(only: set) -> None:
     import torch
 
     from ego_moment_cle_vit_tpu_torch.kernels import _build
+    from ego_moment_cle_vit_tpu_torch.kernels import attn_half as ah
     from ego_moment_cle_vit_tpu_torch.kernels import flash_attention as fa
     from ego_moment_cle_vit_tpu_torch.kernels import gpf
     from ego_moment_cle_vit_tpu_torch.kernels import newton_schulz as ns
     from ego_moment_cle_vit_tpu_torch.kernels import packed_attention as pa
+    from ego_moment_cle_vit_tpu_torch.kernels import window_attention as wa
 
     shapes = [s for s in SHAPES if kernel_of(s[0]) in only]
     sources = {src for _, kind, *_ in shapes for src in SOURCES[kind.split("_")[0]]}
@@ -204,8 +297,29 @@ def worker(only: set) -> None:
     res = {}
     for name, kind, b, t, c, h in shapes:
         dtype = torch.float32 if "fp32" in name else torch.bfloat16
-        split = None
-        if kind == "gpf_bwd":
+        split = lib_dbias = None
+        if kind == "wa_bwd":
+            bias, mask = window_bias_mask(g, t, h, name.endswith("s1"))
+            qkv = torch.randn(b, t, t, 3 * c, generator=g, device="cuda").to(dtype)
+            dout = torch.randn(b, t, t, c, generator=g, device="cuda").to(dtype)
+            fn = lambda: wa.window_attention_bwd(qkv, bias, mask, dout, h, WS,  # noqa: E731
+                                                 (c // h) ** -0.5)
+            lib = window_sdpa_backward(qkv, bias, mask, h, dbias=False)
+            lib_dbias = window_sdpa_backward(qkv, bias, mask, h, dbias=True)
+            dqkv, dbias = fn()
+            digests = {"dqkv": digest(dqkv), "dbias": digest(dbias)}
+            split = launch_split(fn)
+        elif kind == "ah_bwd":
+            args = attn_half_inputs(g, b, t, c, h, name.endswith("s1"), dtype)
+            dy = torch.randn(args[0].shape, generator=g, device="cuda").to(dtype)
+            fn = lambda: ah.attn_half_bwd(*args, dy, h, WS)  # noqa: E731
+            leaves = [x.detach().clone().requires_grad_() for x in args[:8]]
+            y = attention_half_unfused((*leaves, args[8]), h)
+            lib = lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)  # noqa: E731
+            names = ("dx", "dln_g", "dln_b", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias")
+            digests = dict(zip(names, (digest(r) for r in fn())))
+            split = launch_split(fn)
+        elif kind == "gpf_bwd":
             ta = torch.randn(b, t, c, generator=g, device="cuda").to(dtype)
             tp = torch.randn(b, t, c, generator=g, device="cuda").to(dtype)
             coeffs = torch.nn.functional.softplus(torch.rand(3, 3, generator=g, device="cuda")
@@ -248,7 +362,9 @@ def worker(only: set) -> None:
             digests = {"out": digest(fn())}
         res[name] = {"ms": time_ms(fn), "library": time_ms(lib), "digests": digests,
                      "split": split}
-        del fn, lib
+        if lib_dbias is not None:
+            res[name]["library_dbias"] = time_ms(lib_dbias)
+        del fn, lib, lib_dbias
         torch.cuda.empty_cache()
     print(json.dumps(res), flush=True)
 
@@ -256,7 +372,7 @@ def worker(only: set) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", help="another checkout of the repository")
-    ap.add_argument("--only", default="3,6,3b,6b,2b,5''",
+    ap.add_argument("--only", default="3,6,3b,6b,2b,5'',1b,4b",
                     help="comma-separated kernels to time (default: all)")
     ap.add_argument("--out", help="also write the JSON result here")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
@@ -304,6 +420,8 @@ def main() -> int:
             r = result["shapes"][name]
             r[turn].append(times[name]["ms"])
             r["library"].append(times[name]["library"])
+            if "library_dbias" in times[name]:
+                r.setdefault("library_dbias", []).append(times[name]["library_dbias"])
             if times[name]["split"] is not None:
                 r["split"].setdefault(turn, times[name]["split"])
             for part, hexd in times[name]["digests"].items():
@@ -319,7 +437,9 @@ def main() -> int:
         print(f"{name}: other {min(t['other']):.4f} ms, this {min(t['this']):.4f} ms "
               f"(this / other {min(t['this']) / min(t['other']):.3f}); library "
               f"{min(t['library']):.4f}-{max(t['library']):.4f} ms (this / best library "
-              f"{min(t['this']) / min(t['library']):.3f})")
+              f"{min(t['this']) / min(t['library']):.3f})"
+              + (f"; library with dbias {min(t['library_dbias']):.4f}-"
+                 f"{max(t['library_dbias']):.4f} ms" if "library_dbias" in t else ""))
         for turn, split in t["split"].items():
             print(f"{name}: {turn} launches a call: "
                   + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(split.items(),

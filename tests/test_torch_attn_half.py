@@ -361,3 +361,27 @@ def test_backward_geometry_leaves_no_chunk_empty(b, hp, c, heads):
     sizes = tah.scratch_bytes(x, heads, WS)
     assert sizes["xn, om, dqkv (compute type)"] == m * 5 * c * 2
     assert sizes["dbias partials"] == geo["attn_chunks"] * n_win * heads * 49 * 49 * 4
+
+
+@pytest.mark.parametrize("b, hp, c, heads", [(3, 21, 128, 4), (2, 14, 256, 8), (5, 35, 128, 4)])
+def test_chunked_weight_gradient_sums_equal_the_whole_product(b, hp, c, heads):
+    """Kernel 4b's weight and bias gradients as its bf16 path sums them: one
+    fp32 partial per chunk of 64-token tiles (the geometry's chunks), the
+    partials added in chunk order, against the product over all tokens at
+    once: within 1e-5 of the largest entry."""
+    m = b * hp * hp
+    geo = tah.bwd_geometry(b, m, c, (hp // WS) ** 2, heads)
+    rng = np.random.default_rng(7)
+    # operands as the kernel reads them: bf16 values, fp32 sums
+    dqkv = torch.from_numpy(rng.normal(size=(m, 3 * c))).to(torch.bfloat16).float()
+    xn = torch.from_numpy(rng.normal(size=(m, c))).to(torch.bfloat16).float()
+    per = -(-(-(-m // 64)) // geo["w_chunks"]) * 64
+    dw = torch.zeros(3 * c, c)
+    db = torch.zeros(3 * c)
+    for chunk in range(geo["w_chunks"]):
+        rows = slice(chunk * per, min(m, (chunk + 1) * per))
+        dw = dw + dqkv[rows].T @ xn[rows]
+        db = db + dqkv[rows].sum(dim=0)
+    whole_w, whole_b = dqkv.T @ xn, dqkv.sum(dim=0)
+    assert ((dw - whole_w).abs().max() / whole_w.abs().max()).item() <= 1e-5
+    assert ((db - whole_b).abs().max() / whole_b.abs().max()).item() <= 1e-5

@@ -45,6 +45,12 @@ fp32 sum landing on the other side of a rounding moves an ulp through the
 proj product, then y rounds); the bias omitted and the residual dropped fall
 outside.  Backward: dx as the forward; every parameter gradient within 1e-3
 (fp32) / 2e-2 (bf16) of its largest entry; two runs give the same bits.
+
+The Hopper window-attention backward (1b) is also held at the four
+Swin-Base stage geometries, a padded Swin-Large canvas and windows of 4 and
+8, and the fused half's backward (4b) at token counts that are not
+multiples of its 128-row tiles, both at the tolerances above; their bf16
+kernels' SASS holds HGMMA and their fp32 bodies' does not.
 """
 
 import pytest
@@ -827,3 +833,80 @@ def test_cuda_attn_half_rejects_bad_inputs(cuda_device):
     with pytest.raises(TypeError, match="not supported"):
         tah.attn_half_fwd(args[0].double(), *args[1:3], *(t.double() for t in args[3:7]),
                           *args[7:], 4, WS)
+
+
+# the window-attention backward's Hopper kernel (1b): the four Swin-Base stage
+# geometries at a small batch, a padded Swin-Large canvas (84 = 12 windows of
+# 7, the pad sentinel in the mask), and windows of 4 and 8 with tables and
+# masks drawn at random: (B, Hp, C, heads, ws)
+WA_BWD_SM90 = [(3, 56, 128, 4, 7), (4, 28, 256, 8, 7), (5, 14, 512, 16, 7), (6, 7, 1024, 32, 7),
+               (2, 84, 576, 18, 7), (3, 16, 128, 4, 4), (2, 24, 64, 2, 8), (9, 8, 96, 3, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, atol, rtol, btol", [(torch.float32, 1e-4, 1e-4, 1e-3),
+                                                     (torch.bfloat16, 2e-2, 2.0**-6, 2e-2)])
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("b, hp, c, heads, ws", WA_BWD_SM90)
+def test_cuda_window_attention_bwd_sm90_shapes(cuda_device, dtype, atol, rtol, btol, b, hp, c,
+                                               heads, ws, shifted):
+    g = torch.Generator(device=cuda_device).manual_seed(hp * 131 + ws)
+    nt, nw = ws * ws, (hp // ws) ** 2
+    qkv = torch.randn(b, hp, hp, 3 * c, generator=g, device=cuda_device).to(dtype)
+    dout = torch.randn(b, hp, hp, c, generator=g, device=cuda_device).to(dtype)
+    if ws == WS:
+        table = torch.randn((2 * WS - 1) ** 2, heads, generator=g, device=cuda_device)
+        idx = torch.as_tensor(_relative_position_index(WS).reshape(-1), device=cuda_device)
+        bias = table[idx].reshape(nt, nt, heads).permute(2, 0, 1).contiguous()
+        h = hp - 4 if hp == 84 else hp  # Swin-Large/1280 stage 2: 80 tokens padded to 84
+        mask = (torch.as_tensor(_attn_mask(h, h, hp, hp, WS, 3 if shifted else 0),
+                                device=cuda_device) if shifted or h != hp else None)
+    else:
+        bias = torch.randn(heads, nt, nt, generator=g, device=cuda_device)
+        mask = (torch.randn(nw, nt, nt, generator=g, device=cuda_device) * 3 if shifted else None)
+    args = (qkv, bias, mask, dout, heads, ws, (c // heads) ** -0.5)
+    dqkv, dbias = twa.window_attention_bwd(*args)
+    ref_dqkv, ref_dbias = twa.window_attention_bwd_plain(*args)
+    assert _close(dqkv, ref_dqkv, atol, rtol)
+    assert (dbias - ref_dbias).abs().max().item() <= btol * ref_dbias.abs().max().item()
+    again = twa.window_attention_bwd(*args)
+    assert torch.equal(again[0], dqkv) and torch.equal(again[1], dbias)
+
+
+# the fused attention half's backward (4b) where its tiles end: token counts
+# that are not multiples of 128 (441, 588, 1225) at both widths
+ATTN_HALF_SM90 = [(1, 21, 128, 4), (3, 14, 256, 8), (1, 35, 256, 8), (2, 28, 128, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, atol, rtol, gtol", [(torch.float32, 1e-4, 1e-4, 1e-3),
+                                                     (torch.bfloat16, 3e-2, 2.0**-6, 2e-2)])
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("b, hp, c, heads", ATTN_HALF_SM90)
+def test_cuda_attn_half_bwd_sm90_shapes(cuda_device, dtype, atol, rtol, gtol, b, hp, c, heads,
+                                        shifted):
+    args, dy = _attn_half_inputs(cuda_device, dtype, b, hp, c, heads, shifted)
+    got = tah.attn_half_bwd(*args, dy, heads, WS)
+    ref = tah.attn_half_bwd_plain(*args, dy, heads, WS)
+    assert _close(got[0], ref[0], atol, rtol)
+    for a, r in zip(got[1:], ref[1:]):
+        assert (a - r).abs().max().item() <= gtol * r.abs().max().item()
+    assert all(torch.equal(a, r) for a, r in zip(tah.attn_half_bwd(*args, dy, heads, WS), got))
+
+
+@pytest.mark.cuda
+def test_cuda_window_and_attn_half_bwd_hold_wgmma(cuda_device):
+    """1b's and 4b's bf16 kernels issue HGMMA; their fp32 bodies do not."""
+    from ego_moment_cle_vit_tpu_torch.kernels import _build
+
+    paths = _build.build(("window_attention_bwd", "attn_half_bwd"))
+    fns = {**_sass_functions(paths["window_attention_bwd"]),
+           **_sass_functions(paths["attn_half_bwd"])}
+    wgmma = {name: "HGMMA" in sass for name, sass in fns.items()}
+    for key in ("window_attention_bwd_sm90", "ah_bwd_qkv_do", "ah_bwd_dx", "ah_bwd_wgrad"):
+        hits = [has for name, has in wgmma.items() if key in name]
+        assert hits and all(hits), (key, wgmma)
+    for key in ("window_attention_bwd_f32", "attn_half_bwd_attention", "attn_half_bwd_dx",
+                "attn_half_bwd_wgrad", "attn_half_bwd_layer_norm"):
+        hits = [has for name, has in wgmma.items() if key in name]
+        assert hits and not any(hits), (key, wgmma)
