@@ -9,10 +9,10 @@ Phases (any failed check exits non-zero; no phase catches and continues):
 1. Setup: card name and power limit, kernel build from ``csrc/`` (seconds),
    ptxas's register, spill and wgmma notes (a C7511 note says a wgmma was
    serialized), and the SASS of the Hopper kernels (the bf16 attention
-   forward and backward 3, 6, 3b, 6b, the GPF backward 2b, the streamed bf16
-   Newton-Schulz 5″, the window-attention backward 1b and the fused
-   attention half's backward 4b) read for their wgmma (HGMMA) instructions,
-   which must be there.
+   forward and backward 3, 6, 3b, 6b, the GPF forward 2 and backward 2b, the
+   streamed bf16 Newton-Schulz 5″, the window-attention forward 1 and
+   backward 1b and the fused attention half's backward 4b) read for their
+   wgmma (HGMMA) instructions, which must be there.
 2. Kernels against their plain PyTorch versions on the card.  Forward, at the
    serving paths' shapes for batch 64: window attention at the four Swin-Base
    stage geometries (shifted and unshifted, bf16 and fp32), packed-layout
@@ -21,7 +21,8 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    [64, 49, 1024], [64, 196, 768] and [64, 784, 768] (dot and cosine, bf16 and
    fp32), with
    errors, kernel / plain / library times from CUDA events and the
-   bytes-or-operations bound.  Backward, at the training paths' shapes: both
+   bytes-or-operations bound (for GPF the least work, the upper triangle of
+   its Grams, beside the full Grams' figure).  Backward, at the training paths' shapes: both
    attentions for batch 128 (two views of 64) with a random output cotangent
    (window attention beside SDPA's backward with the bias gradient, the same
    function, and without it),
@@ -117,10 +118,13 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    version; control: four iterations; the other grouping printed; TFLOP/s
    beside the cuBLAS iteration's), the
    window attention at Swin-Large stage 0's padded canvas [8, 322, 322, 576]
-   with the pad sentinel in the mask (control: the sentinel removed), q-tiled
+   with the pad sentinel in the mask (control: the sentinel removed) and
+   timed at batch 64 on every Swin-Large/1280 stage, summed over a forward's
+   24 launches beside their bytes bound, q-tiled
    attention at [64, 1025, 3072] with 16 heads and its backward at batch 128
    (bf16, the plain version on the first 16 images), GPF at [64, 1024, 1024] and
-   [64, 1600, 1536] and its backward at [64, 1024, 1024], and the iSQRT's
+   [64, 1600, 1536] and its backward at [64, 1024, 1024] and [64, 1600,
+   1536] (the plain version at the same batch), and the iSQRT's
    backward (autograd over the plain fp32 iteration) at [64, 1024, 1024].
 6. A JSON line of the thirteen kernels, then the contract's last line.
 """
@@ -225,6 +229,12 @@ SWINL1280_FLAGSHIP["model"]["backbone_name"] = "swin_large_patch4_window7_224"
 SWINL1280_FLAGSHIP["data"] = {"input_size": 1280, "resize_size": 1463}
 SWINL_N, SWINL_C = 1600, 1536
 SWINL_STAGE0 = (320, 322, 192, 6)  # canvas, padded canvas, C, heads
+# every Swin-Large/1280 stage: canvas, padded canvas, C, heads, blocks
+SWINL_STAGES = (SWINL_STAGE0 + (2,), (160, 161, 384, 12, 2), (80, 84, 768, 24, 18),
+                (40, 42, 1536, 48, 2))
+# images a plain window-attention call takes at Swin-Large/1280 stage 0: its
+# fp32 probabilities [8, 2116, 6, 49, 49] are 0.98 GB
+PLAIN_SLICE = 8
 TRAIN_STEPS_PER_EPOCH = 100
 # tolerances, kernel vs plain on the card, per element.  Window attention:
 # |err| <= atol + rtol |ref|; fp32 differs by sum order only, bf16 by P rounded
@@ -815,16 +825,21 @@ def check_gpf(g: torch.Generator, n: int, d: int) -> dict:
                 l_ms = time_ms(lambda: torch.bmm(tf, tf.transpose(1, 2)), reps=10, samples=3)
                 n_in = 1 if same else 2
                 nbytes = n_in * ta.numel() * ta.element_size() + BATCH * n * n * 4 + 36
-                flops = n_in * 2.0 * BATCH * n * n * d
+                # the least work is the upper triangle of each symmetric Gram
+                # (diagonal included); the full Gram's figure is kept beside it
+                flops = n_in * 2.0 * BATCH * d * n * (n + 1) / 2
                 b_ms, kind = bound_ms(nbytes, flops, dtype)
+                full_ms, full_kind = bound_ms(nbytes, n_in * 2.0 * BATCH * n * n * d, dtype)
                 log(f"  gpf [{BATCH},{n},{d}] {sim} same_tokens={int(same)} {str(dtype)[6:]}: "
                     f"max_abs_err={err:.3e} err/tol={excess:.4f} (tol {TOL_GPF} x "
                     f"gpf_error_scale) control err/tol={ctrl_excess:.3e} kernel_ms={k_ms:.4f} "
                     f"plain_ms={p_ms:.4f} library_ms(bmm Gram)={l_ms:.4f} "
-                    f"bound_ms={b_ms:.4f} ({kind})")
+                    f"bound_ms={b_ms:.4f} ({kind}; upper triangle) full-Gram "
+                    f"bound_ms={full_ms:.4f} ({full_kind})")
                 if dtype == torch.bfloat16 and sim == "dot" and same:  # the serving call
                     main = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                            "library_ms": l_ms, "bound_ms": b_ms, "bound_by": kind}
+                            "library_ms": l_ms, "bound_ms": b_ms, "bound_by": kind,
+                            "full_gram_bound_ms": full_ms}
     # max_abs_err is the serving call's, in its own units (dot Grams of
     # unit-variance tokens reach ~1e12 on the diagonal after the degree-4
     # terms); err_over_tol is the worst over every check
@@ -1570,69 +1585,95 @@ def time_newton_schulz_bwd(g: torch.Generator) -> float:
 
 
 def check_window_attention_padded(g: torch.Generator) -> dict:
-    """Kernel 1 at Swin-Large/1280 stage 0's padded canvas: qkv [8, 322, 322,
-    576], 6 heads of 32, unshifted and shifted, both masks holding the pad
-    sentinel (320 real rows and columns of 322), bf16 and fp32.  Control: the
-    mask without the pad sentinel, under which real queries see pad keys."""
+    """Kernel 1 at the Swin-Large/1280 serving path's own launches: batch 64
+    on every stage's padded canvas (322 / 161 / 84 / 42 for 320 / 160 / 80 /
+    40 real rows, C 192 .. 1536), unshifted and shifted, both masks holding
+    the pad sentinel, bf16 and fp32.  Each launch is held against the plain
+    version on the same qkv in slices of PLAIN_SLICE images (where the plain
+    version's [B, nW, H, 49, 49] probabilities fit).  Control: the mask
+    without the pad sentinel, under which real queries see pad keys (on the
+    first slice).  The bf16 launches are then timed, beside SDPA on the same
+    inputs and the bytes each must move, and summed over a forward's 24."""
     dev = torch.device("cuda")
-    h, hp, c, heads = SWINL_STAGE0
-    batch, nt = 8, WS * WS
+    nt = WS * WS
     idx = torch.as_tensor(_relative_position_index(WS).reshape(-1), device=dev)
-    table = torch.randn((2 * WS - 1) ** 2, heads, generator=g, device=dev) * BIAS_TABLE_STD
-    bias = table[idx].reshape(nt, nt, heads).permute(2, 0, 1).contiguous()
-    scale = (c // heads) ** -0.5
-    max_err, min_control, timed, library = 0.0, math.inf, {}, {}
-    for shift in (0, WS // 2):
-        mask = torch.as_tensor(_attn_mask(h, h, hp, hp, WS, shift), device=dev)
-        no_pad = _attn_mask(hp, hp, hp, hp, WS, shift)
-        no_pad = None if no_pad is None else torch.as_tensor(no_pad, device=dev)
+    max_err, max_excess, min_control = 0.0, 0.0, math.inf
+    stage0_ms, total = {}, {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    for stage, (h, hp, c, heads, blocks) in enumerate(SWINL_STAGES):
+        table = torch.randn((2 * WS - 1) ** 2, heads, generator=g, device=dev) * BIAS_TABLE_STD
+        bias = table[idx].reshape(nt, nt, heads).permute(2, 0, 1).contiguous()
+        scale, d, nw = (c // heads) ** -0.5, c // heads, (hp // WS) ** 2
+        qkv32 = torch.randn(BATCH, hp, hp, 3 * c, generator=g, device=dev)
         for dtype in (torch.bfloat16, torch.float32):
-            qkv = torch.randn(batch, hp, hp, 3 * c, generator=g, device=dev).to(dtype)
-            args = (qkv, bias, mask, heads, WS, scale)
-            out = WA_KERNEL(*args)
-            ref = _wa.window_attention_plain(*args)
-            torch.cuda.synchronize()
-            what = f"window attention padded {hp}x{hp} C={c} shift={shift} {dtype}"
-            err = (out.float() - ref.float()).abs().max().item()
-            excess = wa_excess(out, ref, dtype)
-            if not math.isfinite(excess) or excess > 1.0:
-                fail(f"{what}: error {excess:.3f}x its tolerance {TOL_WA[dtype]} "
-                     f"(max abs err {err})")
-            max_err = max(max_err, err)
-            ctrl = _wa.window_attention_plain(qkv, bias, no_pad, heads, WS, scale)
-            ctrl_excess = wa_excess(ctrl, ref, dtype)
-            if ctrl_excess <= 1.0:
-                fail(f"{what}: the control (pad sentinel removed) passes the check")
-            min_control = min(min_control, ctrl_excess)
-            msg = (f"  window_attention padded [{batch},{hp},{hp},{3 * c}] H={heads} "
-                   f"shift={shift} {str(dtype)[6:]}: max_abs_err={err:.3e} err/tol={excess:.3f} "
-                   f"(tol atol+rtol|ref| {TOL_WA[dtype]}) control (pad sentinel removed) "
-                   f"err/tol={ctrl_excess:.1f}")
-            if dtype == torch.bfloat16:
-                k_ms = time_ms(lambda: WA_KERNEL(*args), reps=5, samples=3)
-                nbytes = qkv.numel() * qkv.element_size() * 4 / 3 + bias.numel() * 4 + \
-                    mask.numel() * 4
-                b_ms, kind = bound_ms(nbytes, 4.0 * batch * (hp // WS) ** 2 * heads * nt * nt
-                                      * (c // heads), dtype)
-                # library yardstick, as in check_window_attention: SDPA on
-                # pre-partitioned q / k / v, bias + mask as a float mask
-                nw, d = (hp // WS) ** 2, c // heads
-                x = qkv.reshape(batch, hp // WS, WS, hp // WS, WS, 3, heads, d)
-                x = x.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, batch, nw * heads, nt, d)
-                q, k, v = x[0].contiguous(), x[1].contiguous(), x[2].contiguous()
-                am = (bias[None] + mask[:, None]).reshape(nw * heads, nt, nt).to(dtype)
-                l_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, attn_mask=am, scale=scale), reps=5, samples=3)
-                msg += (f" kernel_ms={k_ms:.4f} library_ms(SDPA)={l_ms:.4f} bound_ms={b_ms:.4f} "
-                        f"({kind})")
-                timed[shift] = k_ms
-                library[shift] = l_ms
-                del x, q, k, v, am
-            log(msg)
-            del qkv, out, ref, ctrl, args
+            qkv = qkv32.to(dtype)
+            for shift in (0, WS // 2):
+                mask = torch.as_tensor(_attn_mask(h, h, hp, hp, WS, shift), device=dev)
+                no_pad = _attn_mask(hp, hp, hp, hp, WS, shift)
+                no_pad = None if no_pad is None else torch.as_tensor(no_pad, device=dev)
+                args = (qkv, bias, mask, heads, WS, scale)
+                out = WA_KERNEL(*args)
+                what = (f"window attention Swin-Large/1280 [{BATCH},{hp},{hp},{3 * c}] "
+                        f"shift={shift} {dtype}")
+                err, excess = 0.0, 0.0
+                for i in range(0, BATCH, PLAIN_SLICE):
+                    part = (qkv[i:i + PLAIN_SLICE],) + args[1:]
+                    ref = _wa.window_attention_plain(*part)
+                    err = max(err, (out[i:i + PLAIN_SLICE].float() - ref.float()).abs()
+                              .max().item())
+                    excess = max(excess, wa_excess(out[i:i + PLAIN_SLICE], ref, dtype))
+                    if i == 0:
+                        ctrl = _wa.window_attention_plain(part[0], bias, no_pad, heads, WS,
+                                                          scale)
+                        ctrl_excess = wa_excess(ctrl, ref, dtype)
+                        del ctrl
+                    del ref
+                if not math.isfinite(excess) or excess > 1.0:
+                    fail(f"{what}: error {excess:.3f}x its tolerance {TOL_WA[dtype]} "
+                         f"(max abs err {err})")
+                if ctrl_excess <= 1.0:
+                    fail(f"{what}: the control (pad sentinel removed) passes the check")
+                max_err, max_excess = max(max_err, err), max(max_excess, excess)
+                min_control = min(min_control, ctrl_excess)
+                msg = (f"  window_attention Swin-Large/1280 [{BATCH},{hp},{hp},{3 * c}] "
+                       f"H={heads} shift={shift} {str(dtype)[6:]}: max_abs_err={err:.3e} "
+                       f"err/tol={excess:.3f} (tol atol+rtol|ref| {TOL_WA[dtype]}, plain "
+                       f"version in slices of {PLAIN_SLICE}) control (pad sentinel removed) "
+                       f"err/tol={ctrl_excess:.1f}")
+                del out
+                if dtype == torch.bfloat16:
+                    k_ms = time_ms(lambda: WA_KERNEL(*args), reps=5, samples=3)
+                    nbytes = qkv.numel() * qkv.element_size() * 4 / 3 + bias.numel() * 4 + \
+                        mask.numel() * 4
+                    b_ms, kind = bound_ms(nbytes, 4.0 * BATCH * nw * heads * nt * nt * d, dtype)
+                    # library yardstick, as in check_window_attention: SDPA on
+                    # pre-partitioned q / k / v, bias + mask as a float mask
+                    x = qkv.reshape(BATCH, hp // WS, WS, hp // WS, WS, 3, heads, d)
+                    x = x.permute(5, 0, 1, 3, 6, 2, 4, 7)
+                    q, k, v = (x[j].reshape(BATCH, nw * heads, nt, d) for j in range(3))
+                    am = (bias[None] + mask[:, None]).reshape(nw * heads, nt, nt).to(dtype)
+                    l_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q, k, v, attn_mask=am, scale=scale), reps=5, samples=3)
+                    del x, q, k, v, am
+                    msg += (f" kernel_ms={k_ms:.4f} library_ms(SDPA)={l_ms:.4f} "
+                            f"bound_ms={b_ms:.4f} ({kind}) launches/forward={blocks // 2} "
+                            f"({k_ms / b_ms:.2f}x its bound)")
+                    if stage == 0:
+                        stage0_ms[shift] = k_ms
+                    total["ms"] += blocks // 2 * k_ms
+                    total["bound_ms"] += blocks // 2 * b_ms
+                    total["library_ms"] += blocks // 2 * l_ms
+                log(msg)
+                del args
+            del qkv
+        del qkv32
         torch.cuda.empty_cache()
     log(f"  padded window attention controls: smallest err/tol {min_control:.1f} (must be > 1)")
-    return {"max_abs_err": max_err, "ms": timed, "library_ms": library}
+    log(f"  window_attention Swin-Large/1280 a forward at batch {BATCH}: "
+        f"{sum(b for *_, b in SWINL_STAGES)} launches, {total['ms']:.3f} ms against a "
+        f"{total['bound_ms']:.3f} ms bound ({total['ms'] / total['bound_ms']:.2f}x); "
+        f"SDPA on the same inputs {total['library_ms']:.3f} ms")
+    return {"max_abs_err": max_err, "err_over_tol": max_excess, "stage0_ms": stage0_ms,
+            **total}
 
 
 # the fused attention half at Swin-Base's stages 0 and 1, the blocks that
@@ -2415,11 +2456,12 @@ def main() -> int:
 
     # the Hopper kernels run on wgmma: their SASS holds HGMMA (the bf16
     # attention 3, 6, 3b, 6b; 2b's bf16 w and dX kernels; 5″'s GEMM; 1b's
-    # window-attention core; 4b's qkv / do, dx and weight-gradient products)
+    # window-attention core; 4b's qkv / do, dx and weight-gradient products;
+    # the bf16 forwards of 1 and 2)
     cuobjdump = shutil.which("cuobjdump") or str(Path(_build.nvcc_path()).parent / "cuobjdump")
     for name in ("packed_attention_fwd", "flash_attention_fwd", "packed_attention_bwd",
                  "flash_attention_bwd", "gpf_bwd", "newton_schulz_bf16_streamed",
-                 "window_attention_bwd", "attn_half_bwd"):
+                 "window_attention_bwd", "attn_half_bwd", "window_attention_fwd", "gpf_fwd"):
         if not os.path.exists(cuobjdump):
             log(f"  {name}: cuobjdump not found, SASS not read")
             continue
@@ -2454,6 +2496,7 @@ def main() -> int:
     gpb_vit = check_gpf_bwd(g, VIT_T - 1, VIT_C)
     gpb_448 = check_gpf_bwd(g, VIT448_T - 1, VIT_C)
     gpb_vitl = check_gpf_bwd(g, VITL_T - 1, VITL_C)
+    gpb_swinl = check_gpf_bwd(g, SWINL_N, SWINL_C)
     fab = check_flash_attention_bwd(g)
     fab_vitl = check_flash_attention_bwd(g, VITL_T, VITL_C, VITL_H, VITL_DEPTH, plain_batch=16)
     occ_fwd = _fa.fwd_occupancy()
@@ -2534,7 +2577,8 @@ def main() -> int:
     src = "ego_moment_cle_vit_tpu_torch/csrc/"
 
     def other_gpf(prefix: str, res: dict) -> dict:
-        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms", "launch_ms")
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms", "launch_ms",
+                "full_gram_bound_ms")
         return {f"{prefix}_{k}": res[k] for k in keys if k in res}
 
     def ns_row(name: str, variant: str, source: str, replaces: str, launches: int) -> dict:
@@ -2554,8 +2598,11 @@ def main() -> int:
          "library_ms": wa["library_ms"], "train_ms": wab["fwd_ms"],
          "swinL1280_launches": srv_swinl["launches"]["window_attention_fwd"],
          "swinL1280_padded_max_abs_err": wa_pad["max_abs_err"],
-         "swinL1280_stage0_padded_ms_b8": wa_pad["ms"],
-         "swinL1280_stage0_padded_library_ms_b8": wa_pad["library_ms"]},
+         "swinL1280_padded_err_over_tol": wa_pad["err_over_tol"],
+         "swinL1280_stage0_padded_ms_b64": wa_pad["stage0_ms"],
+         "swinL1280_forward_ms_b64": wa_pad["ms"],
+         "swinL1280_forward_bound_ms_b64": wa_pad["bound_ms"],
+         "swinL1280_forward_library_ms_b64": wa_pad["library_ms"]},
         {"name": "window_attention_bwd", "route": "cuda",
          "source": src + "window_attention_bwd.cu",
          "replaces": WA_BWD_REPLACES, "launches": trn["launches"]["window_attention_bwd"],
@@ -2571,6 +2618,7 @@ def main() -> int:
          "err_over_tol": max(gp["err_over_tol"], gp_vit["err_over_tol"], gp_448["err_over_tol"]),
          "ms": gp_vit["ms"], "plain_ms": gp_vit["plain_ms"],
          "bound_ms": gp_vit["bound_ms"], "bound_by": gp_vit["bound_by"],
+         "full_gram_bound_ms": gp_vit["full_gram_bound_ms"],
          "library_ms": gp_vit["library_ms"], "train_ms": gpb_vit["fwd_ms"],
          **other_gpf("swin", gp), "swin_train_ms": gpb["fwd_ms"],
          **other_gpf("vit448", gp_448), "vit448_train_ms": gpb_448["fwd_ms"],
@@ -2583,12 +2631,14 @@ def main() -> int:
          "swin_launches": trn["launches"]["gpf_bwd"],
          "max_abs_err": gpb_vit["max_abs_err"],
          "err_over_tol": max(gpb["err_over_tol"], gpb_vit["err_over_tol"],
-                             gpb_448["err_over_tol"]),
+                             gpb_448["err_over_tol"], gpb_vitl["err_over_tol"],
+                             gpb_swinl["err_over_tol"]),
          "ms": gpb_vit["ms"], "plain_ms": gpb_vit["plain_ms"], "bound_ms": gpb_vit["bound_ms"],
          "bound_by": gpb_vit["bound_by"], "library_ms": gpb_vit["library_ms"],
          "launch_ms": gpb_vit["launch_ms"],
          **other_gpf("swin", gpb), **other_gpf("vit448", gpb_448),
-         **other_gpf("vitL512", gpb_vitl), "vitL512_launches": trn_vitl["launches"]["gpf_bwd"]},
+         **other_gpf("vitL512", gpb_vitl), "vitL512_launches": trn_vitl["launches"]["gpf_bwd"],
+         **other_gpf("swinL1280", gpb_swinl)},
         {"name": "packed_attention_fwd", "route": "cuda",
          "source": src + "packed_attention_fwd.cu",
          "replaces": PA_REPLACES, "launches": srv_vit["launches"]["packed_attention_fwd"],

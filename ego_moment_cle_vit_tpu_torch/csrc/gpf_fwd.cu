@@ -10,25 +10,31 @@
 //         A_k = A_{k-1} * max(R, 0) for k >= 2
 //   out = max(0, (G + G^T) / 2)  (or max(0, G) without symmetrization), fp32.
 //
-// What bounds it on an H100: memory.  One batch element reads N*D token
-// values (twice that for two distinct token sets) and writes N*N fp32 values;
-// a Gram costs 2*N*N*D flops, N flops per byte of bf16 tokens (196 for a
-// ViT at 224), under the tensor cores' ~295.
+// What bounds it on an H100.  One batch element reads N*D token values
+// (twice that for two distinct token sets) and writes N*N fp32 values; a Gram
+// costs 2*N*N*D flops, N flops per byte of bf16 tokens: memory bounds a Swin's
+// 49 tokens and a ViT's 196, the tensor cores and the bytes about equally the
+// upper triangle at Swin-Large/1280's 1600 (gpf_fwd_sm90.cuh).
 //
-// Design.  The TPU kernel holds a whole [N, N] graph per grid step; here the
-// output is tiled: one block of four warps per (batch element, 64 x 64 output
-// tile) streams the row tokens and the column tokens of both sets through
-// shared memory in 64-feature chunks and keeps its tile of both Grams in
-// registers (mma_nt: tensor cores for bf16 tokens, whose products are exact in
-// fp32; CUDA cores for fp32 tokens).  So N is unbounded and a ViT's 196 tokens
-// give 16 blocks per batch element.  The cosine normalization divides each
-// Gram entry by the clamped row norms, which the block sums from the staged
-// chunks; that is the same quantity as normalizing the rows first.
 // Symmetrization needs no second pass: both Grams are symmetric and the
 // polynomial acts entry by entry, so G^T = G and (G + G^T) / 2 = G; the flag
 // changes nothing here.  When anchor and positive are the same tensor the
 // second Gram is not computed.
+//
+// bf16 tokens (the model's): gpf_fwd_sm90.cuh, blocks over the upper
+// triangle only, each writing its tile and the mirrored one, Grams on wgmma
+// fed by a TMA ring and a producer warp; its geometry comes from
+// kernels/gpf.py:fwd_geometry.  fp32 tokens: the kernel below, one block of
+// four warps per (batch element, 64 x 64 output tile) over the whole square,
+// streaming the row and column tokens of both sets through shared memory in
+// 64-feature chunks and keeping its tile of both Grams in registers
+// (gpf_tiles.cuh's gram_tiles on the CUDA cores, so fp32 results carry no
+// TF32 rounding).  The cosine normalization divides each Gram entry by the
+// clamped row norms, which the block sums from the staged chunks; that is the
+// same quantity as normalizing the rows first.  The dtype alone picks the
+// body.
 
+#include "gpf_fwd_sm90.cuh"
 #include "gpf_tiles.cuh"
 
 namespace {
@@ -89,36 +95,58 @@ gpf_fwd_kernel(const T* __restrict__ ta, const T* __restrict__ tp,
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* ta, const void* tp, const void* coeffs, void* out, int B, int N,
-                   int D, int P, int Q, int cosine, float eps, cudaStream_t stream) {
-  const size_t smem = 4 * static_cast<size_t>(GramSmem<T>::kPanel) * sizeof(T);
-  auto kernel = gpf_fwd_kernel<T>;
+cudaError_t launch_f32(const void* ta, const void* tp, const void* coeffs, void* out, int B, int N,
+                       int D, int P, int Q, int cosine, float eps, cudaStream_t stream) {
+  const size_t smem = 4 * static_cast<size_t>(GramSmem<float>::kPanel) * sizeof(float);
+  auto kernel = gpf_fwd_kernel<float>;
   cudaError_t err = emct_allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int same = ta == tp ? 1 : 0;
-  const int vec = 16 / static_cast<int>(sizeof(T));
-  const int vec_ok = (D % vec == 0 && reinterpret_cast<uintptr_t>(ta) % 16 == 0 &&
+  const int vec_ok = (D % 4 == 0 && reinterpret_cast<uintptr_t>(ta) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(tp) % 16 == 0)
                          ? 1
                          : 0;
   const int tiles = (N + kTile - 1) / kTile;
   const dim3 grid(tiles, tiles, B);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(ta), static_cast<const T*>(tp),
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const float*>(ta),
+                                           static_cast<const float*>(tp),
                                            static_cast<const float*>(coeffs),
                                            static_cast<float*>(out), N, D, P, Q, cosine, eps, same,
                                            vec_ok);
   return cudaGetLastError();
 }
 
+cudaError_t launch_bf16(const void* ta, const void* tp, const void* coeffs, void* out, int B,
+                        int N, int D, int P, int Q, int cosine, float eps, int tile, int stages,
+                        size_t smem, cudaStream_t stream) {
+  using gpf_fwd90::launch;
+  using bf16 = __nv_bfloat16;
+  const bf16* xa = static_cast<const bf16*>(ta);
+  const bf16* xp = static_cast<const bf16*>(tp);
+  const float* c = static_cast<const float*>(coeffs);
+  float* o = static_cast<float*>(out);
+  const bool same = ta == tp;
+  if (tile == 64) {
+    return same ? launch<1, true>(xa, xp, c, o, B, N, D, P, Q, cosine, eps, stages, smem, stream)
+                : launch<1, false>(xa, xp, c, o, B, N, D, P, Q, cosine, eps, stages, smem, stream);
+  }
+  if (tile == 128) {
+    return same ? launch<2, true>(xa, xp, c, o, B, N, D, P, Q, cosine, eps, stages, smem, stream)
+                : launch<2, false>(xa, xp, c, o, B, N, D, P, Q, cosine, eps, stages, smem, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // tokens_a, tokens_p [B, N, D] (dtype), coeffs [P+1, Q+1] f32, out [B, N, N]
-// f32.  ``symmetric`` is accepted and changes nothing (see above).  The Python
+// f32.  ``symmetric`` is accepted and changes nothing (see above).  bf16 also
+// takes the tile (64 or 128 tokens), the ring's stages and its shared memory
+// (bytes), from kernels/gpf.py:fwd_geometry; fp32 ignores them.  The Python
 // wrapper checks shapes first.
 extern "C" int gpf_fwd(const void* tokens_a, const void* tokens_p, const void* coeffs, void* out,
                        int B, int N, int D, int P, int Q, int cosine, float eps, int symmetric,
-                       int dtype, void* stream) {
+                       int dtype, int tile, int stages, long long smem, void* stream) {
   (void)symmetric;
   if (B < 1 || B > 65535 || N < 1 || D < 1 || P < 0 || Q < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -126,9 +154,10 @@ extern "C" int gpf_fwd(const void* tokens_a, const void* tokens_p, const void* c
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == EMCT_DTYPE_F32) {
-    err = launch<float>(tokens_a, tokens_p, coeffs, out, B, N, D, P, Q, cosine, eps, s);
+    err = launch_f32(tokens_a, tokens_p, coeffs, out, B, N, D, P, Q, cosine, eps, s);
   } else if (dtype == EMCT_DTYPE_BF16) {
-    err = launch<__nv_bfloat16>(tokens_a, tokens_p, coeffs, out, B, N, D, P, Q, cosine, eps, s);
+    err = launch_bf16(tokens_a, tokens_p, coeffs, out, B, N, D, P, Q, cosine, eps, tile, stages,
+                      static_cast<size_t>(smem), s);
   } else {
     err = cudaErrorInvalidValue;
   }

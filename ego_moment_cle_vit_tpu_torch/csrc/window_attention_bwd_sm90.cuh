@@ -55,19 +55,14 @@
 // and barriers is latency-bound, so more blocks in flight is what speeds it.
 #pragma once
 
-#include "sm90.cuh"
+#include "window_sm90.cuh"
 
 namespace wa_bwd90 {
 
-using namespace sm90;
+using namespace wa_sm90;
 
-constexpr int kThreads = 128;                        // one warpgroup
-constexpr int kD = 32;                               // head width
-constexpr int kTok = 64;                             // window rows, padded to wgmma's M
-constexpr int kTileBytes = kTok * kD * 2;            // one [64][32] bf16 tile, 64-byte swizzle
 constexpr int kImageBytes = 4 * kTileBytes;          // q, k, v, do of one image
 constexpr int kPBytes = kTok * kTok * 2;             // P~ or ds~ [64][64] bf16, 128-byte swizzle
-constexpr int kTermBytes = kThreads * 32 * 4;        // one fp32 logit term a thread's entry
 constexpr int kMaxStages = 4;
 // blocks an SM: 3 for 1b (registers <= 168); 2 with om, whose registers
 // would spill at 3
@@ -110,28 +105,6 @@ __device__ __forceinline__ void store_fragments(unsigned char* tile, const uint3
     *reinterpret_cast<uint32_t*>(tile + swz128(r0 + 8, c)) = a[t][1];
     *reinterpret_cast<uint32_t*>(tile + swz128(r0, c + 8)) = a[t][2];
     *reinterpret_cast<uint32_t*>(tile + swz128(r0 + 8, c + 8)) = a[t][3];
-  }
-}
-
-// An m64n32 accumulator strip (rows r0, r0 + 8 of the window) times ``mul``
-// to the token rows of a [B, Hp, Wp, width] map at column ``col``; rows past
-// T are padding and not stored.
-__device__ __forceinline__ void store_strip(bf16* map, const float* acc, int b, const Params& p,
-                                            int y0, int x0, int r0, int width, int col, int tg,
-                                            float mul) {
-  const int nt = p.ws * p.ws;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = r0 + half * 8;
-    if (r < nt) {
-      const size_t pix = (static_cast<size_t>(b) * p.Hp + (y0 + r / p.ws)) * p.Wp + (x0 + r % p.ws);
-      bf16* dst = map + pix * width + col;
-#pragma unroll
-      for (int dn = 0; dn < 4; ++dn) {
-        *reinterpret_cast<__nv_bfloat162*>(dst + dn * 8 + tg * 2) = __floats2bfloat162_rn(
-            acc[4 * dn + half * 2] * mul, acc[4 * dn + half * 2 + 1] * mul);
-      }
-    }
   }
 }
 
@@ -190,26 +163,7 @@ window_attention_bwd_sm90(const __grid_constant__ CUtensorMap tm_qkv,
     for (int i = 0; i < min(p.stages, n_img); ++i) issue(i);
   }
 
-  // this thread's logit terms, entry (n, e) of the accumulator layout: row
-  // r0 + 8 (e / 2), key 8n + 2tg + e % 2.  A padded key: -inf; a padded
-  // query: 0 (its logits stay finite; its do is zero).
-  {
-    const float* bias_h = p.bias + static_cast<size_t>(h) * nt * nt;
-    const float* mask_w = p.mask ? p.mask + static_cast<size_t>(win) * nt * nt : nullptr;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      float t[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = r0 + 8 * (e >> 1);
-        const int j = 8 * n + 2 * tg + (e & 1);
-        const bool in = i < nt && j < nt;
-        t[e] = j >= nt ? -INFINITY : (in ? __ldg(bias_h + i * nt + j) : 0.f);
-        if (in && mask_w) t[e] += __ldg(mask_w + i * nt + j);
-      }
-      terms[n * kThreads + tid] = make_float4(t[0], t[1], t[2], t[3]);
-    }
-  }
+  fill_terms(terms, p.bias, p.mask, nt, h, win, r0, tg, tid);
 
   float dbias_acc[8][4];
   zero_acc<8>(dbias_acc);
@@ -240,31 +194,8 @@ window_attention_bwd_sm90(const __grid_constant__ CUtensorMap tm_qkv,
 
     // logits in fp32 (scale, then bias and mask), then the softmax over the
     // quad that holds a row
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const float4 t = terms[n * kThreads + tid];
-      sc[n][0] = sc[n][0] * p.scale + t.x;
-      sc[n][1] = sc[n][1] * p.scale + t.y;
-      sc[n][2] = sc[n][2] * p.scale + t.z;
-      sc[n][3] = sc[n][3] * p.scale + t.w;
-      mx0 = fmaxf(mx0, fmaxf(sc[n][0], sc[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(sc[n][2], sc[n][3]));
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      sc[n][0] = expf(sc[n][0] - mx0);
-      sc[n][1] = expf(sc[n][1] - mx0);
-      sc[n][2] = expf(sc[n][2] - mx1);
-      sc[n][3] = expf(sc[n][3] - mx1);
-      sum0 += sc[n][0] + sc[n][1];
-      sum1 += sc[n][2] + sc[n][3];
-    }
-    const float inv0 = 1.f / quad_sum(sum0);
-    const float inv1 = 1.f / quad_sum(sum1);
+    float inv0, inv1;
+    softmax_rows<false>(sc, terms, p.scale, tid, nt, inv0, inv1);
     wg_wait<0>();
     fence_regs<32>(&dp[0][0]);
 
@@ -330,10 +261,10 @@ window_attention_bwd_sm90(const __grid_constant__ CUtensorMap tm_qkv,
     fence_regs<16>(dk);
     if constexpr (kOm) fence_regs<16>(om);
 
-    store_strip(p.dqkv, dq, b, p, y0, x0, r0, 3 * p.C, h * kD, tg, p.scale);
-    store_strip(p.dqkv, dk, b, p, y0, x0, r0, 3 * p.C, p.C + h * kD, tg, p.scale);
-    store_strip(p.dqkv, dv, b, p, y0, x0, r0, 3 * p.C, 2 * p.C + h * kD, tg, 1.f);
-    if constexpr (kOm) store_strip(p.om, om, b, p, y0, x0, r0, p.C, h * kD, tg, 1.f);
+    store_strip(p.dqkv, dq, b, p.Hp, p.Wp, ws, y0, x0, r0, 3 * p.C, h * kD, tg, p.scale);
+    store_strip(p.dqkv, dk, b, p.Hp, p.Wp, ws, y0, x0, r0, 3 * p.C, p.C + h * kD, tg, p.scale);
+    store_strip(p.dqkv, dv, b, p.Hp, p.Wp, ws, y0, x0, r0, 3 * p.C, 2 * p.C + h * kD, tg, 1.f);
+    if constexpr (kOm) store_strip(p.om, om, b, p.Hp, p.Wp, ws, y0, x0, r0, p.C, h * kD, tg, 1.f);
     __syncthreads();  // the warpgroup is done with stage s, P~ and ds~
     if (tid == 0 && i + p.stages < n_img) issue(i + p.stages);
   }
@@ -349,25 +280,6 @@ window_attention_bwd_sm90(const __grid_constant__ CUtensorMap tm_qkv,
       if (i < nt && j < nt) out[i * nt + j] = dbias_acc[n][e];
     }
   }
-}
-
-// A 4-D tensor map over a [B, Hp, Wp, cols] bf16 map: boxes of one head's 32
-// columns of one window (ws x ws pixels) of one image, at the 64-byte
-// swizzle.  Every stride is a multiple of 16 bytes because cols is a multiple
-// of 32 (C = 32 H); the wrapper has checked the base's alignment.
-inline bool encode_window_map(CUtensorMap* map, const void* ptr, int cols, int B, int Hp, int Wp,
-                              int ws) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(Wp),
-                              static_cast<cuuint64_t>(Hp), static_cast<cuuint64_t>(B)};
-  const cuuint64_t row = static_cast<cuuint64_t>(cols) * 2;
-  const cuuint64_t strides[3] = {row, row * Wp, row * Wp * Hp};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kD), static_cast<cuuint32_t>(ws),
-                             static_cast<cuuint32_t>(ws), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                                CU_TENSOR_MAP_SWIZZLE_64B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // The per-block part (the partials then go to the ordered reduction).  The

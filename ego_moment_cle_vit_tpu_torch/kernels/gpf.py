@@ -3,10 +3,14 @@
 ``gpf_fwd`` replaces the TPU kernel ``_gpf_kernel`` in
 ``ego_moment_cle_vit_tpu/ops/pallas/gpf.py`` (reached through
 ``fused_gpf_pallas``).  The kernel source and its design note are in
-``csrc/gpf_fwd.cu``: one block per 64 x 64 output tile keeps its piece of both
-Grams on chip and runs the polynomial, symmetrization and clamp there, so a
-Swin's 49 tokens and a ViT's 196 take the same kernel.  The output is fp32
-whatever the token dtype, as on the TPU.
+``csrc/gpf_fwd.cu``: each block keeps its output tile of both Grams on chip
+and runs the polynomial, symmetrization and clamp there, so a Swin's 49
+tokens and a ViT's 196 take the same kernel.  For bf16 tokens
+(``csrc/gpf_fwd_sm90.cuh``) blocks own only the tiles of the upper triangle,
+write each tile and its mirror, and build the Grams on wgmma from a TMA ring
+(launch geometry :func:`fwd_geometry`, block order :func:`fwd_tile_pairs`);
+fp32 tokens take one block per 64 x 64 tile of the whole square on the CUDA
+cores.  The output is fp32 whatever the token dtype, as on the TPU.
 
 ``gpf_bwd`` replaces ``_gpf_bwd_kernel`` of the same file
 (``csrc/gpf_bwd.cu``): the analytic VJP in two tiled kernels, token gradients
@@ -30,8 +34,8 @@ from . import _build
 
 _SIGNATURES = {
     "gpf_fwd": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 2
-        + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 4
+        + [ctypes.c_longlong, ctypes.c_void_p],
         ctypes.c_int,
     )
 }
@@ -58,6 +62,40 @@ MAX_DEGREE = 3  # the backward kernel's compiled polynomial degree limit
 # barrier a stage.
 BWD_ROWS, BWD_COLS, BWD_K, BWD_STAGES = 128, 256, 64, 3
 SMEM_LIMIT = 232448  # what a block may use on an H100
+# The bf16 forward (csrc/gpf_fwd_sm90.cuh): square output tiles of 64 tokens
+# up to FWD_WIDE_FROM tokens, of 128 past it (one or two consumer warpgroups
+# and a producer warp), the features in stages of 64, three stages in flight,
+# each the row and column token tiles of every token set.
+FWD_K, FWD_STAGES, FWD_WIDE_FROM = 64, 3, 257
+
+
+def fwd_geometry(tokens: int, same: bool) -> dict:
+    """How the bf16 forward (``csrc/gpf_fwd_sm90.cuh``) cuts one batch
+    element of ``tokens`` tokens, with one token set
+    (``same``: anchor and positive the same tensor) or two.
+
+    ``tiles`` x ``tiles`` output tiles of ``tile`` tokens square; a block
+    owns one tile of the upper triangle (``pairs`` of them, in the order of
+    :func:`fwd_tile_pairs`) and also writes its mirror.  ``smem`` is what a
+    block asks for (the C side's ``Shape::bytes``), ``epilogue_bytes`` what
+    the epilogue's fp32 tiles take of it, ``blocks_per_sm`` what registers
+    and shared memory leave room for.
+    """
+    wg = 2 if tokens >= FWD_WIDE_FROM else 1
+    tile = 64 * wg
+    sets = 1 if same else 2
+    tiles = -(-tokens // tile)
+    stage = 2 * sets * tile * FWD_K * 2
+    return {"tile": tile, "tiles": tiles, "pairs": tiles * (tiles + 1) // 2,
+            "stages": FWD_STAGES, "smem": 1024 + FWD_STAGES * stage + 16 * FWD_STAGES,
+            "epilogue_bytes": sets * tile * (tile + 1) * 4,
+            "blocks_per_sm": (3 if same else 2) if wg == 1 else (2 if same else 1)}
+
+
+def fwd_tile_pairs(tiles: int) -> list[tuple[int, int]]:
+    """(row tile, column tile) of each block of the bf16 forward, in block
+    order: the upper triangle row by row, as the kernel walks it."""
+    return [(it, jt) for it in range(tiles) for jt in range(it, tiles)]
 
 
 def bwd_geometry(tokens: int, features: int) -> dict:
@@ -244,7 +282,9 @@ def gpf_fwd(
 
     CPU tensors take :func:`gpf_plain`; CUDA tensors launch the kernel (after
     dtype, shape and contiguity checks) or raise.  Passing the same tensor
-    twice lets the kernel build one Gram.  Counts its launches in
+    twice lets the kernel build one Gram (the C side tells one tensor from
+    two by their pointers, and so does the geometry here).  Counts its
+    launches in
     ``gpf_fwd.launches``.
     """
     if tokens_a.device.type == "cpu":
@@ -254,12 +294,14 @@ def gpf_fwd(
     _check(tokens_a, tokens_p, coeffs, similarity)
     code = _build.dtype_code(tokens_a, "gpf_fwd")
     b, n, d = tokens_a.shape
+    geo = fwd_geometry(n, tokens_a.data_ptr() == tokens_p.data_ptr())
     out = torch.empty((b, n, n), dtype=torch.float32, device=tokens_a.device)
     lib = _build.load("gpf_fwd", _SIGNATURES)
     rc = lib.gpf_fwd(
         tokens_a.data_ptr(), tokens_p.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
         b, n, d, coeffs.shape[0] - 1, coeffs.shape[1] - 1, int(similarity == "cosine"),
-        float(eps), int(symmetric_enforce), code, _build.stream_ptr(tokens_a.device),
+        float(eps), int(symmetric_enforce), code, geo["tile"], geo["stages"], geo["smem"],
+        _build.stream_ptr(tokens_a.device),
     )
     _build.check(lib, rc, "gpf_fwd")
     gpf_fwd.launches += 1

@@ -5,8 +5,10 @@
 ``flash_window_attention_spatial``).  The kernel source and its design note
 are in ``csrc/window_attention_fwd.cu``: it is bound by memory, reads each
 qkv element once, writes each output once and keeps the ``[T, T]`` logits on
-chip (bf16: registers, both products on the tensor cores; fp32: shared
-memory, CUDA cores).
+chip (bf16: ``csrc/window_attention_fwd_sm90.cuh``, one warpgroup a (window,
+head) walking a chunk of images through a TMA ring, both products on wgmma,
+its launch geometry :func:`fwd_geometry`; fp32:
+``csrc/window_attention_fwd_fp32.cuh``, shared memory, CUDA cores).
 
 ``window_attention_bwd`` replaces ``_bwd_kernel_spatial`` of the same file
 (``csrc/window_attention_bwd.cu``): it recomputes the probabilities from qkv,
@@ -34,7 +36,9 @@ from . import _build
 
 _SIGNATURES = {
     "window_attention_fwd": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+           ctypes.c_void_p],
         ctypes.c_int,
     )
 }
@@ -59,6 +63,12 @@ SM90_STAGES = 2  # images in flight a block
 # 1024 bytes of alignment slack, the ring of q, k, v, do tiles of 64 rows and
 # a barrier a stage, P~ and ds~, the logit terms
 SM90_SMEM = 1024 + SM90_STAGES * (4 * 64 * HEAD_DIM * 2 + 8) + 2 * 64 * 64 * 2 + 128 * 32 * 4
+# the bf16 forward's (csrc/window_attention_fwd_sm90.cuh): a ring of q, k, v
+# tiles of 64 rows and a barrier a stage, the logit terms; five blocks an SM,
+# and a grid of about one wave of them on the card's SMs
+FWD_STAGES = 2
+FWD_SMEM = 1024 + FWD_STAGES * (3 * 64 * HEAD_DIM * 2 + 8) + 128 * 32 * 4
+FWD_BLOCKS_PER_SM = 5
 
 
 def window_attention_plain(
@@ -192,12 +202,14 @@ def window_attention_fwd(
     _check(qkv, bias, mask, num_heads, window_size)
     code = _build.dtype_code(qkv, "window_attention_fwd")
     b, hp, wp, c3 = qkv.shape
+    geo = fwd_geometry(b, hp, wp, c3 // 3, num_heads, window_size,
+                       torch.cuda.get_device_properties(qkv.device).multi_processor_count)
     out = torch.empty((b, hp, wp, c3 // 3), dtype=qkv.dtype, device=qkv.device)
     lib = _build.load("window_attention_fwd", _SIGNATURES)
     rc = lib.window_attention_fwd(
         qkv.data_ptr(), bias.data_ptr(), mask.data_ptr() if mask is not None else None,
-        out.data_ptr(), b, hp, wp, c3 // 3, num_heads, window_size, float(scale), code,
-        _build.stream_ptr(qkv.device),
+        out.data_ptr(), b, hp, wp, c3 // 3, num_heads, window_size, float(scale),
+        geo["chunks"], geo["stages"], geo["smem"], code, _build.stream_ptr(qkv.device),
     )
     _build.check(lib, rc, "window_attention_fwd")
     window_attention_fwd.launches += 1
@@ -215,6 +227,28 @@ def _bwd_chunks(batch: int, blocks_per_image: int,
     want = max(1, -(-target // blocks_per_image))
     per_block = -(-batch // min(batch, want))
     return -(-batch // per_block)
+
+
+def fwd_geometry(b: int, hp: int, wp: int, c: int, heads: int, ws: int, sms: int) -> dict:
+    """How the bf16 :func:`window_attention_fwd` cuts its work: one block per
+    (window position, head) and chunk of images, each walking
+    ``images_per_block`` images (the last chunk may hold fewer, none is
+    empty) through a TMA ring of ``stages`` images.  A block's set-up is paid
+    once for its chunk, so the grid takes as many chunks as one wave of
+    ``blocks_per_sm`` blocks on each of the card's ``sms`` SMs leaves room
+    for (one chunk where the (window, head) pairs alone fill it).  ``smem``
+    is the shared memory a block asks for (what the kernel checks) and
+    ``tma_strides`` the byte strides of the 4-D tensor map over qkv, which
+    TMA needs in multiples of 16.  The fp32 body takes one block per (image,
+    window, head) and ignores all of it."""
+    n_win = (hp // ws) * (wp // ws)
+    pairs = n_win * heads
+    want = max(1, min(b, FWD_BLOCKS_PER_SM * sms // pairs))
+    chunks = -(-b // -(-b // want))  # no chunk empty
+    return {"windows": n_win, "pairs": pairs, "chunks": chunks,
+            "images_per_block": -(-b // chunks), "blocks": pairs * chunks,
+            "stages": FWD_STAGES, "smem": FWD_SMEM, "blocks_per_sm": FWD_BLOCKS_PER_SM,
+            "tma_strides": tuple(3 * c * 2 * f for f in (1, wp, wp * hp))}
 
 
 def bwd_geometry(b: int, hp: int, wp: int, c: int, heads: int, ws: int,

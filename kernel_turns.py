@@ -25,13 +25,26 @@ in bf16, and some at a call in fp32:
                                    the four Swin-Base stages, windows of 7, shift 0 and 1
     4b  fused attention half bwd   x [128, 56, 56, 128] H4 and [128, 28, 28, 256] H8,
                                    shift 0 and 1
+    1   window attention forward   qkv [64, 56, 56, 384] H4 ... [64, 7, 7, 3072] H32 and
+                                   the same at batch 128, the four Swin-Base stages,
+                                   shift 0 and 1; Swin-Large/1280 stages 0 and 2 on
+                                   their padded canvases, [64, 322, 322, 576] H6 and
+                                   [64, 84, 84, 2304] H24, masks with the pad sentinel
+    2   GPF forward                tokens [64, 49, 1024], [64, 196, 768], [64, 784, 768]
+                                   (one tensor twice, and two), [64, 1024, 1024] and
+                                   [64, 1600, 1536], dot
+    e2e Swin-Large/1280 serving    uint8 [64, 1463, 1463, 3] through make_infer_fn
+                                   (chip_smoke.py's configuration, seeded weights),
+                                   ms a batch; not in the default list
 
 and, in the same turn and process, a library yardstick on the same inputs,
 whose own spread across turns decides whether a kernel is at or under it:
 SDPA (``scaled_dot_product_attention``, forward or backward) for attention,
 autograd of one fp32 ``bmm`` Gram for 2b (part of its work only), and the
 same bf16 iteration on cuBLAS (``bmm``, ``baddbmm``, the kernel's rounding
-points) for 5'', SDPA's backward on the partitioned windows for 1b (without
+points) for 5'', SDPA on the partitioned windows with bias + mask as its
+float mask for 1, one fp32 ``bmm`` Gram for 2 (part of its work), SDPA's
+backward on the partitioned windows for 1b (without
 the bias gradient, and again with the float mask a leaf that takes one:
 ``library_dbias``), and for 4b autograd of the port's unfused route
 (LayerNorm, ``linear``, kernel 1 / 1b of the same checkout, ``linear``,
@@ -39,12 +52,12 @@ add).  2b, 5'', 1b and 4b are also profiled once a turn (torch.profiler, 5
 calls), which splits their time among the launches inside one call.  Each
 turn hashes what its kernels return at every call (out and lse, dqkv; for 2b
 dc and the token gradients apart; for 1b dqkv and dbias apart; for 4b dx and
-each parameter gradient apart), from the same seeded inputs, so the two
-checkouts are compared bit for bit too.
+each parameter gradient apart; for 1 and 2 out), from the same seeded
+inputs, so the two checkouts are compared bit for bit too.
 
 The turns run other, this, this, other, so that drift of the card hits both
 alike.  ``--only`` takes a comma-separated list of kernel names (3, 6, 3b, 6b,
-2b, 5'', 1b, 4b) and times only their calls.  Prints the card's name and
+2b, 5'', 1b, 4b, 1, 2) and times only their calls.  Prints the card's name and
 power limit, each turn's times, the best of each side, and a last line of
 JSON {"card": ..., "shapes": {shape: {"other": [ms, ms], "this": [ms, ms],
 "library": [ms, ms, ms, ms], "library_dbias": [...] (1b only), "same_bits":
@@ -90,13 +103,29 @@ SHAPES = (("3 [64,1,197,2304] H12", "packed_fwd", 64, 197, 768, 12),
           ("4b [128,56,56,128] H4 s0", "ah_bwd", 128, 56, 128, 4),
           ("4b [128,56,56,128] H4 s1", "ah_bwd", 128, 56, 128, 4),
           ("4b [128,28,28,256] H8 s0", "ah_bwd", 128, 28, 256, 8),
-          ("4b [128,28,28,256] H8 s1", "ah_bwd", 128, 28, 256, 8))
+          ("4b [128,28,28,256] H8 s1", "ah_bwd", 128, 28, 256, 8),
+          *((f"1 [{b},{hp},{hp},{3 * c}] H{h} s{s}", "wfwd", b, hp, c, h)
+            for b in (64, 128) for hp, c, h in ((56, 128, 4), (28, 256, 8), (14, 512, 16),
+                                                (7, 1024, 32))
+            for s in ((0, 1) if hp > 7 else (0,))),
+          *((f"1 [64,{hp},{hp},{3 * c}] H{h} s{s} padded", "wfwd", 64, hp, c, h)
+            for hp, c, h in ((322, 192, 6), (84, 768, 24)) for s in (0, 1)),
+          ("2 [64,49,1024] dot", "gfwd", 64, 49, 1024, 0),
+          ("2 [64,196,768] dot", "gfwd", 64, 196, 768, 0),
+          ("2 [64,784,768] dot", "gfwd", 64, 784, 768, 0),
+          ("2 [64,784,768] x2 dot", "gfwd", 64, 784, 768, 0),
+          ("2 [64,1024,1024] dot", "gfwd", 64, 1024, 1024, 0),
+          ("2 [64,1600,1536] dot", "gfwd", 64, 1600, 1536, 0),
+          ("e2e serve-swinL-1280 b64", "serve", 64, 0, 0, 0))
 WS = 7  # Swin's window
+PADDED = {322: 320, 84: 80}  # Swin-Large/1280's padded canvases: their real rows
 SOURCES = {"packed": ("packed_attention_fwd", "packed_attention_bwd"),
            "tiled": ("flash_attention_fwd", "flash_attention_bwd"),
            "gpf": ("gpf_bwd",), "ns": ("newton_schulz_bf16_streamed",),
            "wa": ("window_attention_bwd",),
-           "ah": ("attn_half_bwd", "window_attention_fwd", "window_attention_bwd")}
+           "ah": ("attn_half_bwd", "window_attention_fwd", "window_attention_bwd"),
+           "wfwd": ("window_attention_fwd",), "gfwd": ("gpf_fwd",),
+           "serve": ("window_attention_fwd", "gpf_fwd", "newton_schulz_bf16_streamed")}
 ORDER = ("other", "this", "this", "other")
 NS_ITERS, NS_EPS = 5, 1e-5
 
@@ -105,22 +134,22 @@ def kernel_of(name: str) -> str:
     return name.split()[0]
 
 
-def time_ms(fn) -> float:
+def time_ms(fn, warm: int = 3, samples: int = 5, reps: int = 10) -> float:
     import torch
 
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(5):
+    for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(10):
+        for _ in range(reps):
             fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / 10)
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -204,9 +233,11 @@ def ns_bf16_streamed_library(m):
     return (y.float() / torch.sqrt(tr)).to(m.dtype)
 
 
-def window_bias_mask(g, hp: int, heads: int, shifted: bool):
+def window_bias_mask(g, hp: int, heads: int, shifted: bool, h: int | None = None):
     """A Swin block's relative-position bias [H, 49, 49] (its table drawn at
-    std 1, as trained tables reach) and, when shifted, its shift mask."""
+    std 1, as trained tables reach) and, when shifted, its shift mask; on a
+    canvas padded from ``h`` real rows to ``hp``, a mask with the pad
+    sentinel, shifted or not."""
     import torch
 
     from ego_moment_cle_vit_tpu_torch.models.swin import _attn_mask, _relative_position_index
@@ -215,9 +246,29 @@ def window_bias_mask(g, hp: int, heads: int, shifted: bool):
     idx = torch.as_tensor(_relative_position_index(WS).reshape(-1), device="cuda")
     table = torch.randn((2 * WS - 1) ** 2, heads, generator=g, device="cuda")
     bias = table[idx].reshape(nt, nt, heads).permute(2, 0, 1).contiguous()
-    mask = (torch.as_tensor(_attn_mask(hp, hp, hp, hp, WS, WS // 2), device="cuda")
-            if shifted else None)
+    h = hp if h is None else h
+    mask = (torch.as_tensor(_attn_mask(h, h, hp, hp, WS, WS // 2 if shifted else 0),
+                            device="cuda") if shifted or h != hp else None)
     return bias, mask
+
+
+def window_sdpa_forward(qkv, bias, mask, heads: int):
+    """SDPA on the same windows, partitioned beforehand (the copies are not
+    timed), with bias + mask as its float mask: kernel 1's yardstick, never
+    the port's."""
+    import torch
+
+    b, hp, wp, c3 = qkv.shape
+    c = c3 // 3
+    d, nt, nw = c // heads, WS * WS, (hp // WS) * (wp // WS)
+    x = qkv.reshape(b, hp // WS, WS, wp // WS, WS, 3, heads, d)
+    x = x.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, b, nw * heads, nt, d)
+    q, k, v = (x[i].contiguous() for i in range(3))
+    del x
+    am = bias[None] + (mask[:, None] if mask is not None else 0.0)
+    am = am.expand(nw, heads, nt, nt).reshape(nw * heads, nt, nt).to(qkv.dtype)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=am,
+                                                                    scale=d ** -0.5)
 
 
 def window_sdpa_backward(qkv, bias, mask, heads: int, dbias: bool):
@@ -298,7 +349,42 @@ def worker(only: set) -> None:
     for name, kind, b, t, c, h in shapes:
         dtype = torch.float32 if "fp32" in name else torch.bfloat16
         split = lib_dbias = None
-        if kind == "wa_bwd":
+        if kind == "serve":
+            # the whole serving path: chip_smoke.py's Swin-Large/1280
+            # configuration from the same checkout, weights from seed 0
+            import chip_smoke
+
+            from ego_moment_cle_vit_tpu_torch import create_model, make_infer_fn
+
+            family = chip_smoke.SWINL1280
+            aug, images = chip_smoke.family_inputs(family, g)
+            model = create_model(family["config"], num_classes=80, device="cuda", seed=0)
+            infer = make_infer_fn(model, aug)
+            fn = lambda: infer(images)  # noqa: E731
+            digests = {"logits": digest(fn())}
+            res[name] = {"ms": time_ms(fn, warm=2, samples=3, reps=3), "library": None,
+                         "digests": digests, "split": None}
+            del model, infer, fn, images
+            torch.cuda.empty_cache()
+            continue
+        if kind == "wfwd":
+            bias, mask = window_bias_mask(g, t, h, " s1" in name, PADDED.get(t))
+            qkv = torch.randn(b, t, t, 3 * c, generator=g, device="cuda").to(dtype)
+            fn = lambda: wa.window_attention_fwd(qkv, bias, mask, h, WS,  # noqa: E731
+                                                 (c // h) ** -0.5)
+            lib = window_sdpa_forward(qkv, bias, mask, h)
+            digests = {"out": digest(fn())}
+        elif kind == "gfwd":
+            ta = torch.randn(b, t, c, generator=g, device="cuda").to(dtype)
+            tp = (torch.randn(b, t, c, generator=g, device="cuda").to(dtype) if " x2 " in name
+                  else ta)
+            coeffs = torch.nn.functional.softplus(torch.rand(3, 3, generator=g, device="cuda")
+                                                  * 0.1)
+            fn = lambda: gpf.gpf_fwd(ta, tp, coeffs, "dot", 1e-6, True)  # noqa: E731
+            tf = ta.float()
+            lib = lambda: torch.bmm(tf, tf.transpose(1, 2))  # noqa: E731
+            digests = {"out": digest(fn())}
+        elif kind == "wa_bwd":
             bias, mask = window_bias_mask(g, t, h, name.endswith("s1"))
             qkv = torch.randn(b, t, t, 3 * c, generator=g, device="cuda").to(dtype)
             dout = torch.randn(b, t, t, c, generator=g, device="cuda").to(dtype)
@@ -372,7 +458,7 @@ def worker(only: set) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", help="another checkout of the repository")
-    ap.add_argument("--only", default="3,6,3b,6b,2b,5'',1b,4b",
+    ap.add_argument("--only", default="3,6,3b,6b,2b,5'',1b,4b,1,2",
                     help="comma-separated kernels to time (default: all)")
     ap.add_argument("--out", help="also write the JSON result here")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
@@ -419,15 +505,17 @@ def main() -> int:
         for name in shapes:
             r = result["shapes"][name]
             r[turn].append(times[name]["ms"])
-            r["library"].append(times[name]["library"])
+            if times[name]["library"] is not None:
+                r["library"].append(times[name]["library"])
             if "library_dbias" in times[name]:
                 r.setdefault("library_dbias", []).append(times[name]["library_dbias"])
             if times[name]["split"] is not None:
                 r["split"].setdefault(turn, times[name]["split"])
             for part, hexd in times[name]["digests"].items():
                 digests.setdefault(name, {}).setdefault(part, {}).setdefault(turn, set()).add(hexd)
-        print(f"{turn:5s} " + "  ".join(f"{k}: {v['ms']:.4f} ms (library {v['library']:.4f})"
-                                         for k, v in times.items()), flush=True)
+        print(f"{turn:5s} " + "  ".join(
+            f"{k}: {v['ms']:.4f} ms" + (f" (library {v['library']:.4f})" if v["library"] else "")
+            for k, v in times.items()), flush=True)
     for name, t in result["shapes"].items():
         t["same_bits"] = {part: len(d["this"]) == 1 and d["this"] == d["other"]
                           for part, d in digests[name].items()}
@@ -435,9 +523,9 @@ def main() -> int:
                                            for part, same in t["same_bits"].items())
               + " in both checkouts")
         print(f"{name}: other {min(t['other']):.4f} ms, this {min(t['this']):.4f} ms "
-              f"(this / other {min(t['this']) / min(t['other']):.3f}); library "
-              f"{min(t['library']):.4f}-{max(t['library']):.4f} ms (this / best library "
-              f"{min(t['this']) / min(t['library']):.3f})"
+              f"(this / other {min(t['this']) / min(t['other']):.3f})"
+              + (f"; library {min(t['library']):.4f}-{max(t['library']):.4f} ms (this / best "
+                 f"library {min(t['this']) / min(t['library']):.3f})" if t["library"] else "")
               + (f"; library with dbias {min(t['library_dbias']):.4f}-"
                  f"{max(t['library_dbias']):.4f} ms" if "library_dbias" in t else ""))
         for turn, split in t["split"].items():

@@ -50,7 +50,12 @@ The Hopper window-attention backward (1b) is also held at the four
 Swin-Base stage geometries, a padded Swin-Large canvas and windows of 4 and
 8, and the fused half's backward (4b) at token counts that are not
 multiples of its 128-row tiles, both at the tolerances above; their bf16
-kernels' SASS holds HGMMA and their fp32 bodies' does not.
+kernels' SASS holds HGMMA and their fp32 bodies' does not.  So are the
+Hopper forwards of kernels 1 (windows of 2 to 8, batches of 1 to 64, Swin-
+Large/1280 stage 0's padded canvas; per element within 1e-2 + 2^-7 |ref| in
+bf16, 1e-4 in fp32) and 2 (token counts at and around its 64- and 128-token
+tiles up to 1600, widths 64 to 1536, within 2e-4 of ``gpf_error_scale`` and
+exactly symmetric), and 2b at Swin-Large/1280's [1600, 1536].
 """
 
 import pytest
@@ -226,6 +231,21 @@ def test_cuda_gpf_bwd_sm90_edges(cuda_device, n, d, similarity, dtype, tol):
     gradients are zero (a single token's cosine Gram is 1 whatever the
     token), so both sides hold rounding noise and are held to 1e-5 absolute
     there."""
+    _gpf_bwd_edge(cuda_device, n, d, similarity, dtype, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-3), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("similarity", ["dot", "cosine"])
+@pytest.mark.parametrize("n, d", [(1600, 1536), (1600, 100)])
+def test_cuda_gpf_bwd_sm90_swin_large(cuda_device, n, d, similarity, dtype, tol):
+    """2b as above at the largest token count the wrappers admit
+    (``gpf.MAX_TOKENS``, Swin-Large/1280's 1600 tokens) at its width, 1536,
+    and at a width TMA cannot take."""
+    _gpf_bwd_edge(cuda_device, n, d, similarity, dtype, tol)
+
+
+def _gpf_bwd_edge(cuda_device, n, d, similarity, dtype, tol):
     b = 2 if n <= 196 else 1
     g = torch.Generator(device=cuda_device).manual_seed(n * 7 + d)
     ta = torch.randn(b, n, d, generator=g, device=cuda_device).to(dtype)
@@ -285,18 +305,22 @@ def _sass_functions(path):
 
 @pytest.mark.cuda
 def test_cuda_new_hopper_kernels_hold_wgmma(cuda_device):
-    """The bf16 w and dX kernels of 2b and 5″'s GEMM issue HGMMA, and the
-    CUDA-core bodies (2b's fp32 kernels, 5″'s Mn / rescale kernels) do not."""
+    """The bf16 w and dX kernels of 2b, 5″'s GEMM and the bf16 bodies of
+    kernels 1 and 2 issue HGMMA, and the CUDA-core bodies (2b's fp32
+    kernels, 5″'s Mn / rescale kernels, the fp32 forwards of 1 and 2) do
+    not."""
     from ego_moment_cle_vit_tpu_torch.kernels import _build
 
-    paths = _build.build(("gpf_bwd", "newton_schulz_bf16_streamed"))
-    gpf_fns = _sass_functions(paths["gpf_bwd"])
-    ns_fns = _sass_functions(paths["newton_schulz_bf16_streamed"])
-    wgmma = {name: "HGMMA" in sass for name, sass in {**gpf_fns, **ns_fns}.items()}
-    for key in ("gpf_bwd_w_sm90", "gpf_sm909dx_kernel", "gemm_sm90_kernel"):
+    names = ("gpf_bwd", "newton_schulz_bf16_streamed", "window_attention_fwd", "gpf_fwd")
+    paths = _build.build(names)
+    fns = {k: v for name in names for k, v in _sass_functions(paths[name]).items()}
+    wgmma = {name: "HGMMA" in sass for name, sass in fns.items()}
+    for key in ("gpf_bwd_w_sm90", "gpf_sm909dx_kernel", "gemm_sm90_kernel",
+                "window_attention_fwd_sm90", "gpf_fwd_sm90"):
         hits = [has for name, has in wgmma.items() if key in name]
         assert hits and all(hits), (key, wgmma)
-    for key in ("gpf_bwd_w_kernel", "gpf_fp329dx_kernel", "init_kernel", "finish_kernel"):
+    for key in ("gpf_bwd_w_kernel", "gpf_fp329dx_kernel", "init_kernel", "finish_kernel",
+                "window_attention_fwd_f32", "gpf_fwd_kernel"):
         hits = [has for name, has in wgmma.items() if key in name]
         assert hits and not any(hits), (key, wgmma)
 
@@ -910,3 +934,91 @@ def test_cuda_window_and_attn_half_bwd_hold_wgmma(cuda_device):
                 "attn_half_bwd_wgrad", "attn_half_bwd_layer_norm"):
         hits = [has for name, has in wgmma.items() if key in name]
         assert hits and not any(hits), (key, wgmma)
+
+
+# The Hopper window-attention forward (kernel 1, bf16; fp32 keeps its CUDA-core
+# body) at the edges of its geometry: windows of 2, 4, 7 and 8, batches of 1,
+# 5 and 64 (image chunks of one image, a ragged last chunk, many images a
+# block), the four Swin-Base stages, and Swin-Large/1280 stage 0's padded
+# canvas (322 = 46 windows of 7, C = 192, 6 heads) with the pad sentinel in
+# its masks: (B, Hp, C, heads, ws)
+WA_FWD_SM90 = [(1, 56, 128, 4, 7), (5, 28, 256, 8, 7), (64, 14, 512, 16, 7), (64, 7, 1024, 32, 7),
+               (2, 322, 192, 6, 7), (64, 16, 128, 4, 4), (5, 24, 64, 2, 8), (1, 8, 96, 3, 8),
+               (5, 6, 64, 2, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, atol, rtol", [(torch.float32, 1e-4, 0.0),
+                                               (torch.bfloat16, 1e-2, 2.0**-7)])
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("b, hp, c, heads, ws", WA_FWD_SM90)
+def test_cuda_window_attention_fwd_sm90_shapes(cuda_device, dtype, atol, rtol, b, hp, c, heads,
+                                               ws, shifted):
+    """Kernel 1 within atol + rtol |ref| of its plain version per element
+    (chip_smoke.py's TOL_WA: fp32 by sum order; bf16 by P rounded to bf16
+    before P v plus one ulp of the output's rounding), the bias omitted
+    falling outside, one launch a call, the same bits twice.  Windows of 7
+    take Swin's tables and masks (the padded canvas a mask even unshifted,
+    ``mask=None`` otherwise); other windows random tables and masks."""
+    g = torch.Generator(device=cuda_device).manual_seed(hp * 131 + ws * 7 + b)
+    nt, nw = ws * ws, (hp // ws) ** 2
+    qkv = torch.randn(b, hp, hp, 3 * c, generator=g, device=cuda_device).to(dtype)
+    if ws == WS:
+        table = torch.randn((2 * WS - 1) ** 2, heads, generator=g, device=cuda_device)
+        idx = torch.as_tensor(_relative_position_index(WS).reshape(-1), device=cuda_device)
+        bias = table[idx].reshape(nt, nt, heads).permute(2, 0, 1).contiguous()
+        h = hp - 2 if hp == 322 else hp  # Swin-Large/1280 stage 0: 320 tokens padded to 322
+        mask = (torch.as_tensor(_attn_mask(h, h, hp, hp, WS, 3 if shifted else 0),
+                                device=cuda_device) if (shifted and hp > WS) or h != hp else None)
+    else:
+        bias = torch.randn(heads, nt, nt, generator=g, device=cuda_device)
+        mask = (torch.randn(nw, nt, nt, generator=g, device=cuda_device) * 3 if shifted else None)
+    args = (qkv, bias, mask, heads, ws, (c // heads) ** -0.5)
+    before = twa.window_attention_fwd.launches
+    out = twa.window_attention_fwd(*args)
+    assert twa.window_attention_fwd.launches == before + 1
+    ref = twa.window_attention_plain(*args)
+    assert out.dtype == dtype and _close(out, ref, atol, rtol)
+    ctrl = twa.window_attention_plain(qkv, torch.zeros_like(bias), *args[2:])
+    assert not _close(ctrl, ref, atol, rtol)
+    assert torch.equal(twa.window_attention_fwd(*args), out)
+
+
+# kernel 2's Hopper body (bf16 tokens) where its tiles end: one token, one
+# under, at and over a 64- and a 128-token tile, and the ViT and Swin-Large
+# paths' token counts (196, 784, 1024, 1600), at widths of one 64-feature box,
+# one TMA cannot take (100), ViT-Base's and Swin-Large's
+GPF_FWD_N = (1, 63, 64, 65, 127, 128, 129, 196, 784, 1024, 1600)
+GPF_FWD_D = (64, 100, 768, 1536)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("similarity", ["dot", "cosine"])
+@pytest.mark.parametrize("d", GPF_FWD_D)
+@pytest.mark.parametrize("n", GPF_FWD_N)
+def test_cuda_gpf_fwd_sm90_edges(cuda_device, n, d, similarity):
+    """Kernel 2 in bf16 against its plain version with one tensor twice and
+    with two: each entry within 2e-4 of ``gpf_error_scale`` (the tolerance
+    above), the output exactly symmetric, a zeroed off-diagonal falling
+    outside, one launch a call, the same bits twice.  Degrees 2 x 2 (the
+    flagship's, whose polynomial the kernel unrolls) and, with two tensors,
+    1 x 3 (the loop that reads the degrees at run time)."""
+    b = 2 if n <= 196 else 1
+    g = torch.Generator(device=cuda_device).manual_seed(n * 11 + d)
+    ta = torch.randn(b, n, d, generator=g, device=cuda_device).to(torch.bfloat16)
+    tp = torch.randn(b, n, d, generator=g, device=cuda_device).to(torch.bfloat16)
+    c22 = torch.rand(3, 3, generator=g, device=cuda_device)
+    c13 = torch.rand(2, 4, generator=g, device=cuda_device)
+    for pos, c in ((ta, c22), (tp, c22), (tp, c13)):
+        before = tgpf.gpf_fwd.launches
+        out = tgpf.gpf_fwd(ta, pos, c, similarity)
+        assert tgpf.gpf_fwd.launches == before + 1
+        ref = tgpf.gpf_plain(ta, pos, c, similarity)
+        scale = tgpf.gpf_error_scale(ta, pos, c, similarity)
+        assert out.dtype == torch.float32 and out.shape == (b, n, n)
+        assert ((out - ref).abs() <= 2e-4 * scale).all()
+        assert torch.equal(out, out.transpose(1, 2))
+        if n > 1:
+            zeroed = out * torch.eye(n, device=cuda_device)
+            assert not ((zeroed - ref).abs() <= 2e-4 * scale).all()
+        assert torch.equal(tgpf.gpf_fwd(ta, pos, c, similarity), out)
