@@ -10,9 +10,9 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    ptxas's register, spill and wgmma notes (a C7511 note says a wgmma was
    serialized), and the SASS of the Hopper kernels (the bf16 attention
    forward and backward 3, 6, 3b, 6b, the GPF forward 2 and backward 2b, the
-   streamed bf16 Newton-Schulz 5″, the window-attention forward 1 and
-   backward 1b and the fused attention half's backward 4b) read for their
-   wgmma (HGMMA) instructions, which must be there.
+   bf16 Newton-Schulz 5′ and 5″, the window-attention forward 1 and
+   backward 1b and the fused attention half's forward 4 and backward 4b) read
+   for their wgmma (HGMMA) instructions, which must be there.
 2. Kernels against their plain PyTorch versions on the card.  Forward, at the
    serving paths' shapes for batch 64: window attention at the four Swin-Base
    stage geometries (shifted and unshifted, bf16 and fp32), packed-layout
@@ -86,7 +86,9 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    shifted, bf16 and fp32 (controls: bias omitted, residual dropped), and its
    backward at batch 128: dx per element, each parameter gradient within a
    fraction of its largest entry, two runs equal bit for bit (controls: one
-   token chunk's dwqkv partial dropped, dbias dropped).  Beside kernel and
+   token chunk's dwqkv partial dropped, dbias dropped), the forward held again
+   at batch 128, the training forward's own launches (same tolerance and
+   controls).  Beside kernel and
    plain times they time PyTorch's own calls for the block (layer_norm,
    linear, SDPA, linear, add; autograd of them) and the port's default route
    (LayerNorm, Dense, kernel 1 / 1b, Dense, add); the backward's bf16 call
@@ -1797,10 +1799,13 @@ AH_GRAD_NAMES = ("dx", "dln_g", "dln_b", "dwqkv", "dbqkv", "dwproj", "dbproj", "
 def check_attn_half_bwd(g: torch.Generator) -> dict:
     """Kernel 4b at the training calls (batch 128): dx per element, every
     parameter gradient within a fraction of its own largest entry; two runs
-    bit for bit.  Also times the forward kernel at that batch."""
+    bit for bit.  Also holds the forward kernel at that batch, the training
+    forward's own launches, as check_attn_half holds it at batch 64, and
+    times it beside the unfused route's forward."""
     per_step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                "unfused_ms": 0.0, "fwd_ms": 0.0}
+                "unfused_ms": 0.0, "fwd_ms": 0.0, "fwd_unfused_ms": 0.0}
     max_err, worst, min_control = 0.0, 0.0, math.inf
+    fwd_err, fwd_min_control = 0.0, math.inf
     bound_kinds = {"bytes": 0.0, "operations": 0.0}
     batch = TRAIN_VIEWS
     for hp, c, heads in AH_STAGES:
@@ -1809,6 +1814,30 @@ def check_attn_half_bwd(g: torch.Generator) -> dict:
                 atol, rtol, gtol = TOL_AH_BWD[dtype]
                 args = attn_half_inputs(g, batch, hp, c, heads, shifted, dtype)
                 dy = torch.randn(args[0].shape, generator=g, device="cuda").to(dtype)
+                # the forward's launch at this batch, held as at batch 64
+                f_atol, f_rtol = TOL_AH[dtype]
+                out = AH_KERNEL(*args, heads, WS)
+                ref = _ah.attn_half_plain(*args, heads, WS)
+                torch.cuda.synchronize()
+                what = f"attention half {hp}x{hp} C={c} shift={shifted} {dtype} batch {batch}"
+                f_excess = close_excess(out, ref, f_atol, f_rtol)
+                if not math.isfinite(f_excess) or f_excess > 1.0:
+                    fail(f"{what}: error {f_excess:.3f}x its tolerance {TOL_AH[dtype]} (max abs "
+                         f"err {(out.float() - ref.float()).abs().max().item()})")
+                no_bias = args[:7] + (torch.zeros_like(args[7]), args[8])
+                f_ctrl = min(close_excess(_ah.attn_half_plain(*no_bias, heads, WS), ref, f_atol,
+                                          f_rtol),
+                             close_excess((ref.float() - args[0].float()).to(dtype), ref, f_atol,
+                                          f_rtol))
+                if f_ctrl <= 1.0:
+                    fail(f"{what}: a control (bias omitted, residual dropped) passes the check")
+                fwd_err = max(fwd_err, (out.float() - ref.float()).abs().max().item())
+                fwd_min_control = min(fwd_min_control, f_ctrl)
+                log(f"  attn_half [{batch},{hp},{hp},{c}] H={heads} shift={int(shifted)} "
+                    f"{str(dtype)[6:]}: err/tol={f_excess:.3f} (tol atol+rtol|ref| "
+                    f"{TOL_AH[dtype]}) control err/tol>={f_ctrl:.1f}")
+                del out, ref, no_bias
+
                 got = AH_BWD_KERNEL(*args, dy, heads, WS)
                 ref = _ah.attn_half_bwd_plain(*args, dy, heads, WS)
                 again = AH_BWD_KERNEL(*args, dy, heads, WS)
@@ -1853,6 +1882,7 @@ def check_attn_half_bwd(g: torch.Generator) -> dict:
                 p_ms = time_ms(lambda: _ah.attn_half_bwd_plain(*args, dy, heads, WS), reps=2,
                                samples=3)
                 f_ms = time_ms(lambda: AH_KERNEL(*args, heads, WS), reps=5, samples=3)
+                fu_ms = time_ms(lambda: attention_half_unfused(args, heads), reps=5, samples=3)
                 grads_of = {}
                 for route, fn in (("library", attention_half_by_library),
                                   ("unfused", attention_half_unfused)):
@@ -1869,18 +1899,21 @@ def check_attn_half_bwd(g: torch.Generator) -> dict:
                 log(f"{what_log} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms(autograd of "
                     f"LN+linear+SDPA+linear)={grads_of['library']:.4f} unfused_ms(autograd of "
                     f"LN+linear+kernel 1b+linear)={grads_of['unfused']:.4f} bound_ms={b_ms:.4f} "
-                    f"({kind}) fwd_kernel_ms={f_ms:.4f} scratch "
+                    f"({kind}) fwd_kernel_ms={f_ms:.4f} fwd_unfused_ms(LN+linear+kernel 1+"
+                    f"linear)={fu_ms:.4f} scratch "
                     f"{sum(_ah.scratch_bytes(args[0], heads, WS).values()) / 1e6:.1f} MB")
                 for key, val in (("ms", k_ms), ("plain_ms", p_ms),
                                  ("library_ms", grads_of["library"]),
                                  ("unfused_ms", grads_of["unfused"]), ("bound_ms", b_ms),
-                                 ("fwd_ms", f_ms)):
+                                 ("fwd_ms", f_ms), ("fwd_unfused_ms", fu_ms)):
                     per_step[key] += val  # one block of each per train step
                 bound_kinds[kind] += b_ms
                 del args, dy
                 torch.cuda.empty_cache()
     log(f"  attention half backward controls: smallest err/tol {min_control:.1f} (must be > 1)")
-    return {"max_abs_err": max_err, "err_over_tol": worst,
+    log(f"  attention half forward at batch {batch}: max_abs_err={fwd_err:.3e}, controls' "
+        f"smallest err/tol {fwd_min_control:.1f} (must be > 1)")
+    return {"max_abs_err": max_err, "err_over_tol": worst, "fwd_max_abs_err": fwd_err,
             "bound_by": max(bound_kinds, key=bound_kinds.get), **per_step}
 
 
@@ -2455,13 +2488,14 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     # the Hopper kernels run on wgmma: their SASS holds HGMMA (the bf16
-    # attention 3, 6, 3b, 6b; 2b's bf16 w and dX kernels; 5″'s GEMM; 1b's
-    # window-attention core; 4b's qkv / do, dx and weight-gradient products;
-    # the bf16 forwards of 1 and 2)
+    # attention 3, 6, 3b, 6b; 2b's bf16 w and dX kernels; the GEMM of 5′ and
+    # 5″; 1b's window-attention core; 4b's qkv / do, dx and weight-gradient
+    # products; the bf16 forwards of 1, 2 and 4)
     cuobjdump = shutil.which("cuobjdump") or str(Path(_build.nvcc_path()).parent / "cuobjdump")
     for name in ("packed_attention_fwd", "flash_attention_fwd", "packed_attention_bwd",
-                 "flash_attention_bwd", "gpf_bwd", "newton_schulz_bf16_streamed",
-                 "window_attention_bwd", "attn_half_bwd", "window_attention_fwd", "gpf_fwd"):
+                 "flash_attention_bwd", "gpf_bwd", "newton_schulz_bf16",
+                 "newton_schulz_bf16_streamed", "window_attention_bwd", "attn_half_fwd",
+                 "attn_half_bwd", "window_attention_fwd", "gpf_fwd"):
         if not os.path.exists(cuobjdump):
             log(f"  {name}: cuobjdump not found, SASS not read")
             continue
@@ -2699,7 +2733,8 @@ def main() -> int:
          "max_abs_err": ah["max_abs_err"], "ms": ah["ms"], "plain_ms": ah["plain_ms"],
          "bound_ms": ah["bound_ms"], "bound_by": ah["bound_by"],
          "library_ms": ah["library_ms"], "unfused_ms": ah["unfused_ms"],
-         "train_ms": ahb["fwd_ms"]},
+         "train_ms": ahb["fwd_ms"], "train_unfused_ms": ahb["fwd_unfused_ms"],
+         "train_max_abs_err": ahb["fwd_max_abs_err"]},
         {"name": "attn_half_bwd", "route": "cuda", "source": src + "attn_half_bwd.cu",
          "replaces": AH_BWD_REPLACES, "launches": trn_fh["launches"]["attn_half_bwd"],
          "max_abs_err": ahb["max_abs_err"], "err_over_tol": ahb["err_over_tol"],

@@ -50,13 +50,16 @@ __device__ __forceinline__ float center_row(float* v, float eps) {
   return rsqrtf(warp_sum(q) / (E * 32) + eps);
 }
 
-// xn = LayerNorm(x) * ln_g + ln_b of the window's rows, rounded to T, into the
-// [kTok][C + pad] tile ``s``; rows past nt are zero.  One warp per row, four
-// rows of a warp at a time so that their loads and reductions overlap.
-template <typename T, int C>
-__device__ void layer_norm_window(T* s, const T* __restrict__ x, int b, int Hp, int Wp, int ws,
-                                  int y0, int x0, int nt, const float* __restrict__ ln_g,
-                                  const float* __restrict__ ln_b, float eps, int warp, int lane) {
+// xn = LayerNorm(x) * ln_g + ln_b of the window's rows, rounded to T, each
+// value handed to ``store(t, c, value)`` for row t and column c; rows past nt
+// are zero.  One warp per row, four rows of a warp at a time so that their
+// loads and reductions overlap.
+template <typename T, int C, class Store>
+__device__ void layer_norm_window_to(Store store, const T* __restrict__ x, int b, int Hp, int Wp,
+                                     int ws, int y0, int x0, int nt,
+                                     const float* __restrict__ ln_g,
+                                     const float* __restrict__ ln_b, float eps, int warp,
+                                     int lane) {
   constexpr int E = C / 32;
   constexpr int R = 4;
   for (int t0 = warp; t0 < kTok; t0 += kWarps * R) {
@@ -74,15 +77,23 @@ __device__ void layer_norm_window(T* s, const T* __restrict__ x, int b, int Hp, 
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int t = t0 + r * kWarps;
-      T* dst = s + t * Ld<T, C>::x;
 #pragma unroll
       for (int e = 0; e < E; ++e) {
         const int c = e * 32 + lane;
         const float xn = v[r][e] * rstd[r] * __ldg(ln_g + c) + __ldg(ln_b + c);
-        dst[c] = from_f32<T>(t < nt ? xn : 0.f);
+        store(t, c, from_f32<T>(t < nt ? xn : 0.f));
       }
     }
   }
+}
+
+// The same into the [kTok][C + pad] tile ``s``.
+template <typename T, int C>
+__device__ void layer_norm_window(T* s, const T* __restrict__ x, int b, int Hp, int Wp, int ws,
+                                  int y0, int x0, int nt, const float* __restrict__ ln_g,
+                                  const float* __restrict__ ln_b, float eps, int warp, int lane) {
+  layer_norm_window_to<T, C>([&](int t, int c, T v) { s[t * Ld<T, C>::x + c] = v; }, x, b, Hp,
+                             Wp, ws, y0, x0, nt, ln_g, ln_b, eps, warp, lane);
 }
 
 // The window's rows of a [B, Hp, Wp, C] map into the [kTok][C + pad] tile

@@ -28,16 +28,21 @@
 // D = 1024) and updates Y in place by row halves, which is safe there because
 // one program runs the halves one after the other.  A 1024^2 bf16 matrix is
 // 2 MB, nine times a block's 227 KB of shared memory, so here the matrices
-// live in a device scratch and every product is one launch of a batched tiled
-// GEMM on the tensor cores (ns_bf16.cuh: 128 x 128 tiles, mma.sync bf16 ->
-// fp32, K slices by cp.async three deep) with the update in its epilogue.
-// Blocks run in no order, and a tile of Y <- 1.5 Y - 0.5 Y T2 reads whole rows
-// of Y that other blocks are still reading, so Y ping-pongs between two
-// buffers; the values do not depend on it.  A small kernel forms Mn (padded
-// where D is not a multiple of 128) and the first step, one rescales; 3k - 1
-// launches in all, which the wrapper counts as one.
+// live in a device scratch and every product is one launch of the batched
+// Hopper GEMM that 5″ runs too (ns_sm90.cuh on gemm_sm90.cuh: [128][256]
+// tiles, two consumer warpgroups on wgmma m64n256k16, a producer warp feeding
+// a four-stage TMA ring), the update in its epilogue.  Its k16 steps sum in
+// k order as the mma.sync GEMM before it did.  Blocks run in no order, and a
+// tile of Y <- 1.5 Y - 0.5 Y T2 reads whole rows of Y that other blocks are
+// still reading, so Y ping-pongs between two buffers; the values do not
+// depend on it.  The tile needs Dp, the width the products run at, to be a
+// multiple of 256: D is padded to it with zeros, which is exact
+// (ns_bf16.cuh); D = 1024 pays nothing, D = 1059 runs at 1280.  A small
+// kernel forms Mn (padded) and the first step, one rescales; 3k - 1 launches
+// in all, which the wrapper counts as one.
 
 #include "ns_bf16.cuh"
+#include "ns_sm90.cuh"
 
 namespace {
 
@@ -49,13 +54,13 @@ cudaError_t steps(const ns_bf16::Buffers& buf, int Bn, int Dp, int iters, cudaSt
   for (int it = 1; it < iters; ++it) {
     bf16* y = buf.y[*cur];
     // T1 = Y Y
-    cudaError_t err = ns_bf16::gemm(y, y, nullptr, buf.t1, Bn, Dp, 0.f, 1.f, stream);
+    cudaError_t err = ns_sm90::gemm(y, y, nullptr, buf.t1, Bn, Dp, 0.f, 1.f, stream);
     if (err != cudaSuccess) return err;
     // T2 = Mn T1
-    err = ns_bf16::gemm(buf.mn, buf.t1, nullptr, buf.t2, Bn, Dp, 0.f, 1.f, stream);
+    err = ns_sm90::gemm(buf.mn, buf.t1, nullptr, buf.t2, Bn, Dp, 0.f, 1.f, stream);
     if (err != cudaSuccess) return err;
     // Y <- 1.5 Y - 0.5 Y T2, into the other Y buffer
-    err = ns_bf16::gemm(y, buf.t2, y, buf.y[*cur ^ 1], Bn, Dp, 1.5f, -0.5f, stream);
+    err = ns_sm90::gemm(y, buf.t2, y, buf.y[*cur ^ 1], Bn, Dp, 1.5f, -0.5f, stream);
     if (err != cudaSuccess) return err;
     *cur ^= 1;
   }
@@ -65,8 +70,9 @@ cudaError_t steps(const ns_bf16::Buffers& buf, int Bn, int Dp, int iters, cudaSt
 }  // namespace
 
 // m, out [B, D, D] (dtype); tr: B floats, trace(M) + eps; work: 5 * B * Dp *
-// Dp bf16 scratch, Dp = D rounded up to a multiple of 128 (Mn, Y twice, two
-// products).  The Python wrapper checks shapes and contiguity first.
+// Dp bf16 scratch, Dp = D rounded up to a multiple of 256 (Mn, Y twice, two
+// products; kernels/newton_schulz.py:bf16_gemm_geometry).  The Python
+// wrapper checks shapes and contiguity first.
 extern "C" int newton_schulz_isqrt_bf16(const void* m, void* out, void* work, const void* tr,
                                         int B, int D, int iters, int dtype, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);

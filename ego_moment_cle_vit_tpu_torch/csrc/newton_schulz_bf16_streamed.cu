@@ -38,9 +38,9 @@
 // 1.5 Y - 0.5 P Y is the third product's epilogue.  The values do not depend
 // on the buffering.  The tile needs D to be a multiple of 256 (the variant
 // runs at D % 512 == 0 only, kernels/newton_schulz.py:bf16_streamed_fits);
-// the entry refuses any other D.  Mn, the first step and the rescale are
-// ns_bf16.cuh's, shared with 5′.  3k - 1 launches, which the wrapper counts
-// as one.
+// the entry refuses any other D.  Mn, the first step, the rescale and the
+// GEMM are shared with 5′ (ns_bf16.cuh, ns_sm90.cuh).  3k - 1 launches,
+// which the wrapper counts as one.
 
 #include "ns_bf16.cuh"
 #include "ns_sm90.cuh"
@@ -54,10 +54,6 @@ cudaError_t steps(const ns_bf16::Buffers& buf, int Bn, int Dp, int iters, cudaSt
                   int* cur) {
   bf16* p = buf.t1;
   bf16* py = buf.t2;
-  if (iters > 1) {
-    const cudaError_t err = ns_sm90::prepare();
-    if (err != cudaSuccess) return err;
-  }
   for (int it = 1; it < iters; ++it) {
     bf16* y = buf.y[*cur];
     // P = Y Mn

@@ -1,18 +1,19 @@
-// The products of the streamed bf16 Newton–Schulz iteration (kernel 5″,
-// newton_schulz_bf16_streamed.cu) on Hopper: C[b] = bf16(alpha X[b] + beta
-// A[b] B[b]), or C[b] = bf16(A[b] B[b]) when X is null, for Dp x Dp row-major
-// bf16 matrices, Dp a multiple of 256.
+// The products of both bf16 Newton–Schulz iterations on Hopper, kernel 5′
+// (newton_schulz_bf16.cu) and kernel 5″ (newton_schulz_bf16_streamed.cu):
+// C[b] = bf16(alpha X[b] + beta A[b] B[b]), or C[b] = bf16(A[b] B[b]) when X
+// is null, for Dp x Dp row-major bf16 matrices, Dp a multiple of 256.
 //
 // What bounds it on an H100: bf16 tensor-core operations.  One product of
 // [64, 1536, 1536] is 4.6e11 flops, 0.47 ms at 989 TFLOP/s, against 0.9 GB
 // of operands and result (0.27 ms at 3.35 TB/s even if no tile were read
-// twice).  The design feeds the tensor cores through wgmma, the only route to
-// their full rate: gemm_sm90.cuh's block, two consumer warpgroups on
+// twice); one of [64, 1024, 1024] 1.4e11 flops, 0.14 ms, against 0.4 GB.
+// The design feeds the tensor cores through wgmma, the only route to their
+// full rate: gemm_sm90.cuh's block, two consumer warpgroups on
 // m64n256k16 and a producer warp keeping four stages of TMA copies in flight,
 // computes a [128][256] tile of A B; its epilogue forms the update in fp32
 // (alpha X exact for alpha = 1.5, beta A B exact for beta = -0.5, one
-// rounding of their sum, the same fmaf as ns_bf16.cuh's kernel) and rounds
-// once to bf16.  Grid: (column tiles, row tiles, batch), column tiles
+// rounding of their sum, the fmaf of the mma.sync kernel 5′ ran before) and
+// rounds once to bf16.  Grid: (column tiles, row tiles, batch), column tiles
 // fastest, so the blocks that share an A row strip run together and find it
 // in L2.
 #pragma once

@@ -39,13 +39,29 @@ inline bool encode_window_map(CUtensorMap* map, const void* ptr, int cols, int B
                                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// This thread's logit terms into shared memory, entry (n, e) of the
-// accumulator layout: row r0 + 8 (e / 2), key 8n + 2tg + e % 2.  A padded
-// key: -inf; a padded query: 0 (its logits stay finite and are never
-// stored).  Bias and mask are summed once here, for every image the block
-// walks.  Adding the two tables first rounds differently from adding them one
-// at a time only where the mask is not zero; Swin's masks hold 0 or -100, and
-// a -100 entry's probability (~e^-100) rounds to 0 in P~ either way.
+// This thread's logit terms of key block n (logit_terms), and all eight into
+// shared memory (fill_terms), entry (n, e) of the accumulator layout: row
+// r0 + 8 (e / 2), key 8n + 2tg + e % 2.  A padded key: -inf; a padded query:
+// 0 (its logits stay finite and are never stored).  Bias and mask are summed
+// once here, for every image the block walks.  Adding the two tables first
+// rounds differently from adding them one at a time only where the mask is
+// not zero; Swin's masks hold 0 or -100, and a -100 entry's probability
+// (~e^-100) rounds to 0 in P~ either way.
+__device__ __forceinline__ float4 logit_terms(const float* __restrict__ bias_h,
+                                              const float* __restrict__ mask_w, int nt, int r0,
+                                              int tg, int n) {
+  float t[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int i = r0 + 8 * (e >> 1);
+    const int j = 8 * n + 2 * tg + (e & 1);
+    const bool in = i < nt && j < nt;
+    t[e] = j >= nt ? -INFINITY : (in ? __ldg(bias_h + i * nt + j) : 0.f);
+    if (in && mask_w) t[e] += __ldg(mask_w + i * nt + j);
+  }
+  return make_float4(t[0], t[1], t[2], t[3]);
+}
+
 __device__ __forceinline__ void fill_terms(float4* terms, const float* __restrict__ bias,
                                            const float* __restrict__ mask, int nt, int h, int win,
                                            int r0, int tg, int tid) {
@@ -53,16 +69,7 @@ __device__ __forceinline__ void fill_terms(float4* terms, const float* __restric
   const float* mask_w = mask ? mask + static_cast<size_t>(win) * nt * nt : nullptr;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
-    float t[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = r0 + 8 * (e >> 1);
-      const int j = 8 * n + 2 * tg + (e & 1);
-      const bool in = i < nt && j < nt;
-      t[e] = j >= nt ? -INFINITY : (in ? __ldg(bias_h + i * nt + j) : 0.f);
-      if (in && mask_w) t[e] += __ldg(mask_w + i * nt + j);
-    }
-    terms[n * kThreads + tid] = make_float4(t[0], t[1], t[2], t[3]);
+    terms[n * kThreads + tid] = logit_terms(bias_h, mask_w, nt, r0, tg, n);
   }
 }
 
@@ -75,15 +82,18 @@ __device__ __forceinline__ void fill_terms(float4* terms, const float* __restric
 // exactly 0, without computing them.  The backward fuses the scale and the
 // terms into one fma, as its logits always have, and keeps the
 // straight-line code, which its register-bound loop runs faster.
-template <bool kFwd>
-__device__ __forceinline__ void softmax_rows(float (*sc)[4], const float4* terms, float scale,
-                                             int tid, int nt, float& inv0, float& inv1) {
+// ``term(n)`` gives this thread's four terms of key block n, in
+// fill_terms' order (the fused attention half's forward forms them in
+// registers).
+template <bool kFwd, class Term>
+__device__ __forceinline__ void softmax_rows_with(float (*sc)[4], Term term, float scale, int nt,
+                                                  float& inv0, float& inv1) {
   const int key_blocks = kFwd ? (nt + 7) >> 3 : 8;
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     if (!kFwd || n < key_blocks) {
-      const float4 t = terms[n * kThreads + tid];
+      const float4 t = term(n);
       if constexpr (kFwd) {
         sc[n][0] = __fmul_rn(sc[n][0], scale) + t.x;
         sc[n][1] = __fmul_rn(sc[n][1], scale) + t.y;
@@ -117,6 +127,14 @@ __device__ __forceinline__ void softmax_rows(float (*sc)[4], const float4* terms
   }
   inv0 = 1.f / quad_sum(sum0);
   inv1 = 1.f / quad_sum(sum1);
+}
+
+// The same with the terms fill_terms laid down in shared memory.
+template <bool kFwd>
+__device__ __forceinline__ void softmax_rows(float (*sc)[4], const float4* terms, float scale,
+                                             int tid, int nt, float& inv0, float& inv1) {
+  softmax_rows_with<kFwd>(
+      sc, [&](int n) { return terms[n * kThreads + tid]; }, scale, nt, inv0, inv1);
 }
 
 // An m64n32 accumulator strip (rows r0, r0 + 8 of the window at (y0, x0) of

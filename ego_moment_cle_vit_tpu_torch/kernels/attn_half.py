@@ -7,8 +7,11 @@
     y = x + proj(window_attention(qkv(LayerNorm(x))))
 
 from the pre-LN activation in image layout ``[B, Hp, Wp, C]``
-(``csrc/attn_half_fwd.cu``).  ``attn_half_bwd`` replaces ``_bwd_kernel`` of
-the same file (``csrc/attn_half_bwd.cu``): it recomputes LayerNorm, qkv and
+(``csrc/attn_half_fwd.cu``; bf16: ``csrc/attn_half_fwd_sm90.cuh``, a group
+of windows a block on wgmma with the weights streamed through a TMA ring,
+blocks walking groups of windows, :func:`fwd_geometry`; fp32: CUDA cores).
+``attn_half_bwd`` replaces ``_bwd_kernel`` of the same file
+(``csrc/attn_half_bwd.cu``): it recomputes LayerNorm, qkv and
 the probabilities from the saved inputs and returns ``dx`` and the seven
 parameter gradients, each sum over tokens taken in a fixed order (bf16:
 ``csrc/attn_half_bwd_sm90.cuh``, every product on wgmma, the attention on
@@ -68,10 +71,19 @@ _WGRAD_TARGET_BLOCKS_SM90 = 2 * SMS
 _BOX = 64 * 64 * 2
 _STAGES_SM90 = {"qkv": 4, "dx": 4, "wgrad": 3}
 
+# bf16 forward (csrc/attn_half_fwd_sm90.cuh, Traits): a block is a group of
+# windows (three at C = 128, two at 256), one consumer warpgroup each, and a
+# producer warpgroup, one block an SM; the weights stream through a ring of
+# four 16 KB TMA stages behind each window's xn and om [64][C] and q, k, v
+# [64][32] tiles
+_FWD_WINDOWS = {128: 3, 256: 2}
+_FWD_STAGES = 4
+_FWD_STAGE_BYTES = 128 * 64 * 2
+
 _SIGNATURES = {
     "attn_half_fwd": (
         [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
-        + [ctypes.c_int, ctypes.c_void_p],
+        + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
         ctypes.c_int,
     )
 }
@@ -217,6 +229,31 @@ def _pointer(t: torch.Tensor | None):
     return t.data_ptr() if t is not None else None
 
 
+def fwd_geometry(b: int, hp: int, wp: int, c: int, heads: int, ws: int, sms: int) -> dict:
+    """How the bf16 :func:`attn_half_fwd` cuts its work: ``windows`` (image,
+    window) pairs taken ``windows_per_block`` at a time (``groups``, the last
+    one part empty where the count does not divide) by ``blocks`` blocks,
+    about one wave of one block on each of the card's ``sms`` SMs, block i
+    walking groups i, i + blocks, ...  Per group the weights stream through
+    ``stages_per_group`` ring stages (64 steps of the contraction each: a
+    head's q, k, v rows, then Wproj's rows in passes of 128 output columns).
+    ``smem`` is the shared memory a block asks for (what the kernel
+    checks)."""
+    if not kernel_supports(hp, wp, ws, c, heads):
+        raise ValueError(f"the kernel takes C in {WIDTHS} with C / heads == {HEAD_DIM} and "
+                         f"ws <= {MAX_WINDOW} dividing Hp, Wp; got C={c}, heads={heads}, "
+                         f"ws={ws}, Hp={hp}, Wp={wp}")
+    windows = b * (hp // ws) * (wp // ws)
+    per_block = _FWD_WINDOWS[c]
+    groups = -(-windows // per_block)
+    per_window = 2 * 64 * c * 2 + 3 * 64 * HEAD_DIM * 2  # xn, om; q, k, v
+    return {"windows": windows, "windows_per_block": per_block, "groups": groups,
+            "blocks": min(groups, sms), "stages_per_group": (heads + c // 128) * (c // 64),
+            "stages": _FWD_STAGES,
+            "smem": 1024 + per_block * per_window + _FWD_STAGES * _FWD_STAGE_BYTES
+            + 16 * _FWD_STAGES}
+
+
 def attn_half_fwd(
     x: torch.Tensor,
     ln_g: torch.Tensor,
@@ -242,11 +279,15 @@ def attn_half_fwd(
     _check(*args, num_heads, window_size)
     code = _build.dtype_code(x, "attn_half_fwd")
     b, hp, wp, c = x.shape
+    geo = (fwd_geometry(b, hp, wp, c, num_heads, window_size,
+                        torch.cuda.get_device_properties(x.device).multi_processor_count)
+           if x.dtype == torch.bfloat16 else {"blocks": 0, "smem": 0})
     y = torch.empty_like(x)
     lib = _build.load("attn_half_fwd", _SIGNATURES)
     rc = lib.attn_half_fwd(
         *(_pointer(t) for t in args), y.data_ptr(), b, hp, wp, c, num_heads, window_size,
-        float((c // num_heads) ** -0.5), float(ln_eps), code, _build.stream_ptr(x.device),
+        float((c // num_heads) ** -0.5), float(ln_eps), geo["blocks"], geo["smem"], code,
+        _build.stream_ptr(x.device),
     )
     _build.check(lib, rc, "attn_half_fwd")
     attn_half_fwd.launches += 1

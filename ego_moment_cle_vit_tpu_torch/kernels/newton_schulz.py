@@ -14,8 +14,9 @@ makes the same choice (:func:`variant_for`):
 * ``"bf16"``, 826 <= D <= 1059 (``_bf16_resident_fits``):
   :func:`newton_schulz_isqrt_bf16_fwd` replaces ``_ns_kernel_bf16``, the
   single-matrix iteration on ``Mn = bf16(M / tr)`` with bf16 storage and fp32
-  sums.  ViT-Large at a 512 input: ``[64, 1024, 1024]``.  Source
-  ``csrc/newton_schulz_bf16.cu``.
+  sums, its products on the Hopper GEMM that 5″ runs too (its launches
+  :func:`bf16_gemm_geometry`).  ViT-Large at a 512 input:
+  ``[64, 1024, 1024]``.  Source ``csrc/newton_schulz_bf16.cu``.
 * ``"bf16_streamed"``, D % 512 == 0 past those, up to 1536
   (``_bf16_streamed_fits``): :func:`newton_schulz_isqrt_bf16_streamed_fwd`
   replaces ``_ns_kernel_bf16_streamed``, the same fixed point with its
@@ -56,17 +57,17 @@ _SIGNATURES = {
 _BF16_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _BF16_SIGNATURES = {"newton_schulz_isqrt_bf16": (_BF16_ARGTYPES, ctypes.c_int)}
 _BF16_STREAMED_SIGNATURES = {"newton_schulz_isqrt_bf16_streamed": (_BF16_ARGTYPES, ctypes.c_int)}
-# The bf16 kernels iterate on matrices padded to a multiple of this width
-# (csrc/ns_bf16.cuh, kTile), in a scratch of five such matrices (Mn, Y twice,
-# two products).
-BF16_TILE = 128
+# The bf16 kernels iterate on matrices padded to a multiple of the GEMM's
+# column tile (csrc/ns_bf16.cuh, kTile), in a scratch of five such matrices
+# (Mn, Y twice, two products).
 BF16_SCRATCH_MATRICES = 5
-# The streamed kernel's products (csrc/ns_sm90.cuh on csrc/gemm_sm90.cuh): a
+# Both bf16 kernels' products (csrc/ns_sm90.cuh on csrc/gemm_sm90.cuh): a
 # block owns a [128][256] tile of C and walks the contraction in stages of
 # 64, four in flight, an A tile [128][64] and a B tile [64][256] a stage,
 # behind 1024 bytes of alignment slack and a full and an empty barrier a
 # stage.
 STREAMED_ROWS, STREAMED_COLS, STREAMED_K, STREAMED_STAGES = 128, 256, 64, 4
+BF16_TILE = STREAMED_COLS
 SMEM_LIMIT = 232448  # what a block may use on an H100
 
 # The TPU kernels' VMEM envelopes, which decide the variant.  The CUDA kernels
@@ -108,7 +109,7 @@ def variant_for(d: int) -> str | None:
 
 
 def streamed_gemm_geometry(d: int) -> dict:
-    """How the streamed kernel's GEMM (``csrc/ns_sm90.cuh``) cuts one D x D
+    """How the bf16 kernels' GEMM (``csrc/ns_sm90.cuh``) cuts one D x D
     product: ``row_blocks`` x ``col_blocks`` blocks of ``rows`` x ``cols``,
     each walking ``k_tiles`` stages of ``k``, ``stages`` in flight, ``smem``
     bytes of shared memory (the C side's ``Layout<1>::bytes``).  The tile
@@ -122,6 +123,22 @@ def streamed_gemm_geometry(d: int) -> dict:
             "col_blocks": d // STREAMED_COLS, "k": STREAMED_K, "k_tiles": d // STREAMED_K,
             "stages": STREAMED_STAGES,
             "smem": 1024 + STREAMED_STAGES * stage + 16 * STREAMED_STAGES}
+
+
+def bf16_gemm_geometry(d: int) -> dict:
+    """Kernel 5′'s launches at width D: it iterates on Dp x Dp matrices, D
+    zero-padded to ``dp``, a multiple of the GEMM's 256-column tile (exact:
+    the padding stays zero through every product and update), each product
+    cut as :func:`streamed_gemm_geometry` cuts a Dp x Dp one, in a scratch of
+    ``scratch_bytes`` a matrix of the batch.  Takes the widths the variant
+    runs at, 826 <= D <= 1059 (``variant_for(d) == "bf16"``); any other D
+    raises ValueError."""
+    if variant_for(d) != "bf16":
+        raise ValueError(f"kernel 5′ takes 826 <= D <= 1059 (the TPU kernel's "
+                         f"_bf16_resident_fits past _fp32_fits), got {d}")
+    dp = -(-d // BF16_TILE) * BF16_TILE
+    return {"dp": dp, "scratch_bytes": BF16_SCRATCH_MATRICES * dp * dp * 2,
+            **streamed_gemm_geometry(dp)}
 
 
 def unsupported_width(d: int) -> str:
@@ -191,33 +208,39 @@ def _update(y: torch.Tensor, prod: torch.Tensor) -> torch.Tensor:
     return _bf16(1.5 * y.float() - 0.5 * prod)
 
 
+def bf16_step(y: torch.Tensor, mn: torch.Tensor) -> torch.Tensor:
+    """One step of kernel 5′ at its rounding points: ``T1 = bf16(Y Y)``,
+    ``T2 = bf16(Mn T1)``, ``Y <- bf16(1.5 Y - 0.5 Y T2)``, every product
+    summed in fp32."""
+    t1 = _bf16(_product(y, y))
+    t2 = _bf16(_product(mn, t1))
+    return _update(y, _product(y, t2))
+
+
+def bf16_streamed_step(y: torch.Tensor, mn: torch.Tensor) -> torch.Tensor:
+    """One step of kernel 5″ at its rounding points: ``P = bf16(Y Mn)``,
+    ``P <- bf16(P Y)``, ``Y <- bf16(1.5 Y - 0.5 P Y)``, every product summed
+    in fp32."""
+    p = _bf16(_product(y, mn))
+    p = _bf16(_product(p, y))
+    return _update(y, _product(p, y))
+
+
 def newton_schulz_isqrt_bf16_plain(
     matrix: torch.Tensor, num_iterations: int = 5, eps: float = 1e-5
 ) -> torch.Tensor:
     """Plain PyTorch version of kernel 5′ (``_ns_kernel_bf16``), rounding where
-    it rounds: each step ``T1 = bf16(Y Y)``, ``T2 = bf16(Mn T1)``,
-    ``Y <- bf16(1.5 Y - 0.5 Y T2)``, every product summed in fp32."""
-    def step(y, mn):
-        t1 = _bf16(_product(y, y))
-        t2 = _bf16(_product(mn, t1))
-        return _update(y, _product(y, t2))
-
-    return _bf16_plain(matrix, num_iterations, eps, step)
+    it rounds: k steps of :func:`bf16_step` in the bf16 frame."""
+    return _bf16_plain(matrix, num_iterations, eps, bf16_step)
 
 
 def newton_schulz_isqrt_bf16_streamed_plain(
     matrix: torch.Tensor, num_iterations: int = 5, eps: float = 1e-5
 ) -> torch.Tensor:
     """Plain PyTorch version of kernel 5″ (``_ns_kernel_bf16_streamed``),
-    rounding where it rounds: each step ``P = bf16(Y Mn)``,
-    ``P <- bf16(P Y)``, ``Y <- bf16(1.5 Y - 0.5 P Y)``, every product summed
-    in fp32."""
-    def step(y, mn):
-        p = _bf16(_product(y, mn))
-        p = _bf16(_product(p, y))
-        return _update(y, _product(p, y))
-
-    return _bf16_plain(matrix, num_iterations, eps, step)
+    rounding where it rounds: k steps of :func:`bf16_streamed_step` in the
+    bf16 frame."""
+    return _bf16_plain(matrix, num_iterations, eps, bf16_streamed_step)
 
 
 def _checked(matrix: torch.Tensor, num_iterations: int, what: str) -> int:
@@ -266,12 +289,13 @@ newton_schulz_isqrt_fp32_fwd.launches = 0
 
 
 def _bf16_launch(source: str, signatures: dict, matrix: torch.Tensor, num_iterations: int,
-                 eps: float, what: str) -> torch.Tensor:
+                 eps: float, what: str, geometry) -> torch.Tensor:
     code = _checked(matrix, num_iterations, what)
     b, d, _ = matrix.shape
-    dp = -(-d // BF16_TILE) * BF16_TILE
+    geo = geometry(d)
     trace = _trace(matrix, eps)
     out = torch.empty_like(matrix)
+    dp = geo.get("dp", d)
     work = torch.empty(BF16_SCRATCH_MATRICES * b * dp * dp, dtype=torch.bfloat16,
                        device=matrix.device)
     lib = _build.load(source, signatures)
@@ -286,17 +310,17 @@ def newton_schulz_isqrt_bf16_fwd(
     matrix: torch.Tensor, num_iterations: int = 5, eps: float = 1e-5
 ) -> torch.Tensor:
     """Kernel 5′: ``M^-1/2`` of [B, D, D] symmetric PSD matrices with bf16
-    storage and fp32 sums, in M's dtype (M bf16 or fp32, any D; the model
-    reaches it at 826 <= D <= 1059).
+    storage and fp32 sums, in M's dtype (M bf16 or fp32, 826 <= D <= 1059,
+    the widths the dispatch gives it; :func:`bf16_gemm_geometry`).
 
-    CPU tensors take :func:`newton_schulz_isqrt_bf16_plain`; CUDA tensors
-    launch the kernel or raise.  Counts one launch per call in
+    CPU tensors take :func:`newton_schulz_isqrt_bf16_plain` at any D; CUDA
+    tensors launch the kernel or raise.  Counts one launch per call in
     ``newton_schulz_isqrt_bf16_fwd.launches``.
     """
     if matrix.device.type == "cpu":
         return newton_schulz_isqrt_bf16_plain(matrix, num_iterations, eps)
     out = _bf16_launch("newton_schulz_bf16", _BF16_SIGNATURES, matrix, num_iterations, eps,
-                       "newton_schulz_isqrt_bf16_fwd")
+                       "newton_schulz_isqrt_bf16_fwd", bf16_gemm_geometry)
     newton_schulz_isqrt_bf16_fwd.launches += 1
     return out
 
@@ -316,10 +340,9 @@ def newton_schulz_isqrt_bf16_streamed_fwd(
     """
     if matrix.device.type == "cpu":
         return newton_schulz_isqrt_bf16_streamed_plain(matrix, num_iterations, eps)
-    _checked(matrix, num_iterations, "newton_schulz_isqrt_bf16_streamed_fwd")
-    streamed_gemm_geometry(matrix.shape[-1])
     out = _bf16_launch("newton_schulz_bf16_streamed", _BF16_STREAMED_SIGNATURES, matrix,
-                       num_iterations, eps, "newton_schulz_isqrt_bf16_streamed_fwd")
+                       num_iterations, eps, "newton_schulz_isqrt_bf16_streamed_fwd",
+                       streamed_gemm_geometry)
     newton_schulz_isqrt_bf16_streamed_fwd.launches += 1
     return out
 

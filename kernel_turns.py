@@ -19,6 +19,7 @@ in bf16, and some at a call in fp32:
     6b  q-tiled attention backward qkv [128, 1025, 3072], 16 heads
     2b  GPF backward               tokens [64, 784, 768] and [64, 1024, 1024] x2, dot
     5'' streamed bf16 Newton-Schulz M [64, 1536, 1536] bf16, 5 steps
+    5'  bf16 Newton-Schulz         M [64, 1024, 1024] bf16, 5 steps
     3, 6 in fp32 (off the main paths) at [8, 1, 197, 2304] and [4, 785, 2304]
     2b in fp32 (off the main paths) at [4, 784, 768]
     1b  window attention backward  qkv [128, 56, 56, 384] H4 ... [128, 7, 7, 3072] H32,
@@ -33,34 +34,43 @@ in bf16, and some at a call in fp32:
     2   GPF forward                tokens [64, 49, 1024], [64, 196, 768], [64, 784, 768]
                                    (one tensor twice, and two), [64, 1024, 1024] and
                                    [64, 1600, 1536], dot
-    e2e Swin-Large/1280 serving    uint8 [64, 1463, 1463, 3] through make_infer_fn
-                                   (chip_smoke.py's configuration, seeded weights),
-                                   ms a batch; not in the default list
+    4   fused attention half fwd   x [64, 56, 56, 128] H4 and [64, 28, 28, 256] H8 and
+                                   the same at batch 128, shift 0 and 1
+    e2e serving whole, ms a batch  Swin-Large/1280 (uint8 [64, 1463, 1463, 3]),
+                                   ViT-Large/512 (uint8 [64, 600, 600, 3]) and
+                                   Swin-Base/224 under fused_half (uint8
+                                   [64, 256, 256, 3]) through make_infer_fn
+                                   (chip_smoke.py's configurations, seeded
+                                   weights); not in the default list
 
 and, in the same turn and process, a library yardstick on the same inputs,
 whose own spread across turns decides whether a kernel is at or under it:
 SDPA (``scaled_dot_product_attention``, forward or backward) for attention,
 autograd of one fp32 ``bmm`` Gram for 2b (part of its work only), and the
-same bf16 iteration on cuBLAS (``bmm``, ``baddbmm``, the kernel's rounding
-points) for 5'', SDPA on the partitioned windows with bias + mask as its
+same bf16 iteration on cuBLAS (``bmm``, ``baddbmm``, each kernel's grouping
+and rounding points) for 5'' and 5', SDPA on the partitioned windows with bias + mask as its
 float mask for 1, one fp32 ``bmm`` Gram for 2 (part of its work), SDPA's
 backward on the partitioned windows for 1b (without
 the bias gradient, and again with the float mask a leaf that takes one:
 ``library_dbias``), and for 4b autograd of the port's unfused route
 (LayerNorm, ``linear``, kernel 1 / 1b of the same checkout, ``linear``,
-add).  2b, 5'', 1b and 4b are also profiled once a turn (torch.profiler, 5
-calls), which splits their time among the launches inside one call.  Each
+add), for 4 that route's forward (and, as ``library_sdpa``, LayerNorm,
+``linear``, SDPA on the partitioned windows, ``linear``, add).  2b, 5'', 5',
+1b and 4b are also profiled once a turn (torch.profiler, 5 calls), which
+splits their time among the launches inside one call.  Each
 turn hashes what its kernels return at every call (out and lse, dqkv; for 2b
 dc and the token gradients apart; for 1b dqkv and dbias apart; for 4b dx and
-each parameter gradient apart; for 1 and 2 out), from the same seeded
+each parameter gradient apart; for 1, 2, 4, 5' and 5'' out; for e2e the
+logits), from the same seeded
 inputs, so the two checkouts are compared bit for bit too.
 
 The turns run other, this, this, other, so that drift of the card hits both
 alike.  ``--only`` takes a comma-separated list of kernel names (3, 6, 3b, 6b,
-2b, 5'', 1b, 4b, 1, 2) and times only their calls.  Prints the card's name and
+2b, 5'', 5', 1b, 4b, 1, 2, 4, e2e) and times only their calls.  Prints the card's name and
 power limit, each turn's times, the best of each side, and a last line of
 JSON {"card": ..., "shapes": {shape: {"other": [ms, ms], "this": [ms, ms],
-"library": [ms, ms, ms, ms], "library_dbias": [...] (1b only), "same_bits":
+"library": [ms, ms, ms, ms], "library_dbias": [...] (1b only),
+"library_sdpa": [...] (4 only), "same_bits":
 {part: bool}, "split": {"other": {launch: ms}, "this": {...}}}}}; --out
 writes that JSON to a file too.  Needs one GPU.
 """
@@ -116,16 +126,26 @@ SHAPES = (("3 [64,1,197,2304] H12", "packed_fwd", 64, 197, 768, 12),
           ("2 [64,784,768] x2 dot", "gfwd", 64, 784, 768, 0),
           ("2 [64,1024,1024] dot", "gfwd", 64, 1024, 1024, 0),
           ("2 [64,1600,1536] dot", "gfwd", 64, 1600, 1536, 0),
-          ("e2e serve-swinL-1280 b64", "serve", 64, 0, 0, 0))
+          ("5' [64,1024,1024] k5", "ns_bf16", 64, 1024, 1024, 0),
+          *((f"4 [{b},{hp},{hp},{c}] H{h} s{s}", "ah_fwd", b, hp, c, h)
+            for b in (64, 128) for hp, c, h in ((56, 128, 4), (28, 256, 8)) for s in (0, 1)),
+          ("e2e serve-swinL-1280 b64", "serve", 64, 0, 0, 0),
+          ("e2e serve-vitL-512 b64", "serve", 64, 0, 0, 0),
+          ("e2e serve-swinB-224-fused b64", "serve", 64, 0, 0, 0))
 WS = 7  # Swin's window
 PADDED = {322: 320, 84: 80}  # Swin-Large/1280's padded canvases: their real rows
 SOURCES = {"packed": ("packed_attention_fwd", "packed_attention_bwd"),
            "tiled": ("flash_attention_fwd", "flash_attention_bwd"),
-           "gpf": ("gpf_bwd",), "ns": ("newton_schulz_bf16_streamed",),
+           "gpf": ("gpf_bwd",), "ns": ("newton_schulz_bf16_streamed", "newton_schulz_bf16"),
            "wa": ("window_attention_bwd",),
-           "ah": ("attn_half_bwd", "window_attention_fwd", "window_attention_bwd"),
+           "ah": ("attn_half_fwd", "attn_half_bwd", "window_attention_fwd",
+                  "window_attention_bwd"),
            "wfwd": ("window_attention_fwd",), "gfwd": ("gpf_fwd",),
-           "serve": ("window_attention_fwd", "gpf_fwd", "newton_schulz_bf16_streamed")}
+           "serve": ("window_attention_fwd", "gpf_fwd", "newton_schulz_bf16_streamed",
+                     "newton_schulz_bf16", "flash_attention_fwd", "attn_half_fwd")}
+# the e2e entries' configurations in chip_smoke.py
+SERVED = {"serve-swinL-1280": "SWINL1280", "serve-vitL-512": "VITL512",
+          "serve-swinB-224-fused": "SWIN_FH"}
 ORDER = ("other", "this", "this", "other")
 NS_ITERS, NS_EPS = 5, 1e-5
 
@@ -214,23 +234,6 @@ def gram_backward(tokens, cot):
     tf = tokens.float().requires_grad_()
     gram = torch.bmm(tf, tf.transpose(1, 2))
     return lambda: torch.autograd.grad(gram, tf, cot, retain_graph=True)
-
-
-def ns_bf16_streamed_library(m):
-    """5'''s iteration on cuBLAS at the kernel's rounding points: bf16 ``bmm``
-    for the products, ``baddbmm`` for the update, the first step's exact
-    copies skipped.  A yardstick, never the port's."""
-    import torch
-
-    mf = m.float()
-    tr = torch.diagonal(mf, dim1=-2, dim2=-1).sum(-1)[:, None, None] + NS_EPS
-    mn = (mf / tr).to(torch.bfloat16)
-    eye = torch.eye(m.shape[-1], device=m.device)
-    y = (1.5 * eye - 0.5 * mn.float()).to(torch.bfloat16)
-    for _ in range(NS_ITERS - 1):
-        p = torch.bmm(torch.bmm(y, mn), y)
-        y = torch.baddbmm(y, p, y, beta=1.5, alpha=-0.5)
-    return (y.float() / torch.sqrt(tr)).to(m.dtype)
 
 
 def window_bias_mask(g, hp: int, heads: int, shifted: bool, h: int | None = None):
@@ -348,15 +351,15 @@ def worker(only: set) -> None:
     res = {}
     for name, kind, b, t, c, h in shapes:
         dtype = torch.float32 if "fp32" in name else torch.bfloat16
-        split = lib_dbias = None
+        split = lib_dbias = lib_sdpa = None
         if kind == "serve":
-            # the whole serving path: chip_smoke.py's Swin-Large/1280
-            # configuration from the same checkout, weights from seed 0
+            # the whole serving path: chip_smoke.py's configuration from the
+            # same checkout, weights from seed 0
             import chip_smoke
 
             from ego_moment_cle_vit_tpu_torch import create_model, make_infer_fn
 
-            family = chip_smoke.SWINL1280
+            family = getattr(chip_smoke, SERVED[name.split()[1]])
             aug, images = chip_smoke.family_inputs(family, g)
             model = create_model(family["config"], num_classes=80, device="cuda", seed=0)
             infer = make_infer_fn(model, aug)
@@ -395,6 +398,14 @@ def worker(only: set) -> None:
             dqkv, dbias = fn()
             digests = {"dqkv": digest(dqkv), "dbias": digest(dbias)}
             split = launch_split(fn)
+        elif kind == "ah_fwd":
+            import chip_smoke
+
+            args = attn_half_inputs(g, b, t, c, h, name.endswith("s1"), dtype)
+            fn = lambda: ah.attn_half_fwd(*args, h, WS)  # noqa: E731
+            lib = lambda: attention_half_unfused(args, h)  # noqa: E731
+            lib_sdpa = lambda: chip_smoke.attention_half_by_library(args, h)  # noqa: E731
+            digests = {"out": digest(fn())}
         elif kind == "ah_bwd":
             args = attn_half_inputs(g, b, t, c, h, name.endswith("s1"), dtype)
             dy = torch.randn(args[0].shape, generator=g, device="cuda").to(dtype)
@@ -416,12 +427,18 @@ def worker(only: set) -> None:
             dta, dtp, dc = fn()
             digests = {"dc": digest(dc), "dX": digest((dta, dtp))}
             split = launch_split(fn)
-        elif kind == "ns_streamed":
-            z = torch.randn(b, 1600, c, generator=g, device="cuda")
-            m = (torch.matmul(z.transpose(1, 2), z) / 1600).to(dtype)
+        elif kind in ("ns_streamed", "ns_bf16"):
+            streamed = kind == "ns_streamed"
+            n = 1600 if streamed else 1024  # the head's tokens: Swin-Large/1280, ViT-Large/512
+            z = torch.randn(b, n, c, generator=g, device="cuda")
+            m = (torch.matmul(z.transpose(1, 2), z) / n).to(dtype)
             del z
-            fn = lambda: ns.newton_schulz_isqrt_bf16_streamed_fwd(m, NS_ITERS, NS_EPS)  # noqa
-            lib = lambda: ns_bf16_streamed_library(m)  # noqa: E731
+            kernel = (ns.newton_schulz_isqrt_bf16_streamed_fwd if streamed
+                      else ns.newton_schulz_isqrt_bf16_fwd)
+            fn = lambda: kernel(m, NS_ITERS, NS_EPS)  # noqa: E731
+            import chip_smoke
+
+            lib = lambda: chip_smoke.ns_bf16_library(m, streamed)  # noqa: E731
             digests = {"out": digest(fn())}
             split = launch_split(fn)
         else:
@@ -450,7 +467,9 @@ def worker(only: set) -> None:
                      "split": split}
         if lib_dbias is not None:
             res[name]["library_dbias"] = time_ms(lib_dbias)
-        del fn, lib, lib_dbias
+        if lib_sdpa is not None:
+            res[name]["library_sdpa"] = time_ms(lib_sdpa)
+        del fn, lib, lib_dbias, lib_sdpa
         torch.cuda.empty_cache()
     print(json.dumps(res), flush=True)
 
@@ -458,7 +477,7 @@ def worker(only: set) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", help="another checkout of the repository")
-    ap.add_argument("--only", default="3,6,3b,6b,2b,5'',1b,4b,1,2",
+    ap.add_argument("--only", default="3,6,3b,6b,2b,5'',5',1b,4b,1,2,4",
                     help="comma-separated kernels to time (default: all)")
     ap.add_argument("--out", help="also write the JSON result here")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
@@ -507,8 +526,9 @@ def main() -> int:
             r[turn].append(times[name]["ms"])
             if times[name]["library"] is not None:
                 r["library"].append(times[name]["library"])
-            if "library_dbias" in times[name]:
-                r.setdefault("library_dbias", []).append(times[name]["library_dbias"])
+            for extra in ("library_dbias", "library_sdpa"):
+                if extra in times[name]:
+                    r.setdefault(extra, []).append(times[name][extra])
             if times[name]["split"] is not None:
                 r["split"].setdefault(turn, times[name]["split"])
             for part, hexd in times[name]["digests"].items():
@@ -527,7 +547,9 @@ def main() -> int:
               + (f"; library {min(t['library']):.4f}-{max(t['library']):.4f} ms (this / best "
                  f"library {min(t['this']) / min(t['library']):.3f})" if t["library"] else "")
               + (f"; library with dbias {min(t['library_dbias']):.4f}-"
-                 f"{max(t['library_dbias']):.4f} ms" if "library_dbias" in t else ""))
+                 f"{max(t['library_dbias']):.4f} ms" if "library_dbias" in t else "")
+              + (f"; LN+linear+SDPA+linear {min(t['library_sdpa']):.4f}-"
+                 f"{max(t['library_sdpa']):.4f} ms" if "library_sdpa" in t else ""))
         for turn, split in t["split"].items():
             print(f"{name}: {turn} launches a call: "
                   + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(split.items(),

@@ -56,6 +56,14 @@ Large/1280 stage 0's padded canvas; per element within 1e-2 + 2^-7 |ref| in
 bf16, 1e-4 in fp32) and 2 (token counts at and around its 64- and 128-token
 tiles up to 1600, widths 64 to 1536, within 2e-4 of ``gpf_error_scale`` and
 exactly symmetric), and 2b at Swin-Large/1280's [1600, 1536].
+
+Kernel 5′ on the Hopper GEMM at every kind of width it takes (826 and 1059,
+its ends, padded to 1024 and 1280; 900; the model's 1024), held as 5″ is;
+kernel 4's Hopper forward at the main path's own shapes (batch 64 and 128 at
+both Swin-Base stages it fuses, both shifts) and at its edges (one image,
+one window, an odd window count, windows of 4 and 8), per element within the
+fused half's bf16 tolerance above, with its two controls; both kernels'
+SASS holds HGMMA.
 """
 
 import pytest
@@ -784,6 +792,49 @@ def test_cuda_newton_schulz_streamed_refuses_a_ragged_width(cuda_device):
     assert rc == 1  # cudaErrorInvalidValue
 
 
+# 5′ on the Hopper GEMM (csrc/ns_sm90.cuh): both ends of its widths (826
+# and 1059, padded to 1024 and 1280), a width between and the model's 1024
+NS_BF16_SM90 = (826, 900, 1024, 1059)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("d", NS_BF16_SM90)
+def test_cuda_newton_schulz_bf16_sm90(cuda_device, b, d, dtype):
+    """5′ against its plain version at chip_smoke.py's TOL_NS_BF16, |err| <=
+    2^-7 |ref| + 5e-4 max |ref| (both sides round at the same points); four
+    iterations fail that; two runs give the same bits; one step, which runs
+    no product, the plain version's bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(13 + d + b)
+    z = torch.randn(b, d + 64, d, generator=g, device=cuda_device)
+    m = (z.transpose(1, 2) @ z / (d + 64)).to(dtype)
+
+    def close(out, ref):
+        ref = ref.float()
+        return bool(((out.float() - ref).abs()
+                     <= 2.0**-7 * ref.abs() + 5e-4 * ref.abs().max()).all())
+
+    fwd, plain = tns.newton_schulz_isqrt_bf16_fwd, tns.newton_schulz_isqrt_bf16_plain
+    before = fwd.launches
+    out = fwd(m, 5, 1e-5)
+    assert fwd.launches == before + 1
+    ref = plain(m, 5, 1e-5)
+    assert out.dtype == dtype and out.shape == m.shape and close(out, ref)
+    assert not close(plain(m, 4, 1e-5), ref)
+    assert torch.equal(fwd(m, 5, 1e-5), out)
+    assert torch.equal(fwd(m, 1, 1e-5), plain(m, 1, 1e-5))
+
+
+@pytest.mark.cuda
+def test_cuda_newton_schulz_bf16_refuses_widths_outside_its_own(cuda_device):
+    """5′ takes 826 <= D <= 1059, the widths the dispatch gives it; the
+    wrapper raises outside them rather than run them another way."""
+    for d in (825, 1060, 1536):
+        with pytest.raises(ValueError, match="826 <= D <= 1059"):
+            tns.newton_schulz_isqrt_bf16_fwd(torch.eye(d, device=cuda_device)[None])
+
+
 # (B, Hp, C, heads, shifted): stage 0 and stage 1 shapes of Swin-Base at a
 # small batch, and a padded canvas (16 tokens pad to 21)
 ATTN_HALF = [(2, 14, 128, 4, True), (2, 7, 256, 8, False), (1, 21, 128, 4, True)]
@@ -857,6 +908,67 @@ def test_cuda_attn_half_rejects_bad_inputs(cuda_device):
     with pytest.raises(TypeError, match="not supported"):
         tah.attn_half_fwd(args[0].double(), *args[1:3], *(t.double() for t in args[3:7]),
                           *args[7:], 4, WS)
+
+
+# kernel 4's Hopper forward (bf16): the main path's launches (batch 64 serving,
+# 128 training, Swin-Base stages 0 and 1), one image, a single window (an odd
+# window count leaves a block's second warpgroup without one), three windows,
+# and windows of 4 and 8 (nine windows) with random tables and masks:
+# (B, Hp, C, heads, ws)
+ATTN_HALF_FWD_SM90 = [(64, 56, 128, 4, 7), (64, 28, 256, 8, 7), (128, 56, 128, 4, 7),
+                      (128, 28, 256, 8, 7), (1, 56, 128, 4, 7), (1, 7, 256, 8, 7),
+                      (3, 7, 128, 4, 7), (2, 16, 128, 4, 4), (1, 24, 256, 8, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("b, hp, c, heads, ws", ATTN_HALF_FWD_SM90)
+def test_cuda_attn_half_fwd_sm90_shapes(cuda_device, b, hp, c, heads, ws, shifted):
+    """Kernel 4 in bf16 within chip_smoke.py's TOL_AH, 3e-2 + 2^-6 |ref| per
+    element, of its plain version; the bias omitted and the residual dropped
+    fall outside; one launch a call; the same bits twice."""
+    if ws == WS:
+        args, _ = _attn_half_inputs(cuda_device, torch.bfloat16, b, hp, c, heads, shifted)
+    else:
+        g = torch.Generator(device=cuda_device).manual_seed(hp * 17 + ws)
+        nt, nw = ws * ws, (hp // ws) ** 2
+
+        def randn(*shape, scale=1.0):
+            return torch.randn(*shape, generator=g, device=cuda_device) * scale
+
+        mask = randn(nw, nt, nt, scale=3.0) if shifted else None
+        args = (randn(b, hp, hp, c).bfloat16(), 1.0 + randn(c, scale=0.1), randn(c, scale=0.1),
+                randn(3 * c, c, scale=c ** -0.5).bfloat16(), randn(3 * c, scale=0.1).bfloat16(),
+                randn(c, c, scale=c ** -0.5).bfloat16(), randn(c, scale=0.1).bfloat16(),
+                randn(heads, nt, nt), mask)
+    atol, rtol = 3e-2, 2.0**-6
+    before = tah.attn_half_fwd.launches
+    out = tah.attn_half_fwd(*args, heads, ws)
+    assert tah.attn_half_fwd.launches == before + 1
+    ref = tah.attn_half_plain(*args, heads, ws)
+    assert out.dtype == torch.bfloat16 and _close(out, ref, atol, rtol)
+    no_bias = args[:7] + (torch.zeros_like(args[7]), args[8])
+    assert not _close(tah.attn_half_plain(*no_bias, heads, ws), ref, atol, rtol)
+    assert not _close(ref.float() - args[0].float(), ref, atol, rtol)
+    assert torch.equal(tah.attn_half_fwd(*args, heads, ws), out)
+
+
+@pytest.mark.cuda
+def test_cuda_newton_schulz_bf16_and_attn_half_fwd_hold_wgmma(cuda_device):
+    """5′'s GEMM and kernel 4's bf16 body issue HGMMA; 5′'s Mn / rescale
+    kernels and kernel 4's fp32 body do not."""
+    from ego_moment_cle_vit_tpu_torch.kernels import _build
+
+    names = ("newton_schulz_bf16", "attn_half_fwd")
+    paths = _build.build(names)
+    fns = {k: v for name in names for k, v in _sass_functions(paths[name]).items()}
+    wgmma = {name: "HGMMA" in sass for name, sass in fns.items()}
+    for key in ("gemm_sm90_kernel", "attn_half_fwd_sm90"):
+        hits = [has for name, has in wgmma.items() if key in name]
+        assert hits and all(hits), (key, wgmma)
+    for key in ("init_kernel", "finish_kernel", "attn_half_fwd_f32"):
+        hits = [has for name, has in wgmma.items() if key in name]
+        assert hits and not any(hits), (key, wgmma)
 
 
 # the window-attention backward's Hopper kernel (1b): the four Swin-Base stage

@@ -37,6 +37,14 @@ On the CPU, numpy inputs from a seed:
   the TMA row strides stay on the 16-byte grain and a block fits an H100's
   shared memory; every other width in 1..2048 is refused, on the card's path
   only (the CPU wrapper takes the plain version at any width).
+* ``bf16_gemm_geometry``, kernel 5′'s launches on that GEMM: every width in
+  826..1059 padded to a multiple of the 256-column tile no wider than needed,
+  its scratch of five padded matrices, a block within an H100's shared
+  memory; every other width in 1..2048 refused.  The padding is exact: the
+  kernel's recipe run plainly on M zero-padded to Dp (the trace taken of M,
+  as the wrapper hands it in; Y starting as the identity on the leading D x D
+  block) and cropped gives the unpadded plain iteration's bits, at D = 826,
+  900 and 1059, M in fp32 and bf16.
 """
 
 import numpy as np
@@ -256,3 +264,50 @@ def test_streamed_gemm_geometry_refuses_a_ragged_width_on_the_card_path_only():
     m = torch.from_numpy(_spd(1, 640, 24, rank=32))
     assert torch.equal(tns.newton_schulz_isqrt_bf16_streamed_fwd(m, 2, 1e-5),
                        tns.newton_schulz_isqrt_bf16_streamed_plain(m, 2, 1e-5))
+
+
+def test_bf16_gemm_geometry_pads_every_width_it_takes():
+    for d in range(826, 1060):
+        geo = tns.bf16_gemm_geometry(d)
+        dp = geo["dp"]
+        assert dp >= d and dp % 256 == 0 and dp - d < 256
+        assert geo == {"dp": dp, "scratch_bytes": 5 * dp * dp * 2,
+                       **tns.streamed_gemm_geometry(dp)}
+        assert geo["smem"] <= tns.SMEM_LIMIT
+    # the model's width pays nothing; the widest runs at 1280
+    assert tns.bf16_gemm_geometry(1024)["dp"] == 1024
+    assert tns.bf16_gemm_geometry(826)["dp"] == 1024
+    assert tns.bf16_gemm_geometry(1059)["dp"] == 1280
+    assert tns.bf16_gemm_geometry(1024)["scratch_bytes"] == 5 * 1024 * 1024 * 2
+
+
+def test_bf16_gemm_geometry_refuses_the_other_widths():
+    for d in list(range(1, 826)) + list(range(1060, 2049)):
+        with pytest.raises(ValueError, match="826 <= D <= 1059"):
+            tns.bf16_gemm_geometry(d)
+    # the CPU wrapper takes the plain version at any width, 640 too
+    m = torch.from_numpy(_spd(1, 640, 25, rank=32))
+    assert torch.equal(tns.newton_schulz_isqrt_bf16_fwd(m, 2, 1e-5),
+                       tns.newton_schulz_isqrt_bf16_plain(m, 2, 1e-5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [826, 900, 1059])
+def test_bf16_padding_is_exact(d, dtype):
+    """Kernel 5′'s recipe on M zero-padded to Dp, as csrc/ns_bf16.cuh runs
+    it (Mn = bf16(M_pad / tr) with tr = trace(M) + eps from the unpadded M;
+    Y = I on the leading D x D block, zero elsewhere; k steps; the leading
+    block rescaled), gives the plain version's bits."""
+    m = torch.from_numpy(_spd(1, d, 30 + d, rank=64)).to(dtype)
+    dp = tns.bf16_gemm_geometry(d)["dp"]
+    padded = torch.zeros(1, dp, dp, dtype=dtype)
+    padded[:, :d, :d] = m
+    tr = tns._trace(m, 1e-5)[..., None, None]
+    mn = tns._bf16(padded.float() / tr)
+    y = torch.zeros(1, dp, dp, dtype=torch.bfloat16)
+    y[:, :d, :d] = torch.eye(d, dtype=torch.bfloat16)
+    for _ in range(5):
+        y = tns.bf16_step(y, mn)
+    assert not y[:, d:].any() and not y[:, :, d:].any()  # the padding stays zero
+    out = (y[:, :d, :d].float() / torch.sqrt(tr)).to(dtype)
+    assert torch.equal(out, tns.newton_schulz_isqrt_bf16_plain(m, 5, 1e-5))
