@@ -128,7 +128,27 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    [64, 1600, 1536] and its backward at [64, 1024, 1024] and [64, 1600,
    1536] (the plain version at the same batch), and the iSQRT's
    backward (autograd over the plain fp32 iteration) at [64, 1024, 1024].
-6. A JSON line of the thirteen kernels, then the contract's last line.
+6. The data pipeline, trainer, evaluator and checkpoints on Swin-Base/224
+   (the flagship configuration, batch 64) over the synthetic dataset, 80
+   classes x 8 images a split at resize 256 (640 images, 10 steps an epoch):
+   (a) ``Trainer`` from the device cache for 2 epochs with validation and a
+   checkpoint every epoch: every step's loss finite and launches 24 + 24
+   window attention and 1 + 1 GPF, ``checkpoint_epoch_0``, ``_1`` and
+   ``best_model`` with their ``.meta.json`` written; (b) a second trainer
+   resumed from ``checkpoint_epoch_0`` runs epoch 1 to the first one's
+   parameters bit for bit (control: the optimizer's moments zeroed); (c) one
+   epoch from the host loader (``HostDecodedCache`` -> ``BatchLoader`` ->
+   ``DevicePrefetcher``): every batch the step receives equals the device
+   cache's, hashed on the device, and the epoch's loss equals the device
+   cache's epoch 0 bit for bit (control: a prefetcher that reuses one pinned
+   buffer without waiting); (d) the same step through ``make_train_step`` on
+   a fixed batch; (e) ``Evaluator`` on ``best_model`` with the ablations and
+   TTA (0.9, 1.0): the first batch's logits against the plain path and
+   against ``make_infer_fn`` (control: the bias omitted).  Prints
+   ``train_epoch``'s images/s from the device cache and from the host loader
+   beside the fixed-batch step's, and the evaluator's beside
+   ``make_infer_fn``'s.
+7. A JSON line of the thirteen kernels, then the contract's last line.
 """
 
 from __future__ import annotations
@@ -153,7 +173,14 @@ from ego_moment_cle_vit_tpu_torch import (
     make_infer_fn,
     make_train_step,
 )
-from ego_moment_cle_vit_tpu_torch.data import AugmentConfig, dual_view_train_batch
+from ego_moment_cle_vit_tpu_torch.data import (
+    AugmentConfig,
+    BatchLoader,
+    DeviceDatasetCache,
+    HostDecodedCache,
+    dual_view_train_batch,
+)
+from ego_moment_cle_vit_tpu_torch.data import pipeline as _pipeline
 from ego_moment_cle_vit_tpu_torch.kernels import _build
 from ego_moment_cle_vit_tpu_torch.kernels import attn_half as _ah
 from ego_moment_cle_vit_tpu_torch.kernels import flash_attention as _fa
@@ -172,6 +199,8 @@ from ego_moment_cle_vit_tpu_torch.ops.graph import (
     token_similarity_graph,
 )
 from ego_moment_cle_vit_tpu_torch.ops.moments import graph_weighted_mean
+from ego_moment_cle_vit_tpu_torch.train import Evaluator, Trainer
+from ego_moment_cle_vit_tpu_torch.train import trainer as _trainer_module
 from ego_moment_cle_vit_tpu_torch.utils.device import pin_fp32_precision
 from kernel_turns import (
     attention_half_unfused,
@@ -249,6 +278,11 @@ TOL_GPF = 2e-4
 # the error of sound runs (9.8e-3, 1.06e-2 on an H100) and that of the
 # bias-omitted control (1.12e-1), ~3x from each
 TOL_LOGITS_REL = {torch.bfloat16: 3e-2, torch.float32: 1e-3}
+# phase 6's evaluator in fp32 on the trained checkpoint, of max |plain logit|:
+# sound runs differ by sum order (2.8e-7 on an H100; phases 3-5g read up to
+# 1.7e-6), the bias-omitted control by 1.16e-3, too close to 1e-3 for
+# TOL_LOGITS_REL: ~60x over the first, ~12x under the second
+TOL_EVAL_LOGITS_REL_FP32 = 1e-4
 BIAS_TABLE_STD = 1.0  # trained Swin tables reach this; at init (0.02) the bias is invisible
 # backward kernels vs plain on the card.  Window attention: dqkv per element
 # |err| <= atol + rtol |ref| (both sides round P and ds to the input type, so
@@ -2457,6 +2491,378 @@ def train(card: str, profile_dir: str | None, family: dict) -> dict:
             "grad_err_f32": grad_err32, "coefficient_witness": witness}
 
 
+# ----------------------------------------------------------------------------
+# phase 6: the data pipeline, trainer, evaluator and checkpoints
+# ----------------------------------------------------------------------------
+
+# run outputs (logs, checkpoints of ~3.4 GB each, results.json), inside the
+# checkout and git-ignored; removed when the phase ends
+ENGINE_DIR = Path(__file__).resolve().parent / "outputs" / "chip_smoke_engine"
+ENGINE_TTA_SCALES = (0.9, 1.0)
+ENGINE_BIAS_SEED = 7
+ENGINE_EPOCH_STEPS = 10  # 640 train images, batch 64, drop_last
+
+
+def engine_config(tag: str, device_cache: bool, save_frequency: int = 1) -> dict:
+    """The flagship configuration on the synthetic dataset (80 classes x 8
+    images a split at resize 256, a class signal under the noise: on pure
+    noise two epochs collapse the model to one class and its logits to
+    constants), two epochs, validation and checkpoints every epoch, TTA at
+    0.9 and 1.0, the ablations on."""
+    cfg = json.loads(json.dumps(FLAGSHIP))
+    cfg["dataset"] = {"name": "synthetic", "num_classes": 80, "samples_per_class": 8,
+                      "learnable": True}
+    cfg["data"].update({"device_cache": "true" if device_cache else "false",
+                        "host_cache": "true", "num_workers": 8})
+    cfg["training"].update({"epochs": 2, "val_frequency": 1, "save_frequency": save_frequency})
+    cfg["experiment"] = {"name": f"chip_smoke_{tag}", "seed": 0, "log_frequency": 1000,
+                         **{k: str(ENGINE_DIR / tag / k)
+                            for k in ("output_dir", "save_dir", "log_dir")}}
+    cfg["evaluation"] = {"tta": {"enabled": True, "scales": list(ENGINE_TTA_SCALES)}}
+    cfg["ablation"] = {"enabled": True}
+    return cfg
+
+
+class BatchHash:
+    """A batch's fingerprint on the device: the images' and the labels' sums
+    under fixed positional weights, int64, on the stream that reads them."""
+
+    def __init__(self):
+        self.w = None
+
+    def __call__(self, images: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        flat = images.reshape(-1)
+        if self.w is None or self.w.numel() < flat.numel():
+            idx = torch.arange(flat.numel(), device=flat.device, dtype=torch.int64)
+            self.w = (idx * 2654435761) % 1000003 + 1
+        return torch.stack([(flat.long() * self.w[:flat.numel()]).sum(),
+                            (labels.long() * self.w[:labels.numel()]).sum()])
+
+
+def record_steps(trainer) -> dict:
+    """Wrap the trainer's step and its epoch: per step the batch's hash (on
+    the stream the step reads it from), the launch counts (set to 0 just
+    before the step, read just after) and the loss, kept on the device; per
+    epoch what ``train_epoch`` returned."""
+    rec = {"hash": [], "launches": [], "loss": [], "epochs": []}
+    step, epoch_fn, hasher = trainer._train_step, trainer.train_epoch, BatchHash()
+
+    def wrapped_step(state, images, labels, generator):
+        rec["hash"].append(hasher(images, labels))
+        reset_launches()
+        metrics = step(state, images, labels, generator)
+        rec["launches"].append(read_launches())
+        rec["loss"].append(metrics["loss"])
+        return metrics
+
+    def wrapped_epoch(epoch):
+        out = epoch_fn(epoch)
+        rec["epochs"].append(out)
+        return out
+
+    trainer._train_step = wrapped_step
+    trainer.train_epoch = wrapped_epoch
+    return rec
+
+
+def check_steps(rec: dict, what: str) -> list:
+    """Every step's loss finite and every step's launches the Swin train
+    step's (24 + 24 window attention, 1 + 1 GPF); returns the losses."""
+    losses = torch.stack(rec["loss"]).tolist()
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{what}: a step's loss is not finite: {losses}")
+    want = SWIN["train_launches"]
+    for i, got in enumerate(rec["launches"]):
+        if got != want:
+            fail(f"{what}: step {i} launched {got}, expected {want}")
+    return losses
+
+
+class OneBufferPrefetcher(_pipeline.DevicePrefetcher):
+    """Control for the host-loader check: one pinned buffer and one device
+    buffer for every batch, the next batch copied in on the side stream
+    while the step may still read the last, and no wait on the consumer's
+    stream.  The batch check must see it."""
+
+    def __iter__(self):
+        side = torch.cuda.Stream()
+        bufs = {}
+
+        def produce(put):
+            for batch in self.host_iter:
+                if not bufs:
+                    bufs["pinned"] = [torch.empty(x.shape, dtype=torch.from_numpy(x).dtype,
+                                                  pin_memory=True) for x in batch]
+                    bufs["dev"] = [torch.empty_like(p, device="cuda") for p in bufs["pinned"]]
+                for p, x in zip(bufs["pinned"], batch):
+                    p.copy_(torch.from_numpy(x))
+                with torch.cuda.stream(side):
+                    for d, p in zip(bufs["dev"], bufs["pinned"]):
+                        d.copy_(p, non_blocking=True)
+                if not put(tuple(bufs["dev"])):
+                    return
+
+        yield from _pipeline._background(produce, self.depth)
+
+
+def params_on_host(model) -> dict:
+    return {n: p.detach().cpu() for n, p in model.named_parameters()}
+
+
+def differing_leaves(model, ref: dict) -> list:
+    return [n for n, p in model.named_parameters() if not torch.equal(p.detach().cpu(), ref[n])]
+
+
+def engine(card: str) -> dict:
+    dev = torch.device("cuda")
+    shutil.rmtree(ENGINE_DIR, ignore_errors=True)
+
+    def build(tag: str, device_cache: bool, save_frequency: int = 1) -> Trainer:
+        t0 = time.time()
+        tr = Trainer(engine_config(tag, device_cache, save_frequency))
+        tr.setup_data()
+        tr.setup_model()
+        # tables at the std trained ones reach, so that the evaluator's
+        # bias-omitted control moves the logits
+        redraw_bias_tables(tr.model, torch.Generator(device=dev).manual_seed(ENGINE_BIAS_SEED))
+        loader = tr.train_loader
+        log(f"  {tag}: trainer set up in {time.time() - t0:.1f} s; train data "
+            f"{type(loader).__name__}"
+            + (f" over {type(loader.dataset).__name__}" if hasattr(loader, "dataset") else "")
+            + f", {len(loader)} batches of {BATCH}")
+        return tr
+
+    # [6a] device-cache training: two epochs with validation and checkpoints
+    torch.cuda.reset_peak_memory_stats()
+    t1 = build("device_cache", True)
+    if not isinstance(t1.train_loader, DeviceDatasetCache):
+        fail("device_cache: true did not give the device cache")
+    rec1 = record_steps(t1)
+    save_s = []
+    save = _trainer_module.save_checkpoint
+
+    def timed_save(*args, **kwargs):
+        t = time.perf_counter()
+        save(*args, **kwargs)
+        save_s.append(time.perf_counter() - t)
+
+    _trainer_module.save_checkpoint = timed_save
+    t0 = time.time()
+    try:
+        out1 = t1.train()
+    finally:
+        _trainer_module.save_checkpoint = save
+    train_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses1 = check_steps(rec1, "device-cache training")
+    if len(losses1) != 2 * ENGINE_EPOCH_STEPS:
+        fail(f"device-cache training took {len(losses1)} steps, expected {2 * ENGINE_EPOCH_STEPS}")
+    ckpts = Path(t1.ckpt_dir)
+    for name in ("checkpoint_epoch_0", "checkpoint_epoch_1", "best_model"):
+        if not ((ckpts / name / "model.pt").exists() and (ckpts / name / "optimizer.pt").exists()
+                and (ckpts / f"{name}.meta.json").exists()):
+            fail(f"the trainer wrote no {name} with its .meta.json")
+    ips_dc = [e["images_per_sec"] for e in rec1["epochs"]]
+    ckpt_gb = sum(f.stat().st_size for f in (ckpts / "checkpoint_epoch_0").iterdir()) / 1e9
+    log(f"  checkpoint writes: {', '.join(f'{x:.2f}' for x in save_s)} s ({ckpt_gb:.2f} GB "
+        f"each)")
+    log(f"  device cache, 2 epochs in {train_s:.1f} s (with validation and {len(save_s)} "
+        f"checkpoint writes): train loss {out1['history']['train_loss']}, val acc "
+        f"{out1['history']['val_acc']}, best {out1['best_val_acc']:.4f}; every step's loss finite "
+        f"and launches {rec1['launches'][0]}; peak memory {peak:.2f} GiB")
+    log(f"  train_epoch images/s, device cache: epoch 0 {ips_dc[0]:.1f}, epoch 1 {ips_dc[1]:.1f} "
+        f"(batch {BATCH}, on {card})")
+    params1 = params_on_host(t1.model)
+    epoch0_loss = rec1["epochs"][0]["loss"]
+    hashes0 = torch.stack(rec1["hash"][:ENGINE_EPOCH_STEPS])
+    best = str(ckpts / "best_model")
+    ckpt0 = str(ckpts / "checkpoint_epoch_0")
+    del t1, rec1
+    torch.cuda.empty_cache()
+
+    # [6b] resume from epoch 0 and run epoch 1: the uninterrupted parameters,
+    # bit for bit; the optimizer's moments zeroed must miss them
+    t2 = build("resumed", True, save_frequency=1000)
+    t0 = time.perf_counter()
+    t2.resume(ckpt0)
+    restore_s = time.perf_counter() - t0
+    if t2.start_epoch != 1 or t2.state.step != ENGINE_EPOCH_STEPS:
+        fail(f"resume gave start_epoch {t2.start_epoch}, step {t2.state.step}")
+    rec2 = record_steps(t2)
+    t2.train()
+    check_steps(rec2, "resumed training")
+    differ = differing_leaves(t2.model, params1)
+    log(f"  resumed at epoch 1 from checkpoint_epoch_0 (restored in {restore_s:.2f} s): "
+        f"{len(params1) - len(differ)} of {len(params1)} parameter leaves equal the "
+        f"uninterrupted run's bit for bit")
+    if differ:
+        fail(f"resumed parameters differ from the uninterrupted run's at {differ[:5]}")
+    del t2
+    torch.cuda.empty_cache()
+    t3 = build("resumed_zeroed", True)
+    t3.resume(ckpt0)
+    opt = t3.state.optimizer
+    with torch.no_grad():
+        for group in (opt.m, opt.v, opt.ema, opt.v_row, opt.v_col):
+            for t in group.values():
+                t.zero_()
+    t3.train_epoch(1)
+    differ_ctrl = differing_leaves(t3.model, params1)
+    log(f"  control (resumed with the optimizer's moments zeroed): {len(differ_ctrl)} of "
+        f"{len(params1)} leaves differ")
+    if not differ_ctrl:
+        fail("the resume check passes its control (moments zeroed)")
+    del t3, opt
+    torch.cuda.empty_cache()
+
+    # [6c] host loader: HostDecodedCache -> BatchLoader -> DevicePrefetcher;
+    # the batches and the epoch's loss of the device cache, bit for bit
+    t4 = build("host_loader", False)
+    if not (isinstance(t4.train_loader, BatchLoader)
+            and isinstance(t4.train_loader.dataset, HostDecodedCache)):
+        fail("device_cache: false did not give the host loader over the host cache")
+    rec4 = record_steps(t4)
+    m4 = t4.train_epoch(0)
+    check_steps(rec4, "host-loader training")
+    same = (torch.stack(rec4["hash"]) == hashes0).all(dim=1).tolist()
+    log(f"  host loader epoch 0: {sum(same)} of {len(same)} batches equal the device cache's "
+        f"(hash on the device); epoch loss {m4['loss']!r} against the device cache's "
+        f"{epoch0_loss!r}")
+    if len(same) != ENGINE_EPOCH_STEPS or not all(same):
+        fail("the host loader's batches differ from the device cache's")
+    if m4["loss"] != epoch0_loss:
+        fail("the host loader's epoch loss differs from the device cache's")
+    m4b = t4.train_epoch(1)
+    ips_host = [m4["images_per_sec"], m4b["images_per_sec"]]
+    log(f"  train_epoch images/s, host loader: epoch 0 {ips_host[0]:.1f}, epoch 1 "
+        f"{ips_host[1]:.1f} (batch {BATCH}, on {card})")
+    rec_ctrl = record_steps(t4)
+    saved = _trainer_module.DevicePrefetcher
+    _trainer_module.DevicePrefetcher = OneBufferPrefetcher
+    try:
+        t4.train_epoch(0)
+    finally:
+        _trainer_module.DevicePrefetcher = saved
+    same_ctrl = (torch.stack(rec_ctrl["hash"]) == hashes0).all(dim=1).tolist()
+    log(f"  control (one pinned buffer reused without waiting): {sum(same_ctrl)} of "
+        f"{len(same_ctrl)} batches equal the device cache's")
+    if all(same_ctrl):
+        fail("the host-loader batch check passes its control (one buffer, no wait)")
+
+    # [6d] the same step through make_train_step on a fixed batch (phase 4's
+    # method), on the host-loader trainer's model
+    g = torch.Generator(device=dev).manual_seed(3)
+    images = torch.randint(0, 256, (BATCH, 256, 256, 3), generator=g, device=dev,
+                           dtype=torch.uint8)
+    labels = torch.randint(0, t4.num_classes, (BATCH,), generator=g, device=dev)
+    step = make_train_step(t4.model, t4.aug_cfg)
+    step(t4.state, images, labels, t4.train_generator)
+    rates = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(5):
+            step(t4.state, images, labels, t4.train_generator)
+        torch.cuda.synchronize()
+        rates.append(BATCH * 5 / (time.perf_counter() - t))
+    ips_step = statistics.median(rates)
+    log(f"  make_train_step on a fixed batch: {ips_step:.1f} images/s (loops: "
+        f"{', '.join(f'{r:.1f}' for r in rates)}; batch {BATCH}, on {card})")
+    del t4, step, images, labels
+    torch.cuda.empty_cache()
+
+    # [6e] the evaluator on the best checkpoint: metrics, ablations, TTA
+    ev = Evaluator(engine_config("eval", True), best)
+    reset_launches()
+    out = ev.evaluate(visualize=False, ablation=True)
+    eval_launches = read_launches()
+    m = out["metrics"]
+    results = Path(ev.output_dir) / "results.json"
+    log(f"  evaluator: top1 {m['top1_accuracy']:.4f}, top5 {m['top5_accuracy']:.4f}, TTA top1 "
+        f"{m['tta_top1_accuracy']:.4f}, ablations {out['ablations']}; launches over the "
+        f"evaluation {eval_launches}")
+    if sorted(out["ablations"]) != ["cls_only", "no_gpf", "uniform_graph"] or not all(
+            0.0 <= v <= 1.0 for v in out["ablations"].values()):
+        fail(f"ablation accuracies {out['ablations']}")
+    if not results.exists() or "tta_top1_accuracy" not in m:
+        fail("the evaluator wrote no results.json or no TTA accuracy")
+    if not (eval_launches["window_attention_fwd"] and eval_launches["gpf_fwd"]):
+        fail(f"the evaluation launched {eval_launches}")
+    images_np, labels_np = next(iter(ev.loader))
+    images = torch.from_numpy(images_np).to(dev)
+    labels = torch.from_numpy(labels_np).to(dev)
+
+    def logits_check(evaluator, n: int, dtype, tol: float):
+        """The evaluator's eval step on the first n images, kernels against
+        the plain path and against the bias-omitted control: (error,
+        control's error, the logits, max |logit|), errors over max |logit|."""
+        out = evaluator._eval_step(images[:n], labels[:n])["logits"].float()
+        with plain_kernels():
+            ref = evaluator._eval_step(images[:n], labels[:n])["logits"].float()
+        with bias_omitted(evaluator.model):
+            ctrl = evaluator._eval_step(images[:n], labels[:n])["logits"].float()
+        torch.cuda.synchronize()
+        scale = max(1.0, ref.abs().max().item())
+        err = (out - ref).abs().max().item() / scale
+        err_ctrl = (ctrl - ref).abs().max().item() / scale
+        log(f"  evaluator {str(dtype)[6:]} logits (batch {n}) vs the plain path: {err:.4e} of max "
+            f"|logit| {scale:.4e}; control (bias omitted) {err_ctrl:.4e}; tol {tol}")
+        if err > tol:
+            fail(f"the evaluator's {dtype} logits disagree with the plain path")
+        return err, err_ctrl, out, scale
+
+    err, err_ctrl_bf16, logits, scale = logits_check(ev, BATCH, torch.bfloat16,
+                                                     TOL_LOGITS_REL[torch.bfloat16])
+    infer = make_infer_fn(ev.model, ev.aug_cfg)
+    served = infer(images).float()
+    err_serve = (served - logits).abs().max().item() / scale
+    first = torch.from_numpy(ev.features["logits"][:BATCH]).to(dev)
+    log(f"  make_infer_fn vs the evaluator, same images: {err_serve:.4e} of max |logit| (tol "
+        f"{TOL_LOGITS_REL[torch.bfloat16]}); evaluate()'s own first-batch logits "
+        f"{'equal' if torch.equal(first, logits) else 'differ from'} the eval step's")
+    if err_serve > TOL_LOGITS_REL[torch.bfloat16]:
+        fail("make_infer_fn's logits disagree with the evaluator's")
+    # After two epochs the bias moves the bf16 logits by less than their bf16
+    # noise (chip run: control 8.1e-3 of max |logit| against 6.0e-3 sound),
+    # so the bias-omitted control is held on the same checkpoint in fp32
+    # (TOL_EVAL_LOGITS_REL_FP32).
+    cfg32 = engine_config("eval_fp32", True)
+    cfg32["model"]["bf16"] = False
+    cfg32["model"]["moment"]["bf16_params"] = False
+    ev32 = Evaluator(cfg32, best)
+    ev32.setup_data()
+    ev32.load_model()
+    err32, err_ctrl, _, _ = logits_check(ev32, 8, torch.float32, TOL_EVAL_LOGITS_REL_FP32)
+    if err_ctrl <= TOL_EVAL_LOGITS_REL_FP32:
+        fail("the evaluator logits check passes its control (bias omitted)")
+    del ev32
+    rates = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(10):
+            infer(images)
+        torch.cuda.synchronize()
+        rates.append(BATCH * 10 / (time.perf_counter() - t))
+    ips_infer = statistics.median(rates)
+    log(f"  evaluator images/s {m['images_per_sec']:.1f} (compute_metrics, {m['num_samples']} "
+        f"images) against make_infer_fn {ips_infer:.1f} (loops: "
+        f"{', '.join(f'{r:.1f}' for r in rates)}; batch {BATCH}, on {card})")
+    del ev, infer
+    shutil.rmtree(ENGINE_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"step_launches": rec4["launches"][0], "eval_launches": eval_launches,
+            "images_per_s": {"device_cache_epochs": ips_dc, "host_loader_epochs": ips_host,
+                             "make_train_step": ips_step, "evaluator": m["images_per_sec"],
+                             "make_infer_fn": ips_infer},
+            "checkpoint_write_s": save_s, "checkpoint_gb": ckpt_gb, "restore_s": restore_s,
+            "peak_gib": peak, "errors": {"eval_vs_plain_bf16": err,
+                                         "eval_bias_omitted_bf16": err_ctrl_bf16,
+                                         "eval_vs_plain_fp32": err32,
+                                         "eval_bias_omitted_fp32": err_ctrl,
+                                         "serve_vs_eval": err_serve}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", help="write a torch.profiler table here")
@@ -2594,6 +3000,11 @@ def main() -> int:
     phase("[5g] serving, Swin-Large/1280 with the flagship heads, batch 64 (kernel path vs "
           "plain path at batch 8 in bf16 and 2 in fp32)")
     srv_swinl = serve(card, args.profile, SWINL1280)
+    torch.cuda.empty_cache()
+
+    phase(f"[6] data pipeline, trainer, evaluator and checkpoints, Swin-Base/224 flagship, batch "
+          f"{BATCH}, synthetic 80 x 8 images a split")
+    eng = engine(card)
 
     # ms, plain_ms, bound_ms, library_ms: bf16, summed over one forward's
     # launches at batch 64 (forward kernels, the serving path) or over one
@@ -2636,14 +3047,17 @@ def main() -> int:
          "swinL1280_stage0_padded_ms_b64": wa_pad["stage0_ms"],
          "swinL1280_forward_ms_b64": wa_pad["ms"],
          "swinL1280_forward_bound_ms_b64": wa_pad["bound_ms"],
-         "swinL1280_forward_library_ms_b64": wa_pad["library_ms"]},
+         "swinL1280_forward_library_ms_b64": wa_pad["library_ms"],
+         "engine_step_launches": eng["step_launches"]["window_attention_fwd"],
+         "engine_eval_launches": eng["eval_launches"]["window_attention_fwd"]},
         {"name": "window_attention_bwd", "route": "cuda",
          "source": src + "window_attention_bwd.cu",
          "replaces": WA_BWD_REPLACES, "launches": trn["launches"]["window_attention_bwd"],
          "max_abs_err": wab["max_abs_err"], "err_over_tol": wab["err_over_tol"],
          "ms": wab["ms"], "plain_ms": wab["plain_ms"], "bound_ms": wab["bound_ms"],
          "bound_by": wab["bound_by"], "library_ms": wab["library_ms"],
-         "library_no_dbias_ms": wab["library_no_dbias_ms"]},
+         "library_no_dbias_ms": wab["library_no_dbias_ms"],
+         "engine_step_launches": eng["step_launches"]["window_attention_bwd"]},
         {"name": "gpf_fwd", "route": "cuda", "source": src + "gpf_fwd.cu",
          "replaces": GPF_REPLACES, "launches": srv_vit["launches"]["gpf_fwd"],
          "train_launches": trn_vit["launches"]["gpf_fwd"],
@@ -2659,7 +3073,9 @@ def main() -> int:
          **other_gpf("vitL512", gp_vitl), "vitL512_launches": srv_vitl["launches"]["gpf_fwd"],
          "vitL512_train_ms": gpb_vitl["fwd_ms"],
          **other_gpf("swinL1280", gp_swinl),
-         "swinL1280_launches": srv_swinl["launches"]["gpf_fwd"]},
+         "swinL1280_launches": srv_swinl["launches"]["gpf_fwd"],
+         "engine_step_launches": eng["step_launches"]["gpf_fwd"],
+         "engine_eval_launches": eng["eval_launches"]["gpf_fwd"]},
         {"name": "gpf_bwd", "route": "cuda", "source": src + "gpf_bwd.cu",
          "replaces": GPF_BWD_REPLACES, "launches": trn_vit["launches"]["gpf_bwd"],
          "swin_launches": trn["launches"]["gpf_bwd"],
@@ -2672,7 +3088,8 @@ def main() -> int:
          "launch_ms": gpb_vit["launch_ms"],
          **other_gpf("swin", gpb), **other_gpf("vit448", gpb_448),
          **other_gpf("vitL512", gpb_vitl), "vitL512_launches": trn_vitl["launches"]["gpf_bwd"],
-         **other_gpf("swinL1280", gpb_swinl)},
+         **other_gpf("swinL1280", gpb_swinl),
+         "engine_step_launches": eng["step_launches"]["gpf_bwd"]},
         {"name": "packed_attention_fwd", "route": "cuda",
          "source": src + "packed_attention_fwd.cu",
          "replaces": PA_REPLACES, "launches": srv_vit["launches"]["packed_attention_fwd"],
@@ -2758,6 +3175,12 @@ def main() -> int:
                      f"peak {t_res['peak_gib']:.2f} GiB)")
         log(f"  {label}: serving {s_res['images_per_s']:.1f} images/s (peak "
             f"{s_res['peak_gib']:.2f} GiB), training {train_msg}")
+    ips = eng["images_per_s"]
+    log(f"  Swin-Base/224 engine (phase 6): train_epoch images/s device cache "
+        f"{', '.join(f'{x:.1f}' for x in ips['device_cache_epochs'])}, host loader "
+        f"{', '.join(f'{x:.1f}' for x in ips['host_loader_epochs'])}, make_train_step "
+        f"{ips['make_train_step']:.1f}; evaluator {ips['evaluator']:.1f} against make_infer_fn "
+        f"{ips['make_infer_fn']:.1f}")
     log(f"  total {time.time() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

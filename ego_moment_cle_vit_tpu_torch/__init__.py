@@ -10,9 +10,11 @@ moment head -> classifier) and the training step (dual-view augmentation, the
 dual-view forward, the five-term loss, backward, AdamW with a factored second
 moment for huge leaves and fp32 masters for bf16 ones), with hand-written CUDA
 kernels for spatial window attention and fused GPF, forward and backward
-(``kernels/``, sources in ``csrc/``).  Entry points
-run on ``device="cuda"`` unless the caller passes ``device="cpu"``; without a
-GPU they raise.  This package imports neither JAX nor the JAX package.
+(``kernels/``, sources in ``csrc/``); the data pipeline, the trainer, the
+evaluator, checkpoints and the CLI (``data/``, ``train/``, ``cli/``).  Entry
+points run on ``device="cuda"`` unless the caller passes ``device="cpu"``;
+without a GPU they raise.  This package imports neither JAX nor the JAX
+package.
 """
 
 from .models import EGOMomentCLEViT, create_model

@@ -1,11 +1,11 @@
 """EGOMomentCLEViT, the composition root.
 
-Counterpart of ``ego_moment_cle_vit_tpu/models/ego_moment_clevit.py:39-273,
-309-362``: dual-stream backbone -> GPF -> MomentHead -> ClassifierHead plus
+Counterpart of ``ego_moment_cle_vit_tpu/models/ego_moment_clevit.py:39-362``:
+dual-stream backbone -> GPF -> MomentHead -> ClassifierHead plus
 the per-view auxiliary classifier and the five-term loss dictionary (three
-cross-entropies, the roll-negative triplet, the graph-alignment MSE), and
-``inference`` as the single-view serving forward.  ``ablation_forward`` is
-not ported yet.
+cross-entropies, the roll-negative triplet, the graph-alignment MSE);
+``inference`` as the single-view serving forward; ``ablation_forward``
+(JAX ``:275-307``), the evaluator's ablations.
 """
 
 from __future__ import annotations
@@ -165,11 +165,33 @@ class EGOMomentCLEViT(nn.Module):
             )
         return loss_dict
 
-    def ablation_forward(self, anchor, positive, mode: str = "full"):
-        raise NotImplementedError(
-            "ablation_forward is not ported yet (ROADMAP.md, 'Modules to port', trainer, "
-            "evaluator, CLI)"
-        )
+    def ablation_forward(self, anchor: torch.Tensor, positive: torch.Tensor,
+                         mode: str = "full") -> torch.Tensor:
+        """Logits of an ablated model on trained weights (the evaluator runs
+        it in eval mode; dropout follows ``self.training`` as in ``forward``):
+
+        'full'           the standard forward;
+        'no_gpf'         the identity relation graph in place of the fused one;
+        'uniform_graph'  the all-ones graph (unweighted moment pooling);
+        'cls_only'       no moments: the auxiliary per-view classifier on the
+                         anchor's global feature (one backbone pass).
+        """
+        if mode == "cls_only":
+            feats = self.backbone.forward_single(anchor)
+            return self.cls_only_classifier(feats["global_features"])
+        anchor_features, positive_features = self.backbone(anchor, positive)
+        tokens = anchor_features["patch_tokens"]
+        b, n, _ = tokens.shape
+        if mode == "no_gpf":
+            graph = torch.eye(n, dtype=tokens.dtype, device=tokens.device).expand(b, n, n)
+        elif mode == "uniform_graph":
+            graph = torch.ones(b, n, n, dtype=tokens.dtype, device=tokens.device)
+        elif mode == "full":
+            graph = self.gpf(tokens, positive_features["patch_tokens"])
+        else:
+            raise ValueError(f"Unknown ablation mode: {mode}")
+        moment_features = self.moment_head(tokens, graph)
+        return self.classifier(anchor_features["global_features"], moment_features)
 
     def inference(self, images: torch.Tensor) -> torch.Tensor:
         """Single-view inference: one backbone pass, R_p := R_a.

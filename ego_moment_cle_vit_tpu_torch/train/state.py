@@ -24,14 +24,23 @@ the same update from optax pieces:
 
 Updates are in place, through ``torch._foreach_*`` over the ordinary leaves:
 one launch per operation instead of one per leaf.  The finite check reads one
-scalar back to the host per step.  Gradient accumulation, checkpoints and
-BatchNorm statistics are not ported yet.
+scalar back to the host per step.  Gradient accumulation and BatchNorm
+statistics are not ported yet.
+
+Checkpoints (JAX ``:390-495``) keep the JAX contract, ``best_model`` or
+``checkpoint_epoch_{n}`` beside a ``{name}.meta.json`` sidecar with the step,
+epoch, ``best_val_acc`` and config, the newest ``keep`` epoch checkpoints
+kept; the tensors go through ``torch.save``: the model's ``state_dict`` and
+the optimizer's (``Optimizer.state_dict``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import shutil
+from pathlib import Path
 from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional
 
 import torch
@@ -200,6 +209,37 @@ class Optimizer:
                 self.v[name] = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         return self
 
+    _STATE_TENSORS = ("master", "m", "v", "v_row", "v_col", "ema")
+    _STATE_COUNTS = ("count", "notfinite_count", "total_notfinite")
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Everything ``step`` reads besides the parameters: the fp32 masters,
+        both moments, the factored statistics, the bf16 EMA momentum and the
+        update counts.  Tensors are the optimizer's own (``torch.save``
+        copies them)."""
+        return {"names": list(self.names),
+                **{k: getattr(self, k) for k in self._STATE_COUNTS},
+                **{k: dict(getattr(self, k)) for k in self._STATE_TENSORS}}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Mapping[str, Any]) -> None:
+        """Copy a ``state_dict`` into this optimizer's state, in place and on
+        its own devices and dtypes; it must come from an optimizer bound to
+        the same leaves with the same options."""
+        if list(state["names"]) != self.names:
+            raise ValueError("the optimizer state belongs to other parameters")
+        for k in self._STATE_TENSORS:
+            mine, theirs = getattr(self, k), state[k]
+            if sorted(mine) != sorted(theirs):
+                raise ValueError(f"optimizer state {k!r} covers other leaves")
+            for name, t in mine.items():
+                if tuple(t.shape) != tuple(theirs[name].shape):
+                    raise ValueError(f"optimizer state {k}[{name}]: shape "
+                                     f"{tuple(theirs[name].shape)} != {tuple(t.shape)}")
+                t.copy_(theirs[name])
+        for k in self._STATE_COUNTS:
+            setattr(self, k, int(state[k]))
+
     # the fp32 tensor an update runs on: the master of a bf16 leaf, else the leaf
     def _target(self, name: str) -> torch.Tensor:
         return self.master.get(name, self.params[name])
@@ -339,9 +379,71 @@ def create_train_state(model: nn.Module, config: Dict[str, Any], steps_per_epoch
     return TrainState(model, create_optimizer(config, steps_per_epoch).init(named, transposed))
 
 
-def save_checkpoint(*args, **kwargs):
-    raise _not_ported("save_checkpoint", "trainer, evaluator, CLI")
+def _ckpt_dir(path: str) -> Path:
+    p = Path(path).resolve()
+    p.mkdir(parents=True, exist_ok=True)
+    return p
 
 
-def restore_checkpoint(*args, **kwargs):
-    raise _not_ported("restore_checkpoint", "trainer, evaluator, CLI")
+def _epoch_checkpoints(path: Path) -> List[int]:
+    return sorted(int(p.name.rsplit("_", 1)[1]) for p in path.glob("checkpoint_epoch_*")
+                  if p.is_dir() and p.name.rsplit("_", 1)[1].isdigit())
+
+
+def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int, best_val_acc: float,
+                    config: Dict[str, Any], keep: int = 5, best: bool = False) -> None:
+    """Write ``best_model`` (``best=True``) or ``checkpoint_epoch_{epoch}``
+    under ``ckpt_dir``: ``model.pt`` (the model's ``state_dict``) and
+    ``optimizer.pt`` (the optimizer's) in a directory of that name, and
+    ``{name}.meta.json`` beside it with the step, epoch, ``best_val_acc`` and
+    config.  Epoch checkpoints beyond the newest ``keep`` are removed."""
+    path = _ckpt_dir(ckpt_dir)
+    name = "best_model" if best else f"checkpoint_epoch_{epoch}"
+    target = path / name
+    if target.exists():
+        shutil.rmtree(target)
+    target.mkdir()
+    torch.save(state.model.state_dict(), target / "model.pt")
+    torch.save(state.optimizer.state_dict(), target / "optimizer.pt")
+    meta = {"step": int(state.step), "epoch": int(epoch), "best_val_acc": float(best_val_acc),
+            "config": config}
+    (path / f"{name}.meta.json").write_text(json.dumps(meta, indent=2, default=str))
+
+    if not best:
+        for old in _epoch_checkpoints(path)[:-keep]:
+            shutil.rmtree(path / f"checkpoint_epoch_{old}", ignore_errors=True)
+            (path / f"checkpoint_epoch_{old}.meta.json").unlink(missing_ok=True)
+
+
+def latest_checkpoint_step(ckpt_dir: str) -> Optional[int]:
+    """The newest epoch checkpoint's epoch under ``ckpt_dir``, or None."""
+    path = Path(ckpt_dir)
+    if not path.exists():
+        return None
+    epochs = _epoch_checkpoints(path)
+    return epochs[-1] if epochs else None
+
+
+def restore_checkpoint(ckpt_path: str, *, device: str | torch.device = "cuda",
+                       optimizer: bool = True) -> Dict[str, Any]:
+    """Load a checkpoint written by :func:`save_checkpoint` onto ``device``
+    (GPU unless ``device='cpu'``; raises without one), whatever device wrote
+    it.
+
+    Returns ``{"model": state_dict, "optimizer": state_dict or None}`` plus
+    the sidecar's step, epoch, best_val_acc and config.  ``optimizer=False``
+    skips the optimizer's state (evaluation and serving need only the
+    model's)."""
+    dev = resolve_device(device)
+    path = Path(ckpt_path).resolve()
+    if not (path / "model.pt").exists():
+        raise FileNotFoundError(f"no checkpoint at {path}")
+    bundle: Dict[str, Any] = {
+        "model": torch.load(path / "model.pt", map_location=dev, weights_only=True),
+        "optimizer": (torch.load(path / "optimizer.pt", map_location=dev, weights_only=True)
+                      if optimizer else None),
+    }
+    meta_file = path.parent / f"{path.name}.meta.json"
+    if meta_file.exists():
+        bundle.update(json.loads(meta_file.read_text()))
+    return bundle

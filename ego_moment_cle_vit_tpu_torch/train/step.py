@@ -1,16 +1,18 @@
-"""The training step: augment, forward, five-term loss, backward, update.
+"""The training and evaluation steps.
 
-Counterpart of ``ego_moment_cle_vit_tpu/bench_core.py:28-57``
-(``make_train_step``).
+``make_train_step``: augment, forward, five-term loss, backward, update; the
+counterpart of ``ego_moment_cle_vit_tpu/bench_core.py:28-57`` and, with
+``metrics=True``, of the JAX trainer's step (``train/trainer.py:383-421``).
+``make_eval_step``: the JAX trainer's eval step (``:423-434``).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict
 
 import torch
 
-from ..data.augment import AugmentConfig, dual_view_train_batch
+from ..data.augment import AugmentConfig, dual_view_eval_batch, dual_view_train_batch
 from ..utils.device import pin_fp32_precision, resolve_device
 from .state import TrainState
 
@@ -35,10 +37,28 @@ def step_generators(generator: torch.Generator, step: int, device: torch.device)
                  for purpose in (0, 1))
 
 
+def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return (logits.argmax(dim=-1) == labels).float().mean()
+
+
+def _model_device(model: torch.nn.Module, device: str | torch.device) -> torch.device:
+    """The model's device, which must be of ``device``'s kind; on the GPU
+    full-fp32 products are pinned."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        pin_fp32_precision()
+    model_dev = next(model.parameters()).device
+    if model_dev.type != dev.type:
+        raise ValueError(f"model is on {model_dev}, the step was asked for {dev}")
+    return model_dev
+
+
 def make_train_step(
-    model: torch.nn.Module, aug_cfg: AugmentConfig, *, device: str | torch.device = "cuda"
+    model: torch.nn.Module, aug_cfg: AugmentConfig, *, device: str | torch.device = "cuda",
+    metrics: bool = False,
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor, torch.Generator], torch.Tensor]:
-    """Return ``train_step(state, images_u8, labels, generator) -> loss``.
+    """Return ``train_step(state, images_u8, labels, generator) -> loss``
+    (``metrics=True``: -> ``{"loss", "accuracy", **loss_dict}``).
 
     One full step, in place on ``state``: dual-view augmentation on the
     device, the dual-view forward in training mode, the five-term loss,
@@ -50,15 +70,12 @@ def make_train_step(
     Randomness: ``generator`` only carries the seed.  Each step derives its
     augmentation and dropout streams from ``(seed, state.step)`` (see
     :func:`step_generators`), so a step is reproducible and independent of
-    what ran before it.  The returned loss is a detached scalar tensor on the
-    device; the optimizer's finite check waits for the device once per step.
+    what ran before it.  The returned loss (and with ``metrics``, the batch
+    accuracy of the main logits and every loss term) are detached scalar
+    tensors on the device, not read by the host; the optimizer's finite check
+    waits for the device once per step.
     """
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        pin_fp32_precision()
-    model_dev = next(model.parameters()).device
-    if model_dev.type != dev.type:
-        raise ValueError(f"model is on {model_dev}, training asked for {dev}")
+    model_dev = _model_device(model, device)
 
     def train_step(state: TrainState, images_u8: torch.Tensor, labels: torch.Tensor,
                    generator: torch.Generator) -> torch.Tensor:
@@ -70,11 +87,36 @@ def make_train_step(
         labels = labels.to(model_dev, non_blocking=True)
         with torch.no_grad():
             anchor, positive = dual_view_train_batch(images, aug_gen, aug_cfg)
-        loss = model(anchor, positive, labels, generator=drop_gen)["loss"]
+        out = model(anchor, positive, labels, generator=drop_gen)
+        loss = out["loss"]
         model.zero_grad(set_to_none=True)
         loss.backward()
         state.optimizer.step()
         state.step += 1
-        return loss.detach()
+        if not metrics:
+            return loss.detach()
+        return {"loss": loss.detach(), "accuracy": _accuracy(out["logits"].detach(), labels),
+                **{k: v.detach() for k, v in out["loss_dict"].items()}}
 
     return train_step
+
+
+def make_eval_step(
+    model: torch.nn.Module, aug_cfg: AugmentConfig, *, device: str | torch.device = "cuda",
+) -> Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Return ``eval_step(images_u8, labels) -> {"loss", "accuracy"}``: the
+    eval views (center crop, both views alike), the dual-view forward in eval
+    mode under ``torch.inference_mode()`` as serving runs, the loss and the
+    batch accuracy as scalar tensors on the device, not read by the host."""
+    model_dev = _model_device(model, device)
+
+    def eval_step(images_u8: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+        model.eval()
+        with torch.inference_mode():
+            images = images_u8.to(model_dev, non_blocking=True)
+            labels = labels.to(model_dev, non_blocking=True)
+            anchor, positive = dual_view_eval_batch(images, aug_cfg)
+            out = model(anchor, positive, labels)
+            return {"loss": out["loss"], "accuracy": _accuracy(out["logits"], labels)}
+
+    return eval_step

@@ -32,3 +32,18 @@ def pin_fp32_precision() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def not_ported_parallelism(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md, 'Modules to port', parallelism)")
+
+
+def check_single_device(mesh_cfg: dict | None) -> None:
+    """The port runs on one device: a config mesh with ``data`` or ``model``
+    above one raises (``data: null`` means every device, here one)."""
+    mesh_cfg = mesh_cfg or {}
+    data = mesh_cfg.get("data")
+    model = int(mesh_cfg.get("model", 1) or 1)
+    if (data is not None and int(data) > 1) or model > 1:
+        raise not_ported_parallelism(f"a mesh of data={data}, model={model}")

@@ -64,8 +64,13 @@ both Swin-Base stages it fuses, both shifts) and at its edges (one image,
 one window, an odd window count, windows of 4 and 8), per element within the
 fused half's bf16 tolerance above, with its two controls; both kernels'
 SASS holds HGMMA.
+
+The data and engine layers on the card: ``DevicePrefetcher`` gives the
+batches inline copies give, bit for bit, and a checkpoint GPU -> CPU -> GPU
+keeps the model's and the optimizer's state bits.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -1134,3 +1139,68 @@ def test_cuda_gpf_fwd_sm90_edges(cuda_device, n, d, similarity):
             zeroed = out * torch.eye(n, device=cuda_device)
             assert not ((zeroed - ref).abs() <= 2e-4 * scale).all()
         assert torch.equal(tgpf.gpf_fwd(ta, pos, c, similarity), out)
+
+
+@pytest.mark.cuda
+def test_cuda_device_prefetcher_equals_inline_copies(cuda_device):
+    """20 host batches through ``DevicePrefetcher`` at depth 2 equal inline
+    ``.to("cuda")`` copies of the same batches, bit for bit, read on the
+    consuming stream while the side stream copies the next ones."""
+    from ego_moment_cle_vit_tpu_torch.data import DevicePrefetcher
+
+    rng = np.random.default_rng(0)
+    host = [(rng.integers(0, 256, (16, 64, 64, 3), dtype=np.uint8),
+             rng.integers(0, 80, (16,)).astype(np.int32)) for _ in range(20)]
+    seen = 0
+    for (images, labels), (ref_i, ref_l) in zip(DevicePrefetcher(iter(host), cuda_device, 2),
+                                               host):
+        assert images.device.type == "cuda" and images.dtype == torch.uint8
+        # work on the consuming stream between batches, as a step would do
+        (images.float() @ torch.ones(3, 3, device=cuda_device)).sum()
+        assert torch.equal(images, torch.from_numpy(ref_i).to(cuda_device))
+        assert torch.equal(labels, torch.from_numpy(ref_l).to(cuda_device))
+        seen += 1
+    assert seen == 20
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_round_trip_gpu_cpu_gpu(cuda_device, tmp_path):
+    """A checkpoint written on the GPU, restored on the CPU, written there and
+    restored on the GPU again gives the same model and optimizer state bits
+    (bf16 weights with fp32 masters, a factored leaf, two updates taken)."""
+    from ego_moment_cle_vit_tpu_torch import create_model
+    from ego_moment_cle_vit_tpu_torch.train import state as tstate
+
+    cfg = {"model": {"backbone_name": "swin_micro_patch4_window7_56", "bf16": True,
+                     "moment": {"d_out": 32, "sketch_dim": 128}},
+           "data": {"input_size": 56},
+           "training": {"optimizer": {"factored_threshold": 10_000}}}
+
+    def build(device):
+        model = create_model(cfg, num_classes=5, device=device, seed=0)
+        return model, tstate.create_train_state(model, cfg, 3, device=device)
+
+    model, state = build("cuda")
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    for _ in range(2):
+        state.optimizer.step({n: torch.randn(p.shape, generator=g, device=cuda_device).to(
+            p.dtype) for n, p in state.optimizer.params.items()})
+        state.step += 1
+    tstate.save_checkpoint(str(tmp_path / "gpu"), state, 1, 0.5, cfg)
+    cpu_model, cpu_state = build("cpu")
+    bundle = tstate.restore_checkpoint(str(tmp_path / "gpu" / "checkpoint_epoch_1"), device="cpu")
+    cpu_model.load_state_dict(bundle["model"])
+    cpu_state.optimizer.load_state_dict(bundle["optimizer"])
+    cpu_state.step = bundle["step"]
+    tstate.save_checkpoint(str(tmp_path / "cpu"), cpu_state, 1, 0.5, cfg)
+    back_model, back_state = build("cuda")
+    bundle = tstate.restore_checkpoint(str(tmp_path / "cpu" / "checkpoint_epoch_1"), device="cuda")
+    back_model.load_state_dict(bundle["model"])
+    back_state.optimizer.load_state_dict(bundle["optimizer"])
+    for (n, p), q in zip(model.state_dict().items(), back_model.state_dict().values()):
+        assert q.device.type == "cuda" and torch.equal(p, q), n
+    mine, theirs = state.optimizer.state_dict(), back_state.optimizer.state_dict()
+    assert mine["master"] and mine["v_row"]
+    for key in ("master", "m", "v", "v_row", "v_col", "ema"):
+        assert all(torch.equal(t, theirs[key][n]) for n, t in mine[key].items()), key
+    assert theirs["count"] == 2 and bundle["step"] == 2

@@ -150,8 +150,17 @@ def test_zero_loss_weights_drop_their_terms_and_features_are_returned():
     assert feats["moment_features"].shape == (B, 64)
     assert feats["gpf_coefficients"].shape == (3, 3) and (feats["gpf_coefficients"] > 0).all()
     assert "loss" not in model(anchor, positive)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.ablation_forward(anchor, positive)
+    # ablation_forward: 'full' is the forward's logits, the others their own
+    torch.testing.assert_close(model.ablation_forward(anchor, positive), out["logits"],
+                               rtol=1e-5, atol=1e-6)
+    for mode in ("no_gpf", "uniform_graph", "cls_only"):
+        logits = model.ablation_forward(anchor, positive, mode)
+        assert logits.shape == (B, 10) and torch.isfinite(logits).all()
+        assert not torch.allclose(logits, out["logits"]), mode
+    torch.testing.assert_close(model.ablation_forward(anchor, positive, "cls_only"),
+                               out["logits_anchor"], rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="Unknown ablation mode"):
+        model.ablation_forward(anchor, positive, "no_moments")
 
 
 def test_dual_view_backbone_is_one_2b_pass():
