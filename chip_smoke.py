@@ -148,13 +148,35 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    ``train_epoch``'s images/s from the device cache and from the host loader
    beside the fixed-batch step's, and the evaluator's beside
    ``make_infer_fn``'s.
-7. A JSON line of the thirteen kernels, then the contract's last line.
+7. The remaining model and training options, at batch 64.  (a) The
+   flagship with adaptive GPF 'attention' (per-sample coefficients, plain
+   PyTorch: no GPF kernel), BatchNorm head norms, the adaptive classifier and
+   ``accumulation_steps: 2``: one update's parameter gradients (BatchNorms on
+   the batch's statistics, dropout off) against the plain path, bf16 at 64
+   and fp32 at 4 (control: bias gradient dropped); 8 micro-steps through
+   ``make_train_step``, each with 24 + 24 window-attention launches and a
+   finite loss, parameters bit for bit unmoved after the odd micro-steps and
+   moved after the even ones (control: an update every micro-step), the
+   running statistics moved on every one (control: an eval forward), no
+   skipped update; then serving on the running statistics, logits against
+   the plain path (control: train-mode BatchNorm).  (b) ViT-L/16 at 448 with
+   the multi-scale classifier (BASELINE.json configs[4]; 785 tokens, N = 784
+   < D = 1024, the subspace head; block checkpointing): phases 3 and 4's
+   checks, 24 q-tiled and 1 GPF launches a forward, 48 + 24 and 1 + 1 a
+   step, 10 steps.  (c) Adaptive 'global' (1 + 1 GPF launches), 'spatial'
+   (none), the simplified head, the bilinear fusion and ``norm: none`` on
+   the flagship: a forward and two steps each, finite logits, loss and
+   gradients, logits against the plain path at batch 8 (control, once:
+   bias omitted).  Each prints images/s, step ms and peak memory.
+8. A JSON line of the thirteen kernels (with the launches of phase 7's paths
+   under ``phase7_launches``), then the contract's last line.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import os
@@ -188,6 +210,7 @@ from ego_moment_cle_vit_tpu_torch.kernels import gpf as _gpf
 from ego_moment_cle_vit_tpu_torch.kernels import newton_schulz as _ns
 from ego_moment_cle_vit_tpu_torch.kernels import packed_attention as _pa
 from ego_moment_cle_vit_tpu_torch.kernels import window_attention as _wa
+from ego_moment_cle_vit_tpu_torch.models.layers import BatchNorm
 from ego_moment_cle_vit_tpu_torch.models.swin import (
     SwinBlock,
     _attn_mask,
@@ -267,6 +290,30 @@ SWINL_STAGES = (SWINL_STAGE0 + (2,), (160, 161, 384, 12, 2), (80, 84, 768, 24, 1
 # fp32 probabilities [8, 2116, 6, 49, 49] are 0.98 GB
 PLAIN_SLICE = 8
 TRAIN_STEPS_PER_EPOCH = 100
+# phase 7a: the flagship with the options users' configurations select
+# together: per-sample adaptive GPF (BASELINE.json configs[3]), BatchNorm
+# head norms (configs/ufg_base.yaml's reference-parity setting), the
+# squeeze-and-excitation classifier, two micro-steps an update
+OPTIONS_BN_FLAGSHIP = json.loads(json.dumps(FLAGSHIP))
+OPTIONS_BN_FLAGSHIP["model"]["norm"] = "batch"
+OPTIONS_BN_FLAGSHIP["model"]["gpf"]["adaptive_type"] = "attention"
+OPTIONS_BN_FLAGSHIP["model"]["classifier"]["type"] = "adaptive"
+OPTIONS_BN_FLAGSHIP["training"]["accumulation_steps"] = 2
+OPTIONS_MICRO_STEPS = 8
+# phase 7b: ViT-L/16 at 448 with the multi-scale classifier (BASELINE.json
+# configs[4]); 785 tokens, N = 784 < D = 1024: the token-subspace head; block
+# checkpointing as ViT-Large/512 trains
+VITL448_MS_FLAGSHIP = json.loads(json.dumps(VITL512_FLAGSHIP))
+VITL448_MS_FLAGSHIP["data"] = {"input_size": 448, "resize_size": 600}
+VITL448_MS_FLAGSHIP["model"]["classifier"]["type"] = "multiscale"
+# phase 7c: the other options, one at a time on the flagship
+OTHER_OPTIONS = (
+    ("adaptive_type: global", {"gpf": {"adaptive_type": "global"}}),
+    ("adaptive_type: spatial", {"gpf": {"adaptive_type": "spatial"}}),
+    ("moment.variant: simplified", {"moment": {"variant": "simplified"}}),
+    ("classifier.fusion_type: bilinear", {"classifier": {"fusion_type": "bilinear"}}),
+    ("norm: none", {"norm": "none"}),
+)
 # tolerances, kernel vs plain on the card, per element.  Window attention:
 # |err| <= atol + rtol |ref|; fp32 differs by sum order only, bf16 by P rounded
 # to bf16 before P v (as on the TPU) plus at most one bf16 ulp (2^-7 |y|) of
@@ -329,6 +376,37 @@ TOL_GRADS_REL_ILL_CONDITIONED_448 = {
 # of magnitude in bf16.  In fp32 it keeps the 448 bar.
 TOL_GRADS_REL_ILL_CONDITIONED_VITL = {
     "gpf.alpha_coeffs": {torch.bfloat16: 10.0, torch.float32: 1e-2}}
+# Phase 7a's per-sample GPF coefficients come from coeff_mod, whose gradient
+# carries each sample's dc[p, q], the same cancellation as gpf.alpha_coeffs':
+# both held at that leaf's bf16 bar.  Behind the BatchNorms the cancellation
+# reads ~60x its LayerNorm size in fp32 too (3.9e-3 for alpha_coeffs and
+# coeff_mod.bias on an H100, 6.1e-5 at phase 4): the 448 path's fp32 bar.
+TOL_GRADS_REL_ILL_CONDITIONED_ADAPTIVE = {
+    name: {torch.bfloat16: 3.0, torch.float32: 1e-2}
+    for name in ("gpf.alpha_coeffs", "gpf.coeff_mod.weight", "gpf.coeff_mod.bias")}
+# Biases that shift every sample alike ahead of a BatchNorm on the batch's
+# statistics have zero gradient in exact arithmetic, so their relative error
+# is noise over noise.  In fp32 each is held to be small against its layer's
+# weight gradient instead (the norm's backward sums in fp32: ~1e-6 of it
+# expected); in bf16 the Dense's output gradient is rounded to bf16 before
+# its batch sum, which leaves noise at the terms' own size (read 0.97 of the
+# weight gradient's norm on an H100), so there only finiteness is held.
+TOL_ZERO_GRAD = {torch.float32: 1e-3, torch.bfloat16: math.inf}
+# Phase 7a's BatchNorms divide their input's rounding noise by its batch std,
+# small beside the whitened vech features' size (~60x on the CPU test's
+# heads), so the bf16 noise behind every head leaf grows: a sound run on an
+# H100 read up to 0.114 (classifier.se_fc1.bias), 0.099 (second_norm's
+# bias), 0.06 (second_proj, the deepest bias tables), against 4e-2 at most
+# with LayerNorm.  The bf16 bar sits between that and the control's 1.0,
+# ~3x from each; fp32 keeps phase 4's.
+TOL_GRADS_REL_BN = {torch.bfloat16: 0.3, torch.float32: TOL_GRADS_REL[torch.float32]}
+ZERO_GRAD_LEAVES_BN = {f"{layer}.bias": f"{layer}.weight" for layer in (
+    "moment_head.second_proj", "moment_head.third_proj", "classifier.fc1", "classifier.fc2")}
+# The multi-scale head's attention adds its key bias to every key alike, and
+# a softmax does not see a shift shared by its row: zero gradient in exact
+# arithmetic (read 1.74 relative, kernel path vs plain path, in bf16)
+ZERO_GRAD_LEAVES_MULTISCALE = {"classifier.scale_attention.key.bias":
+                               "classifier.scale_attention.key.weight"}
 COEFF_WITNESS_SEEDS = (2, 3, 4)  # view seeds of the 448 witness; 2 is the check's own
 # q-tiled attention, kernel vs plain per element, |err| <= atol + rtol |ref|.
 # Forward: fp32 by sum order; bf16 by one ulp of the output's rounding (2^-7
@@ -2259,52 +2337,78 @@ def serve(card: str, profile_dir: str | None, family: dict) -> dict:
 # ----------------------------------------------------------------------------
 
 
-def step_gradients(model, anchor, positive, labels) -> dict:
-    """One forward + backward on fixed views, dropout off: {leaf: gradient}."""
+def step_gradients(model, anchor, positive, labels, batch_stats: bool = False) -> dict:
+    """One forward + backward on fixed views, dropout off: {leaf: gradient}.
+    ``batch_stats``: the BatchNorms normalize with the batch's statistics, as
+    a training step does (their running statistics restored after)."""
     model.eval()  # dropout off; gradients still flow
+    norms = batch_norms(model) if batch_stats else []
+    saved = [(m.running_mean.clone(), m.running_var.clone()) for m in norms]
+    for m in norms:
+        m.train()
     model.zero_grad(set_to_none=True)
     model(anchor, positive, labels)["loss"].backward()
     torch.cuda.synchronize()
     grads = {n: p.grad for n, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
+    with torch.no_grad():
+        for m, (mean, var) in zip(norms, saved):
+            m.running_mean.copy_(mean)
+            m.running_var.copy_(var)
+    model.eval()
     return grads
 
 
-def worst_leaf(grads: dict, ref: dict, dtype, ill: dict) -> tuple[float, str, float]:
+def worst_leaf(grads: dict, ref: dict, dtype, ill: dict, zero: dict | None = None,
+               bars: dict = TOL_GRADS_REL) -> tuple[float, str, float]:
     """Over the leaves, the largest ||g - g_ref|| / ||g_ref|| as a multiple of
     the leaf's tolerance (``ill`` for the ill-conditioned leaves), with the
-    leaf and its relative error."""
+    leaf and its relative error.  A leaf of ``zero`` ({leaf: its layer's
+    weight}) has zero gradient in exact arithmetic: its ||g|| over that
+    weight's ||g_ref|| is held to TOL_ZERO_GRAD (finite, in bf16)."""
+    zero = zero or {}
     worst, where, worst_rel = 0.0, "", 0.0
     for name, r in ref.items():
         r32 = r.float()
-        denom = r32.norm().item()
-        rel = (grads[name].float() - r32).norm().item() / max(denom, 1e-30)
+        if name in zero:
+            denom = ref[zero[name]].float().norm().item()
+            rel = grads[name].float().norm().item() / max(denom, 1e-30)
+            tol = TOL_ZERO_GRAD[dtype]
+        else:
+            denom = r32.norm().item()
+            rel = (grads[name].float() - r32).norm().item() / max(denom, 1e-30)
+            tol = ill.get(name, {}).get(dtype, bars[dtype])
         if not math.isfinite(rel):
             return math.inf, name, math.inf
-        tol = ill.get(name, {}).get(dtype, TOL_GRADS_REL[dtype])
         if rel / tol > worst:
             worst, where, worst_rel = rel / tol, name, rel
     return worst, where, worst_rel
 
 
 def check_gradients(model, anchor, positive, labels, dtype, what: str, family: dict) -> float:
-    grads = step_gradients(model, anchor, positive, labels)
+    bs = family.get("batch_stats", False)
+    grads = step_gradients(model, anchor, positive, labels, bs)
     with plain_kernels():
-        ref = step_gradients(model, anchor, positive, labels)
+        ref = step_gradients(model, anchor, positive, labels, bs)
     with family["grad_control"]():
-        ctrl = step_gradients(model, anchor, positive, labels)
-    tol = TOL_GRADS_REL[dtype]
+        ctrl = step_gradients(model, anchor, positive, labels, bs)
+    bars = family.get("grads_rel", TOL_GRADS_REL)
+    tol = bars[dtype]
     ill = family["ill_conditioned"]
-    worst, where, rel = worst_leaf(grads, ref, dtype, ill)
-    worst_ctrl, where_ctrl, rel_ctrl = worst_leaf(ctrl, ref, dtype, ill)
+    zero = family.get("zero_grad_leaves", {})
+    worst, where, rel = worst_leaf(grads, ref, dtype, ill, zero, bars)
+    worst_ctrl, where_ctrl, rel_ctrl = worst_leaf(ctrl, ref, dtype, ill, zero, bars)
     _, where_well, rel_well = worst_leaf(grads, {k: v for k, v in ref.items() if k not in ill},
-                                         dtype, {})
+                                         dtype, {}, zero, bars)
     log(f"  {what} gradients kernel vs plain, {len(ref)} leaves: worst err/tol {worst:.4f} "
         f"(relative error {rel:.4e}) at {where}, among the well-conditioned leaves "
         f"{rel_well:.4e} at {where_well}; control ({family['grad_control_name']}) err/tol "
         f"{worst_ctrl:.2f} (relative error {rel_ctrl:.4e}) at {where_ctrl}; tol {tol} per leaf, "
         f"{ill} apart")
     if worst > 1.0:
+        ranked = sorted(((worst_leaf(grads, {k: v}, dtype, ill, bars=bars)[0], k)
+                         for k, v in ref.items() if k not in zero), reverse=True)[:6]
+        log(f"  the worst leaves (err/tol): {', '.join(f'{k} {e:.3f}' for e, k in ranked)}")
         fail(f"{what} gradients of the kernel path disagree with the plain path")
     if worst_ctrl <= 1.0:
         fail(f"{what} gradient check passes its control ({family['grad_control_name']})")
@@ -2415,7 +2519,7 @@ def train(card: str, profile_dir: str | None, family: dict) -> dict:
             fail(f"parameter {name} is not finite after {n_steps} steps")
 
     rates, step_ms = [], []
-    n_timed = 5
+    n_timed = family.get("timed_steps", 5)
     for _ in range(2):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -2863,6 +2967,301 @@ def engine(card: str) -> dict:
                                          "serve_vs_eval": err_serve}}
 
 
+# ----------------------------------------------------------------------------
+# phase 7: the remaining model, loss and training options
+# ----------------------------------------------------------------------------
+
+OPTIONS_BN = {
+    "label": "Swin-Base/224 adaptive GPF + BatchNorm + adaptive classifier + accumulation 2",
+    "config": OPTIONS_BN_FLAGSHIP,
+    "grad_control": bias_gradient_dropped, "grad_control_name": "bias gradient dropped",
+    "ill_conditioned": TOL_GRADS_REL_ILL_CONDITIONED_ADAPTIVE,
+    "batch_stats": True,  # gradient checks normalize with the batch's statistics
+    "zero_grad_leaves": ZERO_GRAD_LEAVES_BN,
+    "grads_rel": TOL_GRADS_REL_BN,
+}
+VITL448_MS = {
+    "label": "ViT-Large/448 multi-scale classifier", "config": VITL448_MS_FLAGSHIP,
+    "profile_prefix": "vitL448_",
+    "serve_launches": zero_launches(flash_attention_tiled_fwd=VITL_DEPTH, gpf_fwd=1),
+    "train_launches": zero_launches(flash_attention_tiled_fwd=2 * VITL_DEPTH,
+                                    flash_attention_tiled_bwd=VITL_DEPTH, gpf_fwd=1, gpf_bwd=1),
+    "serve_control": only_first_keys_attended_tiled,
+    "serve_control_name": "first 64 keys attended only",
+    "grad_control": key_gradient_dropped_tiled, "grad_control_name": "dK dropped",
+    "serve_check_batch": {torch.bfloat16: 8, torch.float32: 2},
+    "train_check_batch": {torch.bfloat16: 8, torch.float32: 2},
+    "ill_conditioned": TOL_GRADS_REL_ILL_CONDITIONED_VITL,
+    "zero_grad_leaves": ZERO_GRAD_LEAVES_MULTISCALE,
+    # 10 steps, as ViT-Large/512's: over 5 its loss on one batch rose before
+    # it fell (14.83, 15.57, 16.39, 15.31, 14.93 on an H100)
+    "timed_steps": 2,
+}
+
+
+def batch_norms(model: torch.nn.Module) -> list:
+    return [m for m in model.modules() if isinstance(m, BatchNorm)]
+
+
+def running_stats(model: torch.nn.Module) -> list:
+    return [t.clone() for m in batch_norms(model) for t in (m.running_mean, m.running_var)]
+
+
+def params_snapshot(model: torch.nn.Module) -> dict:
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def unchanged(model: torch.nn.Module, snap: dict) -> bool:
+    return all(torch.equal(p, snap[n]) for n, p in model.named_parameters())
+
+
+def accumulation_pattern_ok(moved: list, k: int) -> bool:
+    """Parameters bit for bit unmoved after each micro-step but every k-th,
+    moved after every k-th."""
+    return moved == [(i + 1) % k == 0 for i in range(len(moved))]
+
+
+def timed_steps(fn, n: int) -> tuple[float, list]:
+    """Median ms a call over two loops of ``n`` calls, and the loops' ms."""
+    loops = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        loops.append((time.perf_counter() - t) / n * 1e3)
+    return statistics.median(loops), loops
+
+
+def options_batchnorm(card: str) -> dict:
+    """Phase 7a: the flagship with adaptive GPF ('attention'), BatchNorm head
+    norms, the adaptive classifier and two micro-steps an update."""
+    dev = torch.device("cuda")
+    cfg = OPTIONS_BN_FLAGSHIP
+    k = cfg["training"]["accumulation_steps"]
+    g = torch.Generator(device=dev).manual_seed(0)
+    aug, images = family_inputs({"config": cfg}, g)
+    labels = torch.randint(0, 80, (BATCH,), generator=g, device=dev)
+    t0 = time.time()
+    model = create_model(cfg, num_classes=80, device="cuda", seed=0)
+    redraw_bias_tables(model, g)
+    log(f"  model built in {time.time() - t0:.1f} s; {len(batch_norms(model))} BatchNorms")
+
+    # one update's gradients (batch statistics, dropout off), kernels vs plain
+    with torch.no_grad():
+        anchor, positive = dual_view_train_batch(images, torch.Generator(device=dev)
+                                                 .manual_seed(2), aug)
+    grad_err = check_gradients(model, anchor, positive, labels, torch.bfloat16,
+                               f"bf16 batch {BATCH}", OPTIONS_BN)
+    del anchor, positive
+
+    state = create_train_state(model, cfg, TRAIN_STEPS_PER_EPOCH)
+    step = make_train_step(model, aug)
+    seed_gen = torch.Generator(device=dev).manual_seed(1)
+    want = zero_launches(window_attention_fwd=24, window_attention_bwd=24)
+    torch.cuda.reset_peak_memory_stats()
+    moved, stats_moved, losses = [], [], []
+    for i in range(OPTIONS_MICRO_STEPS):
+        snap, stats = params_snapshot(model), running_stats(model)
+        reset_launches()
+        loss = step(state, images, labels, seed_gen)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if launches != want:
+            fail(f"7a micro-step {i}: expected launches {want}, got {launches}")
+        losses.append(loss.item())
+        if not math.isfinite(losses[-1]):
+            fail(f"7a micro-step {i}: the loss is not finite ({losses[-1]})")
+        moved.append(not unchanged(model, snap))
+        stats_moved.append(all(not torch.equal(a, b)
+                               for a, b in zip(stats, running_stats(model))))
+        del snap
+    log(f"  launches a micro-step: {launches}")
+    log(f"  losses over {OPTIONS_MICRO_STEPS} micro-steps: "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; parameters moved: {moved}; running "
+        f"statistics moved: {stats_moved}; updates {state.optimizer.count}, skipped "
+        f"{state.optimizer.total_notfinite}, last grad norm {state.optimizer.last_grad_norm:.3f}")
+    if not accumulation_pattern_ok(moved, k):
+        fail(f"7a: parameters moved after micro-steps {moved}, not after every {k}-th only")
+    if not all(stats_moved):
+        fail(f"7a: the running statistics did not move on every micro-step: {stats_moved}")
+    if (state.optimizer.total_notfinite, state.optimizer.count, state.step) != (
+            0, OPTIONS_MICRO_STEPS // k, OPTIONS_MICRO_STEPS):
+        fail(f"7a: {state.optimizer.total_notfinite} skipped updates, {state.optimizer.count} "
+             f"updates, step {state.step}")
+    step_ms, loops = timed_steps(lambda: step(state, images, labels, seed_gen), 2 * k)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  train micro-step ms {step_ms:.1f} (loops: {', '.join(f'{x:.1f}' for x in loops)}), "
+        f"images/s {BATCH / step_ms * 1e3:.1f}, peak memory {peak:.2f} GiB, batch {BATCH}, on "
+        f"{card}")
+
+    # controls: an update on every micro-step; a forward that leaves the
+    # running statistics alone
+    ctrl_cfg = json.loads(json.dumps(cfg))
+    ctrl_cfg["training"]["accumulation_steps"] = 1
+    state_ctrl = create_train_state(model, ctrl_cfg, TRAIN_STEPS_PER_EPOCH)
+    moved_ctrl = []
+    for _ in range(k):
+        snap = params_snapshot(model)
+        step(state_ctrl, images, labels, seed_gen)
+        moved_ctrl.append(not unchanged(model, snap))
+    del state_ctrl, snap
+    stats = running_stats(model)
+    model.eval()
+    with torch.no_grad():
+        model(*dual_view_train_batch(images, torch.Generator(device=dev).manual_seed(3), aug),
+              labels)
+    stats_ctrl = all(not torch.equal(a, b) for a, b in zip(stats, running_stats(model)))
+    log(f"  controls: an update every micro-step moved the parameters {moved_ctrl}; an eval "
+        f"forward moved the running statistics: {stats_ctrl}")
+    if accumulation_pattern_ok(moved_ctrl, k):
+        fail("7a: the accumulation check passes its control (an update every micro-step)")
+    if stats_ctrl:
+        fail("7a: the running-statistics check passes its control (an eval forward)")
+
+    # serving on the running statistics
+    infer = make_infer_fn(model, aug)
+    reset_launches()
+    logits = infer(images)
+    torch.cuda.synchronize()
+    launches_srv = read_launches()
+    if launches_srv != zero_launches(window_attention_fwd=24):
+        fail(f"7a serving: launches {launches_srv}")
+    if tuple(logits.shape) != (BATCH, 80) or not torch.isfinite(logits).all():
+        fail(f"7a serving: logits {tuple(logits.shape)} or non-finite")
+    with plain_kernels():
+        ref = infer(images)
+    stats = running_stats(model)
+    for m in batch_norms(model):
+        m.train()  # the control: batch statistics in place of the running ones
+    ctrl = infer(images)
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        for m, (mean, var) in zip(batch_norms(model), zip(stats[::2], stats[1::2])):
+            m.eval()
+            m.running_mean.copy_(mean)
+            m.running_var.copy_(var)
+    scale = max(1.0, ref.float().abs().max().item())
+    err = (logits.float() - ref.float()).abs().max().item()
+    err_ctrl = (ctrl.float() - ref.float()).abs().max().item()
+    tol = TOL_LOGITS_REL[torch.bfloat16]
+    log(f"  bf16 logits (batch {BATCH}) kernel vs plain: {err / scale:.4e} of max |logit| "
+        f"{scale:.4e}; control (train-mode BatchNorm) {err_ctrl / scale:.4e}; tol {tol}")
+    if err > tol * scale:
+        fail("7a serving logits disagree with the plain path")
+    if err_ctrl <= tol * scale:
+        fail("7a serving check passes its control (train-mode BatchNorm)")
+    srv_ms, srv_loops = timed_steps(lambda: infer(images), 5)
+    log(f"  serving images/s {BATCH / srv_ms * 1e3:.1f} (ms a batch: "
+        f"{', '.join(f'{x:.1f}' for x in srv_loops)}), on {card}")
+    del model, state, step, infer, logits, ref, ctrl
+    torch.cuda.empty_cache()
+
+    # fp32 at batch 4: one update's gradients, kernels vs plain
+    f32_cfg = json.loads(json.dumps(cfg))
+    f32_cfg["model"]["bf16"] = False
+    f32_cfg["model"]["moment"]["bf16_params"] = False
+    model32 = create_model(f32_cfg, num_classes=80, device="cuda", seed=0)
+    redraw_bias_tables(model32, torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        anchor, positive = dual_view_train_batch(images[:4], torch.Generator(device=dev)
+                                                 .manual_seed(2), aug)
+    grad_err32 = check_gradients(model32, anchor, positive, labels[:4], torch.float32,
+                                 "fp32 batch 4", OPTIONS_BN)
+    del model32
+    torch.cuda.empty_cache()
+    return {"launches": launches, "serve_launches": launches_srv, "losses": losses,
+            "step_ms": step_ms, "images_per_s": BATCH / step_ms * 1e3, "peak_gib": peak,
+            "serve_images_per_s": BATCH / srv_ms * 1e3, "grad_err_bf16": grad_err,
+            "grad_err_f32": grad_err32}
+
+
+def other_options(card: str) -> dict:
+    """Phase 7c: each other option on the flagship, one serving forward and
+    one train step at batch 64 (the second timed), logits against the plain
+    path at batch 8; the first option's check also rejects the bias omitted."""
+    dev = torch.device("cuda")
+    out = {}
+    for i, (label, change) in enumerate(OTHER_OPTIONS):
+        cfg = json.loads(json.dumps(FLAGSHIP))
+        for section, values in change.items():
+            if isinstance(values, dict):
+                cfg["model"][section].update(values)
+            else:
+                cfg["model"][section] = values
+        gpf_runs = int(change.get("gpf", {}).get("adaptive_type") in (None, "global"))
+        g = torch.Generator(device=dev).manual_seed(0)
+        aug, images = family_inputs({"config": cfg}, g)
+        labels = torch.randint(0, 80, (BATCH,), generator=g, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        model = create_model(cfg, num_classes=80, device="cuda", seed=0)
+        redraw_bias_tables(model, g)
+        infer = make_infer_fn(model, aug)
+        infer(images)
+        reset_launches()
+        logits = infer(images)
+        torch.cuda.synchronize()
+        launches_srv = read_launches()
+        if launches_srv != zero_launches(window_attention_fwd=24, gpf_fwd=gpf_runs):
+            fail(f"7c {label}: serving launches {launches_srv}")
+        if tuple(logits.shape) != (BATCH, 80) or not torch.isfinite(logits).all():
+            fail(f"7c {label}: logits {tuple(logits.shape)} or non-finite")
+        srv_ms, _ = timed_steps(lambda: infer(images), 2)
+        sub = images[:8]
+        out8 = infer(sub)
+        with plain_kernels():
+            ref = infer(sub)
+        torch.cuda.synchronize()
+        scale = max(1.0, ref.float().abs().max().item())
+        err = (out8.float() - ref.float()).abs().max().item()
+        tol = TOL_LOGITS_REL[torch.bfloat16]
+        msg = f"{err / scale:.4e} of max |logit| {scale:.4e}; tol {tol}"
+        if err > tol * scale:
+            fail(f"7c {label}: bf16 logits disagree with the plain path ({msg})")
+        if i == 0:
+            with bias_omitted(model):
+                ctrl = infer(sub)
+            err_ctrl = (ctrl.float() - ref.float()).abs().max().item()
+            msg += f"; control (kernel without bias) {err_ctrl / scale:.4e}"
+            if err_ctrl <= tol * scale:
+                fail("7c: the logits check passes its control (bias omitted)")
+        state = create_train_state(model, cfg, TRAIN_STEPS_PER_EPOCH)
+        step = make_train_step(model, aug)
+        seed_gen = torch.Generator(device=dev).manual_seed(1)
+        reset_launches()
+        loss = step(state, images, labels, seed_gen)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = zero_launches(window_attention_fwd=24, window_attention_bwd=24,
+                             gpf_fwd=gpf_runs, gpf_bwd=gpf_runs)
+        if launches != want:
+            fail(f"7c {label}: train launches {launches}, expected {want}")
+        t = time.perf_counter()
+        loss2 = step(state, images, labels, seed_gen)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3
+        gnorm = state.optimizer.last_grad_norm
+        finite = all(torch.isfinite(p).all() for p in model.parameters())
+        if not (math.isfinite(loss.item()) and math.isfinite(loss2.item())
+                and math.isfinite(gnorm) and finite and state.optimizer.total_notfinite == 0):
+            fail(f"7c {label}: loss {loss.item()}, {loss2.item()}, grad norm {gnorm}, "
+                 f"parameters finite {finite}, skipped {state.optimizer.total_notfinite}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"  {label}: launches serving {launches_srv}, a step {launches}; bf16 logits (batch "
+            f"8) kernel vs plain {msg}; loss {loss.item():.4f} -> {loss2.item():.4f}, grad norm "
+            f"{gnorm:.3f}; serving images/s {BATCH / srv_ms * 1e3:.1f}, step ms {step_ms:.1f} "
+            f"({BATCH / step_ms * 1e3:.1f} images/s), peak memory {peak:.2f} GiB, "
+            f"{n_params / 1e6:.1f}M parameters, batch {BATCH}, on {card}")
+        out[label] = {"serve_launches": launches_srv, "train_launches": launches,
+                      "serve_images_per_s": BATCH / srv_ms * 1e3, "step_ms": step_ms,
+                      "peak_gib": peak, "logits_err_rel": err / scale}
+        del model, infer, state, step, logits, out8, ref
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", help="write a torch.profiler table here")
@@ -3005,6 +3404,26 @@ def main() -> int:
     phase(f"[6] data pipeline, trainer, evaluator and checkpoints, Swin-Base/224 flagship, batch "
           f"{BATCH}, synthetic 80 x 8 images a split")
     eng = engine(card)
+    # phase 6's trainers leave ~4.1 GiB on the card in reference cycles, which
+    # would count in phase 7's peaks until Python's collector ran
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"[7a] training and serving, Swin-Base/224 flagship with adaptive GPF (attention), "
+          f"BatchNorm heads, the adaptive classifier and accumulation 2, batch {BATCH}")
+    opt_bn = options_batchnorm(card)
+    torch.cuda.empty_cache()
+
+    phase(f"[7b] serving and training, ViT-Large/16 at 448 with the multi-scale classifier, "
+          f"batch {BATCH} (kernel path vs plain path at batch 8 in bf16 and 2 in fp32)")
+    srv_vitl448 = serve(card, args.profile, VITL448_MS)
+    torch.cuda.empty_cache()
+    trn_vitl448 = train(card, args.profile, VITL448_MS)
+    torch.cuda.empty_cache()
+
+    phase(f"[7c] the other options at Swin-Base/224, one forward and one step each, batch "
+          f"{BATCH}")
+    opt_other = other_options(card)
 
     # ms, plain_ms, bound_ms, library_ms: bf16, summed over one forward's
     # launches at batch 64 (forward kernels, the serving path) or over one
@@ -3159,6 +3578,17 @@ def main() -> int:
          "bound_by": ahb["bound_by"], "library_ms": ahb["library_ms"],
          "unfused_ms": ahb["unfused_ms"]},
     ]
+    # phase 7's paths, each driven with the counts at 0 just before and read
+    # just after: {path: launches} for every kernel they ran
+    p7_paths = {"7a_step": opt_bn["launches"], "7a_serve": opt_bn["serve_launches"],
+                "7b_serve": srv_vitl448["launches"], "7b_step": trn_vitl448["launches"],
+                **{f"7c_{k.replace(': ', '_').replace('.', '_')}_{what}": v[f"{what}_launches"]
+                   for k, v in opt_other.items() for what in ("serve", "train")}}
+    for entry in kernels:
+        runs = {path: counts[entry["name"]] for path, counts in p7_paths.items()
+                if counts[entry["name"]]}
+        if runs:
+            entry["phase7_launches"] = runs
     for entry in kernels:
         if entry["launches"] < 1:
             fail(f"kernel {entry['name']} was launched no time on its main path")
@@ -3169,7 +3599,8 @@ def main() -> int:
                                 ("ViT-Base/224", srv_vit, trn_vit),
                                 ("ViT-Base/448", srv_448, trn_448),
                                 ("ViT-Large/512", srv_vitl, trn_vitl),
-                                ("Swin-Large/1280", srv_swinl, None)):
+                                ("Swin-Large/1280", srv_swinl, None),
+                                ("ViT-Large/448 multi-scale", srv_vitl448, trn_vitl448)):
         train_msg = ("not run" if t_res is None else
                      f"{t_res['images_per_s']:.1f} images/s ({t_res['step_ms']:.1f} ms/step, "
                      f"peak {t_res['peak_gib']:.2f} GiB)")
@@ -3181,6 +3612,12 @@ def main() -> int:
         f"{', '.join(f'{x:.1f}' for x in ips['host_loader_epochs'])}, make_train_step "
         f"{ips['make_train_step']:.1f}; evaluator {ips['evaluator']:.1f} against make_infer_fn "
         f"{ips['make_infer_fn']:.1f}")
+    log(f"  Swin-Base/224 adaptive + BatchNorm + accumulation 2 (phase 7a): micro-step "
+        f"{opt_bn['step_ms']:.1f} ms ({opt_bn['images_per_s']:.1f} images/s, peak "
+        f"{opt_bn['peak_gib']:.2f} GiB), serving {opt_bn['serve_images_per_s']:.1f} images/s")
+    for label, res in opt_other.items():
+        log(f"  Swin-Base/224 {label} (phase 7c): serving {res['serve_images_per_s']:.1f} "
+            f"images/s, step {res['step_ms']:.1f} ms, peak {res['peak_gib']:.2f} GiB")
     log(f"  total {time.time() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,7 +11,10 @@ dual-view forward, the five-term loss, backward, AdamW with a factored second
 moment for huge leaves and fp32 masters for bf16 ones), with hand-written CUDA
 kernels for spatial window attention and fused GPF, forward and backward
 (``kernels/``, sources in ``csrc/``); the data pipeline, the trainer, the
-evaluator, checkpoints and the CLI (``data/``, ``train/``, ``cli/``).  Entry
+evaluator, checkpoints and the CLI (``data/``, ``train/``, ``cli/``); every
+model, loss and training option of the JAX package on one device (adaptive
+GPF, the simplified moment head, BatchNorm heads, the multi-scale, adaptive
+and bilinear classifiers, gradient accumulation, the loss variants).  Entry
 points run on ``device="cuda"`` unless the caller passes ``device="cpu"``;
 without a GPU they raise.  This package imports neither JAX nor the JAX
 package.

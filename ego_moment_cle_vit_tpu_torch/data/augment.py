@@ -13,11 +13,14 @@ distributions are the JAX package's; its ``jax.random`` streams cannot be
 reproduced, so parity of the draws is by distribution and parity of the
 ``apply_*`` functions is element by element given the same parameters.
 
-The rotation is the exact three-shear decomposition with each shear a batch of
-1-D FFT translations (``torch.fft.rfft`` / ``irfft``): the same transform as
-the JAX package's ``_fft_shift_last``.  Its matmul-DFT form existed for the
-TPU's slow FFT and is not carried over.  ``rotation_method='gather'`` is not
-ported yet.
+The rotation (``rotation_method='shear_fft'``, the default) is the exact
+three-shear decomposition with each shear a batch of 1-D FFT translations
+(``torch.fft.rfft`` / ``irfft``): the same transform as the JAX package's
+``_fft_shift_last``.  Its matmul-DFT form existed for the TPU's slow FFT and
+is not carried over.  ``rotation_method='gather'`` is the JAX
+``rotate_gather``: bilinear sampling with zero fill, as
+``map_coordinates(order=1, mode='constant')``, as an explicit four-corner
+gather.
 """
 
 from __future__ import annotations
@@ -315,6 +318,37 @@ def apply_rotate(img: torch.Tensor, angle_deg: torch.Tensor,
     return torch.maximum(torch.minimum(x.permute(0, 2, 3, 1), hi), lo)
 
 
+def rotate_gather(img: torch.Tensor, angle_deg: torch.Tensor) -> torch.Tensor:
+    """Rotate [B, H, W, C] about the centre by ``angle_deg`` [B] degrees by
+    bilinear sampling, zero fill: each output pixel reads its inverse-rotated
+    source point's four neighbours, a neighbour outside the image counting
+    as 0 (``jax.scipy.ndimage.map_coordinates(order=1, mode='constant')``,
+    with its weights, products and sum order)."""
+    b, h, w, c = img.shape
+    dev = img.device
+    theta = angle_deg.float() * math.pi / 180.0
+    cos = torch.cos(theta)[:, None, None]
+    sin = torch.sin(theta)[:, None, None]
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    yy = (torch.arange(h, device=dev, dtype=torch.float32) - cy)[:, None]
+    xx = (torch.arange(w, device=dev, dtype=torch.float32) - cx)[None, :]
+    nodes = []
+    for coord, size in ((cos * yy - sin * xx + cy, h), (sin * yy + cos * xx + cx, w)):
+        lower = torch.floor(coord)
+        upper_weight = coord - lower
+        index = lower.long()
+        nodes.append([(index, 1 - upper_weight, size), (index + 1, upper_weight, size)])
+    flat = img.reshape(b, h * w, c)
+    outputs = []
+    for (iy, wy, _), (ix, wx, _) in ((ny, nx) for ny in nodes[0] for nx in nodes[1]):
+        valid = (iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)
+        idx = (iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)).reshape(b, h * w, 1)
+        vals = torch.gather(flat, 1, idx.expand(-1, -1, c)).reshape(b, h, w, c)
+        vals = torch.where(valid[..., None], vals, torch.zeros((), dtype=img.dtype, device=dev))
+        outputs.append((wy * wx)[..., None] * vals)
+    return outputs[0] + outputs[1] + outputs[2] + outputs[3]
+
+
 # ----------------------------------------------------------------------------
 # positive-view ops: rectangular mask, tile shuffle
 # ----------------------------------------------------------------------------
@@ -392,7 +426,10 @@ def apply_base_augment(images_u8: torch.Tensor, params: Dict, cfg: AugmentConfig
     img = apply_color_jitter(img, params["jitter_codes"], params["jitter_factors"],
                              hue_on=HUE in enabled_jitter_ops(cfg))
     if "angle" in params:
-        img = apply_rotate(img, params["angle"], max_abs_deg=cfg.rotation_degrees)
+        if cfg.rotation_method == "gather":
+            img = rotate_gather(img, params["angle"])
+        else:
+            img = apply_rotate(img, params["angle"], max_abs_deg=cfg.rotation_degrees)
     return img
 
 
@@ -415,11 +452,9 @@ def dual_view_train_batch(images_u8: torch.Tensor, generator: Optional[torch.Gen
     The two views draw independent base chains; the positive view is then
     masked and tile-shuffled.  ``generator`` must live on the images' device
     (None: the global stream)."""
-    if cfg.rotation_method != "shear_fft":
-        raise NotImplementedError(
-            f"rotation_method={cfg.rotation_method!r} is not ported yet (ROADMAP.md, 'Modules "
-            "to port', 'gather' rotation)"
-        )
+    if cfg.rotation_method not in ("shear_fft", "gather"):
+        raise ValueError(f"Unknown rotation_method: {cfg.rotation_method!r} "
+                         "(expected 'shear_fft' or 'gather')")
     b, s = images_u8.shape[0], images_u8.shape[1]
     dev = images_u8.device
     anchor = apply_base_augment(images_u8, draw_base_params(b, s, cfg, generator, dev), cfg)

@@ -1,13 +1,17 @@
-"""PyTorch model modules of the serving path."""
+"""PyTorch model modules: backbones, GPF, moment heads, classifiers, the model."""
 
 from .backbone import CLEViTBackbone, CLEViTDualStream, backbone_num_features
-from .classifier_head import ClassifierHead
+from .classifier_head import AdaptiveClassifierHead, ClassifierHead, MultiScaleClassifierHead
 from .ego_moment_clevit import EGOMomentCLEViT, create_model
-from .gpf import GraphPolynomialFusion
-from .moment_head import MomentHead
+from .gpf import AdaptiveGraphPolynomialFusion, GraphPolynomialFusion
+from .moment_head import MomentHead, SimplifiedMomentHead
 from .swin import SWIN_CONFIGS, Swin, SwinConfig
 
 __all__ = [
+    "AdaptiveClassifierHead",
+    "AdaptiveGraphPolynomialFusion",
+    "MultiScaleClassifierHead",
+    "SimplifiedMomentHead",
     "CLEViTBackbone",
     "CLEViTDualStream",
     "backbone_num_features",

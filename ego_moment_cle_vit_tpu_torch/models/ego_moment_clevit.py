@@ -1,7 +1,8 @@
 """EGOMomentCLEViT, the composition root.
 
 Counterpart of ``ego_moment_cle_vit_tpu/models/ego_moment_clevit.py:39-362``:
-dual-stream backbone -> GPF -> MomentHead -> ClassifierHead plus
+dual-stream backbone -> GPF (static or adaptive) -> moment head (full or
+simplified) -> classifier (standard, multi-scale or adaptive) plus
 the per-view auxiliary classifier and the five-term loss dictionary (three
 cross-entropies, the roll-negative triplet, the graph-alignment MSE);
 ``inference`` as the single-view serving forward; ``ablation_forward``
@@ -20,10 +21,10 @@ from ..losses import graph_alignment_mse_loss, roll_negative_triplet_loss
 from ..ops.moments import _wide
 from ..utils.device import pin_fp32_precision, resolve_device
 from .backbone import CLEViTDualStream, backbone_num_features, backbone_num_patches
-from .classifier_head import ClassifierHead, _not_ported
-from .gpf import GraphPolynomialFusion
+from .classifier_head import AdaptiveClassifierHead, ClassifierHead, MultiScaleClassifierHead
+from .gpf import AdaptiveGraphPolynomialFusion, GraphPolynomialFusion
 from .layers import Dense, init_parameters
-from .moment_head import MomentHead, check_dense_route
+from .moment_head import MomentHead, SimplifiedMomentHead, check_dense_route
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -48,11 +49,14 @@ class EGOMomentCLEViT(nn.Module):
         gpf_similarity: str = "cosine",
         gpf_symmetric_enforce: bool = True,
         gpf_coeff_init: str = "uniform",
+        gpf_adaptive_type: Optional[str] = None,
+        moment_variant: str = "full",
         moment_d_out: int = 1024,
         use_third_order: bool = True,
         isqrt_iterations: int = 5,
         sketch_dim: int = 4096,
         sketch_mode: str = "fft",
+        classifier_type: str = "standard",
         classifier_fusion: str = "concat",
         classifier_hidden: Optional[int] = None,
         lambda_triplet: float = 1.0,
@@ -76,19 +80,36 @@ class EGOMomentCLEViT(nn.Module):
                                          drop_rate=dropout, remat=backbone_remat,
                                          attn_kernel=backbone_attn_kernel)
         d = self.backbone.num_features
-        self.gpf = GraphPolynomialFusion(
-            gpf_degree_p, gpf_degree_q, gpf_similarity,
-            symmetric_enforce=gpf_symmetric_enforce, coeff_init=gpf_coeff_init, device=device,
-        )
-        self.moment_head = MomentHead(
-            d, moment_d_out, use_third_order, isqrt_iterations, sketch_dim, sketch_mode,
-            norm=norm, bf16_params=moment_bf16_params, dtype=dtype, device=device,
-            dropout=dropout, remat=moment_remat,
-        )
-        self.classifier = ClassifierHead(
-            d, moment_d_out, num_classes, classifier_hidden, classifier_fusion, norm,
-            dtype=dtype, device=device, dropout=dropout,
-        )
+        gpf_args = dict(degree_p=gpf_degree_p, degree_q=gpf_degree_q, similarity=gpf_similarity,
+                        symmetric_enforce=gpf_symmetric_enforce, coeff_init=gpf_coeff_init,
+                        device=device)
+        if gpf_adaptive_type is None:
+            self.gpf = GraphPolynomialFusion(**gpf_args)
+        else:
+            self.gpf = AdaptiveGraphPolynomialFusion(
+                **gpf_args, adaptive_type=gpf_adaptive_type,
+                num_tokens=backbone_num_patches(backbone_name, img_size), dim=d, dtype=dtype)
+        if moment_variant == "simplified":
+            self.moment_head = SimplifiedMomentHead(
+                d, moment_d_out, use_third_order, isqrt_iterations, dropout=dropout,
+                dtype=dtype, device=device)
+        elif moment_variant == "full":
+            self.moment_head = MomentHead(
+                d, moment_d_out, use_third_order, isqrt_iterations, sketch_dim, sketch_mode,
+                norm=norm, bf16_params=moment_bf16_params, dtype=dtype, device=device,
+                dropout=dropout, remat=moment_remat,
+            )
+        else:
+            raise ValueError(f"Unknown moment variant: {moment_variant!r} "
+                             "(expected 'full' or 'simplified')")
+        head_args = dict(norm=norm, dtype=dtype, device=device, dropout=dropout)
+        if classifier_type == "multiscale":
+            self.classifier = MultiScaleClassifierHead(d, moment_d_out, num_classes, **head_args)
+        elif classifier_type == "adaptive":
+            self.classifier = AdaptiveClassifierHead(d, moment_d_out, num_classes, **head_args)
+        else:
+            self.classifier = ClassifierHead(d, moment_d_out, num_classes, classifier_hidden,
+                                             classifier_fusion, **head_args)
         self.cls_only_classifier = Dense(d, num_classes, dtype=dtype, device=device)
 
     @torch.no_grad()
@@ -218,10 +239,10 @@ def create_model(
     plain versions (the CUDA kernels take no fp64).
 
     Runs on the GPU unless ``device='cpu'``; raises without a GPU.  On the
-    GPU it pins full-fp32 matmuls and convolutions (no TF32).  Options whose
-    path is not ported yet raise ``NotImplementedError``, among them, on the
-    GPU, a dense moment route (N >= D) at a width no Newton–Schulz kernel
-    takes (none of the registered backbones has one).
+    GPU it pins full-fp32 matmuls and convolutions (no TF32).  On the GPU a
+    dense moment route (N >= D) at a width no Newton–Schulz kernel takes
+    raises ``NotImplementedError`` (none of the registered backbones has
+    one).
     """
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -231,16 +252,11 @@ def create_model(
     moment = mcfg.get("moment", {})
     classifier = mcfg.get("classifier", {})
     loss = config.get("training", {}).get("loss", {})
-    if gpf.get("adaptive_type") is not None:
-        raise _not_ported("AdaptiveGraphPolynomialFusion")
-    if moment.get("variant", "full") != "full":
-        raise _not_ported(f"moment variant {moment.get('variant')!r}")
-    if classifier.get("type", "standard") != "standard":
-        raise _not_ported(f"classifier type {classifier.get('type')!r}")
     backbone_name = mcfg.get("backbone_name", "swin_base_patch4_window7_224")
     img_size = config.get("data", {}).get("input_size")
     d_tok = backbone_num_features(backbone_name)
-    if backbone_num_patches(backbone_name, img_size) >= d_tok:  # the dense route
+    variant = moment.get("variant", "full")
+    if variant == "full" and backbone_num_patches(backbone_name, img_size) >= d_tok:  # dense
         check_dense_route(d_tok, dev)
     if dtype is None:
         dtype = torch.bfloat16 if mcfg.get("bf16", False) else torch.float32
@@ -253,11 +269,14 @@ def create_model(
         gpf_similarity=gpf.get("similarity", "cosine"),
         gpf_symmetric_enforce=gpf.get("symmetric_enforce", True),
         gpf_coeff_init=gpf.get("coeff_init", "uniform"),
+        gpf_adaptive_type=gpf.get("adaptive_type"),
+        moment_variant=variant,
         moment_d_out=moment.get("d_out", 1024),
         use_third_order=moment.get("use_third_order", True),
         isqrt_iterations=moment.get("isqrt_iterations", 5),
         sketch_dim=moment.get("sketch_dim", 4096),
         sketch_mode=moment.get("sketch_mode", "fft"),
+        classifier_type=classifier.get("type", "standard"),
         classifier_fusion=classifier.get("fusion_type", "concat"),
         classifier_hidden=classifier.get("hidden_dim"),
         lambda_triplet=loss.get("lambda_triplet", 1.0),

@@ -1,10 +1,12 @@
-"""Dense and LayerNorm with the JAX package's parameter and dtype semantics.
+"""Dense, LayerNorm and BatchNorm with the JAX package's parameter and dtype
+semantics.
 
 Flax ``nn.Dense(dtype=...)`` casts its input and parameters to the compute
 dtype; ``nn.LayerNorm`` takes its statistics in fp32 with fp32 scale and
-bias.  Dense weights here are stored ``[out, in]`` (torch layout) in whatever
-dtype the model chose and cast to the compute dtype at use; LayerNorm
-parameters stay fp32.
+bias; the heads' ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32)``
+likewise, with fp32 running statistics.  Dense weights here are stored
+``[out, in]`` (torch layout) in whatever dtype the model chose and cast to the
+compute dtype at use; norm parameters stay fp32.
 """
 
 from __future__ import annotations
@@ -17,12 +19,19 @@ from torch import nn
 
 
 class Dense(nn.Module):
+    """``flax_kernel_shape`` / ``flax_in_axes`` describe a flax
+    ``DenseGeneral`` kernel (e.g. attention's ``[in, heads, head_dim]``, whose
+    first ``flax_in_axes`` axes are the input's) for the weight converter;
+    None for a plain ``Dense``."""
+
     def __init__(self, in_dim: int, out_dim: int, *, bias: bool = True,
                  dtype: torch.dtype = torch.float32, param_dtype: torch.dtype | None = None,
-                 device=None):
+                 device=None, flax_kernel_shape: tuple | None = None, flax_in_axes: int = 1):
         super().__init__()
         pdt = param_dtype or dtype
         self.compute_dtype = dtype
+        self.flax_kernel_shape = flax_kernel_shape
+        self.flax_in_axes = flax_in_axes
         self.weight = nn.Parameter(torch.empty(out_dim, in_dim, dtype=pdt, device=device))
         self.bias = (
             nn.Parameter(torch.zeros(out_dim, dtype=pdt, device=device)) if bias else None
@@ -63,6 +72,42 @@ class LayerNorm(nn.Module):
         return y.to(out_dtype)
 
 
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32)`` over
+    the features of ``[B, F]``.
+
+    Training mode normalizes with the batch's statistics, taken in fp32 with
+    the biased variance ``max(E[x^2] - E[x]^2, 0)`` (flax's fast variance),
+    and moves the running statistics ``r <- m r + (1 - m) batch`` with that
+    same biased variance (``nn.BatchNorm1d`` would use the unbiased one).
+    Eval mode normalizes with the running statistics, which are buffers and
+    so ride the model's ``state_dict``.  The output is fp32 (fp64 for fp64
+    input)."""
+
+    def __init__(self, dim: int, *, momentum: float = 0.9, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, dtype=torch.float32, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=torch.float32, device=device))
+        self.register_buffer("running_mean", torch.zeros(dim, dtype=torch.float32,
+                                                         device=device))
+        self.register_buffer("running_var", torch.ones(dim, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xw = x if x.dtype == torch.float64 else x.float()
+        if self.training:
+            mean = xw.mean(dim=0)
+            var = torch.clamp(torch.square(xw).mean(dim=0) - torch.square(mean), min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (xw - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
 class Dropout(nn.Module):
     """Inverted dropout driven by an explicit ``torch.Generator``.
 
@@ -91,7 +136,8 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     Dense and conv kernels: truncated normal with std sqrt(1/fan_in) (flax's
     lecun_normal); biases zero; LayerNorm ones/zeros; Swin relative-position
     tables and the ViT's CLS token and position embedding: truncated normal,
-    std 0.02.  GPF coefficients and sketch
+    std 0.02; a bilinear classifier kernel ``[hidden, d_cls, d_moment]``:
+    lecun_normal over its fan-in ``d_cls``.  GPF coefficients and sketch
     matrices are initialized by their own modules.
     """
     for sub in module.modules():
@@ -105,6 +151,9 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             table = getattr(sub, name, None)
             if isinstance(table, nn.Parameter):
                 _trunc_normal(table, 0.02, generator)
+        bilinear = getattr(sub, "bilinear_kernel", None)
+        if isinstance(bilinear, nn.Parameter):  # [hidden, in, in2]: fan-in is axis 1
+            _trunc_normal(bilinear, _LECUN / math.sqrt(bilinear.shape[1]), generator)
 
 
 # flax's lecun_normal divides by the std of a normal truncated at +-2

@@ -2,7 +2,7 @@
 
 Counterpart of ``ego_moment_cle_vit_tpu/ops/sketch.py``.  The count-sketch
 stays a dense matmul ``x @ S`` with a fixed ``[D, K]`` signed one-hot matrix,
-as in the JAX package.
+as in the JAX package; the JAX ``SketchParams`` is just those matrices here.
 """
 
 from __future__ import annotations
@@ -40,6 +40,22 @@ def make_sketch_matrices(
     return mats
 
 
+def sketch_matrices_from_hashes(hashes: torch.Tensor, signs: torch.Tensor,
+                                sketch_dim: int) -> torch.Tensor:
+    """The ``[3, D, K]`` fp32 sketch matrices of explicit hash and sign
+    tensors (``[3, D]`` each): S_i[d, h_i(d)] = s_i(d).  The counterpart of
+    the JAX ``sketch_params_from_hashes``, whose ``SketchParams`` carries
+    these matrices."""
+    onehot = torch.nn.functional.one_hot(hashes.long(), sketch_dim).float()
+    return onehot * signs[..., None].float()
+
+
+def count_sketch(x: torch.Tensor, sketch_matrix: torch.Tensor) -> torch.Tensor:
+    """Count-sketch of x as a product: [..., D] @ [D, K] -> [..., K] fp32."""
+    xf = x if x.dtype == torch.float64 else x.float()
+    return torch.matmul(xf, sketch_matrix.to(xf.dtype))
+
+
 def tensor_sketch_3(
     x: torch.Tensor, matrices: torch.Tensor, mode: str = "fft"
 ) -> torch.Tensor:
@@ -49,10 +65,7 @@ def tensor_sketch_3(
     'faithful': s1 * s2 * s3 elementwise (the original reference estimator).
     """
     xf = x if x.dtype == torch.float64 else x.float()
-    matrices = matrices.to(xf.dtype)
-    s1 = torch.matmul(xf, matrices[0])
-    s2 = torch.matmul(xf, matrices[1])
-    s3 = torch.matmul(xf, matrices[2])
+    s1, s2, s3 = (count_sketch(xf, matrices[i]) for i in range(3))
     k = matrices.shape[-1]
     if mode == "faithful":
         out = s1 * s2 * s3

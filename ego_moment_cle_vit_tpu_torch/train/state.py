@@ -24,8 +24,22 @@ the same update from optax pieces:
 
 Updates are in place, through ``torch._foreach_*`` over the ordinary leaves:
 one launch per operation instead of one per leaf.  The finite check reads one
-scalar back to the host per step.  Gradient accumulation and BatchNorm
-statistics are not ported yet.
+scalar back to the host per update.
+
+Gradient accumulation (``accumulation_steps`` k > 1) is optax's
+``MultiSteps(every_k_schedule=k)`` (optax 0.2.6): each micro-step folds its
+gradient into a running mean kept in the leaf's own dtype (Welford's ``acc +
+(g - acc) / (n + 1)``), and only the k-th runs the update above on that mean,
+then resets the mean by multiplying it by zero, as optax does (so a
+non-finite entry, once in it, stays: every later update is skipped, and the
+parameters are poisoned on the first micro-step that finds
+``max_nonfinite_steps`` skips behind it, as optax's update, run on every
+micro-step and emitted times 0, poisons them there).  Without
+``skip_nonfinite_updates`` a non-finite mean reaches the parameters at the
+k-th micro-step; optax's 0 x NaN would set them to NaN a micro-step
+earlier.  The schedule counts updates, not micro-steps.  BatchNorm running statistics are
+buffers of the model, so the train state and its checkpoints carry them with
+the model's ``state_dict``.
 
 Checkpoints (JAX ``:390-495``) keep the JAX contract, ``best_model`` or
 ``checkpoint_epoch_{n}`` beside a ``{name}.meta.json`` sidecar with the step,
@@ -50,10 +64,6 @@ from ..models.layers import Dense
 from ..utils.device import resolve_device
 
 Schedule = Callable[[int], float]
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, 'Modules to port', {item})")
 
 
 # ----------------------------------------------------------------------------
@@ -148,9 +158,7 @@ class Optimizer:
     def __init__(self, config: Dict[str, Any], steps_per_epoch: int):
         tcfg = config.get("training", {})
         opt = tcfg.get("optimizer", {})
-        if int(tcfg.get("accumulation_steps", 1)) > 1:
-            raise _not_ported("gradient accumulation (accumulation_steps > 1)",
-                              "gradient accumulation")
+        self.accumulation_steps = max(int(tcfg.get("accumulation_steps", 1)), 1)
         betas = opt.get("betas", [0.9, 0.999])
         self.b1, self.b2 = float(betas[0]), float(betas[1])
         self.eps = float(opt.get("eps", 1e-8))
@@ -163,16 +171,20 @@ class Optimizer:
         self.skip_nonfinite = bool(tcfg.get("skip_nonfinite_updates", True))
         self.max_nonfinite_steps = int(tcfg.get("max_nonfinite_steps", 10))
         self.count = 0              # finite updates applied so far
+        self.mini_step = 0          # micro-gradients in the running mean
         self.notfinite_count = 0    # consecutive non-finite steps
         self.total_notfinite = 0
         self.last_grad_norm: Optional[float] = None
         self.names: List[str] = []
 
     def init(self, named_params: Mapping[str, torch.Tensor],
-             transposed: Iterable[str] = ()) -> "Optimizer":
+             transposed: Iterable[str] = (), unfactored: Iterable[str] = ()) -> "Optimizer":
+        """``unfactored`` names 2-D leaves whose flax leaf is not 2-D (a
+        DenseGeneral kernel), which the JAX labels never factor."""
         self.params = dict(named_params)
         self.names = list(self.params)
         transposed = set(transposed)
+        unfactored = set(unfactored)
         self.dense: List[str] = []
         self.factored: List[str] = []
         self.master: Dict[str, torch.Tensor] = {}
@@ -182,12 +194,16 @@ class Optimizer:
         self.v_col: Dict[str, torch.Tensor] = {}
         self.ema: Dict[str, torch.Tensor] = {}
         self.factored_axes: Dict[str, tuple] = {}
+        self.acc: Dict[str, torch.Tensor] = {}
         for name, p in self.params.items():
+            if self.accumulation_steps > 1:
+                self.acc[name] = torch.zeros_like(p, memory_format=torch.contiguous_format)
             if p.dtype not in (torch.float32, torch.bfloat16):
                 raise TypeError(f"{name}: parameter dtype {p.dtype} not supported")
             if p.dtype == torch.bfloat16:
                 self.master[name] = p.detach().float()
-            big = self.factored_on and p.dim() == 2 and p.numel() >= self.factored_threshold
+            big = (self.factored_on and p.dim() == 2 and p.numel() >= self.factored_threshold
+                   and name not in unfactored)
             if big:
                 shape = tuple(p.t().shape) if name in transposed else tuple(p.shape)
                 dims = _factored_dims(shape)
@@ -209,14 +225,15 @@ class Optimizer:
                 self.v[name] = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         return self
 
-    _STATE_TENSORS = ("master", "m", "v", "v_row", "v_col", "ema")
-    _STATE_COUNTS = ("count", "notfinite_count", "total_notfinite")
+    _STATE_TENSORS = ("master", "m", "v", "v_row", "v_col", "ema", "acc")
+    _STATE_COUNTS = ("count", "mini_step", "notfinite_count", "total_notfinite")
 
     def state_dict(self) -> Dict[str, Any]:
         """Everything ``step`` reads besides the parameters: the fp32 masters,
-        both moments, the factored statistics, the bf16 EMA momentum and the
-        update counts.  Tensors are the optimizer's own (``torch.save``
-        copies them)."""
+        both moments, the factored statistics, the bf16 EMA momentum, the
+        accumulated mean gradient and the counts (updates, micro-steps into
+        the mean, non-finite steps).  Tensors are the optimizer's own
+        (``torch.save`` copies them)."""
         return {"names": list(self.names),
                 **{k: getattr(self, k) for k in self._STATE_COUNTS},
                 **{k: dict(getattr(self, k)) for k in self._STATE_TENSORS}}
@@ -229,7 +246,7 @@ class Optimizer:
         if list(state["names"]) != self.names:
             raise ValueError("the optimizer state belongs to other parameters")
         for k in self._STATE_TENSORS:
-            mine, theirs = getattr(self, k), state[k]
+            mine, theirs = getattr(self, k), state.get(k, {})
             if sorted(mine) != sorted(theirs):
                 raise ValueError(f"optimizer state {k!r} covers other leaves")
             for name, t in mine.items():
@@ -238,7 +255,7 @@ class Optimizer:
                                      f"{tuple(theirs[name].shape)} != {tuple(t.shape)}")
                 t.copy_(theirs[name])
         for k in self._STATE_COUNTS:
-            setattr(self, k, int(state[k]))
+            setattr(self, k, int(state.get(k, 0)))
 
     # the fp32 tensor an update runs on: the master of a bf16 leaf, else the leaf
     def _target(self, name: str) -> torch.Tensor:
@@ -257,12 +274,38 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, grads: Optional[Mapping[str, torch.Tensor]] = None) -> bool:
-        """One update.  Returns False when the step was skipped as non-finite."""
+        """One micro-step: with accumulation, fold the gradients into the
+        running mean and, on every k-th call, update from the mean; else one
+        update.  Returns False when an update was skipped as non-finite."""
         if grads is None:
             grads = {n: p.grad for n, p in self.params.items()}
         missing = [n for n in self.names if grads.get(n) is None]
         if missing:
             raise ValueError(f"no gradient for {missing[:5]} ({len(missing)} leaves)")
+        if self.accumulation_steps == 1:
+            return self._update(grads)
+        acc = [self.acc[n] for n in self.names]
+        delta = torch._foreach_sub([grads[n] for n in self.names], acc)
+        torch._foreach_div_(delta, float(self.mini_step + 1))
+        torch._foreach_add_(acc, delta)
+        del delta
+        if self.mini_step < self.accumulation_steps - 1:
+            self.mini_step += 1
+            if self.skip_nonfinite and self.notfinite_count >= self.max_nonfinite_steps:
+                # optax runs the inner transform on every micro-step and emits
+                # 0 x its update: once its next skip would poison, that NaN
+                # leaks through.  Read only in that state, as rare as it is.
+                if not math.isfinite(float(self._global_norm(acc))):
+                    for p in self.params.values():
+                        p.fill_(float("nan"))
+            return True
+        self.mini_step = 0
+        applied = self._update(dict(self.acc))
+        torch._foreach_mul_(acc, 0.0)  # optax's reset: a non-finite entry survives it
+        return applied
+
+    def _update(self, grads: Mapping[str, torch.Tensor]) -> bool:
+        """One update from ``grads`` (scaled in place by the clip factor)."""
         glist = [grads[n] for n in self.names]
 
         scale = 1.0
@@ -352,8 +395,9 @@ def create_optimizer(config: Dict[str, Any], steps_per_epoch: int) -> Optimizer:
 
 @dataclasses.dataclass
 class TrainState:
-    """Everything a step needs: the model, the optimizer state and the step
-    count (which advances on skipped steps too)."""
+    """Everything a step needs: the model (with its BatchNorm running
+    statistics, buffers of the model), the optimizer state and the step count
+    (micro-steps: it advances on skipped steps too)."""
 
     model: nn.Module
     optimizer: Optimizer
@@ -371,12 +415,12 @@ def create_train_state(model: nn.Module, config: Dict[str, Any], steps_per_epoch
     model_dev = next(model.parameters()).device
     if model_dev.type != dev.type:
         raise ValueError(f"model is on {model_dev}, the train state was asked for {dev}")
-    if config.get("model", {}).get("norm", "layer") == "batch":
-        raise _not_ported("batch_stats in the train state", "heads")
     named = {n: p for n, p in model.named_parameters() if p.requires_grad}
-    transposed = {f"{prefix}.weight" for prefix, mod in model.named_modules()
-                  if isinstance(mod, Dense)}
-    return TrainState(model, create_optimizer(config, steps_per_epoch).init(named, transposed))
+    dense = {f"{prefix}.weight": mod for prefix, mod in model.named_modules()
+             if isinstance(mod, Dense)}
+    unfactored = {n for n, mod in dense.items() if mod.flax_kernel_shape is not None}
+    return TrainState(model, create_optimizer(config, steps_per_epoch).init(
+        named, set(dense), unfactored))
 
 
 def _ckpt_dir(path: str) -> Path:

@@ -1,10 +1,10 @@
 """Seeding and model introspection.
 
-The port's counterpart of ``set_seed``, ``count_parameters``,
-``get_model_info`` and ``print_model_info`` in
-``ego_moment_cle_vit_tpu/utils/ops.py``.  The matrix and graph helpers that
-module re-exports are not ported yet (ROADMAP.md, 'Modules to port',
-utilities).
+The port's counterpart of ``ego_moment_cle_vit_tpu/utils/ops.py``:
+``set_seed``, ``count_parameters``, ``get_model_info`` and
+``print_model_info``, and the matrix, graph and sketch helpers of ``..ops``
+re-exported under the same names as there, so that ``utils.ops`` stays a
+one-stop import.
 """
 
 from __future__ import annotations
@@ -15,6 +15,23 @@ from typing import Any, Dict
 import numpy as np
 import torch
 from torch import nn
+
+# the math helpers, under the JAX module's names
+from ..ops.graph import (  # noqa: F401
+    batch_logdet,
+    batch_trace,
+    compute_graph_statistics,
+    cosine_similarity_matrix,
+    normalize_graph,
+)
+from ..ops.moments import (  # noqa: F401
+    check_psd,
+    ensure_psd,
+    half_vectorize as half_vectorize_symmetric,
+    matrix_power_eigen,
+    newton_schulz_sqrt as matrix_sqrt_newton_schulz,
+)
+from ..ops.sketch import count_sketch, sketch_matrices_from_hashes  # noqa: F401
 
 
 def set_seed(seed: int) -> torch.Generator:

@@ -1204,3 +1204,40 @@ def test_cuda_checkpoint_round_trip_gpu_cpu_gpu(cuda_device, tmp_path):
     for key in ("master", "m", "v", "v_row", "v_col", "ema"):
         assert all(torch.equal(t, theirs[key][n]) for n, t in mine[key].items()), key
     assert theirs["count"] == 2 and bundle["step"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_adaptive_gpf_global_launches_the_gpf_kernels(cuda_device, dtype):
+    """``AdaptiveGraphPolynomialFusion('global')`` runs kernels 2 / 2b once
+    each, a forward and a backward, and gives the static module's output and
+    gradients bit for bit on the same coefficients; 'attention' and
+    'spatial' launch neither."""
+    from ego_moment_cle_vit_tpu_torch.models.gpf import (
+        AdaptiveGraphPolynomialFusion,
+        GraphPolynomialFusion,
+    )
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    a = torch.randn(8, 49, 256, generator=g, device=cuda_device).to(dtype)
+    p = torch.randn(8, 49, 256, generator=g, device=cuda_device).to(dtype)
+    static = GraphPolynomialFusion(similarity="dot", device=cuda_device)
+    static.reset_parameters(g)
+    outs, grads = {}, {}
+    for name in ("static", "global", "attention", "spatial"):
+        mod = static if name == "static" else AdaptiveGraphPolynomialFusion(
+            similarity="dot", adaptive_type=name, num_tokens=49, dim=256, dtype=dtype,
+            device=cuda_device)
+        if name != "static":
+            mod.alpha_coeffs.data.copy_(static.alpha_coeffs)
+        ta, tp = a.clone().requires_grad_(), p.clone().requires_grad_()
+        before = (tgpf.gpf_fwd.launches, tgpf.gpf_bwd.launches)
+        out = mod(ta, tp)
+        out.square().sum().backward()
+        torch.cuda.synchronize()
+        launched = (tgpf.gpf_fwd.launches - before[0], tgpf.gpf_bwd.launches - before[1])
+        assert launched == ((1, 1) if name in ("static", "global") else (0, 0)), name
+        outs[name], grads[name] = out, (ta.grad, tp.grad, mod.alpha_coeffs.grad)
+    assert torch.equal(outs["global"], outs["static"])
+    for got, ref in zip(grads["global"], grads["static"]):
+        assert torch.equal(got, ref)

@@ -183,8 +183,8 @@ def test_schedules_match_optax(scheduler, epochs):
 
 
 def test_unported_training_options_raise_and_gradients_are_required(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tstate.create_optimizer(_config(accumulation_steps=2), 3)
+    """Every training option is ported now: what stays of this test is that a
+    step needs a gradient for every leaf, and the checkpoint round trip."""
     opt = tstate.create_optimizer(_config(), 3).init({"w": torch.zeros(3, requires_grad=True)})
     with pytest.raises(ValueError, match="no gradient"):
         opt.step()
@@ -220,3 +220,107 @@ def test_unported_training_options_raise_and_gradients_are_required(tmp_path):
     for n, p in module.named_parameters():
         assert torch.equal(p, getattr(module2, n)), n
     assert state2.optimizer.count == state.optimizer.count == 4
+
+
+def _acc_tree(jopt):
+    return {n: np.asarray(v.astype(jnp.float32)) for n, v in jopt.acc_grads.items()}
+
+
+def _assert_acc(opt, jopt, what):
+    """The running mean, leaf by leaf in the flax layout: fp32 leaves within
+    1e-6 absolute (sum order of a two-term update), bf16 leaves within one
+    bf16 ulp (XLA may keep the Welford step's intermediates wider than bf16)."""
+    for n, ref in _acc_tree(jopt).items():
+        got = opt.acc[n].t() if n in TRANSPOSED else opt.acc[n]
+        got = got.float().numpy()
+        if opt.acc[n].dtype == torch.bfloat16:
+            np.testing.assert_allclose(got, ref, rtol=2.0**-7, atol=1e-6, err_msg=f"{what}: {n}")
+        else:
+            np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6, err_msg=f"{what}: {n}")
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_accumulation_matches_optax_multisteps(k):
+    """2k micro-steps of accumulation against ``optax.MultiSteps`` wrapping
+    the same chain: parameters after every micro-step (unchanged until the
+    k-th, then updated from the mean), the running mean, the micro-step and
+    update counts, and the schedule on the update clock."""
+    seq = [_grads(40 + i, 0.5 + i) for i in range(2 * k)]
+    params_before = None
+    for i, tparams, jparams, opt, jopt, applied in _run_both(_config(accumulation_steps=k), seq):
+        _assert_same(tparams, jparams, f"micro-step {i}")
+        _assert_acc(opt, jopt, f"micro-step {i}")
+        assert opt.mini_step == int(jopt.mini_step) == (i + 1) % k
+        assert opt.count == int(jopt.gradient_step) == (i + 1) // k
+        if (i + 1) % k:
+            if params_before is not None:
+                assert all(torch.equal(params_before[n], tparams[n]) for n in tparams)
+        else:
+            assert not all(torch.equal(params_before[n], tparams[n]) for n in tparams)
+            assert opt.last_grad_norm is not None
+        params_before = {n: v.clone() for n, v in tparams.items()}
+    assert applied == [True] * (2 * k)
+
+
+def test_accumulation_keeps_a_nonfinite_micro_gradient_as_optax_does():
+    """A non-finite micro-gradient enters the mean; at the k-th micro-step the
+    update is skipped (nothing moves, the skip is counted), and optax's reset
+    (the mean times 0) keeps the non-finite entry, so every later update is
+    skipped too, until the poison after ``max_nonfinite_steps``.  The port
+    follows it micro-step by micro-step."""
+    bad = _grads(50, 1.0)
+    bad["bias"] = bad["bias"].at[2].set(jnp.nan)
+    seq = [_grads(51, 1.0), bad] + [_grads(52 + i, 1.0) for i in range(6)]
+    cfg = _config(accumulation_steps=2, max_nonfinite_steps=2)
+    for i, tparams, jparams, opt, jopt, applied in _run_both(cfg, seq):
+        for n in tparams:
+            got = (tparams[n].t() if n in TRANSPOSED else tparams[n]).float().numpy()
+            ref = np.asarray(jparams[n].astype(jnp.float32))
+            np.testing.assert_array_equal(np.isnan(got), np.isnan(ref), err_msg=f"{i}: {n}")
+        if i < 6:
+            _assert_same(tparams, jparams, f"micro-step {i}")
+        assert opt.total_notfinite == int(jopt.inner_opt_state.total_notfinite)
+        assert opt.notfinite_count == int(jopt.inner_opt_state.notfinite_count)
+    assert applied == [True, False, True, False, True, False, True, False]
+    assert opt.total_notfinite == 4 and opt.count == 0
+    assert all(bool(torch.isnan(p.float()).all()) for p in tparams.values())  # poisoned
+
+
+def test_accumulation_state_dict_round_trips_in_mid_accumulation():
+    """A ``state_dict`` taken after the first of three micro-steps restores
+    into a fresh optimizer that finishes the update to the same bits; without
+    the running mean it does not."""
+    cfg = _config(accumulation_steps=3)
+    seq = [_to_torch(_grads(60 + i, 1.0)) for i in range(6)]
+
+    def fresh():
+        params = _to_torch(_params())
+        return params, tstate.create_optimizer(cfg, 3).init(params, TRANSPOSED)
+
+    params, opt = fresh()
+    opt.step({n: g.clone() for n, g in seq[0].items()})
+    saved = {k: (dict((n, t.clone()) for n, t in v.items()) if isinstance(v, dict) else v)
+             for k, v in opt.state_dict().items()}
+    saved_params = {n: p.clone() for n, p in params.items()}
+    for g in seq[1:]:
+        opt.step({n: t.clone() for n, t in g.items()})
+
+    def resumed(drop_mean: bool):
+        params2, opt2 = fresh()
+        for n, p in params2.items():
+            p.copy_(saved_params[n])
+        state = dict(saved)
+        if drop_mean:
+            state["acc"] = {n: torch.zeros_like(t) for n, t in saved["acc"].items()}
+        opt2.load_state_dict(state)
+        assert opt2.mini_step == 1
+        for g in seq[1:]:
+            opt2.step({n: t.clone() for n, t in g.items()})
+        return params2, opt2
+
+    params2, opt2 = resumed(False)
+    assert opt2.count == opt.count == 2
+    assert all(torch.equal(params[n], params2[n]) for n in params)
+    assert all(torch.equal(opt.acc[n], opt2.acc[n]) for n in params)
+    params3, _ = resumed(True)
+    assert not all(torch.equal(params[n], params3[n]) for n in params)

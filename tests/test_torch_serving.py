@@ -98,26 +98,56 @@ def test_fresh_model_is_seeded_and_finite():
     assert torch.isfinite(a).all() and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("change", [
+OPTION_SETS = [
     {"model": {"gpf": {"adaptive_type": "spatial"}}},
     {"model": {"gpf": {"adaptive_type": "global"}}},
+    {"model": {"gpf": {"adaptive_type": "attention"}}},
     {"model": {"classifier": {"type": "multiscale"}}},
     {"model": {"classifier": {"type": "adaptive"}}},
     {"model": {"classifier": {"fusion_type": "bilinear"}}},
     {"model": {"norm": "batch"}},
     {"model": {"norm": "none"}},
     {"model": {"moment": {"variant": "simplified"}}},
-])
-def test_unported_paths_raise(change):
-    cfg = _config("dot")
-    cfg["data"].update(change.get("data", {}))
+]
+
+
+def _with(cfg, change):
     for section, values in change["model"].items():
         if isinstance(values, dict):
             cfg["model"][section] = {**cfg["model"].get(section, {}), **values}
         else:
             cfg["model"][section] = values
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model(cfg, num_classes=10, device="cpu")
+    return cfg
+
+
+@pytest.mark.parametrize("change", OPTION_SETS, ids=lambda c: "-".join(
+    f"{k}={v}" for part in c["model"].values()
+    for k, v in (part.items() if isinstance(part, dict) else [("norm", part)])))
+def test_model_options_serve_like_jax(change):
+    """Each config-reachable head option built by ``create_model`` and served
+    through ``make_infer_fn`` against the JAX ``inference`` on the same flax
+    variables (every parameter moved off its init, BatchNorm running
+    statistics drawn), within the serving bar of 1e-4 of max |logit|."""
+    cfg = _with(_config("dot"), change)
+    jm = j_create_model(cfg, num_classes=10)
+    dummy = jnp.zeros((1, 56, 56, 3), jnp.float32)
+    variables = jax.tree_util.tree_map(np.asarray, jax.jit(jm.init)(jax.random.PRNGKey(3),
+                                                                     dummy, dummy))
+    rng = np.random.default_rng(4)
+    variables["params"] = jax.tree_util.tree_map(
+        lambda v: (v + 0.05 * rng.normal(size=v.shape)).astype(np.float32), variables["params"])
+    if "batch_stats" in variables:
+        variables["batch_stats"] = jax.tree_util.tree_map(
+            lambda v: rng.uniform(0.5, 1.5, size=v.shape).astype(np.float32),
+            variables["batch_stats"])
+    u8 = _images(9)
+    aug = dict(input_size=56, resize_size=64)
+    ref = np.asarray(j_make_infer_fn(jm, JAugmentConfig(**aug))(variables, jnp.asarray(u8)))
+    model = create_model(cfg, num_classes=10, device="cpu")
+    model.load_state_dict(torch_state_dict_from_flax(variables, model, device="cpu"))
+    out = make_infer_fn(model, AugmentConfig(**aug), device="cpu")(torch.from_numpy(u8))
+    assert out.shape == ref.shape == (2, 10) and torch.isfinite(out).all()
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-4 * max(1.0, np.abs(ref).max()))
 
 
 def test_fused_half_model_serves_like_the_default_mode():
