@@ -185,9 +185,11 @@ import statistics
 import subprocess
 import sys
 import time
+from datetime import timedelta
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 from ego_moment_cle_vit_tpu_torch import (
     create_model,
@@ -210,6 +212,8 @@ from ego_moment_cle_vit_tpu_torch.kernels import gpf as _gpf
 from ego_moment_cle_vit_tpu_torch.kernels import newton_schulz as _ns
 from ego_moment_cle_vit_tpu_torch.kernels import packed_attention as _pa
 from ego_moment_cle_vit_tpu_torch.kernels import window_attention as _wa
+from ego_moment_cle_vit_tpu_torch.models import ego_moment_clevit as _model_module
+from ego_moment_cle_vit_tpu_torch.models import layers as _layers
 from ego_moment_cle_vit_tpu_torch.models.layers import BatchNorm
 from ego_moment_cle_vit_tpu_torch.models.swin import (
     SwinBlock,
@@ -222,7 +226,17 @@ from ego_moment_cle_vit_tpu_torch.ops.graph import (
     token_similarity_graph,
 )
 from ego_moment_cle_vit_tpu_torch.ops.moments import graph_weighted_mean
-from ego_moment_cle_vit_tpu_torch.train import Evaluator, Trainer
+from ego_moment_cle_vit_tpu_torch.parallel import (
+    create_mesh,
+    gather_params,
+    kernel_mesh,
+    load_params,
+    shard_params,
+    sharded_params,
+)
+from ego_moment_cle_vit_tpu_torch.parallel.collectives import sum_gradients_over_data
+from ego_moment_cle_vit_tpu_torch.parallel.sharding import unshard
+from ego_moment_cle_vit_tpu_torch.train import Evaluator, Trainer, restore_checkpoint
 from ego_moment_cle_vit_tpu_torch.train import trainer as _trainer_module
 from ego_moment_cle_vit_tpu_torch.utils.device import pin_fp32_precision
 from kernel_turns import (
@@ -3262,6 +3276,465 @@ def other_options(card: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------
+# phase 8: data x model parallelism
+# ----------------------------------------------------------------------------
+
+# the mesh runs' stores and checkpoint, inside the checkout and git-ignored;
+# removed when the phase ends
+MESH_DIR = Path(__file__).resolve().parent / "outputs" / "chip_smoke_mesh"
+MESH_DEVICE = "cuda:0"  # every rank's: the card the ranks share
+MESH_TIMEOUT = timedelta(seconds=600)  # every group's: a dead rank fails its peers
+MESH_JOIN_S = 600.0
+MESH_STEPS = 3
+MESH_F32_BATCH = 4
+# the checkpoint epoch: 16 classes x 8 images a split, two steps of 64
+MESH_CKPT_CLASSES = 16
+SHARED_CARD = "ranks sharing one card, gloo through the host: not a scaling number"
+MESH_LAUNCHES = zero_launches(window_attention_fwd=24, window_attention_bwd=24, gpf_fwd=1,
+                              gpf_bwd=1)
+
+
+def tensor_checksums(tensors) -> torch.Tensor:
+    """Two int64 sums of each tensor's bits, plain and under positional
+    weights, on its device (in slices: no copy of a leaf): equal tensors give
+    equal sums."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+    for t in tensors:
+        bits = t.detach().contiguous().view(-1).view(ints[t.element_size()])
+        plain = weighted = torch.zeros((), dtype=torch.int64, device=t.device)
+        for lo in range(0, bits.numel(), 1 << 24):
+            piece = bits[lo:lo + (1 << 24)].long()
+            w = (torch.arange(lo, lo + piece.numel(), device=t.device) * 2654435761) % 1000003
+            plain = plain + piece.sum()
+            weighted = weighted + (piece * (w + 1)).sum()
+        out += [plain, weighted]
+    return torch.stack(out)
+
+
+def equal_over(checks: torch.Tensor, group) -> bool:
+    """Whether every rank of ``group`` holds the same checksums."""
+    hi, lo = checks.cpu(), checks.cpu().clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+    return torch.equal(hi, lo)
+
+
+def optimizer_tensors(opt_state: dict) -> dict:
+    return {f"{k}/{n}": t for k in ("master", "m", "v", "v_row", "v_col", "ema", "acc")
+            for n, t in sorted(opt_state[k].items())}
+
+
+def mesh_inputs(dev, batch: int):
+    """The phase's global batch (every rank draws all of it) and its fixed
+    training views."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    aug, images = family_inputs(SWIN, g)
+    labels = torch.randint(0, 80, (BATCH,), generator=g, device=dev)
+    images, labels = images[:batch], labels[:batch]
+    with torch.no_grad():
+        anchor, positive = dual_view_train_batch(
+            images, torch.Generator(device=dev).manual_seed(2), aug)
+    return aug, images, labels, anchor, positive
+
+
+def flagship_model(dev, dtype):
+    cfg = json.loads(json.dumps(FLAGSHIP))
+    if dtype == torch.float32:
+        cfg["model"]["bf16"] = False
+        cfg["model"]["moment"]["bf16_params"] = False
+    model = create_model(cfg, num_classes=80, device=dev, seed=0)
+    redraw_bias_tables(model, torch.Generator(device=dev).manual_seed(5))
+    return cfg, model
+
+
+def mesh_step_gradients(model, mesh, anchor, positive, labels) -> tuple:
+    """One forward and backward on this rank's rows (dropout off), the
+    gradients summed over 'data' and the sharded ones put back together:
+    (loss, {leaf: gradient}, launches, ms of the gradient sum)."""
+    b = labels.shape[0] // mesh.data
+    lo = mesh.data_index * b
+    model.eval()
+    model.zero_grad(set_to_none=True)
+    reset_launches()
+    with kernel_mesh(mesh, b):
+        loss = model(anchor[lo:lo + b], positive[lo:lo + b], labels[lo:lo + b])["loss"]
+        loss.backward()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    t = time.perf_counter()
+    sum_gradients_over_data(model.parameters(), mesh)
+    torch.cuda.synchronize()
+    reduce_ms = (time.perf_counter() - t) * 1e3
+    sharded = sharded_params(model)
+    grads = {n: unshard(p.grad, sharded[n], mesh) if n in sharded else p.grad
+             for n, p in model.named_parameters()}
+    return loss.detach().float().item(), grads, launches, reduce_ms
+
+
+@contextlib.contextmanager
+def local_roll_negative(mesh, batch: int):
+    """Control: the roll's negative taken on this rank's own rows."""
+    b = batch // mesh.data
+    rows = slice(mesh.data_index * b, (mesh.data_index + 1) * b)
+    roll = _model_module.roll_negative_triplet_loss
+    _model_module.roll_negative_triplet_loss = (
+        lambda a, p, margin: roll(a[rows], p[rows], margin=margin))
+    try:
+        yield
+    finally:
+        _model_module.roll_negative_triplet_loss = roll
+
+
+@contextlib.contextmanager
+def model_dx_sum_dropped():
+    """Control: a row-parallel product's input gradient not summed over the
+    model group."""
+    copy = _layers.copy_to_model
+    _layers.copy_to_model = lambda x, mesh: x
+    try:
+        yield
+    finally:
+        _layers.copy_to_model = copy
+
+
+def mesh_gradient_check(mesh, dtype, batch: int, control) -> dict:
+    """The mesh's loss and per-leaf gradients against the one-process kernel
+    path on the same global batch (rank 0 holds the verdict), with a control
+    run through the mesh that must fail."""
+    dev = mesh.device
+    _, _, labels, anchor, positive = mesh_inputs(dev, batch)
+    cfg, model = flagship_model(dev, dtype)
+    shard_params(model, mesh)
+    loss, grads, launches, reduce_ms = mesh_step_gradients(model, mesh, anchor, positive, labels)
+    ctrl_grads = None
+    if control is not None:
+        name, make = control
+        with make():
+            ctrl_loss, ctrl_grads, _, _ = mesh_step_gradients(model, mesh, anchor, positive,
+                                                              labels)
+    del model
+    out = {"loss": loss, "launches": launches, "reduce_ms": reduce_ms}
+    if mesh.rank == 0:
+        grads = {n: g.clone() for n, g in grads.items()}
+        _, ref_model = flagship_model(dev, dtype)
+        ref_model.eval()
+        ref_model.zero_grad(set_to_none=True)
+        ref_loss = ref_model(anchor, positive, labels)["loss"]
+        ref_loss.backward()
+        ref = {n: p.grad for n, p in ref_model.named_parameters()}
+        ill = TOL_GRADS_REL_ILL_CONDITIONED
+        out.update(ref_loss=ref_loss.float().item(),
+                   worst=worst_leaf(grads, ref, dtype, ill), n_leaves=len(ref))
+        if ctrl_grads is not None:
+            out.update(control=name, control_loss=ctrl_loss,
+                       control_worst=worst_leaf(ctrl_grads, ref, dtype, ill))
+        del ref_model, ref
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def mesh_train_steps(mesh) -> dict:
+    """``MESH_STEPS`` steps of ``make_train_step`` on the mesh (augmentation
+    and dropout on) from the same seed on every rank, then every replicated
+    leaf compared across all ranks and every sharded one across the ranks
+    that hold the same block, by checksum of its bits."""
+    dev = mesh.device
+    aug, images, labels, _, _ = mesh_inputs(dev, BATCH)
+    cfg, model = flagship_model(dev, torch.bfloat16)
+    shard_params(model, mesh)
+    state = create_train_state(model, cfg, TRAIN_STEPS_PER_EPOCH, device=dev, mesh=mesh)
+    step = make_train_step(model, aug, device=dev, mesh=mesh)
+    seed_gen = torch.Generator(device=dev).manual_seed(1)
+    b = BATCH // mesh.data
+    lo = mesh.data_index * b
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, launches = [], [], []
+    for _ in range(MESH_STEPS):
+        reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step(state, images[lo:lo + b], labels[lo:lo + b], seed_gen)
+        losses.append(loss.float().item())
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        launches.append(read_launches())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sum_gradients_over_data(model.parameters(), mesh)
+    torch.cuda.synchronize()
+    reduce_ms = (time.perf_counter() - t) * 1e3
+    sharded = sharded_params(model)
+    params = dict(model.named_parameters())
+    rep = tensor_checksums([p for n, p in params.items() if n not in sharded])
+    shd = tensor_checksums([p for n, p in params.items() if n in sharded])
+    same = {"replicated_over_world": equal_over(rep, dist.group.WORLD),
+            "sharded_over_data": equal_over(shd, mesh.data_group),
+            "sharded_blocks_differ": not equal_over(shd, mesh.model_group)}
+    out = {"step_losses": losses, "step_ms": step_ms, "step_launches": launches,
+           "step_reduce_ms": reduce_ms, "same": same, "n_sharded": len(sharded),
+           "step_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "notfinite": state.optimizer.total_notfinite}
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_engine_config() -> dict:
+    cfg = engine_config("mesh", device_cache=True)
+    cfg["dataset"]["num_classes"] = MESH_CKPT_CLASSES
+    cfg["training"]["epochs"] = 1
+    cfg["experiment"].update({k: str(MESH_DIR / "engine" / k)
+                              for k in ("output_dir", "save_dir", "log_dir")},
+                             mesh={"data": 2, "model": 1})
+    return cfg
+
+
+def mesh_trainer_checkpoint(mesh) -> dict:
+    """One ``Trainer`` epoch on the mesh from the device cache, with
+    validation and a checkpoint; the checksums of its gathered parameters
+    and optimizer state (rank 0's)."""
+    trainer = Trainer(mesh_engine_config(), device=mesh.device, mesh=mesh)
+    trainer.setup_data()
+    trainer.setup_model()
+    res = trainer.train()
+    whole = gather_params(trainer.model, mesh)
+    opt = optimizer_tensors(trainer.state.optimizer.state_dict())
+    out = {"trainer_loss": res["history"]["train_loss"], "trainer_val": res["history"]["val_loss"],
+           "trainer_steps": trainer.state.step}
+    if mesh.rank == 0:
+        out.update(model_sums=tensor_checksums([whole[k] for k in sorted(whole)]).cpu(),
+                   model_keys=sorted(whole), opt_sums=tensor_checksums(list(opt.values())).cpu(),
+                   opt_keys=list(opt))
+    del trainer, whole, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank(rank: int, world: int, data: int, model: int, out_dir: str, tasks: list) -> None:
+    """One rank of a mesh of ranks sharing ``cuda:0`` under gloo."""
+    pin_fp32_precision()
+    torch.cuda.set_device(MESH_DEVICE)
+    out = Path(out_dir)
+    dist.init_process_group("gloo", init_method=f"file://{out / 'store'}", rank=rank,
+                            world_size=world, timeout=MESH_TIMEOUT)
+    try:
+        mesh = create_mesh(data, model, [MESH_DEVICE] * world, timeout=MESH_TIMEOUT)
+        res = {"rank": rank}
+        t0 = time.time()
+        for task in tasks:
+            if task == "grads_bf16":
+                res["bf16"] = mesh_gradient_check(mesh, torch.bfloat16, BATCH, None)
+            elif task == "grads_fp32":
+                control = (("roll negative on local rows",
+                            lambda: local_roll_negative(mesh, MESH_F32_BATCH))
+                           if model == 1 else ("model sum of dx dropped", model_dx_sum_dropped))
+                res["fp32"] = mesh_gradient_check(mesh, torch.float32, MESH_F32_BATCH, control)
+            elif task == "steps":
+                res.update(mesh_train_steps(mesh))
+            elif task == "trainer":
+                res.update(mesh_trainer_checkpoint(mesh))
+        res["seconds"] = time.time() - t0
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.save(res, out / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_mesh_ranks(data: int, model: int, tasks: list) -> list:
+    world = data * model
+    out = MESH_DIR / f"{data}x{model}"
+    out.mkdir(parents=True)
+    ctx = torch.multiprocessing.start_processes(
+        mesh_rank, args=(world, data, model, str(out), tasks), nprocs=world, join=False,
+        start_method="spawn")
+    deadline = time.monotonic() + MESH_JOIN_S
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                fail(f"the {data}x{model} mesh's ranks did not finish in {MESH_JOIN_S} s")
+    except torch.multiprocessing.ProcessException as exc:
+        fail(f"a rank of the {data}x{model} mesh failed: {exc}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    return [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def check_mesh_gradients(shape: str, ranks: list) -> dict:
+    """Rank 0's verdicts on the bf16 and fp32 checks; every rank's launches."""
+    res = {}
+    for key, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        r0 = ranks[0][key]
+        worst, where, rel = r0["worst"]
+        loss_rel = abs(r0["loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+        log(f"  {shape} {key} batch {BATCH if dtype == torch.bfloat16 else MESH_F32_BATCH}: "
+            f"loss {r0['loss']:.6f} against one process {r0['ref_loss']:.6f} (relative "
+            f"{loss_rel:.3e}); gradients, {r0['n_leaves']} leaves, worst err/tol {worst:.4f} "
+            f"(relative error {rel:.4e}) at {where}; the gradient sum over 'data' "
+            f"{', '.join(f'{r[key]['reduce_ms']:.1f}' for r in ranks)} ms by rank")
+        if worst > 1.0:
+            fail(f"{shape} {key} mesh gradients disagree with one process")
+        if loss_rel > (1e-2 if dtype == torch.bfloat16 else 1e-5):
+            fail(f"{shape} {key} mesh loss disagrees with one process")
+        if "control" in r0:
+            c_worst, c_where, c_rel = r0["control_worst"]
+            c_loss_rel = abs(r0["control_loss"] - r0["ref_loss"]) / abs(r0["ref_loss"])
+            log(f"  {shape} control ({r0['control']}): loss relative {c_loss_rel:.3e}, "
+                f"gradients worst err/tol {c_worst:.2f} (relative error {c_rel:.4e}) at "
+                f"{c_where}")
+            if c_worst <= 1.0:
+                fail(f"{shape} mesh gradient check passes its control ({r0['control']})")
+        for r in ranks:
+            if key == "bf16" and r[key]["launches"] != MESH_LAUNCHES:
+                fail(f"{shape} rank {r['rank']}: launches {r[key]['launches']}, expected "
+                     f"{MESH_LAUNCHES}")
+        res[key] = {"loss_rel": loss_rel, "worst": worst, "rel": rel, "where": where,
+                    "reduce_ms": [r[key]["reduce_ms"] for r in ranks]}
+    res["launches"] = [r["bf16"]["launches"] for r in ranks]
+    return res
+
+
+def mesh_phase(card: str) -> dict:
+    """(a) a 1 x 1 mesh under NCCL in this process against ``make_train_step``;
+    (b) meshes of ranks sharing the card under gloo: gradients against one
+    process, launches per rank, replicated leaves after three steps; (c) a
+    ``Trainer`` epoch on (2, 1) restored on the 1 x 1 mesh."""
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    dev = torch.device(MESH_DEVICE)
+    dist.init_process_group("nccl", init_method=f"file://{MESH_DIR / 'store'}", rank=0,
+                            world_size=1, timeout=MESH_TIMEOUT)
+    try:
+        mesh = create_mesh(1, 1, timeout=MESH_TIMEOUT)  # rank 0 takes cuda:0
+        log(f"  (a) 1 x 1 mesh under {dist.get_backend()} on {mesh.device}")
+        aug, images, labels, _, _ = mesh_inputs(dev, BATCH)
+        cfg, model_m = flagship_model(dev, torch.bfloat16)
+        _, model_p = flagship_model(dev, torch.bfloat16)
+        if shard_params(model_m, mesh):
+            fail("a 1 x 1 mesh sharded a leaf")
+        state_m = create_train_state(model_m, cfg, TRAIN_STEPS_PER_EPOCH, device=dev, mesh=mesh)
+        state_p = create_train_state(model_p, cfg, TRAIN_STEPS_PER_EPOCH, device=dev)
+        step_m = make_train_step(model_m, aug, device=dev, mesh=mesh)
+        step_p = make_train_step(model_p, aug, device=dev)
+        gen_m = torch.Generator(device=dev).manual_seed(1)
+        gen_p = torch.Generator(device=dev).manual_seed(1)
+
+        def same_bits() -> bool:
+            return all(torch.equal(a, b) for a, b in zip(model_m.parameters(),
+                                                        model_p.parameters()))
+
+        for i in range(MESH_STEPS):
+            reset_launches()
+            loss_m = step_m(state_m, images, labels, gen_m)
+            torch.cuda.synchronize()
+            launches_1x1 = read_launches()
+            loss_p = step_p(state_p, images, labels, gen_p)
+            if not torch.equal(loss_m, loss_p) or not same_bits():
+                fail(f"(a) step {i}: the 1 x 1 mesh step differs from make_train_step "
+                     f"({loss_m.item()} vs {loss_p.item()})")
+            if launches_1x1 != MESH_LAUNCHES:
+                fail(f"(a) step {i}: launches {launches_1x1}, expected {MESH_LAUNCHES}")
+        turns = in_turns({"one": lambda: step_p(state_p, images, labels, gen_p),
+                          "mesh": lambda: step_m(state_m, images, labels, gen_m)}, 3)
+        if not same_bits():
+            fail("(a) the timed steps left the two models apart")
+        reduce_ms = time_ms(lambda: sum_gradients_over_data(model_m.parameters(), mesh), 3, 3)
+        # a mesh rank draws the dropout masks of the global batch: the
+        # backbone's [2 x 64, 56, 56, 128] after the patch embedding, at
+        # every data size, against drawing only its rows
+        g = torch.Generator(device=dev).manual_seed(3)
+        site = (2 * BATCH, 56, 56, 128)
+        draw_ms = {d: (time_ms(lambda: torch.rand(site, device=dev, generator=g), 5, 3),
+                       time_ms(lambda: torch.rand((site[0] // d,) + site[1:], device=dev,
+                                                  generator=g), 5, 3)) for d in (2, 4, 8)}
+        log(f"  (a) {MESH_STEPS} steps bit for bit make_train_step's (loss, every parameter); "
+            f"launches a step {launches_1x1}; step ms in turns (one, mesh, mesh, one, one, "
+            f"mesh; 3 steps each; medians): make_train_step {turns['one'] * 1e3:.1f}, 1 x 1 "
+            f"mesh {turns['mesh'] * 1e3:.1f}; the gradient sum over 'data' (NCCL, one rank) "
+            f"{reduce_ms:.2f} ms a step, on {card}")
+        log(f"  (a) dropout masks of the backbone's {list(site)} drawn whole by a rank against "
+            f"its rows alone: {', '.join(f'data {d}: {a:.3f} / {b:.3f} ms' for d, (a, b) in draw_ms.items())}")
+        del model_m, model_p, state_m, state_p, step_m, step_p
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        log(f"  (b) 2 ranks on (2, 1) and 4 on (2, 2) sharing cuda:0 under gloo, global batch "
+            f"{BATCH}; (c) a Trainer epoch on (2, 1)")
+        t = time.time()
+        r21 = run_mesh_ranks(2, 1, ["grads_bf16", "grads_fp32", "trainer"])
+        s21 = time.time() - t
+        g21 = check_mesh_gradients("(2, 1)", r21)
+        # (c): the (2, 1) Trainer's checkpoint restored on the 1 x 1 mesh
+        r0 = r21[0]
+        ckpt = MESH_DIR / "engine" / "save_dir" / "checkpoint_epoch_0"
+        cfg_c = mesh_engine_config()
+        model_c = create_model(cfg_c, num_classes=MESH_CKPT_CLASSES, device=dev, seed=0)
+        shard_params(model_c, mesh)
+        state_c = create_train_state(model_c, cfg_c, 2, device=dev, mesh=mesh)
+        t = time.time()
+        bundle = restore_checkpoint(str(ckpt), device=dev)
+        load_params(model_c, bundle["model"], mesh)
+        state_c.optimizer.load_state_dict(bundle["optimizer"])
+        restore_s = time.time() - t
+        whole = gather_params(model_c, mesh)
+        opt = optimizer_tensors(state_c.optimizer.state_dict())
+        if sorted(whole) != r0["model_keys"] or list(opt) != r0["opt_keys"]:
+            fail("(c) the restored checkpoint holds other leaves")
+        model_ok = torch.equal(tensor_checksums([whole[k] for k in sorted(whole)]).cpu(),
+                               r0["model_sums"])
+        opt_ok = torch.equal(tensor_checksums(list(opt.values())).cpu(), r0["opt_sums"])
+        log(f"  (c) Trainer on (2, 1): {r0['trainer_steps']} steps, train loss "
+            f"{r0['trainer_loss'][0]:.4f}, val loss {r0['trainer_val'][0]:.4f}; checkpoint "
+            f"restored on 1 x 1 in {restore_s:.1f} s: parameters and buffers bit for bit "
+            f"{model_ok} ({len(whole)} tensors), optimizer state {opt_ok} ({len(opt)} tensors)")
+        if not (model_ok and opt_ok):
+            fail("(c) the checkpoint restored on 1 x 1 is not the mesh's gathered state")
+        if r0["trainer_steps"] != 2 or not all(map(math.isfinite, r0["trainer_loss"])):
+            fail(f"(c) the Trainer epoch ran {r0['trainer_steps']} steps, loss "
+                 f"{r0['trainer_loss']}")
+        del model_c, state_c, bundle, whole, opt
+        torch.cuda.empty_cache()
+
+        t = time.time()
+        r22 = run_mesh_ranks(2, 2, ["grads_bf16", "grads_fp32", "steps"])
+        s22 = time.time() - t
+        g22 = check_mesh_gradients("(2, 2)", r22)
+        for r in r22:
+            if not all(r["same"].values()):
+                fail(f"(2, 2) rank {r['rank']} after {MESH_STEPS} steps: {r['same']}")
+            if any(lc != MESH_LAUNCHES for lc in r["step_launches"]):
+                fail(f"(2, 2) rank {r['rank']}: step launches {r['step_launches']}")
+            if r["notfinite"] or not all(map(math.isfinite, r["step_losses"])):
+                fail(f"(2, 2) rank {r['rank']}: losses {r['step_losses']}")
+        log(f"  (2, 2) after {MESH_STEPS} steps: every replicated leaf bit for bit on the 4 "
+            f"ranks, every sharded leaf ({r22[0]['n_sharded']}) on its 2; losses "
+            f"{', '.join(f'{x:.4f}' for x in r22[0]['step_losses'])}")
+        for label, ranks, secs in (("(2, 1)", r21, s21), ("(2, 2)", r22, s22)):
+            for r in ranks:
+                extra = ""
+                if "step_ms" in r:
+                    extra = (f", step ms {', '.join(f'{x:.1f}' for x in r['step_ms'])} (the "
+                             f"gradient sum over 'data' {r['step_reduce_ms']:.1f} ms), step peak "
+                             f"{r['step_peak_gib']:.2f} GiB")
+                log(f"  {label} rank {r['rank']}: peak {r['peak_gib']:.2f} GiB{extra}, "
+                    f"{r['seconds']:.1f} s of tasks")
+            log(f"  {label}: {secs:.1f} s with start-up; {SHARED_CARD}; on {card}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(MESH_DIR, ignore_errors=True)
+    return {"1x1": {"launches": launches_1x1, "turns_ms": {k: v * 1e3 for k, v in turns.items()},
+                    "reduce_ms": reduce_ms, "dropout_draw_ms": draw_ms},
+            "2x1": g21, "2x2": {**g22, "step_ms": [r["step_ms"] for r in r22],
+                                "step_reduce_ms": [r["step_reduce_ms"] for r in r22],
+                                "step_launches": [r["step_launches"][-1] for r in r22]},
+            "peak_gib": {"2x1": [r["peak_gib"] for r in r21], "2x2": [r["peak_gib"] for r in r22]},
+            "restore_s": restore_s}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR", help="write a torch.profiler table here")
@@ -3424,6 +3897,12 @@ def main() -> int:
     phase(f"[7c] the other options at Swin-Base/224, one forward and one step each, batch "
           f"{BATCH}")
     opt_other = other_options(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"[8] data x model parallelism, Swin-Base/224 flagship, global batch {BATCH}: a 1 x 1 "
+          f"mesh under NCCL, ranks sharing the card under gloo")
+    par = mesh_phase(card)
 
     # ms, plain_ms, bound_ms, library_ms: bf16, summed over one forward's
     # launches at batch 64 (forward kernels, the serving path) or over one
@@ -3589,6 +4068,14 @@ def main() -> int:
                 if counts[entry["name"]]}
         if runs:
             entry["phase7_launches"] = runs
+    # phase 8's mesh paths, per rank, each driven with the counts at 0 just
+    # before its step and read just after
+    for entry in kernels:
+        if par["1x1"]["launches"][entry["name"]]:
+            entry["mesh_launches"] = {
+                "1x1": par["1x1"]["launches"][entry["name"]],
+                **{shape: [c[entry["name"]] for c in par[shape]["launches"]]
+                   for shape in ("2x1", "2x2")}}
     for entry in kernels:
         if entry["launches"] < 1:
             fail(f"kernel {entry['name']} was launched no time on its main path")
@@ -3618,6 +4105,9 @@ def main() -> int:
     for label, res in opt_other.items():
         log(f"  Swin-Base/224 {label} (phase 7c): serving {res['serve_images_per_s']:.1f} "
             f"images/s, step {res['step_ms']:.1f} ms, peak {res['peak_gib']:.2f} GiB")
+    log(f"  data x model parallelism (phase 8): 1 x 1 mesh step {par['1x1']['turns_ms']['mesh']:.1f}"
+        f" ms against make_train_step {par['1x1']['turns_ms']['one']:.1f}; (2, 2) step ms by rank "
+        f"{[[round(x, 1) for x in r] for r in par['2x2']['step_ms']]} ({SHARED_CARD})")
     log(f"  total {time.time() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

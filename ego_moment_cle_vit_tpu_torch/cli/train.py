@@ -2,6 +2,15 @@
 ``python -m ego_moment_cle_vit_tpu_torch.cli.train --config configs/ufg_base.yaml
 [--resume CKPT] [--batch_size N] [--lr F] [--epochs N] [--dataset NAME]
 [--backbone NAME] [--seed N] [--device cuda|cpu] [--profile N]``.
+
+On a mesh, one process per rank under ``torchrun``, with the config's
+``experiment.mesh`` matching the world (``data: null`` takes every rank)::
+
+    torchrun --nproc-per-node N -m ego_moment_cle_vit_tpu_torch.cli.train \
+        --config CONFIG [--device cuda|cpu]
+
+``--device cuda`` gives rank r the GPU ``cuda:{LOCAL_RANK}`` over NCCL;
+``--device cpu`` runs the ranks on the CPU over gloo.
 """
 
 from __future__ import annotations
@@ -35,13 +44,20 @@ def main(argv=None) -> int:
     if args.profile:
         config.setdefault("experiment", {})["profile_steps"] = args.profile
 
-    trainer = Trainer(config, device=args.device)
-    trainer.setup_data()
-    trainer.setup_model()
-    if args.resume:
-        trainer.resume(args.resume)
-    results = trainer.train()
-    print(f"best val accuracy: {results['best_val_acc']:.4f}")
+    import torch.distributed as dist
+
+    try:
+        trainer = Trainer(config, device=args.device)
+        trainer.setup_data()
+        trainer.setup_model()
+        if args.resume:
+            trainer.resume(args.resume)
+        results = trainer.train()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if trainer.rank == 0:
+        print(f"best val accuracy: {results['best_val_acc']:.4f}")
     return 0
 
 

@@ -445,21 +445,41 @@ def apply_positive_augment(img: torch.Tensor, params: Dict, cfg: AugmentConfig):
     return apply_grid_shuffle(img, params["perm"], cfg.grid_size)
 
 
+def _take_rows(params, lo: int, hi: int):
+    """The rows ``lo:hi`` of every per-sample draw in ``params``."""
+    if isinstance(params, dict):
+        return {k: _take_rows(v, lo, hi) for k, v in params.items()}
+    if isinstance(params, tuple):
+        return tuple(_take_rows(v, lo, hi) for v in params)
+    return params[lo:hi]
+
+
 def dual_view_train_batch(images_u8: torch.Tensor, generator: Optional[torch.Generator],
-                          cfg: AugmentConfig):
+                          cfg: AugmentConfig, rows: Optional[Tuple[int, int]] = None):
     """uint8 [B, S, S, 3] -> (anchor, positive) float32 normalized [B, I, I, 3].
 
     The two views draw independent base chains; the positive view is then
     masked and tile-shuffled.  ``generator`` must live on the images' device
-    (None: the global stream)."""
+    (None: the global stream).
+
+    ``rows=(first, global_batch)``: the images are rows ``first:first + B``
+    of a global batch (a data rank's shard); every draw is made for the
+    global batch and these rows kept, so each sample gets the parameters the
+    one-device step gives it."""
     if cfg.rotation_method not in ("shear_fft", "gather"):
         raise ValueError(f"Unknown rotation_method: {cfg.rotation_method!r} "
                          "(expected 'shear_fft' or 'gather')")
     b, s = images_u8.shape[0], images_u8.shape[1]
     dev = images_u8.device
-    anchor = apply_base_augment(images_u8, draw_base_params(b, s, cfg, generator, dev), cfg)
-    positive = apply_base_augment(images_u8, draw_base_params(b, s, cfg, generator, dev), cfg)
-    positive = apply_positive_augment(positive, draw_positive_params(b, cfg, generator, dev), cfg)
+    lo, n = rows if rows is not None else (0, b)
+
+    def draw(fn, *args):
+        params = fn(n, *args, generator, dev)
+        return params if rows is None else _take_rows(params, lo, lo + b)
+
+    anchor = apply_base_augment(images_u8, draw(draw_base_params, s, cfg), cfg)
+    positive = apply_base_augment(images_u8, draw(draw_base_params, s, cfg), cfg)
+    positive = apply_positive_augment(positive, draw(draw_positive_params, cfg), cfg)
     return normalize(anchor, cfg), normalize(positive, cfg)
 
 

@@ -9,6 +9,11 @@ every batch's pixels.
 
 Augmentation stays per step and on the device (``data/augment.py``), so every
 epoch still sees fresh views.
+
+On a mesh every rank keeps the whole split on its own device and gathers only
+its rows of each batch.  The batch is rounded up to a multiple of the data
+axis first (the JAX cache's policy: its gather's output is sharded over the
+axis), the extra rows wrap-padded from the order as a short tail batch is.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from typing import Iterator, Tuple
 import numpy as np
 import torch
 
-from ..utils.device import not_ported_parallelism, resolve_device
+from ..utils.device import resolve_device
 
 __all__ = ["DeviceDatasetCache", "device_cache_fits"]
 
@@ -50,8 +55,10 @@ class DeviceDatasetCache:
         mesh=None,
         device: str | torch.device = "cuda",
     ):
+        self.mesh = mesh
         if mesh is not None:
-            raise not_ported_parallelism("DeviceDatasetCache over a mesh")
+            device = mesh.device
+            batch_size = -(-batch_size // mesh.data) * mesh.data
         self.device = resolve_device(device)
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -99,7 +106,13 @@ class DeviceDatasetCache:
                                                                      np.int64)
 
     def __iter__(self) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
-        idx = torch.from_numpy(self.epoch_indices()).to(self.device)
+        """The epoch's batches on the device; on a mesh this rank's rows of
+        each."""
+        idx = self.epoch_indices()
+        if self.mesh is not None:
+            b = self.batch_size // self.mesh.data
+            idx = idx[:, self.mesh.data_index * b:(self.mesh.data_index + 1) * b]
+        idx = torch.from_numpy(np.ascontiguousarray(idx)).to(self.device)
         for row in idx:
             yield (torch.index_select(self._images, 0, row),
                    torch.index_select(self._labels, 0, row))

@@ -8,10 +8,14 @@ normalization run on the device (``data/augment.py``).
   the JAX loader's order), ``drop_last``, thread or process decode workers,
   a background thread that loads ``prefetch`` batches ahead, and a disjoint
   stride of the order per process (``process_index`` / ``process_count``,
-  given explicitly: the port has no multi-host runtime yet).
+  given explicitly: the JAX package's multi-host order).  On a mesh
+  (``data_shard``) each data rank loads only its row block of every batch the
+  one-process loader yields.
 * ``HostDecodedCache``: the split decoded once into one host uint8 array.
 * ``DevicePrefetcher``: host batches copied to the GPU on a side CUDA stream,
-  ``depth`` batches ahead of the step.
+  ``depth`` batches ahead of the step (on a mesh: the rank's rows to the
+  rank's device).
+* ``shard_batch``: a rank's rows of a global batch, on its device.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from ..utils.device import not_ported_parallelism, resolve_device
+from ..parallel.shard_kernels import check_local_batch
+from ..utils.device import resolve_device
 
 # --- process-pool decode workers ------------------------------------------
 # A process pool decodes past the GIL.  Its children run numpy / PIL only:
@@ -134,10 +139,16 @@ class BatchLoader:
         worker_type: str = "thread",
         process_index: int = 0,
         process_count: int = 1,
+        data_shard: Optional[Tuple[int, int]] = None,
     ):
         """``batch_size`` is the batch of this process.  With
         ``process_count > 1`` each process takes a disjoint stride of the
         (identically seeded) order.
+
+        ``data_shard=(index, count)``: ``batch_size`` is the global batch,
+        and every batch is its rows ``[index * b, (index + 1) * b)`` with ``b =
+        batch_size // count``, decoded alone (a data rank of a mesh; the
+        trainer's single-host layout, the JAX ``shard_batch``'s rows).
 
         ``worker_type``: 'thread' (when ``__getitem__`` releases the GIL or
         the dataset is an in-memory cache) or 'process' (a process pool, for
@@ -157,6 +168,13 @@ class BatchLoader:
         self.epoch = 0
         self.process_index = process_index
         self.process_count = max(process_count, 1)
+        self.rows = None
+        if data_shard is not None:
+            index, count = data_shard
+            if batch_size % count or not 0 <= index < count:
+                raise ValueError(f"data shard {index} of {count} of a batch of {batch_size}")
+            b = batch_size // count
+            self.rows = (index * b, (index + 1) * b)
 
     def __len__(self) -> int:
         n = len(self.dataset) // self.process_count
@@ -196,6 +214,8 @@ class BatchLoader:
         order = self._order()
         batches = [order[i * self.batch_size:(i + 1) * self.batch_size]
                    for i in range(len(self))]
+        if self.rows is not None:
+            batches = [idxs[self.rows[0]:self.rows[1]] for idxs in batches]
         with self._make_pool() as pool:
             if self.prefetch <= 0:
                 for idxs in batches:
@@ -294,7 +314,10 @@ class DevicePrefetcher:
     copy has run.
 
     With ``device="cpu"`` batches become CPU tensors, in order, without a
-    thread.  Yields tuples of tensors.
+    thread.  Yields tuples of tensors.  With a ``mesh`` the host batches are
+    global ones and each is cut to this rank's rows (``shard_batch``) before
+    it is pinned and copied to the rank's device (``mesh.device``, in place
+    of ``device``).
 
     Usage::
 
@@ -304,24 +327,29 @@ class DevicePrefetcher:
 
     def __init__(self, host_iter, device: str | torch.device = "cuda", depth: int = 2,
                  mesh=None):
-        if mesh is not None:
-            raise not_ported_parallelism("DevicePrefetcher over a mesh")
+        self.mesh = mesh
         self.host_iter = host_iter
-        self.device = resolve_device(device)
+        self.device = resolve_device(mesh.device if mesh is not None else device)
         self.depth = max(1, depth)
+
+    def _host_batches(self):
+        for batch in self.host_iter:
+            batch = tuple(np.asarray(x) for x in batch)
+            yield batch if self.mesh is None else _rows(batch, self.mesh)
 
     def __iter__(self):
         if self.device.type == "cpu":
-            for batch in self.host_iter:
-                yield tuple(torch.from_numpy(np.asarray(x)) for x in batch)
+            for batch in self._host_batches():
+                yield tuple(torch.from_numpy(x) for x in batch)
             return
         consumer = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
 
         def produce(put):
             with torch.cuda.device(self.device):
-                for batch in self.host_iter:
-                    pinned = [torch.from_numpy(np.asarray(x)).pin_memory() for x in batch]
+                for batch in self._host_batches():
+                    pinned = [torch.from_numpy(np.ascontiguousarray(x)).pin_memory()
+                              for x in batch]
                     with torch.cuda.stream(side):
                         moved = tuple(x.to(self.device, non_blocking=True) for x in pinned)
                         ready = torch.cuda.Event()
@@ -366,6 +394,19 @@ def create_multi_loaders(
     return all_loaders
 
 
+def _rows(batch, mesh):
+    """This data rank's rows ``[d * B / D, (d + 1) * B / D)`` of every array."""
+    b = check_local_batch(len(batch[0]), mesh)
+    lo = mesh.data_index * b
+    return tuple(x[lo:lo + b] for x in batch)
+
+
 def shard_batch(batch, mesh, data_axis: str = "data"):
-    """Place a host batch on a device mesh: needs the parallelism item."""
-    raise not_ported_parallelism("shard_batch")
+    """This rank's rows of a global batch (numpy arrays or tensors), as
+    tensors on the rank's device: rows ``[d * B / D, (d + 1) * B / D)`` where
+    ``d`` is the rank's index on the data axis and ``D`` its size (the JAX
+    ``shard_batch``'s block for this rank).  The batch must divide ``D``."""
+    if data_axis != "data":
+        raise ValueError(f"batches shard over the 'data' axis, not {data_axis!r}")
+    return tuple(torch.as_tensor(x).to(mesh.device)
+                 for x in _rows(tuple(batch), mesh))

@@ -2,6 +2,7 @@
 tensors), and class-style wrappers over them."""
 
 from .alignment import (
+    alignment_mse_from_means,
     contrastive_alignment_loss,
     graph_alignment_mse_loss,
     graph_global_similarity,
@@ -33,6 +34,7 @@ __all__ = [
     "contrastive_alignment_loss",
     "hierarchical_alignment_loss",
     "graph_alignment_mse_loss",
+    "alignment_mse_from_means",
     "label_similarity_matrix",
     "graph_global_similarity",
     "TripletLoss",

@@ -26,8 +26,13 @@ def label_similarity_matrix(labels: torch.Tensor, normalize: bool = True) -> tor
 def graph_alignment_mse_loss(graph: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """MSE between the sigmoid of the outer product of per-sample mean graph
     activations and the binary label-similarity matrix.  graph [B, N, N]."""
-    label_sim = (labels[:, None] == labels[None, :]).to(graph.dtype)
-    g = graph.mean(dim=(1, 2))
+    return alignment_mse_from_means(graph.mean(dim=(1, 2)), labels)
+
+
+def alignment_mse_from_means(g: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``graph_alignment_mse_loss`` from the per-sample graph means ``g`` [B]
+    (on a mesh the means are gathered, not the [B, N, N] graphs)."""
+    label_sim = (labels[:, None] == labels[None, :]).to(g.dtype)
     sim = torch.sigmoid(torch.outer(g, g))
     return torch.mean(torch.square(sim - label_sim))
 

@@ -17,8 +17,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..losses import graph_alignment_mse_loss, roll_negative_triplet_loss
+from ..losses import alignment_mse_from_means, roll_negative_triplet_loss
 from ..ops.moments import _wide
+from ..parallel.collectives import gather_batch
+from ..parallel.shard_kernels import active_kernel_mesh
 from ..utils.device import pin_fp32_precision, resolve_device
 from .backbone import CLEViTDualStream, backbone_num_features, backbone_num_patches
 from .classifier_head import AdaptiveClassifierHead, ClassifierHead, MultiScaleClassifierHead
@@ -170,7 +172,28 @@ class EGOMomentCLEViT(nn.Module):
     def _compute_losses(self, main_logits, anchor_logits, positive_logits, anchor_global,
                         positive_global, fused_graph, labels) -> Dict[str, torch.Tensor]:
         """3x CE + lambda_t * roll-negative triplet + lambda_a * alignment.  A
-        zero-weight term is left out, not multiplied by zero."""
+        zero-weight term is left out, not multiplied by zero.
+
+        On a mesh (``parallel.kernel_mesh``) the terms mix samples across the
+        global batch (the roll's negative of sample 0 is the global batch's
+        last, the alignment's [B, B] outer product, the means), so what they
+        read is gathered over the data group first: the three logits, the
+        labels, the two global features and the per-sample graph means (not
+        the [B, N, N] graphs).  Every rank then computes the global loss."""
+        graph_means = None
+        if self.lambda_align > 0:
+            graph_means = _wide(fused_graph).mean(dim=(1, 2))
+        anchor_global, positive_global = _wide(anchor_global), _wide(positive_global)
+        mesh = active_kernel_mesh()
+        if mesh is not None:
+            main_logits, anchor_logits, positive_logits, labels = (
+                gather_batch(t, mesh) for t in (main_logits, anchor_logits, positive_logits,
+                                                labels))
+            if self.lambda_triplet > 0:
+                anchor_global = gather_batch(anchor_global, mesh)
+                positive_global = gather_batch(positive_global, mesh)
+            if graph_means is not None:
+                graph_means = gather_batch(graph_means, mesh)
         loss_dict = {
             "loss_main_ce": cross_entropy_loss(main_logits, labels),
             "loss_anchor_ce": cross_entropy_loss(anchor_logits, labels),
@@ -178,12 +201,11 @@ class EGOMomentCLEViT(nn.Module):
         }
         if self.lambda_triplet > 0:
             loss_dict["loss_triplet"] = self.lambda_triplet * roll_negative_triplet_loss(
-                _wide(anchor_global), _wide(positive_global), margin=self.margin
+                anchor_global, positive_global, margin=self.margin
             )
-        if self.lambda_align > 0:
-            loss_dict["loss_align"] = self.lambda_align * graph_alignment_mse_loss(
-                _wide(fused_graph), labels
-            )
+        if graph_means is not None:
+            loss_dict["loss_align"] = self.lambda_align * alignment_mse_from_means(
+                graph_means, labels)
         return loss_dict
 
     def ablation_forward(self, anchor: torch.Tensor, positive: torch.Tensor,

@@ -17,12 +17,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import copy_to_model, reduce_from_model, sum_over_data
+from ..parallel.shard_kernels import active_kernel_mesh, local_rows
+
 
 class Dense(nn.Module):
     """``flax_kernel_shape`` / ``flax_in_axes`` describe a flax
     ``DenseGeneral`` kernel (e.g. attention's ``[in, heads, head_dim]``, whose
     first ``flax_in_axes`` axes are the input's) for the weight converter;
-    None for a plain ``Dense``."""
+    None for a plain ``Dense``.
+
+    Row-parallel form (``shard_fan_in``, switched on by
+    ``parallel.shard_params``): the weight keeps this model rank's block of
+    the input columns; the forward multiplies the same block of the input and
+    sums the partial products over the model group in fp32, then adds the
+    (replicated) bias in fp32 and rounds once to the compute dtype.  The
+    input's gradient is summed over the model group (each rank holds its
+    block's columns of it)."""
 
     def __init__(self, in_dim: int, out_dim: int, *, bias: bool = True,
                  dtype: torch.dtype = torch.float32, param_dtype: torch.dtype | None = None,
@@ -36,6 +47,16 @@ class Dense(nn.Module):
         self.bias = (
             nn.Parameter(torch.zeros(out_dim, dtype=pdt, device=device)) if bias else None
         )
+        self.fan_in_shard = None  # (mesh, first column) in the row-parallel form
+
+    @torch.no_grad()
+    def shard_fan_in(self, mesh) -> None:
+        """Keep this model rank's block of the input columns (the mesh's
+        model axis must divide the fan-in)."""
+        n = self.weight.shape[1] // mesh.model
+        lo = mesh.model_index * n
+        self.weight = nn.Parameter(self.weight[:, lo:lo + n].contiguous())
+        self.fan_in_shard = (mesh, lo)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # casts only where a dtype differs: a no-op .to() still costs a
@@ -44,9 +65,15 @@ class Dense(nn.Module):
         w, b = self.weight, self.bias
         if w.dtype != cd:
             w = w.to(cd)
+        x = x if x.dtype == cd else x.to(cd)
+        if self.fan_in_shard is not None:
+            mesh, lo = self.fan_in_shard
+            xb = copy_to_model(x, mesh)[..., lo:lo + w.shape[1]]
+            y = reduce_from_model(F.linear(xb, w), mesh)
+            return y if b is None else (y.float() + b.float()).to(cd)
         if b is not None and b.dtype != cd:
             b = b.to(cd)
-        return F.linear(x if x.dtype == cd else x.to(cd), w, b)
+        return F.linear(x, w, b)
 
 
 class LayerNorm(nn.Module):
@@ -82,7 +109,12 @@ class BatchNorm(nn.Module):
     same biased variance (``nn.BatchNorm1d`` would use the unbiased one).
     Eval mode normalizes with the running statistics, which are buffers and
     so ride the model's ``state_dict``.  The output is fp32 (fp64 for fp64
-    input)."""
+    input).
+
+    On a mesh (``parallel.kernel_mesh``) the batch is the global one: each
+    rank sums ``x`` and ``x^2`` over its rows, the sums are added over the data
+    group (forward and backward), and every rank takes the same statistics
+    and moves its running statistics alike."""
 
     def __init__(self, dim: int, *, momentum: float = 0.9, eps: float = 1e-5, device=None):
         super().__init__()
@@ -97,8 +129,15 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xw = x if x.dtype == torch.float64 else x.float()
         if self.training:
-            mean = xw.mean(dim=0)
-            var = torch.clamp(torch.square(xw).mean(dim=0) - torch.square(mean), min=0.0)
+            mesh = active_kernel_mesh()
+            if mesh is None:
+                mean = xw.mean(dim=0)
+                mean_sq = torch.square(xw).mean(dim=0)
+            else:
+                sums = sum_over_data(torch.stack([xw.sum(dim=0), torch.square(xw).sum(dim=0)]),
+                                     mesh)
+                mean, mean_sq = sums / (xw.shape[0] * mesh.data)
+            var = torch.clamp(mean_sq - torch.square(mean), min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
@@ -114,6 +153,12 @@ class Dropout(nn.Module):
     Active only in training mode with ``p > 0``.  The keep mask is drawn from
     ``generator`` (on the input's device), so a step is reproducible from the
     generator's seed; ``generator=None`` draws from the global stream.
+
+    On a mesh (``parallel.kernel_mesh``) each rank draws the mask of the
+    global batch and keeps its rows, so the masks are the one-device step's:
+    the local rows are ``k`` blocks of the rank's ``b`` samples (k = 2 in the
+    dual-view backbone), the global ones ``k`` blocks of ``data x b``.  Every
+    rank draws ``data`` times the numbers it uses.
     """
 
     def __init__(self, p: float):
@@ -125,8 +170,16 @@ class Dropout(nn.Module):
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, dtype=torch.float32, device=x.device,
-                          generator=generator) >= self.p
+        mesh = active_kernel_mesh()
+        if mesh is None:
+            u = torch.rand(x.shape, dtype=torch.float32, device=x.device, generator=generator)
+        else:
+            k, b = local_rows(x.shape[0])
+            rest = tuple(x.shape[1:])
+            u = torch.rand((k * mesh.data * b,) + rest, dtype=torch.float32, device=x.device,
+                           generator=generator).view((k, mesh.data, b) + rest)
+            u = u[:, mesh.data_index].reshape(x.shape)
+        keep = u >= self.p
         return x * keep.to(x.dtype) * (1.0 / (1.0 - self.p))
 
 

@@ -41,6 +41,18 @@ earlier.  The schedule counts updates, not micro-steps.  BatchNorm running stati
 buffers of the model, so the train state and its checkpoints carry them with
 the model's ``state_dict``.
 
+On a mesh (``parallel/``) the gradients reach ``step`` already summed over
+the data axis, so the update is every data rank's alike.  A leaf whose fan-in
+is sharded over the model axis holds this rank's block, and everything that
+reads the whole leaf reads it across the model group: its squared norm is
+added over the model group before the global norm (a replicated leaf counts
+once), so every rank takes the same clip and skip decision; whether it is
+factored follows its global shape and size; its factored row and column
+statistics, and the mean of the row statistics, are reduced over the model
+group where they run along the sharded axis.  ``state_dict`` gathers the
+sharded leaves' state into the one-device format and ``load_state_dict``
+takes this rank's block of it.
+
 Checkpoints (JAX ``:390-495``) keep the JAX contract, ``best_model`` or
 ``checkpoint_epoch_{n}`` beside a ``{name}.meta.json`` sidecar with the step,
 epoch, ``best_val_acc`` and config, the newest ``keep`` epoch checkpoints
@@ -58,9 +70,12 @@ from pathlib import Path
 from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional
 
 import torch
+import torch.distributed
 from torch import nn
 
 from ..models.layers import Dense
+from ..parallel.collectives import all_reduce_sum
+from ..parallel.sharding import block, gather_params, sharded_params, unshard
 from ..utils.device import resolve_device
 
 Schedule = Callable[[int], float]
@@ -178,9 +193,14 @@ class Optimizer:
         self.names: List[str] = []
 
     def init(self, named_params: Mapping[str, torch.Tensor],
-             transposed: Iterable[str] = (), unfactored: Iterable[str] = ()) -> "Optimizer":
+             transposed: Iterable[str] = (), unfactored: Iterable[str] = (),
+             sharded: Optional[Mapping[str, int]] = None, mesh=None) -> "Optimizer":
         """``unfactored`` names 2-D leaves whose flax leaf is not 2-D (a
-        DenseGeneral kernel), which the JAX labels never factor."""
+        DenseGeneral kernel), which the JAX labels never factor.  ``sharded``
+        ({name: dimension}) names the leaves that hold this rank's block of a
+        dimension split over ``mesh``'s model axis."""
+        self.mesh = mesh
+        self.sharded = dict(sharded or {})
         self.params = dict(named_params)
         self.names = list(self.params)
         transposed = set(transposed)
@@ -202,10 +222,13 @@ class Optimizer:
                 raise TypeError(f"{name}: parameter dtype {p.dtype} not supported")
             if p.dtype == torch.bfloat16:
                 self.master[name] = p.detach().float()
-            big = (self.factored_on and p.dim() == 2 and p.numel() >= self.factored_threshold
-                   and name not in unfactored)
+            gshape = list(p.shape)  # the leaf's global shape
+            if name in self.sharded:
+                gshape[self.sharded[name]] *= mesh.model
+            big = (self.factored_on and p.dim() == 2
+                   and math.prod(gshape) >= self.factored_threshold and name not in unfactored)
             if big:
-                shape = tuple(p.t().shape) if name in transposed else tuple(p.shape)
+                shape = tuple(reversed(gshape)) if name in transposed else tuple(gshape)
                 dims = _factored_dims(shape)
                 self.factored.append(name)
                 self.ema[name] = torch.zeros(p.shape, dtype=torch.bfloat16, device=p.device)
@@ -216,9 +239,10 @@ class Optimizer:
                     continue
                 d1, d0 = dims
                 # the leaf's own axes that carry the flax layout's (d1, d0)
-                self.factored_axes[name] = (1 - d1, 1 - d0) if name in transposed else (d1, d0)
-                self.v_row[name] = torch.zeros(shape[d1], dtype=torch.float32, device=p.device)
-                self.v_col[name] = torch.zeros(shape[d0], dtype=torch.float32, device=p.device)
+                a1, a0 = (1 - d1, 1 - d0) if name in transposed else (d1, d0)
+                self.factored_axes[name] = (a1, a0)
+                self.v_row[name] = torch.zeros(p.shape[a1], dtype=torch.float32, device=p.device)
+                self.v_col[name] = torch.zeros(p.shape[a0], dtype=torch.float32, device=p.device)
             else:
                 self.dense.append(name)
                 self.m[name] = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -228,21 +252,41 @@ class Optimizer:
     _STATE_TENSORS = ("master", "m", "v", "v_row", "v_col", "ema", "acc")
     _STATE_COUNTS = ("count", "mini_step", "notfinite_count", "total_notfinite")
 
+    def _state_shard_dim(self, kind: str, name: str) -> Optional[int]:
+        """The dimension of state tensor ``kind[name]`` split over the model
+        axis, or None."""
+        dim = self.sharded.get(name)
+        if dim is None:
+            return None
+        if kind in ("v_row", "v_col"):
+            axes = self.factored_axes.get(name)
+            # v_row runs along leaf axis a1, v_col along a0
+            return 0 if axes is not None and axes[kind == "v_col"] == dim else None
+        return dim
+
     def state_dict(self) -> Dict[str, Any]:
         """Everything ``step`` reads besides the parameters: the fp32 masters,
         both moments, the factored statistics, the bf16 EMA momentum, the
         accumulated mean gradient and the counts (updates, micro-steps into
         the mean, non-finite steps).  Tensors are the optimizer's own
-        (``torch.save`` copies them)."""
+        (``torch.save`` copies them).  On a mesh with sharded leaves their
+        state is gathered into the one-device format: every rank must call
+        it."""
+        tensors = {}
+        for k in self._STATE_TENSORS:
+            tensors[k] = {}
+            for name, t in getattr(self, k).items():
+                dim = self._state_shard_dim(k, name)
+                tensors[k][name] = t if dim is None else unshard(t, dim, self.mesh)
         return {"names": list(self.names),
-                **{k: getattr(self, k) for k in self._STATE_COUNTS},
-                **{k: dict(getattr(self, k)) for k in self._STATE_TENSORS}}
+                **{k: getattr(self, k) for k in self._STATE_COUNTS}, **tensors}
 
     @torch.no_grad()
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
         """Copy a ``state_dict`` into this optimizer's state, in place and on
         its own devices and dtypes; it must come from an optimizer bound to
-        the same leaves with the same options."""
+        the same leaves with the same options.  A sharded leaf takes this
+        rank's block of the one-device state."""
         if list(state["names"]) != self.names:
             raise ValueError("the optimizer state belongs to other parameters")
         for k in self._STATE_TENSORS:
@@ -250,10 +294,14 @@ class Optimizer:
             if sorted(mine) != sorted(theirs):
                 raise ValueError(f"optimizer state {k!r} covers other leaves")
             for name, t in mine.items():
-                if tuple(t.shape) != tuple(theirs[name].shape):
+                src = theirs[name]
+                dim = self._state_shard_dim(k, name)
+                if dim is not None:
+                    src = block(src, dim, self.mesh)
+                if tuple(t.shape) != tuple(src.shape):
                     raise ValueError(f"optimizer state {k}[{name}]: shape "
-                                     f"{tuple(theirs[name].shape)} != {tuple(t.shape)}")
-                t.copy_(theirs[name])
+                                     f"{tuple(src.shape)} != {tuple(t.shape)}")
+                t.copy_(src)
         for k in self._STATE_COUNTS:
             setattr(self, k, int(state.get(k, 0)))
 
@@ -262,14 +310,24 @@ class Optimizer:
         return self.master.get(name, self.params[name])
 
     def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The norm of ``grads`` (one per leaf, in ``self.names`` order)."""
         # per dtype, so each list keeps the multi-tensor fast path; a bf16 leaf
         # accumulates its sum in fp32 without an fp32 copy (a bf16 sum over
         # 269M elements would be garbage)
-        norms = []
+        norms, names = [], []
         for dt in (torch.float32, torch.bfloat16):
-            same = [g for g in grads if g.dtype == dt]
-            if same:
-                norms += torch._foreach_norm(same, 2, dtype=torch.float32)
+            idx = [i for i, g in enumerate(grads) if g.dtype == dt]
+            if idx:
+                norms += torch._foreach_norm([grads[i] for i in idx], 2, dtype=torch.float32)
+                names += [self.names[i] for i in idx]
+        if self.sharded:
+            # a sharded leaf's norm from its blocks' squares, summed over the
+            # model group in fp32: every model rank gets the same norm
+            at = [j for j, n in enumerate(names) if n in self.sharded]
+            whole = all_reduce_sum(torch.stack([norms[j] for j in at]).square(),
+                                   self.mesh.model_group).sqrt()
+            for j, v in zip(at, whole):
+                norms[j] = v
         return torch.linalg.vector_norm(torch.stack(norms))
 
     @torch.no_grad()
@@ -362,6 +420,14 @@ class Optimizer:
         torch._foreach_mul_(target, 1 - lr * self.weight_decay)
         torch._foreach_addcdiv_(target, m, denom, value=-lr / bc1)
 
+    def _mean(self, x: torch.Tensor, dim: int, shard: Optional[int]) -> torch.Tensor:
+        """The mean of ``x`` over ``dim``, across the model group where ``dim``
+        is the one split over it (``shard``)."""
+        if dim != shard:
+            return x.mean(dim=dim)
+        total = all_reduce_sum(x.sum(dim=dim), self.mesh.model_group)
+        return total / (x.shape[dim] * self.mesh.model)
+
     def _factored_step(self, name: str, grad: torch.Tensor, lr: float, t: int) -> None:
         target = self._target(name)
         g = grad.float() if grad.dtype != torch.float32 else grad.clone()
@@ -373,9 +439,13 @@ class Optimizer:
             g.mul_(v.rsqrt())
         else:
             d1, d0 = self.factored_axes[name]
-            v_row = self.v_row[name].mul_(decay).add_(gsq.mean(dim=d0) + eps2, alpha=1 - decay)
-            v_col = self.v_col[name].mul_(decay).add_(gsq.mean(dim=d1) + eps2, alpha=1 - decay)
-            row_factor = (v_row / v_row.mean()).rsqrt()
+            shard = self.sharded.get(name)
+            v_row = self.v_row[name].mul_(decay).add_(self._mean(gsq, d0, shard) + eps2,
+                                                      alpha=1 - decay)
+            v_col = self.v_col[name].mul_(decay).add_(self._mean(gsq, d1, shard) + eps2,
+                                                      alpha=1 - decay)
+            row_mean = v_row.mean() if shard != d1 else self._mean(v_row, 0, 0)
+            row_factor = (v_row / row_mean).rsqrt()
             col_factor = v_col.rsqrt()
             g.mul_(row_factor.unsqueeze(d0)).mul_(col_factor.unsqueeze(d1))
         del gsq
@@ -397,19 +467,21 @@ def create_optimizer(config: Dict[str, Any], steps_per_epoch: int) -> Optimizer:
 class TrainState:
     """Everything a step needs: the model (with its BatchNorm running
     statistics, buffers of the model), the optimizer state and the step count
-    (micro-steps: it advances on skipped steps too)."""
+    (micro-steps: it advances on skipped steps too); on a mesh, the mesh."""
 
     model: nn.Module
     optimizer: Optimizer
     step: int = 0
+    mesh: Any = None
 
 
 def create_train_state(model: nn.Module, config: Dict[str, Any], steps_per_epoch: int, *,
-                       device: str | torch.device = "cuda") -> TrainState:
+                       device: str | torch.device = "cuda", mesh=None) -> TrainState:
     """Bind a fresh optimizer to ``model``'s parameters, on ``device``.
 
     Runs on the GPU unless ``device='cpu'``; raises without a GPU, and when
-    the model does not live on ``device``.
+    the model does not live on ``device``.  On a mesh, call it after
+    ``parallel.shard_params``: the optimizer reads which leaves are sharded.
     """
     dev = resolve_device(device)
     model_dev = next(model.parameters()).device
@@ -420,7 +492,7 @@ def create_train_state(model: nn.Module, config: Dict[str, Any], steps_per_epoch
              if isinstance(mod, Dense)}
     unfactored = {n for n, mod in dense.items() if mod.flax_kernel_shape is not None}
     return TrainState(model, create_optimizer(config, steps_per_epoch).init(
-        named, set(dense), unfactored))
+        named, set(dense), unfactored, sharded_params(model), mesh), mesh=mesh)
 
 
 def _ckpt_dir(path: str) -> Path:
@@ -440,23 +512,36 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int, best_val_acc: 
     under ``ckpt_dir``: ``model.pt`` (the model's ``state_dict``) and
     ``optimizer.pt`` (the optimizer's) in a directory of that name, and
     ``{name}.meta.json`` beside it with the step, epoch, ``best_val_acc`` and
-    config.  Epoch checkpoints beyond the newest ``keep`` are removed."""
-    path = _ckpt_dir(ckpt_dir)
-    name = "best_model" if best else f"checkpoint_epoch_{epoch}"
-    target = path / name
-    if target.exists():
-        shutil.rmtree(target)
-    target.mkdir()
-    torch.save(state.model.state_dict(), target / "model.pt")
-    torch.save(state.optimizer.state_dict(), target / "optimizer.pt")
-    meta = {"step": int(state.step), "epoch": int(epoch), "best_val_acc": float(best_val_acc),
-            "config": config}
-    (path / f"{name}.meta.json").write_text(json.dumps(meta, indent=2, default=str))
+    config.  Epoch checkpoints beyond the newest ``keep`` are removed.
 
-    if not best:
-        for old in _epoch_checkpoints(path)[:-keep]:
-            shutil.rmtree(path / f"checkpoint_epoch_{old}", ignore_errors=True)
-            (path / f"checkpoint_epoch_{old}.meta.json").unlink(missing_ok=True)
+    On a mesh every rank must call it: the sharded leaves and their state are
+    gathered into the one-device format, rank 0 alone writes, and every rank
+    leaves once the files are there."""
+    mesh = state.mesh
+    if mesh is None:
+        model_state = state.model.state_dict()
+    else:
+        model_state = gather_params(state.model, mesh)
+    opt_state = state.optimizer.state_dict()
+    if mesh is None or mesh.rank == 0:
+        path = _ckpt_dir(ckpt_dir)
+        name = "best_model" if best else f"checkpoint_epoch_{epoch}"
+        target = path / name
+        if target.exists():
+            shutil.rmtree(target)
+        target.mkdir()
+        torch.save(model_state, target / "model.pt")
+        torch.save(opt_state, target / "optimizer.pt")
+        meta = {"step": int(state.step), "epoch": int(epoch),
+                "best_val_acc": float(best_val_acc), "config": config}
+        (path / f"{name}.meta.json").write_text(json.dumps(meta, indent=2, default=str))
+
+        if not best:
+            for old in _epoch_checkpoints(path)[:-keep]:
+                shutil.rmtree(path / f"checkpoint_epoch_{old}", ignore_errors=True)
+                (path / f"checkpoint_epoch_{old}.meta.json").unlink(missing_ok=True)
+    if mesh is not None:
+        torch.distributed.barrier()
 
 
 def latest_checkpoint_step(ckpt_dir: str) -> Optional[int]:

@@ -4,6 +4,15 @@
 counterpart of ``ego_moment_cle_vit_tpu/bench_core.py:28-57`` and, with
 ``metrics=True``, of the JAX trainer's step (``train/trainer.py:383-421``).
 ``make_eval_step``: the JAX trainer's eval step (``:423-434``).
+
+On a mesh (``mesh=``, ``parallel.create_mesh``) both take this rank's rows of
+the global batch and compute what the one-device step computes on the whole
+of it: the augmentation and dropout draws are made for the global batch and
+each rank keeps its rows, BatchNorm and the loss see the global batch
+(``parallel.kernel_mesh``), and after the backward every parameter gradient
+is summed over the data axis in fp32 (``sum_gradients_over_data``) before
+the update, which every data rank then applies alike.  The loss and metrics
+they return are the global batch's.
 """
 
 from __future__ import annotations
@@ -13,6 +22,8 @@ from typing import Callable, Dict
 import torch
 
 from ..data.augment import AugmentConfig, dual_view_eval_batch, dual_view_train_batch
+from ..parallel.collectives import all_reduce_sum, sum_gradients_over_data
+from ..parallel.shard_kernels import kernel_mesh
 from ..utils.device import pin_fp32_precision, resolve_device
 from .state import TrainState
 
@@ -37,8 +48,11 @@ def step_generators(generator: torch.Generator, step: int, device: torch.device)
                  for purpose in (0, 1))
 
 
-def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    return (logits.argmax(dim=-1) == labels).float().mean()
+def _accuracy(logits: torch.Tensor, labels: torch.Tensor, mesh=None) -> torch.Tensor:
+    hits = (logits.argmax(dim=-1) == labels).float()
+    if mesh is None:
+        return hits.mean()
+    return all_reduce_sum(hits.sum(), mesh.data_group) / (hits.shape[0] * mesh.data)
 
 
 def _model_device(model: torch.nn.Module, device: str | torch.device) -> torch.device:
@@ -55,7 +69,7 @@ def _model_device(model: torch.nn.Module, device: str | torch.device) -> torch.d
 
 def make_train_step(
     model: torch.nn.Module, aug_cfg: AugmentConfig, *, device: str | torch.device = "cuda",
-    metrics: bool = False,
+    metrics: bool = False, mesh=None,
 ) -> Callable[[TrainState, torch.Tensor, torch.Tensor, torch.Generator], torch.Tensor]:
     """Return ``train_step(state, images_u8, labels, generator) -> loss``
     (``metrics=True``: -> ``{"loss", "accuracy", **loss_dict}``).
@@ -74,6 +88,10 @@ def make_train_step(
     accuracy of the main logits and every loss term) are detached scalar
     tensors on the device, not read by the host; the optimizer's finite check
     waits for the device once per step.
+
+    ``mesh``: ``images_u8`` and ``labels`` are this rank's rows of the global
+    batch (``shard_batch``); the model must be sharded for this mesh
+    (``parallel.shard_params``) and every rank must call the step.
     """
     model_dev = _model_device(model, device)
 
@@ -85,17 +103,26 @@ def make_train_step(
         aug_gen, drop_gen = step_generators(generator, state.step, model_dev)
         images = images_u8.to(model_dev, non_blocking=True)
         labels = labels.to(model_dev, non_blocking=True)
+        b = images.shape[0]
         with torch.no_grad():
-            anchor, positive = dual_view_train_batch(images, aug_gen, aug_cfg)
-        out = model(anchor, positive, labels, generator=drop_gen)
-        loss = out["loss"]
-        model.zero_grad(set_to_none=True)
-        loss.backward()
+            if mesh is None:
+                anchor, positive = dual_view_train_batch(images, aug_gen, aug_cfg)
+            else:
+                anchor, positive = dual_view_train_batch(
+                    images, aug_gen, aug_cfg, rows=(mesh.data_index * b, mesh.data * b))
+        with kernel_mesh(mesh, b):
+            out = model(anchor, positive, labels, generator=drop_gen)
+            loss = out["loss"]
+            model.zero_grad(set_to_none=True)
+            loss.backward()
+        if mesh is not None:
+            sum_gradients_over_data(model.parameters(), mesh)
         state.optimizer.step()
         state.step += 1
         if not metrics:
             return loss.detach()
-        return {"loss": loss.detach(), "accuracy": _accuracy(out["logits"].detach(), labels),
+        return {"loss": loss.detach(),
+                "accuracy": _accuracy(out["logits"].detach(), labels, mesh),
                 **{k: v.detach() for k, v in out["loss_dict"].items()}}
 
     return train_step
@@ -103,20 +130,23 @@ def make_train_step(
 
 def make_eval_step(
     model: torch.nn.Module, aug_cfg: AugmentConfig, *, device: str | torch.device = "cuda",
+    mesh=None,
 ) -> Callable[[torch.Tensor, torch.Tensor], Dict[str, torch.Tensor]]:
     """Return ``eval_step(images_u8, labels) -> {"loss", "accuracy"}``: the
     eval views (center crop, both views alike), the dual-view forward in eval
     mode under ``torch.inference_mode()`` as serving runs, the loss and the
-    batch accuracy as scalar tensors on the device, not read by the host."""
+    batch accuracy as scalar tensors on the device, not read by the host.
+    ``mesh``: the inputs are this rank's rows, the metrics the global
+    batch's."""
     model_dev = _model_device(model, device)
 
     def eval_step(images_u8: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
         model.eval()
-        with torch.inference_mode():
+        with torch.inference_mode(), kernel_mesh(mesh, images_u8.shape[0]):
             images = images_u8.to(model_dev, non_blocking=True)
             labels = labels.to(model_dev, non_blocking=True)
             anchor, positive = dual_view_eval_batch(images, aug_cfg)
             out = model(anchor, positive, labels)
-            return {"loss": out["loss"], "accuracy": _accuracy(out["logits"], labels)}
+            return {"loss": out["loss"], "accuracy": _accuracy(out["logits"], labels, mesh)}
 
     return eval_step

@@ -12,17 +12,27 @@ its validation and checkpoint cadence, the learning-rate history, resume.
   (``DeviceDatasetCache``); otherwise it is decoded once into host RAM
   (``HostDecodedCache``) where that fits, and streamed by ``BatchLoader``
   through ``DevicePrefetcher``.
-* The port runs on one device: a config mesh above one device raises.
+* Scale-out is the config's ``experiment.mesh``, a ('data', 'model') mesh
+  (``parallel/``): one process per rank, started by ``torchrun`` (rank and
+  world size from its environment) or inside an existing process group.
+  Each data rank loads and steps on its rows of every batch, the moment
+  head's and classifier's big projections shard their fan-in over 'model',
+  and a step computes what the one-device step computes on the global batch.
+  Rank 0 alone logs, writes checkpoints (the one-device format) and plots.
+  A process that is not part of a world, with a mesh of one device, runs the
+  one-device path; a mesh that does not match the world raises.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from pathlib import Path
 from typing import Any, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..data import (
     AugmentConfig,
@@ -36,7 +46,8 @@ from ..data import (
     host_cache_fits,
 )
 from ..models import create_model
-from ..utils.device import check_single_device, resolve_device
+from ..parallel import create_mesh, load_params, mesh_shape, replicate, shard_params
+from ..utils.device import resolve_device
 from ..utils.ops import get_model_info, set_seed
 from .state import (
     TrainState,
@@ -94,13 +105,29 @@ class Trainer:
     """Config-driven training engine:
     ``Trainer(config).setup_data(); setup_model(); train()``.
 
-    Runs on the GPU unless ``device='cpu'``; raises without one."""
+    Runs on the GPU unless ``device='cpu'``; raises without one.  On a mesh
+    (``experiment.mesh``, one process per rank) a GPU rank takes
+    ``cuda:{LOCAL_RANK}`` and a CPU rank talks over gloo; ``mesh`` hands the
+    trainer a mesh built by the caller instead (``parallel.create_mesh``, e.g.
+    several ranks on one card), which must have the config's shape."""
 
-    def __init__(self, config: Dict[str, Any], *, device: str | torch.device = "cuda"):
+    def __init__(self, config: Dict[str, Any], *, device: str | torch.device = "cuda",
+                 mesh=None):
         self.config = config
         self.device = resolve_device(device)
         exp = config.get("experiment", {})
-        check_single_device(exp.get("mesh"))
+        mesh_cfg = exp.get("mesh") or {}
+        if mesh is None:
+            self.mesh = self._setup_mesh(mesh_cfg)
+        elif mesh_shape(mesh_cfg.get("data"), mesh_cfg.get("model", 1) or 1,
+                        mesh.size) != (mesh.data, mesh.model):
+            raise ValueError(f"the mesh is {mesh.data}x{mesh.model}, the config's "
+                             f"experiment.mesh is {mesh_cfg}")
+        else:
+            self.mesh = mesh
+        if self.mesh is not None:
+            self.device = self.mesh.device
+        self.rank = 0 if self.mesh is None else self.mesh.rank
         self.exp_name = exp.get("name", "ego_moment_clevit")
         self.output_dir = Path(exp.get("output_dir", "./outputs"))
         self.ckpt_dir = Path(exp.get("save_dir", "./checkpoints"))
@@ -118,6 +145,9 @@ class Trainer:
         self.train_generator = torch.Generator().manual_seed(train_seed)
         self.aug_cfg = _augment_config(config)
         self.logger.info("device=%s", self.device)
+        if self.mesh is not None:
+            self.logger.info("mesh data=%d model=%d (rank %d of %d)", self.mesh.data,
+                             self.mesh.model, self.mesh.rank, self.mesh.size)
 
         self.wandb_run = self._setup_wandb()
         self.state: Optional[TrainState] = None
@@ -133,9 +163,25 @@ class Trainer:
 
     # -- setup ---------------------------------------------------------------
 
+    def _setup_mesh(self, mesh_cfg: Dict[str, Any]):
+        """The config's mesh over the process group (joined from ``torchrun``'s
+        environment if the process has none), or None for one device outside
+        a world."""
+        data, model = mesh_cfg.get("data"), int(mesh_cfg.get("model", 1) or 1)
+        world = (dist.get_world_size() if dist.is_initialized()
+                 else int(os.environ.get("WORLD_SIZE", 1)))
+        if world == 1 and not dist.is_initialized():
+            mesh_shape(data, model, 1)  # raises for a mesh above one device
+            return None
+        devices = ["cpu"] * world if self.device.type == "cpu" else None
+        return create_mesh(data, model, devices)
+
     def _setup_logging(self) -> logging.Logger:
         logger = logging.getLogger(f"emct_torch.{self.exp_name}")
         logger.setLevel(logging.INFO)
+        if self.rank != 0:  # rank 0 alone logs
+            logger.disabled = True
+            return logger
         if not logger.handlers:
             fh = logging.FileHandler(self.log_dir / f"{self.exp_name}.log")
             ch = logging.StreamHandler()
@@ -148,7 +194,7 @@ class Trainer:
 
     def _setup_wandb(self):
         wcfg = self.config.get("experiment", {}).get("wandb", {})
-        if not wcfg.get("enabled", False):
+        if not wcfg.get("enabled", False) or self.rank != 0:
             return None
         try:
             import wandb
@@ -193,9 +239,10 @@ class Trainer:
                     self.logger.warning(
                         "device_cache=true but split (%d x %d^2) exceeds the %d GB budget; "
                         "caching anyway as requested", len(dataset), img_size, budget // 1024**3)
+                # on a mesh: the split on every rank's device, its rows gathered
                 loader = DeviceDatasetCache(dataset, batch_size=bsz, shuffle=shuffle,
                                             seed=self.seed, num_workers=workers,
-                                            device=self.device)
+                                            mesh=self.mesh, device=self.device)
                 self.logger.info("device cache: %d samples (%.0f MB) resident on %s",
                                  len(dataset), loader.nbytes / 1e6, self.device)
                 return loader
@@ -204,8 +251,10 @@ class Trainer:
                 dataset = HostDecodedCache(dataset, num_workers=workers, worker_type="process")
                 self.logger.info("host decoded cache: %d samples (%.0f MB) in RAM",
                                  len(dataset), dataset.nbytes / 1e6)
+            # on a mesh each data rank loads (and decodes) its rows of each batch
+            shard = None if self.mesh is None else (self.mesh.data_index, self.mesh.data)
             return BatchLoader(dataset, batch_size=bsz, shuffle=shuffle, seed=self.seed,
-                               num_workers=workers, worker_type=worker_type)
+                               num_workers=workers, worker_type=worker_type, data_shard=shard)
 
         self.train_loader = make_loader(self.train_dataset, batch_size, True)
         self.val_loader = make_loader(self.val_dataset, val_batch, False)
@@ -232,10 +281,15 @@ class Trainer:
         elif mcfg.get("pretrained"):
             self.logger.warning("model.pretrained=true but no model.timm_checkpoint path "
                                 "given; training from scratch")
+        if self.mesh is not None:
+            # rank 0's weights everywhere, then the big projections' fan-in
+            # sharded over the model axis
+            replicate(self.model, self.mesh)
+            shard_params(self.model, self.mesh)
 
         steps_per_epoch = max(len(self.train_loader), 1)
         self.state = create_train_state(self.model, self.config, steps_per_epoch,
-                                        device=self.device)
+                                        device=self.device, mesh=self.mesh)
         # the host's copy of the schedule, for the logs and the lr history
         self.lr_schedule = create_learning_rate_schedule(self.config, steps_per_epoch)
         # the schedule runs on the optimizer-update clock; state.step counts
@@ -246,12 +300,13 @@ class Trainer:
         self.logger.info("model: %s params=%s (%.1f MB fp32)", mcfg.get("backbone_name"),
                          f"{info['total_parameters']:,}", info["parameter_memory_mb"])
         self._train_step = make_train_step(self.model, self.aug_cfg, device=self.device,
-                                           metrics=True)
-        self._eval_step = make_eval_step(self.model, self.aug_cfg, device=self.device)
+                                           metrics=True, mesh=self.mesh)
+        self._eval_step = make_eval_step(self.model, self.aug_cfg, device=self.device,
+                                         mesh=self.mesh)
 
     def resume(self, ckpt_path: str) -> None:
         bundle = restore_checkpoint(ckpt_path, device=self.device)
-        self.model.load_state_dict(bundle["model"])
+        load_params(self.model, bundle["model"], self.mesh)
         self.state.optimizer.load_state_dict(bundle["optimizer"])
         self.state.step = int(bundle["step"])
         self.start_epoch = int(bundle["epoch"]) + 1
@@ -262,8 +317,8 @@ class Trainer:
     # -- loops ----------------------------------------------------------------
 
     def _device_batches(self, loader):
-        """Device-resident batches; data.device_prefetch=0 copies each batch
-        inline."""
+        """Device-resident batches (on a mesh, the loaders already give this
+        rank's rows); data.device_prefetch=0 copies each batch inline."""
         if isinstance(loader, DeviceDatasetCache):
             return iter(loader)
         if self._device_prefetch > 0:
@@ -289,7 +344,7 @@ class Trainer:
         # steps of the first epoch run, into log_dir/profile
         profile_steps = int(exp.get("profile_steps", 0))
         prof = None
-        if profile_steps > 0 and epoch == self.start_epoch:
+        if profile_steps > 0 and epoch == self.start_epoch and self.rank == 0:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -305,7 +360,7 @@ class Trainer:
                 prof = None
             metrics = self._train_step(self.state, images, labels, self.train_generator)
             count += 1
-            images_seen += labels.shape[0]
+            images_seen += labels.shape[0] * (1 if self.mesh is None else self.mesh.data)
             # summed on the device: a host read per step would wait for it
             step_values = torch.stack([metrics[k] for k in (keys or metrics)])
             if totals is None:
@@ -330,6 +385,9 @@ class Trainer:
         return avg
 
     def validate(self) -> Dict[str, float]:
+        """The mean over the val batches of each batch's loss and accuracy; on
+        a mesh each batch's are the global (padded) batch's, weighted as the
+        JAX trainer weights its sharded eval batches."""
         totals, count = None, 0
         for images, labels in self._device_batches(self.val_loader):
             metrics = self._eval_step(images, labels)
@@ -381,11 +439,12 @@ class Trainer:
                 save_checkpoint(str(self.ckpt_dir), self.state, epoch, self.best_val_acc,
                                 self.config)
 
-        try:
-            from ..utils.viz import plot_training_curves
+        if self.rank == 0:
+            try:
+                from ..utils.viz import plot_training_curves
 
-            plot_training_curves(self.history, str(self.output_dir / "training_curves.png"))
-        except ImportError as exc:  # matplotlib is optional
-            self.logger.warning("could not plot curves: %s", exc)
+                plot_training_curves(self.history, str(self.output_dir / "training_curves.png"))
+            except ImportError as exc:  # matplotlib is optional
+                self.logger.warning("could not plot curves: %s", exc)
 
         return {"best_val_acc": self.best_val_acc, "history": self.history}

@@ -10,6 +10,8 @@ raises.
 
 import io
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +19,7 @@ import torch
 import jax
 
 from ego_moment_cle_vit_tpu import data as jdata
+from ego_moment_cle_vit_tpu import parallel as jparallel
 from ego_moment_cle_vit_tpu_torch import data as tdata
 from ego_moment_cle_vit_tpu_torch.data import pipeline as tpipeline
 
@@ -155,8 +158,24 @@ def test_device_dataset_cache_matches_jax_on_cpu(n, batch, drop_last):
         assert all(i.device.type == "cpu" and i.shape[0] == batch for i, _ in port)
         _same_batches(jc, port)
     assert tdata.device_cache_fits(n, 10, n * 300) and not tdata.device_cache_fits(n, 10, 1)
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        tdata.DeviceDatasetCache(tds, batch_size=batch, mesh=object(), device="cpu")
+    # the mesh form: the batch rounded up to the data axis (wrap-padded as the
+    # JAX cache's), each data rank gathering its rows of every batch
+    for data in (2, 3):
+        jmesh = jparallel.create_mesh(data, 1, jax.devices()[:data])
+        jm = jdata.DeviceDatasetCache(jds, **kw, mesh=jmesh)
+        jm.set_epoch(1)
+        whole = [(np.asarray(i), np.asarray(l)) for i, l in jm]
+        rows = []
+        for d in range(data):
+            mesh = SimpleNamespace(data=data, data_index=d, device=torch.device("cpu"))
+            tm = tdata.DeviceDatasetCache(tds, **kw, mesh=mesh)
+            assert tm.batch_size == jm.batch_size == -(-batch // data) * data
+            tm.set_epoch(1)
+            rows.append(list(tm))
+        assert len(whole) == len(rows[0]) == len(jm)
+        for k, (images, labels) in enumerate(whole):
+            np.testing.assert_array_equal(torch.cat([r[k][0] for r in rows]).numpy(), images)
+            np.testing.assert_array_equal(torch.cat([r[k][1] for r in rows]).numpy(), labels)
 
 
 def test_device_prefetcher_on_cpu_passes_batches_through():
@@ -166,10 +185,27 @@ def test_device_prefetcher_on_cpu_passes_batches_through():
     moved = list(tdata.DevicePrefetcher(loader, device="cpu", depth=2))
     _same_batches(host, moved)
     assert all(torch.is_tensor(x) for b in moved for x in b)
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        tdata.DevicePrefetcher(loader, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        tdata.shard_batch(host[0], object())
+    # the mesh forms: each data rank gets rows [d B / D, (d + 1) B / D) of the
+    # global batch, as the JAX shard_batch places them; its loader can load
+    # just those rows (BatchLoader's data_shard)
+    jmesh = jparallel.create_mesh(2, 1, jax.devices()[:2])
+    jrows = jdata.shard_batch(host[0], jmesh)
+    for d in range(2):
+        mesh = SimpleNamespace(data=2, data_index=d, device=torch.device("cpu"))
+        want = [np.asarray(x.addressable_shards[d].data) for x in jrows]
+        got = tdata.shard_batch(host[0], mesh)
+        assert all(torch.is_tensor(x) for x in got)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), w)
+        staged = list(tdata.DevicePrefetcher(loader, device="cpu", mesh=mesh))
+        shard = tdata.BatchLoader(tds, batch_size=4, seed=2, num_workers=1, data_shard=(d, 2))
+        assert len(staged) == len(shard) == len(host)
+        for s_batch, l_batch, h_batch in zip(staged, shard, host):
+            for s_x, l_x, h_x in zip(s_batch, l_batch, h_batch):
+                np.testing.assert_array_equal(s_x.numpy(), h_x[2 * d:2 * d + 2])
+                np.testing.assert_array_equal(l_x, h_x[2 * d:2 * d + 2])
+    with pytest.raises(ValueError, match="divide"):
+        tdata.shard_batch(host[0], SimpleNamespace(data=3, data_index=0, device="cpu"))
 
 
 # -- the parquet reader --------------------------------------------------------

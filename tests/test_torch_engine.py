@@ -232,16 +232,24 @@ def test_checkpoint_round_trip_pruning_and_meta(tmp_path):
 
 
 def test_unported_engine_options_raise(tmp_path):
-    """A mesh above one device raises, naming parallelism; gradient
-    accumulation is ported (tests/test_torch_engine_options.py) and builds."""
+    """A mesh above one device in a process outside a world raises the mesh's
+    own error, as the JAX ``create_mesh`` does on one device (meshes that
+    train: tests/test_torch_parallel.py); a 1 x 1 mesh runs the one-device
+    path; gradient accumulation is ported (tests/test_torch_engine_options.py)
+    and builds."""
     cfg = _config(tmp_path, "mesh")
-    for mesh in ({"data": 2, "model": 1}, {"data": None, "model": 2}):
+    for mesh, msg in (({"data": 2, "model": 1}, "mesh 2x1 != 1 devices"),
+                      ({"data": None, "model": 2}, "mesh 0x2 != 1 devices")):
         cfg["experiment"]["mesh"] = mesh
-        with pytest.raises(NotImplementedError, match="parallelism"):
+        with pytest.raises(ValueError, match=msg):
+            jtrainer.create_mesh(data=mesh["data"], model=mesh["model"],
+                                 devices=jax.devices()[:1])
+        with pytest.raises(ValueError, match=msg):
             Trainer(cfg, device="cpu")
     cfg["experiment"]["mesh"] = {"data": 1, "model": 1}
     cfg["training"]["accumulation_steps"] = 2
     trainer = Trainer(cfg, device="cpu")
+    assert trainer.mesh is None
     trainer.setup_data()
     trainer.setup_model()
     assert trainer.state.optimizer.accumulation_steps == 2

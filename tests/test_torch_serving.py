@@ -201,7 +201,8 @@ def test_unported_forwards_raise():
 
 
 def test_port_imports_no_jax():
-    """The port package and chip_smoke.py import neither JAX nor the JAX package."""
+    """The port package, the mesh tests' spawned ranks and chip_smoke.py import
+    neither JAX nor the JAX package."""
     pattern = re.compile(
         r"^\s*(import|from)\s+(jax|jaxlib|flax|optax)\b|\bego_moment_cle_vit_tpu\.|"
         r"^\s*(import|from)\s+ego_moment_cle_vit_tpu\b(?!_torch)",
@@ -209,13 +210,16 @@ def test_port_imports_no_jax():
     )
     pkg = REPO / "ego_moment_cle_vit_tpu_torch"
     files = sorted(f for f in pkg.rglob("*.py") if "_build" not in f.relative_to(pkg).parts)
+    files.append(REPO / "tests" / "torch_parallel_ranks.py")  # the spawned mesh ranks
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
-    names = {str(f.relative_to(pkg)) for f in files[:-1]}
+    names = {str(f.relative_to(pkg)) for f in files[:-2]}
     assert {"losses/triplet.py", "losses/alignment.py", "train/state.py", "train/step.py",
             "models/vit.py", "kernels/packed_attention.py", "data/pipeline.py",
             "data/ufgvc.py", "data/device_cache.py", "train/trainer.py", "train/evaluator.py",
-            "utils/port_weights.py", "cli/train.py", "cli/eval.py", "cli/predict.py"} <= names
+            "utils/port_weights.py", "cli/train.py", "cli/eval.py", "cli/predict.py",
+            "parallel/mesh.py", "parallel/sharding.py", "parallel/shard_kernels.py",
+            "parallel/collectives.py"} <= names
     offenders = [f"{f.relative_to(REPO)}: {m.group(0).strip()}"
                  for f in files for m in pattern.finditer(f.read_text())]
     assert offenders == []
