@@ -1,0 +1,22 @@
+"""Kernel 1, window attention forward: qkv read, the output written, the
+bias table and the shift mask read; 4 T^2 d flops a window and head."""
+
+from h100_bench.kernel_work import element_size, swin_stages
+
+WRAPPER = "ego_moment_cle_vit_tpu_torch.kernels.window_attention:window_attention_fwd"
+SOURCE = "window_attention_fwd"
+SYMBOLS = r"window_attention_fwd_(sm90|f32)"
+
+
+def work(spec: dict, batch: int, serving: bool) -> list:
+    images = batch if serving else 2 * batch  # training runs both views as one batch
+    es, out = element_size(spec), []
+    for hp, c, heads, depth, shifted, ws, h in swin_stages(spec["architecture"]):
+        nt, nw, d = ws * ws, (hp // ws) ** 2, c // heads
+        qkv = images * hp * hp * 3 * c
+        flops = 4.0 * images * nw * heads * nt * nt * d
+        for blk in range(depth):
+            masked = (blk % 2 == 1 and shifted) or hp != h
+            nbytes = qkv * es + qkv // 3 * es + heads * nt * nt * 4 + (nw * nt * nt * 4 if masked else 0)
+            out.append((nbytes, flops))
+    return out
