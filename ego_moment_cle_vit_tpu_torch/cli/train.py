@@ -32,7 +32,10 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                         help="where the model runs (default: the GPU)")
     parser.add_argument("--profile", type=int, default=0, metavar="N",
-                        help="capture a torch.profiler trace of the first N steps")
+                        help="capture a torch.profiler trace of the first N steps "
+                        "(log_dir/profile: trace.json and key_averages.txt, with the "
+                        "emct.train.* phase spans, the emct.<layer> and "
+                        "emct.kernel.<wrapper> spans and emct.data.wait)")
     args = parser.parse_args(argv)
 
     from ego_moment_cle_vit_tpu_torch.train import Trainer

@@ -31,6 +31,7 @@ import torch
 
 from ..parallel.shard_kernels import check_local_batch
 from ..utils.device import resolve_device
+from ..utils.trace import span
 
 # --- process-pool decode workers ------------------------------------------
 # A process pool decodes past the GIL.  Its children run numpy / PIL only:
@@ -112,7 +113,8 @@ def _background(produce, depth: int) -> Iterator:
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("data.wait"):
+                item = q.get()
             if item is stop:
                 break
             if isinstance(item, BaseException):

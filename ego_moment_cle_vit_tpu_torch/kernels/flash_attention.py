@@ -32,6 +32,7 @@ import ctypes
 
 import torch
 
+from ..utils.trace import span
 from . import _build
 from .packed_attention import bwd_geometry, check_saved, fwd_geometry, geometry_args
 
@@ -158,10 +159,11 @@ def flash_attention_tiled_fwd(
     out = torch.empty((b, t, c), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, num_heads, t), dtype=torch.float32, device=qkv.device)
     lib = _build.load("flash_attention_fwd", _SIGNATURES)
-    rc = lib.flash_attention_fwd(qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, t, c,
-                                 num_heads, float(scale),
-                                 *geometry_args(fwd_geometry(t, c // num_heads)), code,
-                                 _build.stream_ptr(qkv.device))
+    with span("kernel.flash_attention_tiled_fwd"):
+        rc = lib.flash_attention_fwd(qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, t, c,
+                                     num_heads, float(scale),
+                                     *geometry_args(fwd_geometry(t, c // num_heads)), code,
+                                     _build.stream_ptr(qkv.device))
     _build.check(lib, rc, "flash_attention_tiled_fwd")
     flash_attention_tiled_fwd.launches += 1
     return out, lse
@@ -201,10 +203,11 @@ def flash_attention_tiled_bwd(
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((b, num_heads, t), dtype=torch.float32, device=qkv.device)
     lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
-    rc = lib.flash_attention_bwd(
-        qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dqkv.data_ptr(),
-        delta.data_ptr(), b, t, c, num_heads, float(scale), *geometry_args(geo), code,
-        _build.stream_ptr(qkv.device))
+    with span("kernel.flash_attention_tiled_bwd"):
+        rc = lib.flash_attention_bwd(
+            qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dqkv.data_ptr(),
+            delta.data_ptr(), b, t, c, num_heads, float(scale), *geometry_args(geo), code,
+            _build.stream_ptr(qkv.device))
     _build.check(lib, rc, "flash_attention_tiled_bwd")
     flash_attention_tiled_bwd.launches += 1
     return dqkv

@@ -30,6 +30,7 @@ import ctypes
 import torch
 
 from ..ops.graph import gpf_fuse, token_similarity_graph
+from ..utils.trace import span
 from . import _build
 
 _SIGNATURES = {
@@ -297,12 +298,13 @@ def gpf_fwd(
     geo = fwd_geometry(n, tokens_a.data_ptr() == tokens_p.data_ptr())
     out = torch.empty((b, n, n), dtype=torch.float32, device=tokens_a.device)
     lib = _build.load("gpf_fwd", _SIGNATURES)
-    rc = lib.gpf_fwd(
-        tokens_a.data_ptr(), tokens_p.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
-        b, n, d, coeffs.shape[0] - 1, coeffs.shape[1] - 1, int(similarity == "cosine"),
-        float(eps), int(symmetric_enforce), code, geo["tile"], geo["stages"], geo["smem"],
-        _build.stream_ptr(tokens_a.device),
-    )
+    with span("kernel.gpf_fwd"):
+        rc = lib.gpf_fwd(
+            tokens_a.data_ptr(), tokens_p.data_ptr(), coeffs.data_ptr(), out.data_ptr(),
+            b, n, d, coeffs.shape[0] - 1, coeffs.shape[1] - 1, int(similarity == "cosine"),
+            float(eps), int(symmetric_enforce), code, geo["tile"], geo["stages"], geo["smem"],
+            _build.stream_ptr(tokens_a.device),
+        )
     _build.check(lib, rc, "gpf_fwd")
     gpf_fwd.launches += 1
     return out
@@ -355,13 +357,14 @@ def gpf_bwd(
     scratch = torch.empty(b * (2 * n * pitch + 2 * tiles * n + 4 * n + 16 * tiles * tiles),
                           dtype=torch.float32, device=tokens_a.device)
     lib = _build.load("gpf_bwd", _BWD_SIGNATURES)
-    rc = lib.gpf_bwd(
-        tokens_a.data_ptr(), tokens_p.data_ptr(), coeffs.data_ptr(), g.data_ptr(),
-        dta.data_ptr(), dtp.data_ptr(), dc.data_ptr(), scratch.data_ptr(),
-        b, n, d, coeffs.shape[0] - 1, coeffs.shape[1] - 1, int(similarity == "cosine"),
-        float(eps), int(symmetric_enforce), code, pitch, stages, smem,
-        _build.stream_ptr(tokens_a.device),
-    )
+    with span("kernel.gpf_bwd"):
+        rc = lib.gpf_bwd(
+            tokens_a.data_ptr(), tokens_p.data_ptr(), coeffs.data_ptr(), g.data_ptr(),
+            dta.data_ptr(), dtp.data_ptr(), dc.data_ptr(), scratch.data_ptr(),
+            b, n, d, coeffs.shape[0] - 1, coeffs.shape[1] - 1, int(similarity == "cosine"),
+            float(eps), int(symmetric_enforce), code, pitch, stages, smem,
+            _build.stream_ptr(tokens_a.device),
+        )
     _build.check(lib, rc, "gpf_bwd")
     gpf_bwd.launches += 1
     return dta, dtp, dc

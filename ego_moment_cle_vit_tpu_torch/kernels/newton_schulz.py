@@ -45,6 +45,7 @@ import ctypes
 
 import torch
 
+from ..utils.trace import span
 from . import _build
 
 _SIGNATURES = {
@@ -277,9 +278,10 @@ def newton_schulz_isqrt_fp32_fwd(
     # Y and Z two buffers each, T, the traces
     work = torch.empty(5 * b * d * d + b, dtype=torch.float32, device=matrix.device)
     lib = _build.load("newton_schulz", _SIGNATURES)
-    rc = lib.newton_schulz_isqrt(matrix.data_ptr(), out.data_ptr(), work.data_ptr(), b, d,
-                                 num_iterations, float(eps), code,
-                                 _build.stream_ptr(matrix.device))
+    with span("kernel.newton_schulz_isqrt_fp32_fwd"):
+        rc = lib.newton_schulz_isqrt(matrix.data_ptr(), out.data_ptr(), work.data_ptr(), b, d,
+                                     num_iterations, float(eps), code,
+                                     _build.stream_ptr(matrix.device))
     _build.check(lib, rc, "newton_schulz_isqrt_fp32_fwd")
     newton_schulz_isqrt_fp32_fwd.launches += 1
     return out
@@ -300,8 +302,9 @@ def _bf16_launch(source: str, signatures: dict, matrix: torch.Tensor, num_iterat
                        device=matrix.device)
     lib = _build.load(source, signatures)
     (fn,) = signatures
-    rc = getattr(lib, fn)(matrix.data_ptr(), out.data_ptr(), work.data_ptr(), trace.data_ptr(),
-                          b, d, num_iterations, code, _build.stream_ptr(matrix.device))
+    with span("kernel." + what):
+        rc = getattr(lib, fn)(matrix.data_ptr(), out.data_ptr(), work.data_ptr(), trace.data_ptr(),
+                              b, d, num_iterations, code, _build.stream_ptr(matrix.device))
     _build.check(lib, rc, what)
     return out
 

@@ -33,6 +33,7 @@ import ctypes
 
 import torch
 
+from ..utils.trace import span
 from . import _build
 
 _SIGNATURES = {
@@ -231,12 +232,13 @@ def packed_attention_fwd(
     lse = (torch.empty((b * w, num_heads, t), dtype=torch.float32, device=qkv.device)
            if return_lse else None)
     lib = _build.load("packed_attention_fwd", _SIGNATURES)
-    rc = lib.packed_attention_fwd(
-        qkv.data_ptr(), _ptr(bias), _ptr(mask), out.data_ptr(), _ptr(lse), b, w, t, c, num_heads,
-        bias.shape[0] if bias is not None else 1, mask.shape[0] if mask is not None else 1,
-        float(scale), *geometry_args(fwd_geometry(t, c // num_heads)), code,
-        _build.stream_ptr(qkv.device),
-    )
+    with span("kernel.packed_attention_fwd"):
+        rc = lib.packed_attention_fwd(
+            qkv.data_ptr(), _ptr(bias), _ptr(mask), out.data_ptr(), _ptr(lse), b, w, t, c,
+            num_heads, bias.shape[0] if bias is not None else 1,
+            mask.shape[0] if mask is not None else 1, float(scale),
+            *geometry_args(fwd_geometry(t, c // num_heads)), code, _build.stream_ptr(qkv.device),
+        )
     _build.check(lib, rc, "packed_attention_fwd")
     packed_attention_fwd.launches += 1
     return (out, lse) if return_lse else out
@@ -361,12 +363,13 @@ def packed_attention_bwd(
         dbias = torch.empty_like(bias)
         partial = torch.empty((n_chunks, num_heads, t, t), dtype=torch.float32, device=dev)
     lib = _build.load("packed_attention_bwd", _BWD_SIGNATURES)
-    rc = lib.packed_attention_bwd(
-        qkv.data_ptr(), _ptr(bias), _ptr(mask), out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
-        dqkv.data_ptr(), delta.data_ptr(), _ptr(partial), _ptr(dbias), b, w, t, c, num_heads,
-        bias.shape[0] if bias is not None else 1, mask.shape[0] if mask is not None else 1,
-        float(scale), n_chunks, *geometry_args(geo), code, _build.stream_ptr(dev),
-    )
+    with span("kernel.packed_attention_bwd"):
+        rc = lib.packed_attention_bwd(
+            qkv.data_ptr(), _ptr(bias), _ptr(mask), out.data_ptr(), lse.data_ptr(),
+            dout.data_ptr(), dqkv.data_ptr(), delta.data_ptr(), _ptr(partial), _ptr(dbias),
+            b, w, t, c, num_heads, bias.shape[0] if bias is not None else 1,
+            mask.shape[0] if mask is not None else 1, float(scale), n_chunks, *geometry_args(geo), code, _build.stream_ptr(dev),
+        )
     _build.check(lib, rc, "packed_attention_bwd")
     packed_attention_bwd.launches += 1
     return dqkv, dbias

@@ -22,6 +22,7 @@ from ..ops.moments import _wide
 from ..parallel.collectives import gather_batch
 from ..parallel.shard_kernels import active_kernel_mesh
 from ..utils.device import pin_fp32_precision, resolve_device
+from ..utils.trace import span
 from .backbone import CLEViTDualStream, backbone_num_features, backbone_num_patches
 from .classifier_head import AdaptiveClassifierHead, ClassifierHead, MultiScaleClassifierHead
 from .gpf import AdaptiveGraphPolynomialFusion, GraphPolynomialFusion
@@ -133,15 +134,19 @@ class EGOMomentCLEViT(nn.Module):
         """Dual-view forward.  anchor, positive: normalized NHWC [B, H, W, 3];
         labels [B] int.  Returns ``logits``, ``logits_anchor``,
         ``logits_positive`` and, given labels, ``loss_dict`` and ``loss``."""
-        anchor_features, positive_features = self.backbone(anchor, positive, generator)
+        with span("backbone"):
+            anchor_features, positive_features = self.backbone(anchor, positive, generator)
         anchor_tokens = anchor_features["patch_tokens"]
         positive_tokens = positive_features["patch_tokens"]
         anchor_global = anchor_features["global_features"]
         positive_global = positive_features["global_features"]
 
-        fused_graph = self.gpf(anchor_tokens, positive_tokens)
-        moment_features = self.moment_head(anchor_tokens, fused_graph, generator)
-        main_logits = self.classifier(anchor_global, moment_features, generator)
+        with span("gpf"):
+            fused_graph = self.gpf(anchor_tokens, positive_tokens)
+        with span("moment_head"):
+            moment_features = self.moment_head(anchor_tokens, fused_graph, generator)
+        with span("classifier"):
+            main_logits = self.classifier(anchor_global, moment_features, generator)
         anchor_logits = self.cls_only_classifier(anchor_global)
         positive_logits = self.cls_only_classifier(positive_global)
 
@@ -151,12 +156,13 @@ class EGOMomentCLEViT(nn.Module):
             "logits_positive": positive_logits,
         }
         if labels is not None:
-            loss_dict = self._compute_losses(
-                main_logits, anchor_logits, positive_logits, anchor_global, positive_global,
-                fused_graph, labels,
-            )
-            output["loss_dict"] = loss_dict
-            output["loss"] = sum(loss_dict.values())
+            with span("train.loss"):
+                loss_dict = self._compute_losses(
+                    main_logits, anchor_logits, positive_logits, anchor_global, positive_global,
+                    fused_graph, labels,
+                )
+                output["loss_dict"] = loss_dict
+                output["loss"] = sum(loss_dict.values())
         if return_features:
             output["features"] = {
                 "anchor_tokens": anchor_tokens,
@@ -220,9 +226,11 @@ class EGOMomentCLEViT(nn.Module):
                          anchor's global feature (one backbone pass).
         """
         if mode == "cls_only":
-            feats = self.backbone.forward_single(anchor)
+            with span("backbone"):
+                feats = self.backbone.forward_single(anchor)
             return self.cls_only_classifier(feats["global_features"])
-        anchor_features, positive_features = self.backbone(anchor, positive)
+        with span("backbone"):
+            anchor_features, positive_features = self.backbone(anchor, positive)
         tokens = anchor_features["patch_tokens"]
         b, n, _ = tokens.shape
         if mode == "no_gpf":
@@ -230,22 +238,29 @@ class EGOMomentCLEViT(nn.Module):
         elif mode == "uniform_graph":
             graph = torch.ones(b, n, n, dtype=tokens.dtype, device=tokens.device)
         elif mode == "full":
-            graph = self.gpf(tokens, positive_features["patch_tokens"])
+            with span("gpf"):
+                graph = self.gpf(tokens, positive_features["patch_tokens"])
         else:
             raise ValueError(f"Unknown ablation mode: {mode}")
-        moment_features = self.moment_head(tokens, graph)
-        return self.classifier(anchor_features["global_features"], moment_features)
+        with span("moment_head"):
+            moment_features = self.moment_head(tokens, graph)
+        with span("classifier"):
+            return self.classifier(anchor_features["global_features"], moment_features)
 
     def inference(self, images: torch.Tensor) -> torch.Tensor:
         """Single-view inference: one backbone pass, R_p := R_a.
 
         images: normalized NHWC [B, H, W, 3] -> logits [B, num_classes].
         """
-        feats = self.backbone.forward_single(images)
+        with span("backbone"):
+            feats = self.backbone.forward_single(images)
         tokens = feats["patch_tokens"]
-        graph = self.gpf(tokens, tokens)
-        moments = self.moment_head(tokens, graph)
-        return self.classifier(feats["global_features"], moments)
+        with span("gpf"):
+            graph = self.gpf(tokens, tokens)
+        with span("moment_head"):
+            moments = self.moment_head(tokens, graph)
+        with span("classifier"):
+            return self.classifier(feats["global_features"], moments)
 
 
 def create_model(

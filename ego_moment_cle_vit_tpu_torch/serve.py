@@ -13,6 +13,7 @@ import torch
 from .data.augment import AugmentConfig, dual_view_eval_batch
 from .models.ego_moment_clevit import EGOMomentCLEViT
 from .utils.device import pin_fp32_precision, resolve_device
+from .utils.trace import span
 
 
 def make_infer_fn(
@@ -34,9 +35,10 @@ def make_infer_fn(
     model.eval()
 
     def infer(images_u8: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode():
-            images = images_u8.to(model_dev, non_blocking=True)
-            anchor, _ = dual_view_eval_batch(images, aug_cfg)
+        with torch.inference_mode(), span("serve.infer"):
+            with span("serve.preprocess"):
+                images = images_u8.to(model_dev, non_blocking=True)
+                anchor, _ = dual_view_eval_batch(images, aug_cfg)
             return model.inference(anchor)
 
     return infer

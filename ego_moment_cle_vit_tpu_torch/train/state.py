@@ -77,6 +77,7 @@ from ..models.layers import Dense
 from ..parallel.collectives import all_reduce_sum
 from ..parallel.sharding import block, gather_params, sharded_params, unshard
 from ..utils.device import resolve_device
+from ..utils.trace import span
 
 Schedule = Callable[[int], float]
 
@@ -353,7 +354,10 @@ class Optimizer:
                 # optax runs the inner transform on every micro-step and emits
                 # 0 x its update: once its next skip would poison, that NaN
                 # leaks through.  Read only in that state, as rare as it is.
-                if not math.isfinite(float(self._global_norm(acc))):
+                acc_norm = self._global_norm(acc)
+                with span("train.host_read"):
+                    acc_norm = float(acc_norm)
+                if not math.isfinite(acc_norm):
                     for p in self.params.values():
                         p.fill_(float("nan"))
             return True
@@ -368,7 +372,9 @@ class Optimizer:
 
         scale = 1.0
         if self.skip_nonfinite or self.max_norm is not None:
-            g_norm = float(self._global_norm(glist))  # the step's one host read
+            g_norm = self._global_norm(glist)
+            with span("train.host_read"):
+                g_norm = float(g_norm)  # the step's one host read
             self.last_grad_norm = g_norm
             if self.skip_nonfinite and not math.isfinite(g_norm):
                 self.notfinite_count += 1

@@ -25,6 +25,7 @@ from ..data.augment import AugmentConfig, dual_view_eval_batch, dual_view_train_
 from ..parallel.collectives import all_reduce_sum, sum_gradients_over_data
 from ..parallel.shard_kernels import kernel_mesh
 from ..utils.device import pin_fp32_precision, resolve_device
+from ..utils.trace import span
 from .state import TrainState
 
 _MASK64 = (1 << 64) - 1
@@ -97,33 +98,38 @@ def make_train_step(
 
     def train_step(state: TrainState, images_u8: torch.Tensor, labels: torch.Tensor,
                    generator: torch.Generator) -> torch.Tensor:
-        if state.model is not model:
-            raise ValueError("the train state belongs to another model")
-        model.train()
-        aug_gen, drop_gen = step_generators(generator, state.step, model_dev)
-        images = images_u8.to(model_dev, non_blocking=True)
-        labels = labels.to(model_dev, non_blocking=True)
-        b = images.shape[0]
-        with torch.no_grad():
-            if mesh is None:
-                anchor, positive = dual_view_train_batch(images, aug_gen, aug_cfg)
-            else:
-                anchor, positive = dual_view_train_batch(
-                    images, aug_gen, aug_cfg, rows=(mesh.data_index * b, mesh.data * b))
-        with kernel_mesh(mesh, b):
-            out = model(anchor, positive, labels, generator=drop_gen)
-            loss = out["loss"]
-            model.zero_grad(set_to_none=True)
-            loss.backward()
-        if mesh is not None:
-            sum_gradients_over_data(model.parameters(), mesh)
-        state.optimizer.step()
-        state.step += 1
-        if not metrics:
-            return loss.detach()
-        return {"loss": loss.detach(),
-                "accuracy": _accuracy(out["logits"].detach(), labels, mesh),
-                **{k: v.detach() for k, v in out["loss_dict"].items()}}
+        with span("train.step"):
+            if state.model is not model:
+                raise ValueError("the train state belongs to another model")
+            model.train()
+            aug_gen, drop_gen = step_generators(generator, state.step, model_dev)
+            images = images_u8.to(model_dev, non_blocking=True)
+            labels = labels.to(model_dev, non_blocking=True)
+            b = images.shape[0]
+            with torch.no_grad(), span("train.augment"):
+                if mesh is None:
+                    anchor, positive = dual_view_train_batch(images, aug_gen, aug_cfg)
+                else:
+                    anchor, positive = dual_view_train_batch(
+                        images, aug_gen, aug_cfg, rows=(mesh.data_index * b, mesh.data * b))
+            with kernel_mesh(mesh, b):
+                with span("train.forward"):
+                    out = model(anchor, positive, labels, generator=drop_gen)
+                loss = out["loss"]
+                with span("train.backward"):
+                    model.zero_grad(set_to_none=True)
+                    loss.backward()
+            if mesh is not None:
+                with span("train.grad_sum"):
+                    sum_gradients_over_data(model.parameters(), mesh)
+            with span("train.update"):
+                state.optimizer.step()
+            state.step += 1
+            if not metrics:
+                return loss.detach()
+            return {"loss": loss.detach(),
+                    "accuracy": _accuracy(out["logits"].detach(), labels, mesh),
+                    **{k: v.detach() for k, v in out["loss_dict"].items()}}
 
     return train_step
 

@@ -341,7 +341,15 @@ class Trainer:
         exp = self.config.get("experiment", {})
         log_freq = int(exp.get("log_frequency", 100))
         # experiment.profile_steps: a torch.profiler trace of the first N
-        # steps of the first epoch run, into log_dir/profile
+        # steps of the first epoch run, into log_dir/profile (trace.json and
+        # key_averages.txt).  It holds the port's spans (utils/trace.py), so
+        # rows named emct.* split a step by phase: emct.train.step around
+        # each step, inside it emct.train.augment / .forward (emct.backbone,
+        # emct.gpf, emct.moment_head, emct.classifier, emct.train.loss) /
+        # .backward / .grad_sum (on a mesh) / .update (emct.train.host_read,
+        # the gradient norm's read), emct.kernel.<wrapper> around each
+        # hand-written kernel's launch, and emct.data.wait where the step
+        # waited for its batch
         profile_steps = int(exp.get("profile_steps", 0))
         prof = None
         if profile_steps > 0 and epoch == self.start_epoch and self.rank == 0:

@@ -68,6 +68,12 @@ SASS holds HGMMA.
 The data and engine layers on the card: ``DevicePrefetcher`` gives the
 batches inline copies give, bit for bit, and a checkpoint GPU -> CPU -> GPU
 keeps the model's and the optimizer's state bits.
+
+The spans (``utils/trace.py``): under the profiler, a train step and a
+serving call of the Swin-Base/224 flagship and of ViT-L/16 at 448 with the
+multi-scale head record one ``emct.kernel.<wrapper>`` range for every count
+of ``<wrapper>.launches``, the backward's launches from the autograd thread
+included.
 """
 
 import numpy as np
@@ -1241,3 +1247,93 @@ def test_cuda_adaptive_gpf_global_launches_the_gpf_kernels(cuda_device, dtype):
     assert torch.equal(outs["global"], outs["static"])
     for got, ref in zip(grads["global"], grads["static"]):
         assert torch.equal(got, ref)
+
+
+KERNEL_WRAPPERS = (tah.attn_half_fwd, tah.attn_half_bwd, tfa.flash_attention_tiled_fwd,
+                   tfa.flash_attention_tiled_bwd, tgpf.gpf_fwd, tgpf.gpf_bwd,
+                   tns.newton_schulz_isqrt_fp32_fwd, tns.newton_schulz_isqrt_bf16_fwd,
+                   tns.newton_schulz_isqrt_bf16_streamed_fwd, tpa.packed_attention_fwd,
+                   tpa.packed_attention_bwd, twa.window_attention_fwd, twa.window_attention_bwd)
+
+
+def _flagship_config(backbone, size, resize, **model):
+    return {"model": {"backbone_name": backbone, "norm": "layer", "bf16": True,
+                      "gpf": {"degree_p": 2, "degree_q": 2, "similarity": "dot"},
+                      "moment": {"d_out": 1024, "use_third_order": True, "isqrt_iterations": 5,
+                                 "sketch_dim": 4096, "bf16_params": True},
+                      "classifier": {"fusion_type": "add"}, **model},
+            "data": {"input_size": size, "resize_size": resize},
+            "training": {"optimizer": {"lr": 3e-4, "factored_large_leaves": True},
+                         "scheduler": {"warmup_epochs": 0},
+                         "loss": {"lambda_triplet": 0.6, "lambda_align": 0.1, "margin": 0.3},
+                         "epochs": 1}}
+
+
+# the benchmark's two configurations, with the launches a step and a call
+SPAN_CONFIGS = {
+    "swinB-224": (_flagship_config("swin_base_patch4_window7_224", 224, 256),
+                  {"window_attention_fwd": 24, "window_attention_bwd": 24, "gpf_fwd": 1,
+                   "gpf_bwd": 1},
+                  {"window_attention_fwd": 24, "gpf_fwd": 1}),
+    "vitL-448-ms": (_flagship_config("vit_large_patch16_224", 448, 600, backbone_remat="block",
+                                     classifier={"fusion_type": "add", "type": "multiscale"}),
+                    {"flash_attention_tiled_fwd": 48, "flash_attention_tiled_bwd": 24,
+                     "gpf_fwd": 1, "gpf_bwd": 1},
+                    {"flash_attention_tiled_fwd": 24, "gpf_fwd": 1}),
+}
+
+
+def _kernel_spans_and_launches(fn):
+    """Run ``fn`` once under the profiler: (the ``emct.kernel.<wrapper>``
+    ranges it recorded on the host, the launch counters' increments), by
+    wrapper, zeros left out."""
+    before = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launched = {w.__name__: w.launches - before[w.__name__] for w in KERNEL_WRAPPERS}
+    spans = {}
+    for e in prof.events():
+        if (e.name.startswith("emct.kernel.")
+                and e.device_type == torch.autograd.DeviceType.CPU):
+            key = e.name[len("emct.kernel."):]
+            spans[key] = spans.get(key, 0) + 1
+    return spans, {k: n for k, n in launched.items() if n}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SPAN_CONFIGS))
+def test_cuda_kernel_spans_count_the_launches(cuda_device, name):
+    from ego_moment_cle_vit_tpu_torch import (
+        create_model,
+        create_train_state,
+        make_infer_fn,
+        make_train_step,
+    )
+    from ego_moment_cle_vit_tpu_torch.data import AugmentConfig
+
+    cfg, train_launches, serve_launches = SPAN_CONFIGS[name]
+    model = create_model(cfg, 80, device=cuda_device)
+    aug = AugmentConfig(**cfg["data"])
+    state = create_train_state(model, cfg, 1000, device=cuda_device)
+    step = make_train_step(model, aug, device=cuda_device)
+    infer = make_infer_fn(model, aug, device=cuda_device)
+    s = cfg["data"]["resize_size"]
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    images = torch.randint(0, 256, (4, s, s, 3), generator=g, device=cuda_device,
+                           dtype=torch.uint8)
+    labels = torch.tensor([1, 7, 1, 30], device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+
+    def train():
+        step(state, images, labels, gen)
+
+    def serve():
+        infer(images).float().cpu()
+
+    for fn, expected in ((train, train_launches), (serve, serve_launches)):
+        fn()  # kernels built and loaded, cuBLAS initialized
+        spans, launched = _kernel_spans_and_launches(fn)
+        assert launched == expected, (fn.__name__, launched)
+        assert spans == launched, (fn.__name__, spans)
