@@ -11,8 +11,9 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    serialized), and the SASS of the Hopper kernels (the bf16 attention
    forward and backward 3, 6, 3b, 6b, the GPF forward 2 and backward 2b, the
    bf16 Newton-Schulz 5′ and 5″, the window-attention forward 1 and
-   backward 1b and the fused attention half's forward 4 and backward 4b) read
-   for their wgmma (HGMMA) instructions, which must be there.
+   backward 1b, the fused attention half's forward 4 and backward 4b and the
+   subspace iSQRT 7) read for their wgmma (HGMMA) instructions, which must be
+   there.
 2. Kernels against their plain PyTorch versions on the card.  Forward, at the
    serving paths' shapes for batch 64: window attention at the four Swin-Base
    stage geometries (shifted and unshifted, bf16 and fp32), packed-layout
@@ -128,6 +129,14 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    [64, 1600, 1536] and its backward at [64, 1024, 1024] and [64, 1600,
    1536] (the plain version at the same batch), and the iSQRT's
    backward (autograd over the plain fp32 iteration) at [64, 1024, 1024].
+   Phase 2 holds kernel 7, the moment head's token-subspace iSQRT without a
+   gradient, at the serving calls of ViT-Large/16 at 448 ([64, 784, 1024])
+   and Swin-Base/224 ([64, 49, 1024]), k = 5, bf16 and fp32, against the
+   plain fp32 route (``isqrt_cov_subspace`` on the CUDA cores) and an fp64
+   witness; control: each fp32 operand's lo term dropped (two bf16 terms of
+   three).  Phases 3, 5, 6 and 7 count its launch on every serving path whose
+   head takes the subspace route (N < D), and their plain paths run
+   ``isqrt_cov_subspace`` in its place.
 6. The data pipeline, trainer, evaluator and checkpoints on Swin-Base/224
    (the flagship configuration, batch 64) over the synthetic dataset, 80
    classes x 8 images a split at resize 256 (640 images, 10 steps an epoch):
@@ -168,7 +177,7 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    the flagship: a forward and two steps each, finite logits, loss and
    gradients, logits against the plain path at batch 8 (control, once:
    bias omitted).  Each prints images/s, step ms and peak memory.
-8. A JSON line of the thirteen kernels (with the launches of phase 7's paths
+8. A JSON line of the fourteen kernels (with the launches of phase 7's paths
    under ``phase7_launches``), then the contract's last line.
 """
 
@@ -211,6 +220,7 @@ from ego_moment_cle_vit_tpu_torch.kernels import flash_attention as _fa
 from ego_moment_cle_vit_tpu_torch.kernels import gpf as _gpf
 from ego_moment_cle_vit_tpu_torch.kernels import newton_schulz as _ns
 from ego_moment_cle_vit_tpu_torch.kernels import packed_attention as _pa
+from ego_moment_cle_vit_tpu_torch.kernels import subspace_isqrt as _si
 from ego_moment_cle_vit_tpu_torch.kernels import window_attention as _wa
 from ego_moment_cle_vit_tpu_torch.models import ego_moment_clevit as _model_module
 from ego_moment_cle_vit_tpu_torch.models import layers as _layers
@@ -225,7 +235,7 @@ from ego_moment_cle_vit_tpu_torch.ops.graph import (
     normalize_graph,
     token_similarity_graph,
 )
-from ego_moment_cle_vit_tpu_torch.ops.moments import graph_weighted_mean
+from ego_moment_cle_vit_tpu_torch.ops.moments import graph_weighted_mean, isqrt_cov_subspace
 from ego_moment_cle_vit_tpu_torch.parallel import (
     create_mesh,
     gather_params,
@@ -447,6 +457,17 @@ TOL_NS = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2.0**-7, 1e-4)}
 # variant's grouping (5′ held against 5″'s plain version) read 1.1-1.4 of
 # the atol-1e-4 bar, inside this one: that control is printed, not enforced.
 TOL_NS_BF16 = (2.0**-7, 5e-4)
+# The subspace iSQRT (kernel 7) against the plain fp32 route on the head's
+# inputs.  fp32: against an fp64 witness, ||out - witness|| over ||witness -
+# a_k I / sqrt(t)|| at most twice the plain route's (an H100, k = 5: 0.96-1.36x
+# on sound runs, 3.7-20x with the lo terms dropped).  bf16: the output's
+# rounding hides that norm (both routes read the same ratio), so the outputs
+# are held element by element: each within one ulp and a sliver of the
+# largest entry, |err| <= 2^-7 |plain| + 1e-4 max |plain|, and at most 3.5e-4
+# of them one ulp or more apart (k = 5: 1.1e-4 to 1.8e-4 on sound runs,
+# 6.9e-4 to 5.1e-3 with the lo terms dropped, ~2x from each).
+TOL_SI_F32_RATIO = 2.0
+TOL_SI_BF16 = (2.0**-7, 1e-4, 3.5e-4)
 # fused attention half, kernel vs plain, |err| <= atol + rtol |ref| per
 # element.  fp32: sum order.  bf16: both sides round xn, qkv, P and om, and an
 # fp32 sum that lands on the other side of a rounding moves one bf16 ulp
@@ -484,6 +505,7 @@ FA_BWD_KERNEL = _fa.flash_attention_tiled_bwd
 NS_KERNEL = _ns.newton_schulz_isqrt_fp32_fwd
 NS_BF16_KERNEL = _ns.newton_schulz_isqrt_bf16_fwd
 NS_BF16S_KERNEL = _ns.newton_schulz_isqrt_bf16_streamed_fwd
+SI_KERNEL = _si.subspace_isqrt_fwd
 # kernel, its plain version, the other grouping's plain version
 NS_BF16_VARIANTS = {
     "bf16": (NS_BF16_KERNEL, _ns.newton_schulz_isqrt_bf16_plain,
@@ -500,7 +522,8 @@ KERNELS = {"window_attention_fwd": WA_KERNEL, "window_attention_bwd": WA_BWD_KER
            "newton_schulz_isqrt_fp32_fwd": NS_KERNEL,
            "newton_schulz_isqrt_bf16_fwd": NS_BF16_KERNEL,
            "newton_schulz_isqrt_bf16_streamed_fwd": NS_BF16S_KERNEL,
-           "attn_half_fwd": AH_KERNEL, "attn_half_bwd": AH_BWD_KERNEL}
+           "attn_half_fwd": AH_KERNEL, "attn_half_bwd": AH_BWD_KERNEL,
+           "subspace_isqrt_fwd": SI_KERNEL}
 
 
 def log(*a):
@@ -539,12 +562,13 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
 def plain_kernels():
     """Swap every kernel wrapper the model calls for its plain version.  The
     Newton–Schulz dispatch then reaches the plain version of the variant its
-    width picks, so the plain path rounds where the kernel path does."""
+    width picks, so the plain path rounds where the kernel path does; the
+    subspace iSQRT's plain version is the fp32 route ``isqrt_cov_subspace``."""
     saved = (_wa.window_attention_fwd, _wa.window_attention_bwd, _gpf.gpf_fwd, _gpf.gpf_bwd,
              _pa.packed_attention_fwd, _pa.packed_attention_bwd, _fa.flash_attention_tiled_fwd,
              _fa.flash_attention_tiled_bwd, _ns.newton_schulz_isqrt_fp32_fwd,
              _ns.newton_schulz_isqrt_bf16_fwd, _ns.newton_schulz_isqrt_bf16_streamed_fwd,
-             _ah.attn_half_fwd, _ah.attn_half_bwd)
+             _ah.attn_half_fwd, _ah.attn_half_bwd, _si.subspace_isqrt_fwd)
     _wa.window_attention_fwd = _wa.window_attention_plain
     _wa.window_attention_bwd = _wa.window_attention_bwd_plain
     _gpf.gpf_fwd = _gpf.gpf_plain
@@ -561,6 +585,7 @@ def plain_kernels():
     _ns.newton_schulz_isqrt_bf16_streamed_fwd = _ns.newton_schulz_isqrt_bf16_streamed_plain
     _ah.attn_half_fwd = _ah.attn_half_plain
     _ah.attn_half_bwd = _ah.attn_half_bwd_plain
+    _si.subspace_isqrt_fwd = isqrt_cov_subspace
     try:
         yield
     finally:
@@ -568,7 +593,7 @@ def plain_kernels():
          _pa.packed_attention_fwd, _pa.packed_attention_bwd, _fa.flash_attention_tiled_fwd,
          _fa.flash_attention_tiled_bwd, _ns.newton_schulz_isqrt_fp32_fwd,
          _ns.newton_schulz_isqrt_bf16_fwd, _ns.newton_schulz_isqrt_bf16_streamed_fwd,
-         _ah.attn_half_fwd, _ah.attn_half_bwd) = saved
+         _ah.attn_half_fwd, _ah.attn_half_bwd, _si.subspace_isqrt_fwd) = saved
 
 
 @contextlib.contextmanager
@@ -1690,6 +1715,105 @@ def check_newton_schulz_bf16(g: torch.Generator) -> dict:
     return results
 
 
+def subspace_inputs(g: torch.Generator, n: int, d: int, dtype) -> tuple:
+    """centered and weighted [64, n, d] as the moment head makes them: tokens
+    centered on their graph-weighted mean, and the graph times them, from a
+    random symmetric graph normalized as the head normalizes it."""
+    tokens = torch.randn(BATCH, n, d, generator=g, device="cuda").to(dtype)
+    graph = torch.rand(BATCH, n, n, generator=g, device="cuda")
+    w = normalize_graph(0.5 * (graph + graph.transpose(1, 2)), "symmetric", eps=NS_EPS)
+    centered = tokens - graph_weighted_mean(tokens, w, eps=NS_EPS)[:, None, :]
+    weighted = torch.matmul(w.float(), centered.float()).to(dtype)
+    return centered.contiguous(), weighted.contiguous()
+
+
+def si_witness_error(out, witness, centered, weighted) -> float:
+    """||out - witness|| over what the iteration adds to a_k I / sqrt(t), in fp64."""
+    t = (centered.double() * weighted.double()).sum(dim=(1, 2))[:, None, None] + NS_EPS
+    eye = torch.eye(witness.shape[-1], dtype=torch.float64, device=witness.device)
+    part = witness - eye * 1.5 ** NS_ITERS / torch.sqrt(t)
+    return float((out.double() - witness).norm() / part.norm())
+
+
+def si_bf16_apart(out, ref) -> tuple[float, float]:
+    """bf16 outputs element by element: the largest |out - ref| over
+    (rtol |ref| + atol max |ref|), and the share of elements that differ."""
+    rtol, atol, _ = TOL_SI_BF16
+    out, ref = out.float(), ref.float()
+    excess = ((out - ref).abs() / (rtol * ref.abs() + atol * ref.abs().max())).max().item()
+    return excess, (out != ref).double().mean().item()
+
+
+def check_subspace_isqrt(g: torch.Generator) -> dict:
+    """Kernel 7 at the subspace head's serving calls, ViT-Large/16 at 448
+    ([64, 784, 1024]) and Swin-Base/224 ([64, 49, 1024]), k = 5, bf16 and
+    fp32, against the plain fp32 route and an fp64 witness (TOL_SI_*); the
+    control drops each fp32 operand's lo term.  Two runs must agree bit for
+    bit.  Bound: :func:`subspace_isqrt.bound_flops` over the bf16 peak."""
+    results = {}
+    for n, d in ((VIT448_T - 1, VITL_C), (49, 1024)):
+        for dtype in (torch.bfloat16, torch.float32):
+            centered, weighted = subspace_inputs(g, n, d, dtype)
+            out = SI_KERNEL(centered, weighted, NS_ITERS, NS_EPS)
+            again = SI_KERNEL(centered, weighted, NS_ITERS, NS_EPS)
+            control = SI_KERNEL(centered, weighted, NS_ITERS, NS_EPS, _terms=2)
+            ref = isqrt_cov_subspace(centered, weighted, NS_ITERS, NS_EPS)
+            torch.cuda.synchronize()
+            what = f"subspace_isqrt [{BATCH},{n},{d}] {dtype}"
+            if not torch.equal(out, again):
+                fail(f"{what}: two runs of the kernel differ")
+            if not bool(torch.isfinite(out).all()):
+                fail(f"{what}: non-finite output")
+            del again
+            err = (out.float() - ref.float()).abs().max().item()
+            if dtype == torch.bfloat16:
+                excess, share = si_bf16_apart(out, ref)
+                ctrl_excess, ctrl_share = si_bf16_apart(control, ref)
+                if not (excess <= 1.0 and share <= TOL_SI_BF16[2]):
+                    fail(f"{what}: {share:.3e} of the elements differ from the plain route's "
+                         f"(bar {TOL_SI_BF16[2]}), largest error {excess:.3f}x its tolerance")
+                if ctrl_share <= TOL_SI_BF16[2]:
+                    fail(f"{what}: the control (two bf16 terms) passes the check "
+                         f"({ctrl_share:.3e} of the elements differ)")
+                msg = (f"elements apart from the plain route's {share:.3e} (bar "
+                       f"{TOL_SI_BF16[2]}; control {ctrl_share:.3e}) largest err/tol "
+                       f"{excess:.3f} (control {ctrl_excess:.3f})")
+                res = {"share_apart": share, "control_share_apart": ctrl_share,
+                       "err_over_tol": excess}
+            else:
+                witness = isqrt_cov_subspace(centered.double(), weighted.double(), NS_ITERS,
+                                             NS_EPS)
+                e_k = si_witness_error(out, witness, centered, weighted)
+                e_p = si_witness_error(ref, witness, centered, weighted)
+                e_c = si_witness_error(control, witness, centered, weighted)
+                del witness
+                if not e_k <= TOL_SI_F32_RATIO * e_p:
+                    fail(f"{what}: error {e_k:.3e} against the fp64 witness, the plain route's "
+                         f"{e_p:.3e} (bar {TOL_SI_F32_RATIO}x)")
+                if e_c <= TOL_SI_F32_RATIO * e_p:
+                    fail(f"{what}: the control (two bf16 terms) passes the fp64 check")
+                msg = (f"fp64-witness error {e_k:.3e}, plain route {e_p:.3e} (ratio "
+                       f"{e_k / e_p:.2f}, bar {TOL_SI_F32_RATIO}; control {e_c / e_p:.1f})")
+                res = {"witness_ratio": e_k / e_p, "control_witness_ratio": e_c / e_p}
+            del control
+            k_ms = time_ms(lambda: SI_KERNEL(centered, weighted, NS_ITERS, NS_EPS), reps=3,
+                           samples=3)
+            p_ms = time_ms(lambda: isqrt_cov_subspace(centered, weighted, NS_ITERS, NS_EPS),
+                           reps=3, samples=3)
+            nbytes = (2 * centered.numel() + out.numel()) * centered.element_size()
+            flops = _si.bound_flops(BATCH, n, d, NS_ITERS, dtype == torch.bfloat16)
+            b_ms, kind = bound_ms(nbytes, flops, torch.bfloat16)  # bf16 tensor-core products
+            log(f"  subspace_isqrt [{BATCH},{n},{d}] k={NS_ITERS} {str(dtype)[6:]}: "
+                f"max_abs_err={err:.3e} of max |ref| {ref.float().abs().max().item():.3e} {msg}; "
+                f"two runs equal; kernel_ms={k_ms:.4f} plain_ms(cuBLAS fp32 route)={p_ms:.4f} "
+                f"bound_ms={b_ms:.4f} ({kind})")
+            results[(n, str(dtype)[6:])] = {"max_abs_err": err, **res, "ms": k_ms,
+                                            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": kind}
+            del centered, weighted, out, ref
+        torch.cuda.empty_cache()
+    return results
+
+
 def time_newton_schulz_bwd(g: torch.Generator) -> float:
     """The dense head's iSQRT backward on the ViT-Large/512 training path:
     autograd over the plain fp32 iteration from the saved M [64, 1024, 1024]
@@ -2056,7 +2180,7 @@ def zero_launches(**counts) -> dict:
 # per serving forward and per train step, and the controls their checks reject
 SWIN = {
     "label": "Swin-Base/224", "config": FLAGSHIP, "profile_prefix": "",
-    "serve_launches": zero_launches(window_attention_fwd=24, gpf_fwd=1),
+    "serve_launches": zero_launches(window_attention_fwd=24, gpf_fwd=1, subspace_isqrt_fwd=1),
     "train_launches": zero_launches(window_attention_fwd=24, window_attention_bwd=24,
                                     gpf_fwd=1, gpf_bwd=1),
     "serve_control": bias_omitted, "serve_control_name": "kernel without bias",
@@ -2068,7 +2192,8 @@ SWIN = {
 }
 VIT = {
     "label": "ViT-Base/224", "config": VIT_FLAGSHIP, "profile_prefix": "vit_",
-    "serve_launches": zero_launches(packed_attention_fwd=VIT_DEPTH, gpf_fwd=1),
+    "serve_launches": zero_launches(packed_attention_fwd=VIT_DEPTH, gpf_fwd=1,
+                                    subspace_isqrt_fwd=1),
     "train_launches": zero_launches(packed_attention_fwd=VIT_DEPTH,
                                     packed_attention_bwd=VIT_DEPTH, gpf_fwd=1, gpf_bwd=1),
     "serve_control": only_first_keys_attended,
@@ -2086,7 +2211,7 @@ N_FUSED = 4
 SWIN_FH = {
     "label": "Swin-Base/224 fused_half", "config": FH_FLAGSHIP, "profile_prefix": "fused_",
     "serve_launches": zero_launches(attn_half_fwd=N_FUSED, window_attention_fwd=24 - N_FUSED,
-                                    gpf_fwd=1),
+                                    gpf_fwd=1, subspace_isqrt_fwd=1),
     "train_launches": zero_launches(attn_half_fwd=N_FUSED, attn_half_bwd=N_FUSED,
                                     window_attention_fwd=24 - N_FUSED,
                                     window_attention_bwd=24 - N_FUSED, gpf_fwd=1, gpf_bwd=1),
@@ -2904,7 +3029,8 @@ def engine(card: str) -> dict:
         fail(f"ablation accuracies {out['ablations']}")
     if not results.exists() or "tta_top1_accuracy" not in m:
         fail("the evaluator wrote no results.json or no TTA accuracy")
-    if not (eval_launches["window_attention_fwd"] and eval_launches["gpf_fwd"]):
+    if not (eval_launches["window_attention_fwd"] and eval_launches["gpf_fwd"]
+            and eval_launches["subspace_isqrt_fwd"]):
         fail(f"the evaluation launched {eval_launches}")
     images_np, labels_np = next(iter(ev.loader))
     images = torch.from_numpy(images_np).to(dev)
@@ -2997,7 +3123,8 @@ OPTIONS_BN = {
 VITL448_MS = {
     "label": "ViT-Large/448 multi-scale classifier", "config": VITL448_MS_FLAGSHIP,
     "profile_prefix": "vitL448_",
-    "serve_launches": zero_launches(flash_attention_tiled_fwd=VITL_DEPTH, gpf_fwd=1),
+    "serve_launches": zero_launches(flash_attention_tiled_fwd=VITL_DEPTH, gpf_fwd=1,
+                                    subspace_isqrt_fwd=1),
     "train_launches": zero_launches(flash_attention_tiled_fwd=2 * VITL_DEPTH,
                                     flash_attention_tiled_bwd=VITL_DEPTH, gpf_fwd=1, gpf_bwd=1),
     "serve_control": only_first_keys_attended_tiled,
@@ -3140,7 +3267,7 @@ def options_batchnorm(card: str) -> dict:
     logits = infer(images)
     torch.cuda.synchronize()
     launches_srv = read_launches()
-    if launches_srv != zero_launches(window_attention_fwd=24):
+    if launches_srv != zero_launches(window_attention_fwd=24, subspace_isqrt_fwd=1):
         fail(f"7a serving: launches {launches_srv}")
     if tuple(logits.shape) != (BATCH, 80) or not torch.isfinite(logits).all():
         fail(f"7a serving: logits {tuple(logits.shape)} or non-finite")
@@ -3205,6 +3332,8 @@ def other_options(card: str) -> dict:
             else:
                 cfg["model"][section] = values
         gpf_runs = int(change.get("gpf", {}).get("adaptive_type") in (None, "global"))
+        # the simplified head runs its own iteration, not the subspace kernel
+        si_runs = int(change.get("moment", {}).get("variant") != "simplified")
         g = torch.Generator(device=dev).manual_seed(0)
         aug, images = family_inputs({"config": cfg}, g)
         labels = torch.randint(0, 80, (BATCH,), generator=g, device=dev)
@@ -3217,7 +3346,8 @@ def other_options(card: str) -> dict:
         logits = infer(images)
         torch.cuda.synchronize()
         launches_srv = read_launches()
-        if launches_srv != zero_launches(window_attention_fwd=24, gpf_fwd=gpf_runs):
+        if launches_srv != zero_launches(window_attention_fwd=24, gpf_fwd=gpf_runs,
+                                         subspace_isqrt_fwd=si_runs):
             fail(f"7c {label}: serving launches {launches_srv}")
         if tuple(logits.shape) != (BATCH, 80) or not torch.isfinite(logits).all():
             fail(f"7c {label}: logits {tuple(logits.shape)} or non-finite")
@@ -3768,12 +3898,12 @@ def main() -> int:
     # the Hopper kernels run on wgmma: their SASS holds HGMMA (the bf16
     # attention 3, 6, 3b, 6b; 2b's bf16 w and dX kernels; the GEMM of 5′ and
     # 5″; 1b's window-attention core; 4b's qkv / do, dx and weight-gradient
-    # products; the bf16 forwards of 1, 2 and 4)
+    # products; the bf16 forwards of 1, 2 and 4; 7's split-bf16 products)
     cuobjdump = shutil.which("cuobjdump") or str(Path(_build.nvcc_path()).parent / "cuobjdump")
     for name in ("packed_attention_fwd", "flash_attention_fwd", "packed_attention_bwd",
                  "flash_attention_bwd", "gpf_bwd", "newton_schulz_bf16",
                  "newton_schulz_bf16_streamed", "window_attention_bwd", "attn_half_fwd",
-                 "attn_half_bwd", "window_attention_fwd", "gpf_fwd"):
+                 "attn_half_bwd", "window_attention_fwd", "gpf_fwd", "subspace_isqrt"):
         if not os.path.exists(cuobjdump):
             log(f"  {name}: cuobjdump not found, SASS not read")
             continue
@@ -3800,6 +3930,7 @@ def main() -> int:
         ns_wide = check_newton_schulz_bf16(g)
         wa_pad = check_window_attention_padded(g)
         ah = check_attn_half(g)
+        si = check_subspace_isqrt(g)
 
     phase(f"[2b] backward kernels against their plain versions, batch {TRAIN_VIEWS} / {BATCH}")
     wab = check_window_attention_bwd(g)
@@ -3915,8 +4046,11 @@ def main() -> int:
     # (ViT-Large/512 under vitL512_*) and for the fp32 Newton-Schulz,
     # ViT-Large/512 for the bf16 Newton-Schulz, Swin-Large/1280 for the
     # streamed one, Swin-Base under fused_half for the fused attention half,
-    # whose unfused_ms is the port's default route for the same blocks); every
-    # path was driven with the counts at 0 just before and read just after.
+    # whose unfused_ms is the port's default route for the same blocks,
+    # ViT-Large/448 for the subspace iSQRT, which replaces no TPU kernel and
+    # whose Swin-Base/224 call and fp32 numbers ride along under swin_* and
+    # *fp32_*, plain_ms its fp32 cuBLAS route); every path was driven with the
+    # counts at 0 just before and read just after.
     src = "ego_moment_cle_vit_tpu_torch/csrc/"
 
     def other_gpf(prefix: str, res: dict) -> dict:
@@ -4056,6 +4190,13 @@ def main() -> int:
          "ms": ahb["ms"], "plain_ms": ahb["plain_ms"], "bound_ms": ahb["bound_ms"],
          "bound_by": ahb["bound_by"], "library_ms": ahb["library_ms"],
          "unfused_ms": ahb["unfused_ms"]},
+        {"name": "subspace_isqrt_fwd", "route": "cuda", "source": src + "subspace_isqrt.cu",
+         "replaces": None, "launches": srv_vitl448["launches"]["subspace_isqrt_fwd"],
+         "swin_launches": srv["launches"]["subspace_isqrt_fwd"],
+         **si[(VIT448_T - 1, "bfloat16")],
+         **{f"swin_{k}": v for k, v in si[(49, "bfloat16")].items()},
+         **{f"fp32_{k}": v for k, v in si[(VIT448_T - 1, "float32")].items()},
+         **{f"swin_fp32_{k}": v for k, v in si[(49, "float32")].items()}},
     ]
     # phase 7's paths, each driven with the counts at 0 just before and read
     # just after: {path: launches} for every kernel they ran

@@ -11,6 +11,9 @@ whose forward and backward go through those wrappers; the Newton–Schulz
 forward dispatches by width to its fp32, bf16 or bf16-streamed kernel, and its
 backward differentiates the plain fp32 iteration, as on the TPU); the first four
 are not re-exported here, where their names are the modules'.
+``subspace_isqrt.subspace_isqrt_fwd`` has no backward: the moment head calls it
+only where no gradient is wanted; its plain version is
+``ops.moments.isqrt_cov_subspace``.
 """
 
 from .attn_half import (
@@ -47,6 +50,7 @@ from .packed_attention import (
     packed_attention_fwd,
     packed_attention_plain,
 )
+from .subspace_isqrt import subspace_isqrt_fwd
 from .window_attention import (
     WindowAttentionFunction,
     window_attention_bwd,
@@ -86,6 +90,7 @@ __all__ = [
     "packed_attention_bwd_plain",
     "packed_attention_fwd",
     "packed_attention_plain",
+    "subspace_isqrt_fwd",
     "WindowAttentionFunction",
     "window_attention_bwd",
     "window_attention_bwd_plain",

@@ -30,7 +30,8 @@ BUILD_DIR = PKG_DIR / "_build"
 KERNEL_SOURCES = ("window_attention_fwd", "window_attention_bwd", "gpf_fwd", "gpf_bwd",
                   "packed_attention_fwd", "packed_attention_bwd", "flash_attention_fwd",
                   "flash_attention_bwd", "newton_schulz", "newton_schulz_bf16",
-                  "newton_schulz_bf16_streamed", "attn_half_fwd", "attn_half_bwd")
+                  "newton_schulz_bf16_streamed", "attn_half_fwd", "attn_half_bwd",
+                  "subspace_isqrt")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

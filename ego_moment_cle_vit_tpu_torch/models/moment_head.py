@@ -2,7 +2,8 @@
 
 Counterpart of ``ego_moment_cle_vit_tpu/models/moment_head.py``.
 ``MomentHead``: symmetric graph normalization, weighted mean and centering,
-iSQRT-COV in the token subspace (N < D) or on the dense route (N >= D, or
+iSQRT-COV in the token subspace (N < D; on the card without a gradient, the
+kernel of ``kernels/subspace_isqrt.py``) or on the dense route (N >= D, or
 any N with ``isqrt_subspace=False``: ``M2 = Zc^T W Zc`` formed in fp32, cast
 to the tokens' dtype and handed to the Newton–Schulz kernels, as the JAX
 head hands it to ``newton_schulz_isqrt_pallas``), paired half-vectorization,
@@ -24,6 +25,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import newton_schulz as _ns
+from ..kernels import subspace_isqrt as _si
 from ..ops.graph import normalize_graph
 from ..ops.moments import (
     _wide,
@@ -48,6 +50,12 @@ def check_dense_route(d: int, device: str | torch.device) -> None:
     the plain iteration is never substituted on the card."""
     if torch.device(device).type == "cuda" and _ns.variant_for(d) is None:
         raise NotImplementedError(f"the dense moment route: {_ns.unsupported_width(d)}")
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether the subspace kernel can take ``t`` (the dispatch test replaces
+    this to reach the kernel's branch on the CPU)."""
+    return t.is_cuda
 
 
 def _head_norm(kind: str, dim: int, device) -> nn.Module:
@@ -124,11 +132,18 @@ class MomentHead(nn.Module):
     def _isqrt(self, centered: torch.Tensor, weighted: torch.Tensor) -> torch.Tensor:
         """The iSQRT step, JAX's ``isqrt_fn``: on the dense route M2 = Zc^T W
         Zc in fp32, cast to the tokens' dtype, then Newton–Schulz; else the
-        token-subspace iteration."""
+        token-subspace iteration, on the card without a gradient (serving,
+        evaluation) as the subspace kernel.  Where a gradient is wanted it stays
+        ``isqrt_cov_subspace`` under autograd: the kernel has no backward, and
+        recomputing the plain forward in the backward, as
+        ``NewtonSchulzFunction`` does, would add that forward's ~44 ms to a
+        ViT-L/448 training step."""
         if self.dense_route(*centered.shape[-2:]):
             m2 = torch.matmul(_wide(centered).transpose(-1, -2), _wide(weighted))
             return _ns.newton_schulz_isqrt_kernel(m2.to(centered.dtype), self.isqrt_iterations,
                                                   self.eps)
+        if _on_card(centered) and not (centered.requires_grad or weighted.requires_grad):
+            return _si.subspace_isqrt_fwd(centered, weighted, self.isqrt_iterations, self.eps)
         return isqrt_cov_subspace(centered, weighted, self.isqrt_iterations, self.eps)
 
     def forward(self, tokens: torch.Tensor, graph: torch.Tensor,

@@ -69,6 +69,18 @@ The data and engine layers on the card: ``DevicePrefetcher`` gives the
 batches inline copies give, bit for bit, and a checkpoint GPU -> CPU -> GPU
 keeps the model's and the optimizer's state bits.
 
+The token-subspace iSQRT (``kernels/subspace_isqrt.py``, no TPU kernel) at
+the main path's shapes (ViT-L/448's N = 784, Swin's 49, ViT at 224's 196)
+against an fp64 witness: the error ||out - witness|| over the size of what the
+iteration adds to the identity, ||witness - a_k I / sqrt(t)||, is at most twice
+the plain fp32 route's (``isqrt_cov_subspace`` on the CUDA cores, TF32 off);
+the same kernel with each fp32 operand's lo term dropped (two bf16 terms, not
+three) fails that at five iterations.  bf16 inputs give bf16 outputs, whose
+rounding hides that norm (both routes read the same ratio, the control too),
+so there the outputs are also held element by element against the plain
+route's: each within one ulp and a sliver of the largest entry, and few of
+them apart at all; the two-term control fails the share at five iterations.
+
 The spans (``utils/trace.py``): under the profiler, a train step and a
 serving call of the Swin-Base/224 flagship and of ViT-L/16 at 448 with the
 multi-scale head record one ``emct.kernel.<wrapper>`` range for every count
@@ -85,9 +97,15 @@ from ego_moment_cle_vit_tpu_torch.kernels import flash_attention as tfa
 from ego_moment_cle_vit_tpu_torch.kernels import gpf as tgpf
 from ego_moment_cle_vit_tpu_torch.kernels import newton_schulz as tns
 from ego_moment_cle_vit_tpu_torch.kernels import packed_attention as tpa
+from ego_moment_cle_vit_tpu_torch.kernels import subspace_isqrt as tsi
 from ego_moment_cle_vit_tpu_torch.kernels import window_attention as twa
 from ego_moment_cle_vit_tpu_torch.models.swin import _attn_mask, _relative_position_index
-from ego_moment_cle_vit_tpu_torch.ops.graph import gpf_fuse, token_similarity_graph
+from ego_moment_cle_vit_tpu_torch.ops.graph import (
+    gpf_fuse,
+    normalize_graph,
+    token_similarity_graph,
+)
+from ego_moment_cle_vit_tpu_torch.ops.moments import graph_weighted_mean, isqrt_cov_subspace
 
 WS = 7
 
@@ -1253,7 +1271,8 @@ KERNEL_WRAPPERS = (tah.attn_half_fwd, tah.attn_half_bwd, tfa.flash_attention_til
                    tfa.flash_attention_tiled_bwd, tgpf.gpf_fwd, tgpf.gpf_bwd,
                    tns.newton_schulz_isqrt_fp32_fwd, tns.newton_schulz_isqrt_bf16_fwd,
                    tns.newton_schulz_isqrt_bf16_streamed_fwd, tpa.packed_attention_fwd,
-                   tpa.packed_attention_bwd, twa.window_attention_fwd, twa.window_attention_bwd)
+                   tpa.packed_attention_bwd, twa.window_attention_fwd, twa.window_attention_bwd,
+                   tsi.subspace_isqrt_fwd)
 
 
 def _flagship_config(backbone, size, resize, **model):
@@ -1274,12 +1293,12 @@ SPAN_CONFIGS = {
     "swinB-224": (_flagship_config("swin_base_patch4_window7_224", 224, 256),
                   {"window_attention_fwd": 24, "window_attention_bwd": 24, "gpf_fwd": 1,
                    "gpf_bwd": 1},
-                  {"window_attention_fwd": 24, "gpf_fwd": 1}),
+                  {"window_attention_fwd": 24, "gpf_fwd": 1, "subspace_isqrt_fwd": 1}),
     "vitL-448-ms": (_flagship_config("vit_large_patch16_224", 448, 600, backbone_remat="block",
                                      classifier={"fusion_type": "add", "type": "multiscale"}),
                     {"flash_attention_tiled_fwd": 48, "flash_attention_tiled_bwd": 24,
                      "gpf_fwd": 1, "gpf_bwd": 1},
-                    {"flash_attention_tiled_fwd": 24, "gpf_fwd": 1}),
+                    {"flash_attention_tiled_fwd": 24, "gpf_fwd": 1, "subspace_isqrt_fwd": 1}),
 }
 
 
@@ -1337,3 +1356,130 @@ def test_cuda_kernel_spans_count_the_launches(cuda_device, name):
         spans, launched = _kernel_spans_and_launches(fn)
         assert launched == expected, (fn.__name__, launched)
         assert spans == launched, (fn.__name__, spans)
+
+
+# (B, N, D) of the subspace iSQRT: ViT-L/16 at 448, Swin's last stage at batch
+# 64, ViT-Base at 224
+SUBSPACE = [(4, 784, 1024), (64, 49, 1024), (8, 196, 768)]
+
+
+def _subspace_inputs(device, b, n, d, dtype, seed=11):
+    """centered and weighted as the moment head makes them."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    tokens = torch.randn(b, n, d, generator=g, device=device).to(dtype)
+    graph = torch.rand(b, n, n, generator=g, device=device)
+    w = normalize_graph(0.5 * (graph + graph.transpose(1, 2)), "symmetric", eps=1e-5)
+    centered = tokens - graph_weighted_mean(tokens, w, eps=1e-5)[:, None, :]
+    weighted = torch.matmul(w.float(), centered.float()).to(dtype)
+    return centered.contiguous(), weighted.contiguous()
+
+
+# bf16 outputs against the plain route's, chip_smoke.py's TOL_SI_BF16: per
+# element |err| <= 2^-7 |plain| + 1e-4 max |plain|, and at most 3.5e-4 of the
+# elements apart (an H100 at k = 5: 1.1e-4 to 1.8e-4 on sound runs, 6.9e-4 to
+# 5.1e-3 with the lo terms dropped; 1.5e-5 to 6.5e-5 at k = 3)
+TOL_SI_BF16 = (2.0**-7, 1e-4, 3.5e-4)
+
+
+def _bf16_apart(out, plain):
+    """The largest |out - plain| over its per-element tolerance, and the
+    share of elements that differ."""
+    rtol, atol, _ = TOL_SI_BF16
+    out, plain = out.float(), plain.float()
+    tol = rtol * plain.abs() + atol * plain.abs().max()
+    return float(((out - plain).abs() / tol).max()), float((out != plain).double().mean())
+
+
+def _witness_error(out, witness, centered, weighted, k):
+    """||out - witness|| over ||witness - a_k I / sqrt(t)||, all in fp64."""
+    t = (centered.double() * weighted.double()).sum(dim=(1, 2))[:, None, None] + 1e-5
+    eye = torch.eye(witness.shape[-1], dtype=torch.float64, device=witness.device)
+    part = witness - eye * 1.5 ** k / torch.sqrt(t)
+    return float((out.double() - witness).norm() / part.norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("b, n, d", SUBSPACE)
+def test_cuda_subspace_isqrt_meets_the_fp64_bar(cuda_device, b, n, d, k, dtype):
+    assert not torch.backends.cuda.matmul.allow_tf32  # the plain route in full fp32
+    centered, weighted = _subspace_inputs(cuda_device, b, n, d, dtype)
+    before = tsi.subspace_isqrt_fwd.launches
+    out = tsi.subspace_isqrt_fwd(centered, weighted, k, 1e-5)
+    assert tsi.subspace_isqrt_fwd.launches == before + 1
+    assert out.dtype == dtype and out.shape == (b, d, d) and bool(torch.isfinite(out).all())
+    witness = isqrt_cov_subspace(centered.double(), weighted.double(), k, 1e-5)
+    plain = isqrt_cov_subspace(centered, weighted, k, 1e-5)
+    err = _witness_error(out, witness, centered, weighted, k)
+    err_plain = _witness_error(plain, witness, centered, weighted, k)
+    assert err <= 2 * err_plain, (err, err_plain)
+    if dtype == torch.bfloat16:
+        excess, share = _bf16_apart(out, plain)
+        assert excess <= 1.0 and share <= TOL_SI_BF16[2], (excess, share)
+    if k == 5:  # the control: two bf16 terms, not three
+        control = tsi.subspace_isqrt_fwd(centered, weighted, k, 1e-5, _terms=2)
+        if dtype == torch.float32:
+            assert _witness_error(control, witness, centered, weighted, k) > 2 * err_plain
+        else:
+            assert _bf16_apart(control, plain)[1] > TOL_SI_BF16[2]
+    assert torch.equal(tsi.subspace_isqrt_fwd(centered, weighted, k, 1e-5), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 1, 2])
+def test_cuda_subspace_isqrt_closed_form_iterations(cuda_device, k):
+    """k = 0 (I / sqrt(t)), 1 (no product before the last) and 2 (S X and S H
+    only) against the fp64 witness, with the fp32 bar."""
+    centered, weighted = _subspace_inputs(cuda_device, 3, 130, 256, torch.float32)
+    out = tsi.subspace_isqrt_fwd(centered, weighted, k, 1e-5)
+    witness = isqrt_cov_subspace(centered.double(), weighted.double(), k, 1e-5)
+    plain = isqrt_cov_subspace(centered, weighted, k, 1e-5)
+    if k == 0:
+        torch.testing.assert_close(out.double(), witness, rtol=1e-6, atol=0)
+        return
+    err = _witness_error(out, witness, centered, weighted, k)
+    assert err <= 2 * _witness_error(plain, witness, centered, weighted, k)
+
+
+@pytest.mark.cuda
+def test_cuda_subspace_isqrt_counts_one_launch_and_span(cuda_device):
+    centered, weighted = _subspace_inputs(cuda_device, 2, 49, 128, torch.bfloat16)
+    tsi.subspace_isqrt_fwd(centered, weighted, 5)  # built and loaded
+    spans, launched = _kernel_spans_and_launches(
+        lambda: tsi.subspace_isqrt_fwd(centered, weighted, 5))
+    assert launched == {"subspace_isqrt_fwd": 1}
+    assert spans == launched
+
+
+@pytest.mark.cuda
+def test_cuda_subspace_isqrt_rejects_bad_inputs(cuda_device):
+    c = torch.zeros(2, 16, 64, device=cuda_device)
+    with pytest.raises(TypeError, match="centered is"):
+        tsi.subspace_isqrt_fwd(c, c.to(torch.bfloat16), 3)
+    with pytest.raises(ValueError, match="one \\[B, N, D\\] shape"):
+        tsi.subspace_isqrt_fwd(c, c[:, :8], 3)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tsi.subspace_isqrt_fwd(c[..., :60].contiguous(), c[..., :60].contiguous(), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsi.subspace_isqrt_fwd(c.transpose(0, 1), c.transpose(0, 1), 3)
+    with pytest.raises(TypeError, match="not supported"):
+        tsi.subspace_isqrt_fwd(c.half(), c.half(), 3)
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        tsi.subspace_isqrt_fwd(c, c.cpu(), 3)
+    with pytest.raises(ValueError, match="terms must be 3"):
+        tsi.subspace_isqrt_fwd(c, c, 3, _terms=1)
+
+
+@pytest.mark.cuda
+def test_cuda_subspace_isqrt_holds_wgmma(cuda_device):
+    """Its products run on HGMMA; the trace, split and identity kernels do
+    not."""
+    from ego_moment_cle_vit_tpu_torch.kernels import _build
+
+    fns = _sass_functions(_build.build(("subspace_isqrt",))["subspace_isqrt"])
+    wgmma = {name: "HGMMA" in sass for name, sass in fns.items()}
+    products = [has for name, has in wgmma.items() if "product_kernel" in name]
+    assert products and all(products), wgmma
+    others = [has for name, has in wgmma.items() if "product_kernel" not in name]
+    assert others and not any(others), wgmma
