@@ -1,6 +1,11 @@
-"""FLOPs after the backbone: GPF Grams, the moment head (subspace iSQRT,
-second_proj, count sketches, third_proj), the classifier and, in training,
-the per-view auxiliary classifier."""
+"""Model FLOPs after the backbone: GPF Grams, the moment head (the iSQRT on the
+dense route for N >= D or in the token subspace for N < D, second_proj,
+count sketches, third_proj), the classifier and, in training, the per-view
+auxiliary classifier.  The iSQRT counts the plain iteration's products
+(``isqrt_products(..., least=False)``), not the fewer that kernels 5 and 7
+run (``kernel_work/``)."""
+
+from h100_bench.flops import isqrt_products
 
 
 def _classifier(mcfg: dict, d: int, d_out: int, classes: int, b: int) -> float:
@@ -29,12 +34,17 @@ def heads_flops(spec: dict, b: int, n: int, training: bool) -> float:
     k = -(-min(moment.get("sketch_dim", 4096), 4 * d) // 128) * 128
     classes = spec["num_classes"]
     grams = (2 if training else 1) * 2.0 * b * n * n * d
+    if n >= d:  # the dense route
+        isqrt = (2.0 * b * d * n * d             # M2 = Zc^T (W Zc)
+                 + isqrt_products("dense", iters, least=False) * 2.0 * b * d ** 3)
+    else:
+        isqrt = (2.0 * b * n * d * n             # S = B^ A^T
+                 + isqrt_products("subspace", iters, least=False) * 2.0 * b * n ** 3
+                 + 2.0 * b * n * n * d           # G B^
+                 + 2.0 * b * d * n * d)          # A^T (G B^)
     moments = (2.0 * b * n * n * d            # W Zc
                + 2 * 2.0 * b * n * d           # the weighted mean, the pooled third-order input
-               + 2.0 * b * n * d * n           # S = B^ A^T
-               + iters * 5 * 2.0 * b * n ** 3  # five N x N products an iteration
-               + 2.0 * b * n * n * d           # G B^
-               + 2.0 * b * d * n * d           # A^T (G B^)
+               + isqrt
                + 2.0 * b * (d * (d + 1) // 2) * (d_out // 2)
                + 3 * 2.0 * b * d * k + 2.0 * b * k * (d_out - d_out // 2))
     aux = 2 * 2.0 * b * d * classes if training else 0.0

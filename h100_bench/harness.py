@@ -10,7 +10,7 @@ mix, per-layer metric or kernel lives in a file of its own, found by name:
   parameters (batch, ring of distinct batches, profiled steps);
 * ``limits/<cell>.json``: the limit of every number ``correct`` compares;
 * ``layer_metrics/<metric>.py``, ``kernel_work/<wrapper>.py``,
-  ``flops/<family>.py``.
+  ``flops/<family>.py``, ``reference/families/<family>.py``.
 
 The program under test is ``ego_moment_cle_vit_tpu_torch``; nothing here
 imports JAX or the JAX package, and every run ends by checking that neither
@@ -177,7 +177,9 @@ def kernel_work(cell: Cell) -> list:
         reps = per_step / len(layers)
         if reps != int(reps):
             raise SetupError(f"{wrapper}: {per_step} launches a step over {len(layers)} layers")
-        bound = sum(bound_s(b, f, dtype_name(cell.spec)) for b, f in layers) * reps
+        # a kernel that computes in another type than the model's names it
+        dtype = getattr(mod, "DTYPE", dtype_name(cell.spec))
+        bound = sum(bound_s(b, f, dtype) for b, f in layers) * reps
         out.append(KernelWork(wrapper, mod, bound))
     return out
 
@@ -234,7 +236,7 @@ def reference_model(cell: Cell, precision: str, device: torch.device):
 def weight_plan(cell: Cell):
     """(shapes, served dtypes, norm leaves) of every leaf, from the
     reference's module tree."""
-    from h100_bench.reference.model import LayerNorm, served_dtypes
+    from h100_bench.reference.layers import LayerNorm, served_dtypes
     with torch.device("meta"):
         ref = reference_model(cell, "fp32", torch.device("meta"))
     model_dtype = torch.bfloat16 if cell.spec["port_config"]["model"].get("bf16") else torch.float32
@@ -315,9 +317,10 @@ def per_layer_metrics(cell: Cell, ctx: TracedRun) -> dict:
 def flops_per_step(cell: Cell) -> float:
     """Model FLOPs of one serving batch or one training step (three training
     forwards)."""
+    from h100_bench.flops import family_of
     from h100_bench.flops.heads import heads_flops
     arch = cell.spec["architecture"]
-    family = importlib.import_module(f"h100_bench.flops.{arch['family']}")
+    family = family_of(arch)
     b = cell.traffic["batch"]
     n = family.tokens(arch)
     if cell.kind == "serve":

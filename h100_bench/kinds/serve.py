@@ -4,7 +4,9 @@ Each call takes the next uint8 batch of a ring of distinct seeded batches in
 pinned host memory and ends when its logits are on the host, as a serving
 caller reads them.  The window runs until ``--seconds`` have passed and ends
 with the last call.  Afterwards every call's logits are compared with the
-reference's logits of its batch.
+reference's logits of its batch, and, where the cell's limits name it, the
+moment head's iSQRT output of a sample of calls with the reference's
+(``isqrt_check.py``).
 
 Traffic parameters: ``batch``, ``ring`` (distinct batches), ``warmup``
 (calls before the window), ``profile_steps`` (calls in the traced stretch).
@@ -19,7 +21,7 @@ import time
 
 import torch
 
-from h100_bench import devtrace, harness
+from h100_bench import devtrace, harness, isqrt_check
 from h100_bench.weights import make_batches
 
 
@@ -32,7 +34,7 @@ def p95(values) -> float:
 def reference_logits(cell, weights, batches, device, precision="fp32") -> list:
     """The reference's logits of each batch, eval preprocessing included."""
     from h100_bench.reference import augment as ref_aug
-    from h100_bench.reference.model import fp32_products
+    from h100_bench.reference.layers import fp32_products
     ref = harness.loaded_reference(cell, weights, precision, device)
     aug = harness.augment_config(cell, ref_aug)
     out = []
@@ -66,6 +68,12 @@ def run(r: harness.Run):
     launches = harness.Launches(cell)
     harness.log(harness.card_line(dev))
 
+    capture = None
+    if isqrt_check.wanted(cell):
+        capture = isqrt_check.Capture(model, isqrt_check.draw(
+            r.seed, isqrt_check.CALLS, isqrt_check.FIRST_CALLS, tr["batch"], isqrt_check.IMAGES))
+        capture.probe(lambda: infer(host[0]).float().cpu())
+
     harness.reset_peak(dev)
     for i in range(tr["warmup"]):
         infer(host[i % len(host)]).float().cpu()
@@ -85,6 +93,8 @@ def run(r: harness.Run):
     while True:
         k = len(times) % len(host)
         before = launches.read()
+        if capture is not None:
+            capture.arm(len(times))
         t0 = time.perf_counter()
         try:
             logits = infer(host[k]).float().cpu()
@@ -106,14 +116,21 @@ def run(r: harness.Run):
     peak = harness.peak_bytes(dev)
     harness.log(clocks)
     harness.log(launches.summary())
+    if capture is not None:
+        capture.close()
+        harness.sync(dev)
     del infer, model
     harness.free_device(dev)
 
     t_ref = time.perf_counter()
     refs = reference_logits(cell, harness.make_weights(cell, r.seed, dev), batches, dev)
     harness.log(f"reference: {time.perf_counter() - t_ref:.1f} s for {len(refs)} batches")
-    worst = max((rel_l2(out, refs[k]) for k, out in outputs), default=math.inf)
-    check = harness.checks({"logits_rel_l2": worst}, cell.limits)
+    numbers = {"logits_rel_l2": max((rel_l2(out, refs[k]) for k, out in outputs),
+                                    default=math.inf)}
+    if capture is not None:
+        numbers[isqrt_check.NAME] = isqrt_check.worst(cell, capture.captured(), dev)
+        harness.log(f"{isqrt_check.NAME}: {len(capture.captured())} sampled calls compared")
+    check = harness.checks(numbers, cell.limits)
     correct = failed == 0 and launches.bad == 0 and harness.checks_pass(check)
 
     e2e = {"serve_images_per_s": tr["batch"] * len(outputs) / window_s,

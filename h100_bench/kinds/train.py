@@ -92,7 +92,7 @@ def reference_steps(cell, weights, batches, labels, step_seed, device, precision
     """The reference through the checked steps: (losses, first gradient norms
     by leaf, change norms by leaf)."""
     from h100_bench.reference import augment as ref_aug
-    from h100_bench.reference.model import Dense, fp32_products
+    from h100_bench.reference.layers import Dense, fp32_products
     from h100_bench.reference.optim import RefOptimizer
     ref = harness.loaded_reference(cell, weights, precision, device)
     aug = harness.augment_config(cell, ref_aug)

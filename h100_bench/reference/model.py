@@ -1,19 +1,19 @@
 """The plain reference of the served and trained model, in float32.
 
 A frozen, independent restatement of EGO-Moment-CLE-ViT's mathematics: a
-Swin or ViT backbone, graph polynomial fusion of the two views' token Grams,
-the graph-weighted moment head (token-subspace iSQRT-COV, paired vech,
-Tensor-Sketch third order) and the 'add' or 'multiscale' classifier, with the
-five-term loss.  Parameter and buffer names are the measured program's, so
-one state dict loads into both.  It imports nothing of the program: every
-product is a plain float32 ``torch`` operation (TF32 off, see
-``fp32_products``).
+backbone of the configuration's family (``families/<family>.py``), graph
+polynomial fusion of the two views' token Grams, the graph-weighted moment
+head (iSQRT-COV on the dense route for N >= D or in the token subspace for
+N < D, paired vech, Tensor-Sketch third order) and the 'add' or 'multiscale'
+classifier, with the five-term loss.  Parameter and buffer names are the
+measured program's, so one state dict loads into both.  It imports nothing
+of the program: every product is a plain float32 ``torch`` operation (TF32
+off, see ``fp32_products``).
 
-``precision='fp8'`` is the control: every product that the configuration
-runs in bfloat16 (the Dense layers, the patch convolution and the attention
-products) takes its operands rounded to float8 e4m3, each tensor with its own
-scale.  Products the configuration runs in float32 (the heads' Grams, the
-iSQRT iteration, the sketch) stay float32.
+``precision='fp8'`` is the control (``layers.py``): every product that the
+configuration runs in bfloat16 takes its operands rounded to float8 e4m3.
+Products the configuration runs in float32 (the heads' Grams, the iSQRT
+iteration, the sketch) stay float32.
 
 The backbone runs on ``chunk`` images at a time, so the attention of
 ViT-L/16 at 448 (785 tokens, 16 heads) fits at batch 64; training recomputes
@@ -22,340 +22,32 @@ each chunk for its backward (``RefModel.loss_and_grads``).
 
 from __future__ import annotations
 
-import contextlib
+import importlib
 import math
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-FP8_MAX = 448.0  # the largest finite float8 e4m3 value
-
-
-@contextlib.contextmanager
-def fp32_products():
-    """Full float32 matrix products and convolutions (no TF32) inside."""
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
-
-
-def fake_fp8(x: torch.Tensor) -> torch.Tensor:
-    """x rounded to float8 e4m3 under one scale for the whole tensor, back in
-    float32.  Differentiable as the identity (straight-through)."""
-    amax = x.detach().abs().amax().clamp(min=1e-30)
-    scale = FP8_MAX / amax
-    q = (x.detach() * scale).to(torch.float8_e4m3fn).float() / scale
-    return x + (q - x).detach()
-
-
-class Dense(nn.Module):
-    """y = x W^T + b; ``weight [out, in]``.  Served in the model's dtype."""
-
-    served_in_model_dtype = True
-
-    def __init__(self, d_in: int, d_out: int, precision: str, bias: bool = True):
-        super().__init__()
-        self.precision = precision
-        self.weight = nn.Parameter(torch.empty(d_out, d_in))
-        self.bias = nn.Parameter(torch.empty(d_out)) if bias else None
-
-    def forward(self, x):
-        if self.precision == "fp8":
-            return F.linear(fake_fp8(x), fake_fp8(self.weight), self.bias)
-        return F.linear(x, self.weight, self.bias)
-
-
-class Conv(nn.Module):
-    """Non-overlapping patch convolution, NHWC in, ``[B, h, w, C]`` out."""
-
-    served_in_model_dtype = True
-
-    def __init__(self, d_out: int, patch: int, precision: str):
-        super().__init__()
-        self.precision, self.patch = precision, patch
-        self.weight = nn.Parameter(torch.empty(d_out, 3, patch, patch))
-        self.bias = nn.Parameter(torch.empty(d_out))
-
-    def forward(self, images):
-        x, w = images.permute(0, 3, 1, 2), self.weight
-        if self.precision == "fp8":
-            x, w = fake_fp8(x), fake_fp8(w)
-        return F.conv2d(x, w, self.bias, stride=self.patch).permute(0, 2, 3, 1)
-
-
-class LayerNorm(nn.Module):
-    def __init__(self, dim: int, eps: float):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.empty(dim))
-        self.bias = nn.Parameter(torch.empty(dim))
-
-    def forward(self, x):
-        return F.layer_norm(x, self.weight.shape, self.weight, self.bias, self.eps)
-
-
-def dropout(x, p: float, training: bool, generator):
-    """Inverted dropout; the keep mask from one ``torch.rand`` of x's shape."""
-    if not training or p == 0.0:
-        return x
-    u = torch.rand(x.shape, dtype=torch.float32, device=x.device, generator=generator)
-    return x * (u >= p).float() / (1.0 - p)
-
-
-def dropout_mask(shape, p: float, generator, device):
-    u = torch.rand(shape, dtype=torch.float32, device=device, generator=generator)
-    return (u >= p).float() / (1.0 - p)
-
-
-def attention(q, k, v, precision: str, bias=None):
-    """softmax(q k^T + bias) v over the last two axes (q already scaled)."""
-    if precision == "fp8":
-        q, k, v = fake_fp8(q), fake_fp8(k), fake_fp8(v)
-    logits = torch.matmul(q, k.transpose(-1, -2))
-    if bias is not None:
-        logits = logits + bias
-    probs = torch.softmax(logits, dim=-1)
-    if precision == "fp8":
-        probs = fake_fp8(probs)
-    return torch.matmul(probs, v)
-
-
-# ----------------------------------------------------------------------------
-# Swin (Liu et al. 2021): shifted windows, relative position bias, patch merging
-# ----------------------------------------------------------------------------
-
-
-def relative_position_index(ws: int) -> np.ndarray:
-    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws), indexing="ij")).reshape(2, -1)
-    rel = (coords[:, :, None] - coords[:, None, :]).transpose(1, 2, 0) + (ws - 1)
-    return rel[..., 0] * (2 * ws - 1) + rel[..., 1]
-
-
-def shift_mask(h: int, w: int, hp: int, wp: int, ws: int, shift: int):
-    """Additive [nW, T, T] mask, -100 between tokens of different regions of
-    the rolled canvas (pad counts as its own region), or None."""
-    if shift == 0 and hp == h and wp == w:
-        return None
-    ids = np.zeros((hp, wp), dtype=np.float32)
-    if shift > 0:
-        cnt = 1
-        for hs in (slice(0, hp - ws), slice(hp - ws, hp - shift), slice(hp - shift, hp)):
-            for wsl in (slice(0, wp - ws), slice(wp - ws, wp - shift), slice(wp - shift, wp)):
-                ids[hs, wsl] = cnt
-                cnt += 1
-    pad = np.zeros((hp, wp), dtype=bool)
-    pad[h:, :] = True
-    pad[:, w:] = True
-    if shift > 0:
-        pad = np.roll(pad, (-shift, -shift), axis=(0, 1))
-    ids[pad] = -1.0
-    idw = ids.reshape(hp // ws, ws, wp // ws, ws).transpose(0, 2, 1, 3).reshape(-1, ws * ws)
-    diff = idw[:, None, :] - idw[:, :, None]
-    return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
-
-
-class WindowAttentionParams(nn.Module):
-    def __init__(self, dim, heads, ws, precision):
-        super().__init__()
-        self.qkv = Dense(dim, 3 * dim, precision)
-        self.proj = Dense(dim, dim, precision)
-        self.relative_position_bias_table = nn.Parameter(torch.empty((2 * ws - 1) ** 2, heads))
-
-
-class SwinBlock(nn.Module):
-    def __init__(self, dim, heads, window, shift, res, eps, precision):
-        super().__init__()
-        h, w = res
-        ws = min(window, h, w)
-        shift = shift if (shift > 0 and min(h, w) > ws) else 0
-        if shift >= ws:
-            shift = ws // 2
-        self.res, self.ws, self.shift, self.heads, self.precision = res, ws, shift, heads, precision
-        self.hp, self.wp = -(-h // ws) * ws, -(-w // ws) * ws
-        self.norm1 = LayerNorm(dim, eps)
-        self.attn = WindowAttentionParams(dim, heads, ws, precision)
-        self.norm2 = LayerNorm(dim, eps)
-        self.mlp_fc1 = Dense(dim, 4 * dim, precision)
-        self.mlp_fc2 = Dense(4 * dim, dim, precision)
-        self.index = relative_position_index(ws).reshape(-1)
-        self.mask = shift_mask(h, w, self.hp, self.wp, ws, shift)
-
-    def forward(self, x):
-        x = x + self.window_attention(self.norm1(x))
-        return x + self.mlp_fc2(F.gelu(self.mlp_fc1(self.norm2(x))))
-
-    def window_attention(self, xn):
-        (h, w), ws, heads, shift = self.res, self.ws, self.heads, self.shift
-        hp, wp = self.hp, self.wp
-        b, n, c = xn.shape
-        d, t = c // heads, ws * ws
-        x = xn.reshape(b, h, w, c)
-        if hp != h or wp != w:
-            x = F.pad(x, (0, 0, 0, wp - w, 0, hp - h))
-        if shift:
-            x = torch.roll(x, (-shift, -shift), dims=(1, 2))
-        qkv = self.attn.qkv(x).reshape(b, hp // ws, ws, wp // ws, ws, 3, heads, d)
-        qkv = qkv.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, b, -1, heads, t, d)
-        table = self.attn.relative_position_bias_table
-        bias = table[torch.as_tensor(self.index, device=xn.device)].reshape(t, t, heads)
-        bias = bias.permute(2, 0, 1)[None, None]  # [1, 1, H, T, T]
-        if self.mask is not None:
-            bias = bias + torch.as_tensor(self.mask, device=xn.device)[None, :, None]
-        o = attention(qkv[0] * d ** -0.5, qkv[1], qkv[2], self.precision, bias)
-        o = o.reshape(b, hp // ws, wp // ws, heads, ws, ws, d).permute(0, 1, 4, 2, 5, 3, 6)
-        o = self.attn.proj(o.reshape(b, hp, wp, c))
-        if shift:
-            o = torch.roll(o, (shift, shift), dims=(1, 2))
-        return o[:, :h, :w].reshape(b, n, c)
-
-
-class PatchMerging(nn.Module):
-    def __init__(self, dim, res, eps, precision):
-        super().__init__()
-        self.res = res
-        self.norm = LayerNorm(4 * dim, eps)
-        self.reduction = Dense(4 * dim, 2 * dim, precision, bias=False)
-
-    def forward(self, x):
-        (h, w), (b, n, c) = self.res, x.shape
-        x = x.reshape(b, h, w, c)
-        x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 1::2]],
-                      dim=-1).reshape(b, n // 4, 4 * c)
-        return self.reduction(self.norm(x))
-
-
-class Swin(nn.Module):
-    """``stem`` (patch embedding and its norm) and ``body`` (stages, final
-    norm) apart, so the dropout between them can take a mask drawn for the
-    whole batch."""
-
-    def __init__(self, arch: dict, precision: str):
-        super().__init__()
-        eps, ws = 1e-5, arch["window_size"]
-        dim = arch["embed_dim"]
-        self.patch_embed_proj = Conv(dim, arch["patch_size"], precision)
-        self.patch_embed_norm = LayerNorm(dim, eps)
-        res = (arch["img_size"] // arch["patch_size"],) * 2
-        self.layer_names = []
-        for stage, (depth, heads) in enumerate(zip(arch["depths"], arch["num_heads"])):
-            for blk in range(depth):
-                name = f"stage{stage}_block{blk}"
-                self.add_module(name, SwinBlock(dim, heads, ws, 0 if blk % 2 == 0 else ws // 2,
-                                                res, eps, precision))
-                self.layer_names.append(name)
-            if stage < len(arch["depths"]) - 1:
-                name = f"stage{stage}_downsample"
-                self.add_module(name, PatchMerging(dim, res, eps, precision))
-                self.layer_names.append(name)
-                res, dim = (res[0] // 2, res[1] // 2), dim * 2
-        self.norm = LayerNorm(dim, eps)
-
-    def stem(self, images):
-        x = self.patch_embed_proj(images)
-        b, h, w, c = x.shape
-        return self.patch_embed_norm(x.reshape(b, h * w, c))
-
-    def body(self, x):
-        for name in self.layer_names:
-            x = getattr(self, name)(x)
-        return self.norm(x)
-
-
-# ----------------------------------------------------------------------------
-# ViT (Dosovitskiy et al. 2021): CLS token first, pre-norm blocks
-# ----------------------------------------------------------------------------
-
-
-class PatchEmbed(nn.Module):
-    def __init__(self, dim, patch, precision):
-        super().__init__()
-        self.proj = Conv(dim, patch, precision)
-
-
-class ViTAttention(nn.Module):
-    def __init__(self, dim, heads, precision):
-        super().__init__()
-        self.heads, self.precision = heads, precision
-        self.qkv = Dense(dim, 3 * dim, precision)
-        self.proj = Dense(dim, dim, precision)
-
-    def forward(self, x):
-        b, t, c = x.shape
-        d = c // self.heads
-        qkv = self.qkv(x).reshape(b, t, 3, self.heads, d).permute(2, 0, 3, 1, 4)
-        o = attention(qkv[0] * d ** -0.5, qkv[1], qkv[2], self.precision)
-        return self.proj(o.permute(0, 2, 1, 3).reshape(b, t, c))
-
-
-class Mlp(nn.Module):
-    def __init__(self, dim, hidden, precision):
-        super().__init__()
-        self.fc1 = Dense(dim, hidden, precision)
-        self.fc2 = Dense(hidden, dim, precision)
-
-
-class ViTBlock(nn.Module):
-    def __init__(self, dim, heads, mlp_ratio, eps, precision):
-        super().__init__()
-        self.norm1 = LayerNorm(dim, eps)
-        self.attn = ViTAttention(dim, heads, precision)
-        self.norm2 = LayerNorm(dim, eps)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), precision)
-
-    def forward(self, x):
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp.fc2(F.gelu(self.mlp.fc1(self.norm2(x))))
-
-
-class ViT(nn.Module):
-    def __init__(self, arch: dict, precision: str):
-        super().__init__()
-        dim, eps = arch["embed_dim"], 1e-6
-        n = (arch["img_size"] // arch["patch_size"]) ** 2
-        self.patch_embed = PatchEmbed(dim, arch["patch_size"], precision)
-        self.cls_token = nn.Parameter(torch.empty(1, 1, dim))
-        self.pos_embed = nn.Parameter(torch.empty(1, 1 + n, dim))
-        self.block_names = [f"blocks_{i}" for i in range(arch["depth"])]
-        for name in self.block_names:
-            self.add_module(name, ViTBlock(dim, arch["num_heads"], arch["mlp_ratio"], eps,
-                                           precision))
-        self.norm = LayerNorm(dim, eps)
-
-    def stem(self, images):
-        x = self.patch_embed.proj(images)
-        b, h, w, d = x.shape
-        x = torch.cat([self.cls_token.expand(b, 1, d), x.reshape(b, h * w, d)], dim=1)
-        return x + self.pos_embed
-
-    def body(self, x):
-        for name in self.block_names:
-            x = getattr(self, name)(x)
-        return self.norm(x)
+from h100_bench.reference.layers import Dense, LayerNorm, dropout, dropout_mask
 
 
 class Backbone(nn.Module):
-    """The program's nesting (``backbone.backbone.swin`` / ``.vit``)."""
+    """The program's nesting (``backbone.backbone.<MODULE>``) of the net of
+    the configuration's family, ``families/<architecture.family>.py``."""
 
     def __init__(self, arch: dict, precision: str):
         super().__init__()
-        self.family = arch["family"]
-        self.add_module(self.family, (Swin if self.family == "swin" else ViT)(arch, precision))
+        self.family = importlib.import_module(f"h100_bench.reference.families.{arch['family']}")
+        self.add_module(self.family.MODULE, self.family.Net(arch, precision))
 
     @property
     def net(self):
-        return getattr(self, self.family)
+        return getattr(self, self.family.MODULE)
 
     def features(self, tokens):
         """Final tokens -> (patch tokens [B, N, D], global feature [B, D])."""
-        if self.family == "vit":
-            return tokens[:, 1:], tokens[:, 0]
-        return tokens, tokens.mean(dim=1)
+        return self.family.features(tokens)
 
 
 class DualStream(nn.Module):
@@ -431,6 +123,63 @@ def isqrt_subspace(a, b, iterations: int, eps: float):
     return out / torch.sqrt(trace + eps)
 
 
+def isqrt_dense(a, b, iterations: int, eps: float):
+    """(A^T B)^-1/2 for N >= D: M = A^T B formed D x D in float32, then
+    ``newton_schulz``."""
+    return newton_schulz(torch.matmul(a.transpose(-1, -2), b), iterations, eps)
+
+
+def tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest), in float32."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def newton_schulz(m, iterations: int, eps: float, precision: str = "fp32"):
+    """M^-1/2 by the coupled Newton–Schulz iteration of iSQRT-COV (Li et al.
+    2018) on the trace-normalised M: Z = M / (tr + eps), Y = I; each step
+    T = Z Y, Y <- 1.5 Y - 0.5 Y T, Z <- 1.5 Z - 0.5 T^T Z; then
+    Y / sqrt(tr + eps).  In float32; ``precision`` names a control: 'bf16'
+    stores Z, T and Y in bfloat16 (float32 sums), 'tf32' rounds every
+    product's operands to TF32."""
+    keep = (lambda t: t.to(torch.bfloat16).float()) if precision == "bf16" else (lambda t: t)
+    mul = (lambda x, y: torch.matmul(tf32(x), tf32(y))) if precision == "tf32" else torch.matmul
+    trace = torch.diagonal(m, dim1=-2, dim2=-1).sum(-1)[..., None, None] + eps
+    z = keep(m / trace)
+    y = torch.eye(m.shape[-1], dtype=m.dtype, device=m.device).expand(m.shape)
+    for _ in range(iterations):
+        t = keep(mul(z, y))
+        y, z = (keep(1.5 * y - 0.5 * mul(y, t)),
+                keep(1.5 * z - 0.5 * mul(t.transpose(-1, -2), z)))
+    return y / torch.sqrt(trace)
+
+
+def graph_centre(tokens, graph, eps: float, keep=lambda t: t):
+    """The head's graph weighting: W = D^-1/2 G D^-1/2, its row sums and
+    trace, and the tokens centred on mu = Z^T W 1 / tr(W); ``keep`` rounds mu
+    and the centred tokens where the head stores them."""
+    deg = graph.sum(dim=-1)
+    inv = torch.rsqrt(deg.clamp(min=eps))
+    w = graph * inv[..., :, None] * inv[..., None, :]
+    trace_w = torch.diagonal(w, dim1=-2, dim2=-1).sum(-1)[..., None]
+    rows = w.sum(dim=-1)
+    mu = keep(torch.einsum("bnd,bn->bd", tokens, rows) / (trace_w + eps))
+    return w, rows, trace_w, keep(tokens - mu[:, None])
+
+
+def dense_route_isqrt(tokens, graph, iterations: int, eps: float = 1e-5, stored=None,
+                      precision: str = "fp32"):
+    """The moment head's M2^-1/2 on the dense route from the head's inputs
+    (tokens [B, N, D], graph [B, N, N]): centred tokens Zc, W Zc, M = Zc^T (W
+    Zc) and ``newton_schulz``, each formed in float32.  ``stored`` (the
+    model's dtype, where it is not float32) rounds to it what the head keeps
+    in it: mu, Zc, W Zc, M and M^-1/2."""
+    keep = (lambda t: t.to(stored).float()) if stored is not None else (lambda t: t)
+    w, _, _, centered = graph_centre(tokens.float(), graph.float(), eps, keep)
+    m = keep(torch.matmul(centered.transpose(-1, -2), keep(torch.matmul(w, centered))))
+    return keep(newton_schulz(m, iterations, eps, precision))
+
+
 def sketch_dim(d: int, sketch: int, cap: int = 4) -> int:
     return -(-min(sketch, cap * d) // 128) * 128
 
@@ -452,17 +201,10 @@ class MomentHead(nn.Module):
 
     def forward(self, tokens, graph, generator=None):
         n, d = tokens.shape[-2:]
-        if n >= d:
-            raise NotImplementedError("the dense moment route (N >= D) has no reference here")
         eps = self.eps
-        deg = graph.sum(dim=-1)
-        inv = torch.rsqrt(deg.clamp(min=eps))
-        w = graph * inv[..., :, None] * inv[..., None, :]
-        trace_w = torch.diagonal(w, dim1=-2, dim2=-1).sum(-1)[..., None]
-        rows = w.sum(dim=-1)
-        mu = torch.einsum("bnd,bn->bd", tokens, rows) / (trace_w + eps)
-        centered = tokens - mu[:, None]
-        m2 = isqrt_subspace(centered, torch.matmul(w, centered), self.iterations, eps)
+        w, rows, trace_w, centered = graph_centre(tokens, graph, eps)
+        isqrt = isqrt_dense if n >= d else isqrt_subspace
+        m2 = isqrt(centered, torch.matmul(w, centered), self.iterations, eps)
         x = F.gelu(self.second_norm(self.second_proj(paired_vech(m2))))
         x = dropout(x, self.p_drop, self.training, generator)
         pooled = torch.einsum("bnd,bn->bd", centered, rows) / (trace_w + eps)
@@ -658,15 +400,3 @@ class RefModel(nn.Module):
             x = self.net.stem(images[lo:lo + self.chunk]) * mask[lo:lo + self.chunk]
             self.net.body(x).backward(dtoks[lo:lo + self.chunk])
         return loss.detach()
-
-
-def served_dtypes(model: nn.Module, model_dtype: torch.dtype) -> dict:
-    """{state-dict name: the dtype the program serves it in}: Dense and
-    convolution leaves in the model's dtype, every other leaf in float32."""
-    out = {}
-    for prefix, mod in model.named_modules():
-        for name, _ in list(mod.named_parameters(recurse=False)) + list(
-                mod.named_buffers(recurse=False)):
-            full = f"{prefix}.{name}" if prefix else name
-            out[full] = model_dtype if getattr(mod, "served_in_model_dtype", False) else torch.float32
-    return out

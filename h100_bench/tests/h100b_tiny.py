@@ -1,8 +1,10 @@
 """Tiny cells for the CPU tests: a copy of the benchmark's folder and
-``BENCHMARK.json`` in a temporary directory, with two small configurations
+``BENCHMARK.json`` in a temporary directory, with three small configurations
 (the registered ``swin_micro`` and ``vit_micro`` backbones under the
-flagship's heads, and the multi-scale head for the ViT) and small traffic,
-added as files only: no code of the benchmark changes."""
+flagship's heads, the multi-scale head for the ViT at 64 px, and the 'add'
+head for the ViT at 144 px, whose N = 81 >= D = 64 takes the dense moment
+route, and whose serving cell also compares the iSQRT's output) and small
+traffic, added as files only: no code of the benchmark changes."""
 
 from __future__ import annotations
 
@@ -20,6 +22,14 @@ TINY_LIMITS = {
     "serve": {"logits_rel_l2": 0.05},
     "train": {"first_grad_norm_gap": 0.05, "change_norm_gap": 0.1},
 }
+# the dense route's iSQRT output, on the serving cell that takes it: the
+# program's plain path reads 0 on the CPU, its bf16-iteration control ~0.004
+TINY_ISQRT_LIMIT = {"isqrt_rel_l2": 0.002}
+
+
+def tiny_limits(kind: str, spec: dict) -> dict:
+    dense = kind == "serve" and spec is VIT_DENSE
+    return {**TINY_LIMITS[kind], **(TINY_ISQRT_LIMIT if dense else {})}
 
 
 def _tiny_spec(base: str, name: str, arch: dict, data: dict, kernels: dict) -> dict:
@@ -54,6 +64,13 @@ VIT = _tiny_spec(
      "embed_dim": 64, "depth": 2, "num_heads": 2, "mlp_ratio": 4.0, "num_features": 64},
     {"resize_size": 72, "input_size": 64},
     {"serve": {"gpf_fwd": 1}, "train": {"gpf_fwd": 1, "gpf_bwd": 1}})
+VIT_DENSE = _tiny_spec(
+    "vitB16-448-flagship.json", "vit-micro-dense",
+    {"family": "vit", "backbone_name": "vit_micro_patch16_64", "img_size": 144, "patch_size": 16,
+     "embed_dim": 64, "depth": 2, "num_heads": 2, "mlp_ratio": 4.0, "num_features": 64},
+    {"resize_size": 160, "input_size": 144},
+    {"serve": {"gpf_fwd": 1, "newton_schulz_isqrt_fp32_fwd": 1},
+     "train": {"gpf_fwd": 1, "gpf_bwd": 1, "newton_schulz_isqrt_fp32_fwd": 1}})
 TRAFFIC = {
     "serve-tiny": {"kind": "serve", "batch": 3, "ring": 2, "warmup": 1, "profile_steps": 2},
     "train-tiny": {"kind": "train", "batch": 4, "ring": 3, "checked_steps": 3, "warmup": 0,
@@ -68,7 +85,7 @@ def tiny_root(tmp: Path) -> tuple[Path, list]:
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     cells = []
-    for spec in (SWIN, VIT):
+    for spec in (SWIN, VIT, VIT_DENSE):
         path = f"h100_bench/configs/{spec['name']}.json"
         (tmp / path).write_text(json.dumps(spec))
         bench["configs"].append({"name": spec["name"], "source": "https://example.org/tiny",
@@ -81,7 +98,7 @@ def tiny_root(tmp: Path) -> tuple[Path, list]:
             bench["workloads"].append({"name": name, "config": spec["name"], "traffic": traffic,
                                        "chips": 1, "why": "a CPU test"})
             (tmp / "h100_bench" / "limits" / f"{name}.json").write_text(
-                json.dumps(TINY_LIMITS[kind]))
+                json.dumps(tiny_limits(kind, spec)))
     for metric in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in metric:
             kinds = {w.split("-")[0] for w in metric["workloads"]}

@@ -1,6 +1,7 @@
 """The FLOP model against ``torch.utils.flop_counter.FlopCounterMode`` on the
 program's plain path (the CPU runs every kernel's plain version), at batch 1,
-for both configurations of the benchmark and the tiny ones."""
+for every configuration of the benchmark and the tiny ones (the dense moment
+route in ``vitB16-448-flagship`` and ``vit-micro-dense``)."""
 
 from __future__ import annotations
 
@@ -12,14 +13,13 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from ego_moment_cle_vit_tpu_torch import create_model
-from h100b_tiny import BENCH, SWIN, VIT
+from h100b_tiny import BENCH, SWIN, VIT, VIT_DENSE
 
 from h100_bench.flops.heads import heads_flops
 
 torch.set_num_threads(4)
-SPECS = {name: json.loads((BENCH / "configs" / f"{name}.json").read_text())
-         for name in ("swinB-224-flagship", "vitL16-448-multiscale")}
-SPECS.update({"swin-micro": SWIN, "vit-micro": VIT})
+SPECS = {p.stem: json.loads(p.read_text()) for p in (BENCH / "configs").glob("*.json")}
+SPECS.update({"swin-micro": SWIN, "vit-micro": VIT, "vit-micro-dense": VIT_DENSE})
 
 
 def counted(fn) -> int:

@@ -9,8 +9,9 @@ from h100b_tiny import ROOT
 
 from h100_bench import harness
 
-REFERENCE = ("h100_bench.reference.model", "h100_bench.reference.augment",
-             "h100_bench.reference.optim", "h100_bench.weights")
+REFERENCE = ("h100_bench.reference.model", "h100_bench.reference.layers",
+             "h100_bench.reference.families.swin", "h100_bench.reference.families.vit",
+             "h100_bench.reference.augment", "h100_bench.reference.optim", "h100_bench.weights")
 
 
 def test_reference_imports_neither_jax_nor_the_program():

@@ -32,7 +32,8 @@ def run_cell(root_dir, name, trace=False, seconds=0.5):
 
 
 @pytest.mark.parametrize("name", ["serve-swin-micro", "train-swin-micro", "serve-vit-micro",
-                                  "train-vit-micro"])
+                                  "train-vit-micro", "serve-vit-micro-dense",
+                                  "train-vit-micro-dense"])
 def test_sound_run_is_correct(root, name):
     root_dir, _ = root
     result, check = run_cell(root_dir, name)
@@ -80,6 +81,56 @@ def test_a_configuration_added_as_files_runs(root):
     line = json.loads(out.stdout.strip().splitlines()[-1])
     assert list(line) == KEYS and line["correct"]
     assert out.stderr.strip().splitlines()[-1].startswith("compared change_norm_gap")
+
+
+# A backbone family added as files: the ViT's net under a family name of its
+# own, with the CLS token as the global feature ("cls") or, wrongly for this
+# program, the mean of the tokens ("mean").
+FAMILY = '''"""ViT as a family of its own file."""
+from h100_bench.reference.families.vit import ViT as Net
+
+MODULE = "vit"
+
+
+def features(tokens):
+    return tokens[:, 1:], {glob}
+'''
+GLOBAL = {"cls": "tokens[:, 0]", "mean": "tokens.mean(dim=1)"}
+
+
+@pytest.mark.parametrize("feature,correct", [("cls", True), ("mean", False)])
+def test_a_family_added_as_files_runs(tmp_path, feature, correct):
+    """A copy of the benchmark gains a family (``reference/families/`` and
+    ``flops/``) and a configuration of it as files only; its own harness
+    runs a traced tiny cell (the FLOP model and the kernels' work read the
+    family's ``flops`` file) with that family's reference, which decides
+    ``correct``."""
+    root_dir, _ = tiny_root(tmp_path)
+    family = f"vit_{feature}"
+    bench = root_dir / "h100_bench"
+    (bench / "reference" / "families" / f"{family}.py").write_text(
+        FAMILY.format(glob=GLOBAL[feature]))
+    (bench / "flops" / f"{family}.py").write_text(
+        "from h100_bench.flops.vit import forward_flops, tokens  # noqa: F401\n")
+    spec_path = bench / "configs" / "vit-micro-dense.json"
+    spec = json.loads(spec_path.read_text())
+    spec["architecture"]["family"] = family
+    spec_path.write_text(json.dumps(spec))
+    code = (f"import sys, time, torch; sys.path[:0] = [{str(root_dir)!r}, {str(ROOT)!r}]; "
+            "from h100_bench import harness; "
+            f"cell = harness.load_cell(harness.Path({str(root_dir)!r}), "
+            "'serve-vit-micro-dense'); "
+            f"r, c = harness.run(cell, {SEED}, 0.3, True, torch.device('cpu'), "
+            "time.perf_counter()); harness.emit(r, c); "
+            "print(sorted(m for m in sys.modules if m.startswith('h100_bench.reference.fam')))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=600, cwd=root_dir)
+    assert out.returncode == 0, out.stderr[-3000:]
+    *_, line, loaded = out.stdout.strip().splitlines()
+    assert json.loads(line)["correct"] is correct
+    assert set(eval(loaded)) == {"h100_bench.reference.families",
+                                 f"h100_bench.reference.families.{family}",
+                                 "h100_bench.reference.families.vit"}
 
 
 def test_without_a_card_no_result():
