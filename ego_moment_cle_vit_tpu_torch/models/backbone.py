@@ -2,9 +2,10 @@
 
 Counterpart of ``ego_moment_cle_vit_tpu/models/backbone.py:29-165``.  The
 backbone emits ``patch_tokens [B, N, D]`` and ``global_features [B, D]``:
-CLS-token models (the ViT family) give token 0 as the global feature and the
-rest as patch tokens, pooled-token models (the Swin family) mean-pool their
-tokens.  The dual-view pass runs both views as one ``[2B]`` batch.
+CLS-token models (the ViT and EVA families) give token 0 as the global
+feature and the rest as patch tokens, pooled-token models (the Swin family)
+mean-pool their tokens.  The dual-view pass runs both views as one ``[2B]``
+batch.  The EVA family has no counterpart in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,64 +16,68 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from .eva import EVA, EVA_CONFIGS
 from .swin import SWIN_CONFIGS, Swin
 from .vit import VIT_CONFIGS, ViT
 
+# family: (registry, net, CLS token first); the net's module is named like
+# the family (``backbone.backbone.vit`` / ``eva`` / ``swin`` in the state dict)
+FAMILIES = {"vit": (VIT_CONFIGS, ViT, True), "eva": (EVA_CONFIGS, EVA, True),
+            "swin": (SWIN_CONFIGS, Swin, False)}
 
-def _unknown(model_name: str) -> ValueError:
-    return ValueError(f"Unknown backbone '{model_name}'. Registered: "
-                      f"{sorted(VIT_CONFIGS) + sorted(SWIN_CONFIGS)}")
+
+def backbone_family(model_name: str) -> str:
+    """The family of a registered backbone name."""
+    for family, (configs, _, _) in FAMILIES.items():
+        if model_name in configs:
+            return family
+    raise ValueError(f"Unknown backbone '{model_name}'. Registered: "
+                     f"{sorted(n for configs, _, _ in FAMILIES.values() for n in configs)}")
+
+
+def _registered(model_name: str):
+    """(family, registered config) of a backbone name."""
+    family = backbone_family(model_name)
+    return family, FAMILIES[family][0][model_name]
 
 
 def backbone_num_features(model_name: str) -> int:
     """Feature dim D for a registered backbone name."""
-    if model_name in VIT_CONFIGS:
-        return VIT_CONFIGS[model_name].embed_dim
-    if model_name in SWIN_CONFIGS:
-        return SWIN_CONFIGS[model_name].num_features
-    raise _unknown(model_name)
+    family, cfg = _registered(model_name)
+    return cfg.num_features if family == "swin" else cfg.embed_dim
 
 
 def backbone_num_patches(model_name: str, img_size: int | None = None) -> int:
     """Number of patch tokens N the backbone emits."""
-    if model_name in VIT_CONFIGS:
-        cfg = VIT_CONFIGS[model_name]
-        return ((img_size or cfg.img_size) // cfg.patch_size) ** 2
-    if model_name in SWIN_CONFIGS:
-        return SWIN_CONFIGS[model_name].num_output_tokens(img_size)
-    raise _unknown(model_name)
+    family, cfg = _registered(model_name)
+    if family == "swin":
+        return cfg.num_output_tokens(img_size)
+    return ((img_size or cfg.img_size) // cfg.patch_size) ** 2
 
 
 class CLEViTBackbone(nn.Module):
-    """Wraps a registered ViT or Swin; returns patch tokens + global features."""
+    """Wraps a registered ViT, EVA or Swin; returns patch tokens + global features."""
 
     def __init__(self, model_name: str, img_size: int | None = None,
                  dtype=torch.float32, device="cpu", drop_rate: float = 0.0,
                  remat: str = "none", attn_kernel: str = "auto"):
         super().__init__()
-        if model_name in VIT_CONFIGS:
-            cfg = VIT_CONFIGS[model_name]
-            net, self.has_cls_token, self.num_features = ViT, True, cfg.embed_dim
-        elif model_name in SWIN_CONFIGS:
-            cfg = SWIN_CONFIGS[model_name]
-            net, self.has_cls_token, self.num_features = Swin, False, cfg.num_features
-        else:
-            raise _unknown(model_name)
+        self.family, cfg = _registered(model_name)
+        _, net, self.has_cls_token = FAMILIES[self.family]
+        self.num_features = backbone_num_features(model_name)
         cfg = dataclasses.replace(cfg, img_size=img_size or cfg.img_size, drop_rate=drop_rate,
                                   remat=remat)
-        if not self.has_cls_token:  # Swin only: the fused attention half
+        if self.family == "swin":  # the fused attention half
             cfg = dataclasses.replace(cfg, attn_kernel=attn_kernel)
-        # the module is named like the flax tree: ``vit`` or ``swin``
-        self.add_module("vit" if self.has_cls_token else "swin",
-                        net(cfg, dtype=dtype, device=device))
+        # the module is named like the flax tree: ``vit`` or ``swin`` (and ``eva``)
+        self.add_module(self.family, net(cfg, dtype=dtype, device=device))
 
     def forward(self, images: torch.Tensor,
                 generator: torch.Generator | None = None) -> Dict[str, torch.Tensor]:
         """[B, H, W, 3] -> {'patch_tokens': [B, N, D], 'global_features': [B, D]}."""
+        tokens = getattr(self, self.family)(images, generator)
         if self.has_cls_token:
-            features = self.vit(images, generator)
-            return {"patch_tokens": features[:, 1:], "global_features": features[:, 0]}
-        tokens = self.swin(images, generator)
+            return {"patch_tokens": tokens[:, 1:], "global_features": tokens[:, 0]}
         return {"patch_tokens": tokens, "global_features": tokens.mean(dim=1)}
 
 

@@ -24,6 +24,9 @@ does not reach the exported trace).  The names:
 * ``serve.infer`` (the whole ``infer`` call), ``serve.preprocess`` (the
   input's move to the device and the eval views);
 * ``backbone``, ``gpf``, ``moment_head``, ``classifier``: the model's layers;
+* ``rope``, ``swiglu``: inside every EVA block (``models/eva.py``), the
+  rotation of q and k with their write, beside v, into the attention
+  kernels' layout, and the whole SwiGLU MLP;
 * ``kernel.<wrapper>``: each hand-written kernel's launch, one range per
   ``<wrapper>.launches`` count;
 * ``data.wait``: the consumer's wait on a background loader's queue.
