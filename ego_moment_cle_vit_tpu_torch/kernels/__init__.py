@@ -13,7 +13,9 @@ backward differentiates the plain fp32 iteration, as on the TPU); the first four
 are not re-exported here, where their names are the modules'.
 ``subspace_isqrt.subspace_isqrt_fwd`` has no backward: the moment head calls it
 only where no gradient is wanted; its plain version is
-``ops.moments.isqrt_cov_subspace``.
+``ops.moments.isqrt_cov_subspace``.  Nor has ``swiglu_norm.swiglu_norm_fwd``,
+which EVA's SwiGLU calls only where no gradient is wanted; its plain version
+is ``swiglu_norm.swiglu_norm_plain``.
 """
 
 from .attn_half import (
@@ -51,6 +53,7 @@ from .packed_attention import (
     packed_attention_plain,
 )
 from .subspace_isqrt import subspace_isqrt_fwd
+from .swiglu_norm import swiglu_norm_fwd, swiglu_norm_plain
 from .window_attention import (
     WindowAttentionFunction,
     window_attention_bwd,
@@ -91,6 +94,8 @@ __all__ = [
     "packed_attention_fwd",
     "packed_attention_plain",
     "subspace_isqrt_fwd",
+    "swiglu_norm_fwd",
+    "swiglu_norm_plain",
     "WindowAttentionFunction",
     "window_attention_bwd",
     "window_attention_bwd_plain",

@@ -31,7 +31,7 @@ KERNEL_SOURCES = ("window_attention_fwd", "window_attention_bwd", "gpf_fwd", "gp
                   "packed_attention_fwd", "packed_attention_bwd", "flash_attention_fwd",
                   "flash_attention_bwd", "newton_schulz", "newton_schulz_bf16",
                   "newton_schulz_bf16_streamed", "attn_half_fwd", "attn_half_bwd",
-                  "subspace_isqrt")
+                  "subspace_isqrt", "swiglu_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

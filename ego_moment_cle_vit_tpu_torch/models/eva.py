@@ -34,6 +34,11 @@ qkv (``vit.resolve_attn_path``: kernel 3 up to 256 tokens, kernel 6 beyond;
 a 448 input has 1025).  On the card a head width the kernels do not take
 raises.
 
+In a bf16 model where no gradient is wanted (serving, the evaluator), the
+SwiGLU's glue between fc1 and fc2 (SiLU times the gate, the hidden
+LayerNorm, the pad) is ``kernels/swiglu_norm.py:swiglu_norm_fwd``, on the
+card one kernel; otherwise the same composition in plain ops.
+
 Spans (``utils/trace.py``): ``rope`` around the rotation and that write,
 ``swiglu`` around the whole MLP.  Training: ``drop_rate`` dropout after the
 position embedding and ``remat='block'``, as in ``models/vit.py``.
@@ -50,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels import flash_attention as _fa
 from ..kernels import packed_attention as _pa
+from ..kernels import swiglu_norm as _sn
 from ..utils.trace import span
 from .layers import Dense, Dropout, LayerNorm
 from .vit import PatchEmbed, resolve_attn_path
@@ -165,11 +171,20 @@ class SwiGLU(nn.Module):
             return self.padded(x, -self.norm.weight.shape[0] % ALIGN if x.is_cuda else 0)
 
     def padded(self, x: torch.Tensor, pad: int) -> torch.Tensor:
-        """The MLP with its products ``pad`` hidden channels wider."""
-        width = self.norm.weight.shape[0]
-        h = F.silu(_widened(self.fc1_g, x, rows=pad)) * _widened(self.fc1_x, x, rows=pad)
-        h = self.norm(h[..., :width])
-        return _widened(self.fc2, F.pad(h, (0, pad)) if pad else h, cols=pad)
+        """The MLP with its products ``pad`` hidden channels wider.  Between
+        fc1 and fc2, SiLU times the gate, the hidden LayerNorm and the pad:
+        in bf16 where no gradient is wanted, ``swiglu_norm_fwd`` (on the card
+        its kernel), else the same composition, under autograd where a
+        gradient is wanted."""
+        norm = self.norm
+        g = _widened(self.fc1_g, x, rows=pad)
+        u = _widened(self.fc1_x, x, rows=pad)
+        wants_grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (g, u, norm.weight, norm.bias))
+        kernel = g.dtype == torch.bfloat16 and not wants_grad
+        glue = _sn.swiglu_norm_fwd if kernel else _sn.swiglu_norm_plain
+        h = glue(g, u, norm.weight, norm.bias, norm.weight.shape[0], norm.eps)
+        return _widened(self.fc2, h, cols=pad)
 
 
 class EVABlock(nn.Module):

@@ -81,11 +81,23 @@ so there the outputs are also held element by element against the plain
 route's: each within one ulp and a sliver of the largest entry, and few of
 them apart at all; the two-term control fails the share at five iterations.
 
+EVA's SwiGLU glue (``kernels/swiglu_norm.py``, no TPU kernel) at EVA-02-L's
+serving shape ``[64 x 1025, 2736]`` (W = 2730), at a row count no block or
+grid divides and at the micro EVA's 341 -> 344, against its plain version
+(the composition under autograd): each element of the true columns within
+2^-7 |plain| + 2^-12 of its row's largest |plain| (one bf16 ulp of the
+output's rounding over fp32 statistics summed in another order), the padded
+columns exactly 0 whatever g and u hold there, two runs the same bits; gate
+and value swapped, and the LayerNorm's bias left out, fail that check.  Its
+SiLU table gives PyTorch's bf16 SiLU bit for bit for every bf16 input whose
+SiLU is normal and within 2^+-100 (h read back through a row built so that
+its normalisation is exact).
+
 The spans (``utils/trace.py``): under the profiler, a train step and a
 serving call of the Swin-Base/224 flagship and of ViT-L/16 at 448 with the
-multi-scale head record one ``emct.kernel.<wrapper>`` range for every count
-of ``<wrapper>.launches``, the backward's launches from the autograd thread
-included.
+multi-scale head, and a serving call of EVA-02-L/14 at 448, record one
+``emct.kernel.<wrapper>`` range for every count of ``<wrapper>.launches``,
+the backward's launches from the autograd thread included.
 """
 
 import numpy as np
@@ -98,6 +110,7 @@ from ego_moment_cle_vit_tpu_torch.kernels import gpf as tgpf
 from ego_moment_cle_vit_tpu_torch.kernels import newton_schulz as tns
 from ego_moment_cle_vit_tpu_torch.kernels import packed_attention as tpa
 from ego_moment_cle_vit_tpu_torch.kernels import subspace_isqrt as tsi
+from ego_moment_cle_vit_tpu_torch.kernels import swiglu_norm as tsn
 from ego_moment_cle_vit_tpu_torch.kernels import window_attention as twa
 from ego_moment_cle_vit_tpu_torch.models.swin import _attn_mask, _relative_position_index
 from ego_moment_cle_vit_tpu_torch.ops.graph import (
@@ -1272,7 +1285,7 @@ KERNEL_WRAPPERS = (tah.attn_half_fwd, tah.attn_half_bwd, tfa.flash_attention_til
                    tns.newton_schulz_isqrt_fp32_fwd, tns.newton_schulz_isqrt_bf16_fwd,
                    tns.newton_schulz_isqrt_bf16_streamed_fwd, tpa.packed_attention_fwd,
                    tpa.packed_attention_bwd, twa.window_attention_fwd, twa.window_attention_bwd,
-                   tsi.subspace_isqrt_fwd)
+                   tsi.subspace_isqrt_fwd, tsn.swiglu_norm_fwd)
 
 
 def _flagship_config(backbone, size, resize, **model):
@@ -1299,6 +1312,10 @@ SPAN_CONFIGS = {
                     {"flash_attention_tiled_fwd": 48, "flash_attention_tiled_bwd": 24,
                      "gpf_fwd": 1, "gpf_bwd": 1},
                     {"flash_attention_tiled_fwd": 24, "gpf_fwd": 1, "subspace_isqrt_fwd": 1}),
+    # served only: no cell trains EVA
+    "eva02L-448": (_flagship_config("eva02_large_patch14_448", 448, 600), None,
+                   {"flash_attention_tiled_fwd": 24, "gpf_fwd": 1,
+                    "newton_schulz_isqrt_bf16_fwd": 1, "swiglu_norm_fwd": 24}),
 }
 
 
@@ -1335,8 +1352,9 @@ def test_cuda_kernel_spans_count_the_launches(cuda_device, name):
     cfg, train_launches, serve_launches = SPAN_CONFIGS[name]
     model = create_model(cfg, 80, device=cuda_device)
     aug = AugmentConfig(**cfg["data"])
-    state = create_train_state(model, cfg, 1000, device=cuda_device)
-    step = make_train_step(model, aug, device=cuda_device)
+    if train_launches is not None:
+        state = create_train_state(model, cfg, 1000, device=cuda_device)
+        step = make_train_step(model, aug, device=cuda_device)
     infer = make_infer_fn(model, aug, device=cuda_device)
     s = cfg["data"]["resize_size"]
     g = torch.Generator(device=cuda_device).manual_seed(0)
@@ -1352,6 +1370,8 @@ def test_cuda_kernel_spans_count_the_launches(cuda_device, name):
         infer(images).float().cpu()
 
     for fn, expected in ((train, train_launches), (serve, serve_launches)):
+        if expected is None:
+            continue
         fn()  # kernels built and loaded, cuBLAS initialized
         spans, launched = _kernel_spans_and_launches(fn)
         assert launched == expected, (fn.__name__, launched)
@@ -1483,3 +1503,105 @@ def test_cuda_subspace_isqrt_holds_wgmma(cuda_device):
     assert products and all(products), wgmma
     others = [has for name, has in wgmma.items() if "product_kernel" not in name]
     assert others and not any(others), wgmma
+
+
+# (rows, W) of the SwiGLU glue: EVA-02-L at 448 served at batch 64, a row count
+# that neither a block's eight rows nor the grid divides, the micro EVA's 341
+SWIGLU = [(64 * 1025, 2730), (4099, 2730), (4099, 341)]
+# per element of the true columns, |err| <= 2^-7 |plain| + 2^-12 max |row|:
+# one bf16 ulp of the output's rounding, over fp32 statistics and affine
+# summed in another order (a few fp32 ulps of the row's scale)
+TOL_SWIGLU = (2.0**-7, 2.0**-12)
+
+
+def _swiglu_inputs(device, rows, width, seed=5):
+    """g and u ``[rows, P]`` bf16, the padded columns drawn too (the kernel
+    must not read them), and the LayerNorm's fp32 weight and bias."""
+    padded = width + (-width % 8)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = (1.5 * torch.randn(rows, padded, generator=gen, device=device)).to(torch.bfloat16)
+    u = torch.randn(rows, padded, generator=gen, device=device).to(torch.bfloat16)
+    w = 1 + 0.3 * torch.randn(width, generator=gen, device=device)
+    b = 0.3 * torch.randn(width, generator=gen, device=device)
+    return g, u, w, b
+
+
+def _swiglu_excess(out, plain, width):
+    """The largest |out - plain| over its tolerance on the true columns."""
+    rtol, atol = TOL_SWIGLU
+    out, plain = out[:, :width].float(), plain[:, :width].float()
+    tol = rtol * plain.abs() + atol * plain.abs().amax(dim=-1, keepdim=True)
+    return float(((out - plain).abs() / tol).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows, width", SWIGLU)
+def test_cuda_swiglu_norm_matches_plain(cuda_device, rows, width):
+    g, u, w, b = _swiglu_inputs(cuda_device, rows, width)
+    before = tsn.swiglu_norm_fwd.launches
+    out = tsn.swiglu_norm_fwd(g, u, w, b, width, 1e-6)
+    again = tsn.swiglu_norm_fwd(g, u, w, b, width, 1e-6)
+    assert tsn.swiglu_norm_fwd.launches == before + 2
+    plain = tsn.swiglu_norm_plain(g, u, w, b, width, 1e-6)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == g.shape
+    assert torch.equal(out, again)
+    assert torch.equal(out[:, width:], torch.zeros_like(out[:, width:]))
+    assert _swiglu_excess(out, plain, width) <= 1.0
+    # controls: gate and value swapped (silu(u) g); the bias left out
+    swapped = tsn.swiglu_norm_fwd(u, g, w, b, width, 1e-6)
+    assert _swiglu_excess(swapped, plain, width) > 1.0
+    no_bias = tsn.swiglu_norm_fwd(g, u, w, torch.zeros_like(b), width, 1e-6)
+    assert _swiglu_excess(no_bias, plain, width) > 1.0
+
+
+@pytest.mark.cuda
+def test_cuda_swiglu_norm_silu_has_the_composition_bits(cuda_device):
+    """SiLU comes from a table of every bf16 input, so h = bf16(silu(g) u)
+    must have the composition's bits.  A row for each bf16 g whose SiLU lies
+    in [2^-100, 2^100] in magnitude (or is 0): [g, 0 x 7] times u = 2^-k with
+    |h| in [2^-5, 2^-4), w = 1, b = 0 and eps = 2^20, so that var + eps rounds
+    to eps in either summation order and column 1, -mean rsqrt(eps), is
+    -h / 8 * 2^-10 exactly in bf16: it shows h."""
+    x = torch.arange(-2**15, 2**15, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    x = x.to(cuda_device)
+    s = torch.nn.functional.silu(x).float()
+    keep = (s == 0) | ((s.abs() >= 2.0**-100) & (s.abs() <= 2.0**100))
+    x, s = x[keep], s[keep]
+    k = torch.where(s == 0, torch.zeros_like(s), torch.floor(torch.log2(s.abs())) + 5)
+    g = torch.zeros(len(x), 8, dtype=torch.bfloat16, device=cuda_device)
+    u = torch.zeros_like(g)
+    g[:, 0], u[:, 0] = x, torch.exp2(-k).to(torch.bfloat16)
+    w = torch.ones(8, device=cuda_device)
+    out = tsn.swiglu_norm_fwd(g, u, w, torch.zeros_like(w), 8, 2.0**20)
+    h = (torch.nn.functional.silu(g) * u)[:, 0]
+    assert len(x) > 50000
+    assert torch.equal(out[:, 1], (-h.float() * 2.0**-13).to(torch.bfloat16))
+
+
+@pytest.mark.cuda
+def test_cuda_swiglu_norm_counts_one_launch_and_span(cuda_device):
+    g, u, w, b = _swiglu_inputs(cuda_device, 64, 2730)
+    tsn.swiglu_norm_fwd(g, u, w, b, 2730, 1e-6)  # built and loaded
+    spans, launched = _kernel_spans_and_launches(
+        lambda: tsn.swiglu_norm_fwd(g, u, w, b, 2730, 1e-6))
+    assert launched == {"swiglu_norm_fwd": 1}
+    assert spans == launched
+
+
+@pytest.mark.cuda
+def test_cuda_swiglu_norm_rejects_bad_inputs(cuda_device):
+    g, u, w, b = _swiglu_inputs(cuda_device, 16, 2730)
+    with pytest.raises(TypeError, match="must be bfloat16"):
+        tsn.swiglu_norm_fwd(g.float(), u.float(), w, b, 2730, 1e-6)
+    with pytest.raises(TypeError, match="must be float32"):
+        tsn.swiglu_norm_fwd(g, u, w.bfloat16(), b.bfloat16(), 2730, 1e-6)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        wide = torch.ones(2737, device=cuda_device)
+        tsn.swiglu_norm_fwd(g, u, wide, wide, 2737, 1e-6)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tsn.swiglu_norm_fwd(g[:, :2730].contiguous(), u[:, :2730].contiguous(), w, b, 2730, 1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsn.swiglu_norm_fwd(torch.cat([g, g], dim=-1)[:, :2736], u, w, b, 2730, 1e-6)
+    with pytest.raises(RuntimeError, match="one CUDA device"):
+        tsn.swiglu_norm_fwd(g, u, w.cpu(), b.cpu(), 2730, 1e-6)
