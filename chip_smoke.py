@@ -7,38 +7,21 @@
 Phases (any failed check exits non-zero; no phase catches and continues):
 
 1. Setup: card name and power limit, kernel build from ``csrc/`` (seconds),
-   ptxas's register, spill and wgmma notes (a C7511 note says a wgmma was
-   serialized), and the SASS of the Hopper kernels (the bf16 attention
-   forward and backward 3, 6, 3b, 6b, the GPF forward 2 and backward 2b, the
-   bf16 Newton-Schulz 5′ and 5″, the window-attention forward 1 and
-   backward 1b, the fused attention half's forward 4 and backward 4b and the
-   subspace iSQRT 7) read for their wgmma (HGMMA) instructions, which must be
-   there.
-2. Kernels against their plain PyTorch versions on the card.  Forward, at the
-   serving paths' shapes for batch 64: window attention at the four Swin-Base
-   stage geometries (shifted and unshifted, bf16 and fp32), packed-layout
-   attention at the ViT-Base and ViT-Tiny calls ([64, 1, 197, 3C], no bias, no
-   mask) and at a Swin packed shape with bias and mask, and fused GPF at
-   [64, 49, 1024], [64, 196, 768] and [64, 784, 768] (dot and cosine, bf16 and
-   fp32), with
-   errors, kernel / plain / library times from CUDA events and the
-   bytes-or-operations bound (for GPF the least work, the upper triangle of
-   its Grams, beside the full Grams' figure).  Backward, at the training paths' shapes: both
-   attentions for batch 128 (two views of 64) with a random output cotangent
-   (window attention beside SDPA's backward with the bias gradient, the same
-   function, and without it),
-   and fused GPF at all three shapes with two distinct token sets (and once with one
-   tensor twice); for the bf16 training call it prints the times of its two
-   launches apart (torch.profiler: the w kernel, the dX kernel).  The attention backward kernels start from the forward
-   kernels' out and log-sum-exp (the packed forward is also held to the plain
-   log-sum-exp) and print TFLOP/s on their 14 T^2 d flops beside SDPA's
-   backward; the attention forwards print TFLOP/s on 4 T^2 d (kernel 6) or
-   GB/s on the bytes they must move (kernel 3) beside SDPA's, and their
-   registers and blocks an SM, and two runs of each must agree bit for bit.
-   Each check is run on a control too (bias or mask dropped,
-   padded keys left unmasked, off-diagonal GPF entries zeroed; bias gradient
-   dropped, dK zeroed, coefficient gradient zeroed, half of dX dropped), which
-   it must reject; two runs of the packed backward must agree bit for bit.
+   and ptxas's register, spill and wgmma notes (a C7511 note says a wgmma was
+   serialized).
+
+2. Every kernel wrapper at its main paths' calls (``kernel_checks.MAIN_PATH``:
+   batch 64 serving, 128 views training, each configuration's shapes, bf16)
+   through its check in ``kernel_checks.py``, the one
+   ``tests/test_torch_cuda.py`` runs at every case: against its plain version
+   on the same inputs within its tolerance, a control that must fail, one
+   launch a call, and the same bits twice where the check holds them.  Each
+   call and its plain version are then timed on those inputs (CUDA events).
+   The SASS of each library, and the edges of the tiles, are the card tests'
+   alone; ``kernel_turns.py`` times the kernels against another checkout.
+
+The phases below drive the paths that launch them:
+
 3. Serving end to end: the flagship configuration (Swin-Base/224 bf16, GPF
    2x2 dot, moment d_out 1024 with the FFT sketch, bf16 vech projection,
    'add' classifier, 80 classes) with seeded random weights, uint8
@@ -75,25 +58,6 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    ill-conditioned sum at N = 784, is also held against the plain path run
    in fp64 on three view seeds, where two planted faults in its dc (the last
    token tile skipped, a bf16 cotangent) must fail.
-   Phase 2 / 2b hold the new kernels at the 448 path's shapes: q-tiled
-   attention at [64, 785, 2304] and its backward at batch 128 (controls:
-   padded keys unmasked, first 64 keys only, dK zeroed; two backward runs
-   equal bit for bit), and the Newton-Schulz iteration at [64, 768, 768] with
-   M built as the head builds it and at [64, 192, 192] (control: four
-   iterations instead of five), bf16 and fp32.
-   Phase 2 / 2b also hold the fused attention half (LayerNorm, qkv, window
-   attention, proj and residual in one kernel) at Swin-Base's stages 0 and 1,
-   [64, 56, 56, 128] with 4 heads and [64, 28, 28, 256] with 8, unshifted and
-   shifted, bf16 and fp32 (controls: bias omitted, residual dropped), and its
-   backward at batch 128: dx per element, each parameter gradient within a
-   fraction of its largest entry, two runs equal bit for bit (controls: one
-   token chunk's dwqkv partial dropped, dbias dropped), the forward held again
-   at batch 128, the training forward's own launches (same tolerance and
-   controls).  Beside kernel and
-   plain times they time PyTorch's own calls for the block (layer_norm,
-   linear, SDPA, linear, add; autograd of them) and the port's default route
-   (LayerNorm, Dense, kernel 1 / 1b, Dense, add); the backward's bf16 call
-   also prints its time split among its launches (torch.profiler).
 3f, 4f. Phases 3 and 4 on Swin-Base/224 under backbone_attn_kernel
    'fused_half': 4 fused attention-half launches (stages 0-1), 20 window
    attention and 1 GPF per forward; 4 + 4, 20 + 20 and 1 + 1 per train step.
@@ -115,36 +79,10 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    plain path rounds the iteration where the kernel does.  Controls: the first
    64 keys only and dK dropped (ViT-Large); the bias omitted and the pad
    sentinel removed from the masks (Swin-Large).
-   Phase 2 / 2b hold their kernels at these paths' shapes: kernels 5′ at
-   [64, 1024, 1024] and 5″ at [64, 1536, 1536] (M as the head builds it, bf16
-   and fp32, two runs bit for bit, one step bit for bit with the plain
-   version; control: four iterations; the other grouping printed; TFLOP/s
-   beside the cuBLAS iteration's), the
-   window attention at Swin-Large stage 0's padded canvas [8, 322, 322, 576]
-   with the pad sentinel in the mask (control: the sentinel removed) and
-   timed at batch 64 on every Swin-Large/1280 stage, summed over a forward's
-   24 launches beside their bytes bound, q-tiled
-   attention at [64, 1025, 3072] with 16 heads and its backward at batch 128
-   (bf16, the plain version on the first 16 images), GPF at [64, 1024, 1024] and
-   [64, 1600, 1536] and its backward at [64, 1024, 1024] and [64, 1600,
-   1536] (the plain version at the same batch), and the iSQRT's
-   backward (autograd over the plain fp32 iteration) at [64, 1024, 1024].
-   Phase 2 holds kernel 7, the moment head's token-subspace iSQRT without a
-   gradient, at the serving calls of ViT-Large/16 at 448 ([64, 784, 1024])
-   and Swin-Base/224 ([64, 49, 1024]), k = 5, bf16 and fp32, against the
-   plain fp32 route (``isqrt_cov_subspace`` on the CUDA cores) and an fp64
-   witness; control: each fp32 operand's lo term dropped (two bf16 terms of
-   three).  Phases 3, 5, 6 and 7 count its launch on every serving path whose
-   head takes the subspace route (N < D), and their plain paths run
+   Phases 3, 5, 6 and 7 count kernel 7's launch (the moment head's
+   token-subspace iSQRT without a gradient) on every serving path whose head
+   takes the subspace route (N < D), and their plain paths run
    ``isqrt_cov_subspace`` in its place.
-   Phase 2 also holds EVA's SwiGLU glue (SiLU times the gate, the hidden
-   LayerNorm and the pad in one bf16 pass; no TPU kernel) at EVA-02-L/448's
-   serving shape [64 x 1025, 2736] (W = 2730), at a ragged row count and at
-   the micro EVA's 341 -> 344, against its plain version (the composition):
-   each element within one bf16 ulp and a sliver of its row's largest, the
-   padded columns exactly 0, two runs bit for bit; controls: gate and value
-   swapped, the LayerNorm's bias left out.  Its time beside the 0.321 ms of
-   its bytes and the composition's.
 5h. Phase 3 on EVA-02-Large/14 at 448 (uint8 [64, 600, 600, 3], 1025 tokens,
    N = D = 1024): 24 q-tiled attention, 24 SwiGLU-glue, 1 GPF and 1 kernel-5′
    launches per forward; the plain path (the composition in the glue's place)
@@ -193,8 +131,16 @@ Phases (any failed check exits non-zero; no phase catches and continues):
    the flagship: a forward and two steps each, finite logits, loss and
    gradients, logits against the plain path at batch 8 (control, once:
    bias omitted).  Each prints images/s, step ms and peak memory.
-8. A JSON line of the fifteen kernels (with the launches of phase 7's paths
-   under ``phase7_launches``), then the contract's last line.
+8. Data x model parallelism on the flagship, global batch 64 (``mesh_phase``):
+   a 1 x 1 mesh under NCCL in this process against ``make_train_step``, then
+   meshes of 2 and 4 ranks sharing the card under gloo (gradients against one
+   process, launches per rank, replicated leaves after three steps) and a
+   ``Trainer`` epoch on (2, 1) restored on the 1 x 1 mesh.
+
+The last two lines are a JSON line of every kernel, with phase 2's ms,
+plain_ms and launches a call at each of its calls and its launches on every
+path of phases 3-8 that ran it (a kernel that none launched fails the run),
+and the contract's, ``{"ok": true, "device": ...}``.
 """
 
 from __future__ import annotations
@@ -210,12 +156,14 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 from datetime import timedelta
 from pathlib import Path
 
 import torch
 import torch.distributed as dist
 
+import kernel_checks
 from ego_moment_cle_vit_tpu_torch import (
     create_model,
     create_train_state,
@@ -243,17 +191,8 @@ from ego_moment_cle_vit_tpu_torch.models import ego_moment_clevit as _model_modu
 from ego_moment_cle_vit_tpu_torch.models import layers as _layers
 from ego_moment_cle_vit_tpu_torch.models.eva import SwiGLU
 from ego_moment_cle_vit_tpu_torch.models.layers import BatchNorm
-from ego_moment_cle_vit_tpu_torch.models.swin import (
-    SwinBlock,
-    _attn_mask,
-    _relative_position_index,
-)
-from ego_moment_cle_vit_tpu_torch.ops.graph import (
-    gpf_fuse,
-    normalize_graph,
-    token_similarity_graph,
-)
-from ego_moment_cle_vit_tpu_torch.ops.moments import graph_weighted_mean, isqrt_cov_subspace
+from ego_moment_cle_vit_tpu_torch.models.swin import SwinBlock, _attn_mask
+from ego_moment_cle_vit_tpu_torch.ops.moments import isqrt_cov_subspace
 from ego_moment_cle_vit_tpu_torch.parallel import (
     create_mesh,
     gather_params,
@@ -267,20 +206,9 @@ from ego_moment_cle_vit_tpu_torch.parallel.sharding import unshard
 from ego_moment_cle_vit_tpu_torch.train import Evaluator, Trainer, restore_checkpoint
 from ego_moment_cle_vit_tpu_torch.train import trainer as _trainer_module
 from ego_moment_cle_vit_tpu_torch.utils.device import pin_fp32_precision
-from kernel_turns import (
-    attention_half_unfused,
-    attn_half_inputs,
-    launch_split,
-    window_sdpa_backward,
-)
 
 BATCH = 64
 TRAIN_VIEWS = 2 * BATCH  # the dual-view step runs both views as one backbone batch
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # tensor-core bf16; fp32 non-TC
-# Swin-Base/224 stages: (Hp = Wp, C, heads, blocks); odd blocks shift when Hp > ws
-STAGES = ((56, 128, 4, 2), (28, 256, 8, 2), (14, 512, 16, 18), (7, 1024, 32, 2))
-WS = 7
 FLAGSHIP = {
     "model": {
         "backbone_name": "swin_base_patch4_window7_224",
@@ -305,7 +233,6 @@ VIT_FLAGSHIP["model"]["backbone_name"] = "vit_base_patch16_224"
 VIT_T, VIT_C, VIT_H, VIT_DEPTH = 197, 768, 12, 12  # ViT-Base/224: tokens, width, heads, blocks
 VIT448_FLAGSHIP = json.loads(json.dumps(VIT_FLAGSHIP))
 VIT448_FLAGSHIP["data"] = {"input_size": 448, "resize_size": 600}  # AugmentConfig's defaults
-VIT448_T = 785  # 28 x 28 patches + CLS: past the packed kernel, on kernel 6's path
 NS_ITERS, NS_EPS = 5, 1e-5  # the flagship head's isqrt_iterations and eps
 # ViT-Large/16 at a 512 input: 1025 tokens of 1024, 16 heads of 64, 24 blocks;
 # N = D = 1024 takes the dense route through kernel 5′.  Trained under block
@@ -329,13 +256,6 @@ SWINL1280_FLAGSHIP = json.loads(json.dumps(FLAGSHIP))
 SWINL1280_FLAGSHIP["model"]["backbone_name"] = "swin_large_patch4_window7_224"
 SWINL1280_FLAGSHIP["data"] = {"input_size": 1280, "resize_size": 1463}
 SWINL_N, SWINL_C = 1600, 1536
-SWINL_STAGE0 = (320, 322, 192, 6)  # canvas, padded canvas, C, heads
-# every Swin-Large/1280 stage: canvas, padded canvas, C, heads, blocks
-SWINL_STAGES = (SWINL_STAGE0 + (2,), (160, 161, 384, 12, 2), (80, 84, 768, 24, 18),
-                (40, 42, 1536, 48, 2))
-# images a plain window-attention call takes at Swin-Large/1280 stage 0: its
-# fp32 probabilities [8, 2116, 6, 49, 49] are 0.98 GB
-PLAIN_SLICE = 8
 TRAIN_STEPS_PER_EPOCH = 100
 # phase 7a: the flagship with the options users' configurations select
 # together: per-sample adaptive GPF (BASELINE.json configs[3]), BatchNorm
@@ -361,13 +281,6 @@ OTHER_OPTIONS = (
     ("classifier.fusion_type: bilinear", {"classifier": {"fusion_type": "bilinear"}}),
     ("norm: none", {"norm": "none"}),
 )
-# tolerances, kernel vs plain on the card, per element.  Window attention:
-# |err| <= atol + rtol |ref|; fp32 differs by sum order only, bf16 by P rounded
-# to bf16 before P v (as on the TPU) plus at most one bf16 ulp (2^-7 |y|) of
-# the output's rounding.  GPF: |err| <= tol x gpf_error_scale, which holds
-# each entry at its own size (see kernels/gpf.py).
-TOL_WA = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-2, 2.0**-7)}
-TOL_GPF = 2e-4
 # serving logits, of max |plain logit|: fp32 by sum order; bf16 set between
 # the error of sound runs (9.8e-3, 1.06e-2 on an H100) and that of the
 # bias-omitted control (1.12e-1), ~3x from each
@@ -378,17 +291,6 @@ TOL_LOGITS_REL = {torch.bfloat16: 3e-2, torch.float32: 1e-3}
 # TOL_LOGITS_REL: ~60x over the first, ~12x under the second
 TOL_EVAL_LOGITS_REL_FP32 = 1e-4
 BIAS_TABLE_STD = 1.0  # trained Swin tables reach this; at init (0.02) the bias is invisible
-# backward kernels vs plain on the card.  Window attention: dqkv per element
-# |err| <= atol + rtol |ref| (both sides round P and ds to the input type, so
-# they differ by sum order and, in bf16, by a rounding that lands on the other
-# side: two ulps of the output); dbias, a sum over 128 x nW windows, within
-# btol of its own largest entry.  GPF: token gradients within tol of their
-# row's largest entry, dc within 1e-3 of its largest entry; the cotangent is
-# zeroed where the pre-activation is within 1e-4 of its error scale of zero,
-# since on the clamp's kink the two sides may round to different branches.
-TOL_WA_BWD = {torch.float32: (1e-4, 1e-4, 1e-3), torch.bfloat16: (2e-2, 2.0**-6, 2e-2)}
-TOL_GPF_BWD = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
-TOL_GPF_DC = 1e-3
 # one step's parameter gradients, kernel path vs plain path, per leaf:
 # ||g - g_ref|| / ||g_ref||.  fp32 differs by sum order; bf16 by the forward
 # kernel rounding P where the plain version does not, carried through 24
@@ -400,8 +302,8 @@ TOL_GRADS_REL = {torch.bfloat16: 0.1, torch.float32: 2e-3}
 # dc[p, q] = sum(df * A_p * B_q) is a cancellation of terms up to ~1e12 (dot
 # Grams of 1024-wide tokens) down to ~1e-7: bf16 noise in df decides it
 # (measured 0.7-0.9 relative in bf16, 3e-4 in fp32).  Its kernel is held
-# tightly on shared inputs in phase 2; here it must be finite and of the
-# reference's order of magnitude.
+# tightly on shared inputs by tests/test_torch_cuda.py; here it must be finite
+# and of the reference's order of magnitude.
 TOL_GRADS_REL_ILL_CONDITIONED = {"gpf.alpha_coeffs": {torch.bfloat16: 3.0}}
 # The fused path rounds the attention half's residual once from fp32 where
 # the default path adds in bf16, so its bf16 tokens carry other noise, and
@@ -455,109 +357,19 @@ ZERO_GRAD_LEAVES_BN = {f"{layer}.bias": f"{layer}.weight" for layer in (
 ZERO_GRAD_LEAVES_MULTISCALE = {"classifier.scale_attention.key.bias":
                                "classifier.scale_attention.key.weight"}
 COEFF_WITNESS_SEEDS = (2, 3, 4)  # view seeds of the 448 witness; 2 is the check's own
-# q-tiled attention, kernel vs plain per element, |err| <= atol + rtol |ref|.
-# Forward: fp32 by sum order; bf16 by one ulp of the output's rounding (2^-7
-# |y|) over a pre-rounding difference far under atol (the kernel rounds the
-# unnormalized probabilities of its online softmax, the plain version the
-# normalized ones).  atol sits well under a 785-token output's typical size
-# (~0.06 for unit-variance v), so that the padded-keys control, which moves
-# each output by ~6 %, fails.  Backward: the same, with two ulps (ds rounded
-# on both sides from slightly different fp32 values, then the output).
-TOL_FA = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-3, 2.0**-7)}
-TOL_FA_BWD = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (4e-3, 2.0**-6)}
-# Newton-Schulz, kernel vs plain per element: |err| <= rtol |ref| + atol x
-# max |ref|.  fp32: sum order over 14 chained products; bf16: one ulp of the
-# output's rounding over the same fp32 difference.
-TOL_NS = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2.0**-7, 1e-4)}
-# Kernels 5′ and 5″ against plain versions that round where they round and
-# normalize by the same trace, M in either type: |err| <= 2^-7 |ref| + 5e-4
-# max |ref|.  Both sides round Y, T1, T2 (P) to bf16 from fp32 sums taken in
-# other orders, so an element now and then lands one bf16 ulp apart and the
-# later steps carry that at the size of the entries.  Started from TOL_NS[bf16]
-# (atol 1e-4): on the head's M (rank <= 16, from a rank-16 graph; an H100)
-# sound runs read 0.51-0.88 of that, cuBLAS at the same rounding points the
-# same, four iterations 42x; atol 5e-4 sits between, ~5x from each.  The other
-# variant's grouping (5′ held against 5″'s plain version) read 1.1-1.4 of
-# the atol-1e-4 bar, inside this one: that control is printed, not enforced.
-TOL_NS_BF16 = (2.0**-7, 5e-4)
-# The subspace iSQRT (kernel 7) against the plain fp32 route on the head's
-# inputs.  fp32: against an fp64 witness, ||out - witness|| over ||witness -
-# a_k I / sqrt(t)|| at most twice the plain route's (an H100, k = 5: 0.96-1.36x
-# on sound runs, 3.7-20x with the lo terms dropped).  bf16: the output's
-# rounding hides that norm (both routes read the same ratio), so the outputs
-# are held element by element: each within one ulp and a sliver of the
-# largest entry, |err| <= 2^-7 |plain| + 1e-4 max |plain|, and at most 3.5e-4
-# of them one ulp or more apart (k = 5: 1.1e-4 to 1.8e-4 on sound runs,
-# 6.9e-4 to 5.1e-3 with the lo terms dropped, ~2x from each).
-TOL_SI_F32_RATIO = 2.0
-TOL_SI_BF16 = (2.0**-7, 1e-4, 3.5e-4)
-# EVA's SwiGLU glue against the composition, per element of the true columns:
-# |err| <= 2^-7 |plain| + 2^-12 max |row|, one bf16 ulp of the output's
-# rounding over fp32 statistics summed in another order (h itself has the
-# composition's bits)
-TOL_SN = (2.0**-7, 2.0**-12)
 # EVA-02-L/448 served, bf16 logits of the kernel path against the plain path
 # at batch 8, relative L2 (see 5h in the docstring): 0.052 on an H100 (max
 # |err| 5.7e-2 of max |logit|, past TOL_LOGITS_REL), 1.24 with the glue's gate
 # and value swapped; ~3x over the first, ~8x under the second
 TOL_EVA_LOGITS_REL = 0.15
-# fused attention half, kernel vs plain, |err| <= atol + rtol |ref| per
-# element.  fp32: sum order.  bf16: both sides round xn, qkv, P and om, and an
-# fp32 sum that lands on the other side of a rounding moves one bf16 ulp
-# through the proj product, then y's own rounding adds one ulp (2^-8 |y|).
-# Backward: dx likewise; each parameter gradient within gtol of its own
-# largest entry (sums over 10^5 tokens of rounded products).
-TOL_AH = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 2.0**-6)}
-TOL_AH_BWD = {torch.float32: (1e-4, 1e-4, 1e-3), torch.bfloat16: (3e-2, 2.0**-6, 2e-2)}
 # the fused path against the default path on the same weights: bf16 logits
 # within 2e-2 relative L2 (the JAX package's bar, tests/test_attn_half.py);
 # fp32 logits within 1e-3 of max |logit|
 TOL_FUSED_VS_DEFAULT = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
 
-WA_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/window_attention.py:361"
-GPF_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/gpf.py:41"
-WA_BWD_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/window_attention.py:389"
-GPF_BWD_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/gpf.py:126"
-PA_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/window_attention.py:133"
-PA_BWD_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/window_attention.py:155"
-FA_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/flash_attention.py:75"
-FA_BWD_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/flash_attention.py:94"
-NS_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/newton_schulz.py:43"
-NS_BF16_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/newton_schulz.py:99"
-NS_BF16S_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/newton_schulz.py:157"
-AH_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/attn_half.py:73"
-AH_BWD_REPLACES = "ego_moment_cle_vit_tpu/ops/pallas/attn_half.py:128"
-WA_KERNEL = _wa.window_attention_fwd
-GPF_KERNEL = _gpf.gpf_fwd
-WA_BWD_KERNEL = _wa.window_attention_bwd
-GPF_BWD_KERNEL = _gpf.gpf_bwd
-PA_KERNEL = _pa.packed_attention_fwd
-PA_BWD_KERNEL = _pa.packed_attention_bwd
-FA_KERNEL = _fa.flash_attention_tiled_fwd
-FA_BWD_KERNEL = _fa.flash_attention_tiled_bwd
-NS_KERNEL = _ns.newton_schulz_isqrt_fp32_fwd
-NS_BF16_KERNEL = _ns.newton_schulz_isqrt_bf16_fwd
-NS_BF16S_KERNEL = _ns.newton_schulz_isqrt_bf16_streamed_fwd
-SI_KERNEL = _si.subspace_isqrt_fwd
-SN_KERNEL = _sn.swiglu_norm_fwd
-# kernel, its plain version, the other grouping's plain version
-NS_BF16_VARIANTS = {
-    "bf16": (NS_BF16_KERNEL, _ns.newton_schulz_isqrt_bf16_plain,
-             _ns.newton_schulz_isqrt_bf16_streamed_plain),
-    "bf16_streamed": (NS_BF16S_KERNEL, _ns.newton_schulz_isqrt_bf16_streamed_plain,
-                      _ns.newton_schulz_isqrt_bf16_plain),
-}
-AH_KERNEL = _ah.attn_half_fwd
-AH_BWD_KERNEL = _ah.attn_half_bwd
-KERNELS = {"window_attention_fwd": WA_KERNEL, "window_attention_bwd": WA_BWD_KERNEL,
-           "gpf_fwd": GPF_KERNEL, "gpf_bwd": GPF_BWD_KERNEL,
-           "packed_attention_fwd": PA_KERNEL, "packed_attention_bwd": PA_BWD_KERNEL,
-           "flash_attention_tiled_fwd": FA_KERNEL, "flash_attention_tiled_bwd": FA_BWD_KERNEL,
-           "newton_schulz_isqrt_fp32_fwd": NS_KERNEL,
-           "newton_schulz_isqrt_bf16_fwd": NS_BF16_KERNEL,
-           "newton_schulz_isqrt_bf16_streamed_fwd": NS_BF16S_KERNEL,
-           "attn_half_fwd": AH_KERNEL, "attn_half_bwd": AH_BWD_KERNEL,
-           "subspace_isqrt_fwd": SI_KERNEL, "swiglu_norm_fwd": SN_KERNEL}
+# every kernel wrapper, by name: their ``launches`` counts, read before any
+# control or plain path stands in for one
+COUNTERS = _build.wrappers()
 
 
 def log(*a):
@@ -568,9 +380,10 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def time_ms(fn, reps: int = 20, samples: int = 5) -> float:
-    """Median over ``samples`` of the mean time of ``reps`` back-to-back calls."""
-    for _ in range(3):
+def time_ms(fn, reps: int = 20, samples: int = 5, warm: int = 3) -> float:
+    """Median over ``samples`` of the mean time of ``reps`` back-to-back calls,
+    after ``warm`` calls."""
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -584,12 +397,6 @@ def time_ms(fn, reps: int = 20, samples: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
-
-
-def bound_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 @contextlib.contextmanager
@@ -826,12 +633,12 @@ def swiglu_gate_and_value_swapped(model: torch.nn.Module):
 
 
 def reset_launches() -> None:
-    for kernel in KERNELS.values():
+    for kernel in COUNTERS.values():
         kernel.launches = 0
 
 
 def read_launches() -> dict:
-    return {name: kernel.launches for name, kernel in KERNELS.items()}
+    return {name: kernel.launches for name, kernel in COUNTERS.items()}
 
 
 def bias_tables(model: torch.nn.Module) -> list:
@@ -884,18 +691,6 @@ def redraw_bias_tables(model: torch.nn.Module, g: torch.Generator) -> None:
             p.normal_(0.0, BIAS_TABLE_STD, generator=g)
 
 
-def wa_excess(out: torch.Tensor, ref: torch.Tensor, dtype) -> float:
-    """Largest |out - ref| / (atol + rtol |ref|); the check passes at <= 1."""
-    atol, rtol = TOL_WA[dtype]
-    ref = ref.float()
-    return ((out.float() - ref).abs() / (atol + rtol * ref.abs())).max().item()
-
-
-def gpf_excess(out: torch.Tensor, ref: torch.Tensor, scale: torch.Tensor) -> float:
-    """Largest |out - ref| / (TOL_GPF x scale); the check passes at <= 1."""
-    return ((out - ref).abs() / (TOL_GPF * scale)).max().item()
-
-
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -907,1385 +702,46 @@ def card_line() -> str:
 
 
 # ----------------------------------------------------------------------------
-# phase 2: kernels against their plain versions
-# ----------------------------------------------------------------------------
+# phase 2: every kernel at its main paths' calls
 
 
-def check_window_attention(g: torch.Generator) -> dict:
+def main_path_kernels() -> dict:
+    """Each wrapper's check at its ``kernel_checks.MAIN_PATH`` calls, then
+    the call and its plain version timed on the check's inputs: {wrapper:
+    [{"call", "ms", "plain_ms", "launches_a_call"}, ...]}."""
+    if set(kernel_checks.MAIN_PATH) != set(COUNTERS):
+        fail(f"kernel_checks.MAIN_PATH names {sorted(kernel_checks.MAIN_PATH)}, the port's "
+             f"wrappers are {sorted(COUNTERS)}")
     dev = torch.device("cuda")
-    nt = WS * WS
-    idx = torch.as_tensor(_relative_position_index(WS).reshape(-1), device=dev)
-    per_forward = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-    max_err = 0.0
-    min_control = math.inf
-    bound_kinds = {"bytes": 0.0, "operations": 0.0}  # share of the summed bound by its kind
-    for hp, c, heads, blocks in STAGES:
-        table = torch.randn((2 * WS - 1) ** 2, heads, generator=g, device=dev) * BIAS_TABLE_STD
-        bias = table[idx].reshape(nt, nt, heads).permute(2, 0, 1).contiguous()
-        nw = (hp // WS) ** 2
-        shifts = (False, True) if hp > WS else (False,)
-        for shifted in shifts:
-            mask = (torch.as_tensor(_attn_mask(hp, hp, hp, hp, WS, WS // 2), device=dev)
-                    if shifted else None)
-            # Swin shifts odd blocks, and never when one window covers the map
-            n_blocks = blocks if hp == WS else (blocks // 2 if shifted else blocks - blocks // 2)
-            for dtype in (torch.bfloat16, torch.float32):
-                qkv = torch.randn(BATCH, hp, hp, 3 * c, generator=g, device=dev).to(dtype)
-                scale = (c // heads) ** -0.5
-                args = (qkv, bias, mask, heads, WS, scale)
-                out = WA_KERNEL(*args)
-                ref = _wa.window_attention_plain(*args)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                excess = wa_excess(out, ref, dtype)
-                what = f"window attention {hp}x{hp} C={c} shift={shifted} {dtype}"
-                if not math.isfinite(excess) or excess > 1.0:
-                    fail(f"{what}: error {excess:.3f}x its tolerance {TOL_WA[dtype]} "
-                         f"(max abs err {err})")
-                max_err = max(max_err, err)
-                # controls: the plain version without its bias, or without its
-                # mask, must fail the same check, or the check has no power
-                controls = [_wa.window_attention_plain(qkv, torch.zeros_like(bias), mask,
-                                                       heads, WS, scale)]
-                if mask is not None:
-                    controls.append(_wa.window_attention_plain(qkv, bias, None, heads, WS,
-                                                               scale))
-                for ctrl in controls:
-                    ctrl_excess = wa_excess(ctrl, ref, dtype)
-                    if ctrl_excess <= 1.0:
-                        fail(f"{what}: a control (bias or mask dropped) passes the check")
-                    min_control = min(min_control, ctrl_excess)
-                del controls, ctrl
-                k_ms = time_ms(lambda: WA_KERNEL(*args))
-                p_ms = time_ms(lambda: _wa.window_attention_plain(*args), reps=5, samples=3)
-                # library yardstick: SDPA on pre-partitioned q/k/v (partition
-                # and reverse copies excluded), bias + mask as a float mask
-                d = c // heads
-                x = qkv.reshape(BATCH, hp // WS, WS, hp // WS, WS, 3, heads, d)
-                x = x.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, BATCH, nw * heads, nt, d)
-                q, k, v = x[0].contiguous(), x[1].contiguous(), x[2].contiguous()
-                am = bias[None] + (mask[:, None] if mask is not None else 0.0)
-                am = am.expand(nw, heads, nt, nt).reshape(nw * heads, nt, nt).to(dtype)
-                lib = lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, attn_mask=am, scale=scale)
-                l_ms = time_ms(lib, reps=5, samples=3)
-                es = qkv.element_size()
-                nbytes = qkv.numel() * es + qkv.numel() // 3 * es + bias.numel() * 4 + (
-                    mask.numel() * 4 if mask is not None else 0)
-                flops = 4.0 * BATCH * nw * heads * nt * nt * d
-                b_ms, kind = bound_ms(nbytes, flops, dtype)
-                log(f"  window_attention {hp}x{hp} C={c} H={heads} shift={int(shifted)} "
-                    f"{str(dtype)[6:]}: max_abs_err={err:.3e} err/tol={excess:.3f} "
-                    f"(tol atol+rtol|ref| {TOL_WA[dtype]}) control err/tol>={ctrl_excess:.1f} "
-                    f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms={l_ms:.4f} "
-                    f"bound_ms={b_ms:.4f} ({kind}) blocks/forward={n_blocks}")
-                if dtype == torch.bfloat16:  # the serving path's dtype
-                    per_forward["ms"] += n_blocks * k_ms
-                    per_forward["plain_ms"] += n_blocks * p_ms
-                    per_forward["library_ms"] += n_blocks * l_ms
-                    per_forward["bound_ms"] += n_blocks * b_ms
-                    bound_kinds[kind] += n_blocks * b_ms
-                del qkv, out, ref, q, k, v, am
-    torch.cuda.empty_cache()
-    log(f"  window attention controls: smallest err/tol {min_control:.1f} (must be > 1)")
-    return {"max_abs_err": max_err, "bound_by": max(bound_kinds, key=bound_kinds.get),
-            **per_forward}
-
-
-def check_gpf(g: torch.Generator, n: int, d: int) -> dict:
-    """Forward kernel at [64, n, d]: the Swin path's (49, 1024) or the ViT
-    path's (196, 768)."""
-    dev = torch.device("cuda")
-    coeffs = torch.nn.functional.softplus(torch.rand(3, 3, generator=g, device=dev) * 0.1)
-    worst = 0.0
-    main = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        ta = torch.randn(BATCH, n, d, generator=g, device=dev).to(dtype)
-        tp = torch.randn(BATCH, n, d, generator=g, device=dev).to(dtype)
-        for sim in ("dot", "cosine"):
-            for same in (True, False):
-                pos = ta if same else tp
-                args = (ta, pos, coeffs, sim, 1e-6, True)
-                out = GPF_KERNEL(*args)
-                ref = _gpf.gpf_plain(*args)
-                err_scale = _gpf.gpf_error_scale(*args)
-                torch.cuda.synchronize()
-                err = (out - ref).abs().max().item()
-                excess = gpf_excess(out, ref, err_scale)
-                if not math.isfinite(excess) or excess > 1.0:
-                    fail(f"gpf {sim} same={same} {dtype}: error {excess:.3f}x its tolerance "
-                         f"{TOL_GPF} x gpf_error_scale (max abs err {err})")
-                worst = max(worst, excess)
-                # control: the output with its off-diagonal entries zeroed must fail
-                ctrl = out * torch.eye(n, device=dev)
-                ctrl_excess = gpf_excess(ctrl, ref, err_scale)
-                if ctrl_excess <= 1.0:
-                    fail(f"gpf {sim} same={same} {dtype}: zeroed off-diagonal passes the check")
-                del ctrl, err_scale
-                k_ms = time_ms(lambda: GPF_KERNEL(*args))
-                p_ms = time_ms(lambda: _gpf.gpf_plain(*args), reps=5, samples=3)
-                tf = ta.float()
-                l_ms = time_ms(lambda: torch.bmm(tf, tf.transpose(1, 2)), reps=10, samples=3)
-                n_in = 1 if same else 2
-                nbytes = n_in * ta.numel() * ta.element_size() + BATCH * n * n * 4 + 36
-                # the least work is the upper triangle of each symmetric Gram
-                # (diagonal included); the full Gram's figure is kept beside it
-                flops = n_in * 2.0 * BATCH * d * n * (n + 1) / 2
-                b_ms, kind = bound_ms(nbytes, flops, dtype)
-                full_ms, full_kind = bound_ms(nbytes, n_in * 2.0 * BATCH * n * n * d, dtype)
-                log(f"  gpf [{BATCH},{n},{d}] {sim} same_tokens={int(same)} {str(dtype)[6:]}: "
-                    f"max_abs_err={err:.3e} err/tol={excess:.4f} (tol {TOL_GPF} x "
-                    f"gpf_error_scale) control err/tol={ctrl_excess:.3e} kernel_ms={k_ms:.4f} "
-                    f"plain_ms={p_ms:.4f} library_ms(bmm Gram)={l_ms:.4f} "
-                    f"bound_ms={b_ms:.4f} ({kind}; upper triangle) full-Gram "
-                    f"bound_ms={full_ms:.4f} ({full_kind})")
-                if dtype == torch.bfloat16 and sim == "dot" and same:  # the serving call
-                    main = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                            "library_ms": l_ms, "bound_ms": b_ms, "bound_by": kind,
-                            "full_gram_bound_ms": full_ms}
-    # max_abs_err is the serving call's, in its own units (dot Grams of
-    # unit-variance tokens reach ~1e12 on the diagonal after the degree-4
-    # terms); err_over_tol is the worst over every check
-    return {"err_over_tol": worst, **main}
-
-
-def close_excess(out: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> float:
-    ref = ref.float()
-    return ((out.float() - ref).abs() / (atol + rtol * ref.abs())).max().item()
-
-
-def check_window_attention_bwd(g: torch.Generator) -> dict:
-    """Backward kernel vs its plain version at the training shapes (batch
-    128); also times the forward kernel at that batch."""
-    dev = torch.device("cuda")
-    nt = WS * WS
-    batch = TRAIN_VIEWS
-    idx = torch.as_tensor(_relative_position_index(WS).reshape(-1), device=dev)
-    per_step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                "library_no_dbias_ms": 0.0, "fwd_ms": 0.0}
-    max_err = 0.0
-    worst = 0.0
-    min_control = math.inf
-    bound_kinds = {"bytes": 0.0, "operations": 0.0}
-    for hp, c, heads, blocks in STAGES:
-        table = torch.randn((2 * WS - 1) ** 2, heads, generator=g, device=dev) * BIAS_TABLE_STD
-        bias = table[idx].reshape(nt, nt, heads).permute(2, 0, 1).contiguous()
-        nw = (hp // WS) ** 2
-        d = c // heads
-        scale = d ** -0.5
-        for shifted in ((False, True) if hp > WS else (False,)):
-            mask = (torch.as_tensor(_attn_mask(hp, hp, hp, hp, WS, WS // 2), device=dev)
-                    if shifted else None)
-            n_blocks = blocks if hp == WS else (blocks // 2 if shifted else blocks - blocks // 2)
-            for dtype in (torch.bfloat16, torch.float32):
-                atol, rtol, btol = TOL_WA_BWD[dtype]
-                qkv = torch.randn(batch, hp, hp, 3 * c, generator=g, device=dev).to(dtype)
-                dout = torch.randn(batch, hp, hp, c, generator=g, device=dev).to(dtype)
-                args = (qkv, bias, mask, dout, heads, WS, scale)
-                dqkv, dbias = WA_BWD_KERNEL(*args)
-                ref_dqkv, ref_dbias = _wa.window_attention_bwd_plain(*args)
-                torch.cuda.synchronize()
-                what = f"window attention backward {hp}x{hp} C={c} shift={shifted} {dtype}"
-                err = (dqkv.float() - ref_dqkv.float()).abs().max().item()
-                excess = close_excess(dqkv, ref_dqkv, atol, rtol)
-                bias_scale = ref_dbias.abs().max().item()
-                bias_err = (dbias - ref_dbias).abs().max().item()
-                bias_excess = bias_err / (btol * bias_scale)
-                if not math.isfinite(excess) or excess > 1.0:
-                    fail(f"{what}: dqkv error {excess:.3f}x its tolerance (max abs err {err})")
-                if not math.isfinite(bias_excess) or bias_excess > 1.0:
-                    fail(f"{what}: dbias error {bias_err} is {bias_excess:.3f}x its tolerance "
-                         f"{btol} x max |dbias| {bias_scale}")
-                max_err = max(max_err, err)
-                worst = max(worst, excess, bias_excess)
-                # controls: dK zeroed in dqkv, and dbias dropped, must both fail
-                ctrl = ref_dqkv.clone()
-                ctrl[..., c:2 * c] = 0
-                ctrl_excess = close_excess(ctrl, ref_dqkv, atol, rtol)
-                ctrl_bias = bias_scale / (btol * bias_scale)  # |0 - ref| at its largest entry
-                if ctrl_excess <= 1.0 or ctrl_bias <= 1.0:
-                    fail(f"{what}: a control (dK zeroed, dbias dropped) passes the check")
-                min_control = min(min_control, ctrl_excess, ctrl_bias)
-                del ctrl, ref_dqkv, dqkv
-                k_ms = time_ms(lambda: WA_BWD_KERNEL(*args), reps=10, samples=3)
-                p_ms = time_ms(lambda: _wa.window_attention_bwd_plain(*args), reps=3, samples=3)
-                f_ms = time_ms(lambda: WA_KERNEL(qkv, bias, mask, heads, WS, scale), reps=10,
-                               samples=3)
-                # library yardsticks: the backward of SDPA on pre-partitioned
-                # q/k/v with bias + mask as a float mask, with the bias
-                # gradient (the same function) and without it (part of it)
-                l_ms = time_ms(window_sdpa_backward(qkv, bias, mask, heads, dbias=False), reps=5,
-                               samples=3)
-                ld_ms = time_ms(window_sdpa_backward(qkv, bias, mask, heads, dbias=True), reps=5,
-                                samples=3)
-                es = qkv.element_size()
-                nbytes = (2 * qkv.numel() + dout.numel()) * es + 2 * bias.numel() * 4 + (
-                    mask.numel() * 4 if mask is not None else 0)
-                flops = 10.0 * batch * nw * heads * nt * nt * d
-                b_ms, kind = bound_ms(nbytes, flops, dtype)
-                log(f"  window_attention_bwd {hp}x{hp} C={c} H={heads} shift={int(shifted)} "
-                    f"{str(dtype)[6:]} batch {batch}: dqkv max_abs_err={err:.3e} "
-                    f"err/tol={excess:.3f} (tol {atol}+{rtol:.4f}|ref|) dbias err={bias_err:.3e} "
-                    f"of max {bias_scale:.3e} err/tol={bias_excess:.3f} control err/tol>="
-                    f"{min(ctrl_excess, ctrl_bias):.1f} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                    f"library_ms(SDPA backward, no dbias)={l_ms:.4f} (with dbias {ld_ms:.4f}) "
-                    f"bound_ms={b_ms:.4f} ({kind}) "
-                    f"fwd_kernel_ms={f_ms:.4f} blocks/step={n_blocks}")
-                if dtype == torch.bfloat16:  # the training path's dtype
-                    per_step["ms"] += n_blocks * k_ms
-                    per_step["plain_ms"] += n_blocks * p_ms
-                    per_step["library_ms"] += n_blocks * ld_ms
-                    per_step["library_no_dbias_ms"] += n_blocks * l_ms
-                    per_step["bound_ms"] += n_blocks * b_ms
-                    per_step["fwd_ms"] += n_blocks * f_ms
-                    bound_kinds[kind] += n_blocks * b_ms
-                del qkv, dout, args
-                torch.cuda.empty_cache()
-    log(f"  window attention backward controls: smallest err/tol {min_control:.1f} (must be > 1)")
-    return {"max_abs_err": max_err, "err_over_tol": worst,
-            "bound_by": max(bound_kinds, key=bound_kinds.get), **per_step}
-
-
-def check_gpf_bwd(g: torch.Generator, n: int, d: int) -> dict:
-    dev = torch.device("cuda")
-    coeffs = torch.nn.functional.softplus(torch.rand(3, 3, generator=g, device=dev) * 0.1)
-    worst = 0.0
-    main = {}
-
-    def rows_excess(out, ref, tol):
-        scale = ref.float().abs().amax(dim=-1, keepdim=True).clamp(min=1e-30)
-        return ((out.float() - ref.float()).abs() / (tol * scale)).max().item()
-
-    for dtype in (torch.bfloat16, torch.float32):
-        tol = TOL_GPF_BWD[dtype]
-        ta = torch.randn(BATCH, n, d, generator=g, device=dev).to(dtype)
-        tp = torch.randn(BATCH, n, d, generator=g, device=dev).to(dtype)
-        for sim in ("dot", "cosine"):
-            # the same-tensor case once, in the training dtype and similarity
-            cases = (False, True) if (dtype == torch.bfloat16 and sim == "dot") else (False,)
-            for same in cases:
-                pos = ta if same else tp
-                # a random cotangent, zeroed on the clamp's kink
-                pre = gpf_fuse(token_similarity_graph(ta, sim, 1e-6),
-                               token_similarity_graph(pos, sim, 1e-6), coeffs,
-                               symmetric_enforce=True, clamp=False)
-                band = 1e-4 * _gpf.gpf_error_scale(ta, pos, coeffs, sim, 1e-6, True)
-                cot = torch.randn(BATCH, n, n, generator=g, device=dev)
-                cot = torch.where(pre.abs() <= band, torch.zeros_like(cot), cot)
-                on_kink = int((pre.abs() <= band).sum().item())
-                del pre, band
-                args = (ta, pos, coeffs, cot, sim, 1e-6, True)
-                dta, dtp, dc = GPF_BWD_KERNEL(*args)
-                rta, rtp, rdc = _gpf.gpf_bwd_plain(*args)
-                torch.cuda.synchronize()
-                what = f"gpf backward {sim} same={same} {dtype}"
-                excess = max(rows_excess(dta, rta, tol), rows_excess(dtp, rtp, tol))
-                dc_scale = rdc.abs().max().item()
-                dc_excess = (dc - rdc).abs().max().item() / (TOL_GPF_DC * dc_scale)
-                err = max((dta.float() - rta.float()).abs().max().item(),
-                          (dtp.float() - rtp.float()).abs().max().item())
-                if not math.isfinite(excess) or excess > 1.0:
-                    fail(f"{what}: token gradient error {excess:.3f}x its tolerance {tol} x "
-                         f"row max (max abs err {err})")
-                if not math.isfinite(dc_excess) or dc_excess > 1.0:
-                    fail(f"{what}: dc error {dc_excess:.3f}x its tolerance {TOL_GPF_DC} x max")
-                worst = max(worst, excess, dc_excess)
-                # controls: the dR^T half of dX dropped (dR is symmetric here,
-                # so half the gradient), and dc zeroed
-                ctrl_excess = rows_excess(0.5 * rta.float(), rta, tol)
-                ctrl_dc = dc_scale / (TOL_GPF_DC * dc_scale)
-                if ctrl_excess <= 1.0 or ctrl_dc <= 1.0:
-                    fail(f"{what}: a control (half of dX dropped, dc zeroed) passes the check")
-                if same:
-                    # autograd must add the two token gradients of one tensor
-                    x = ta.clone().requires_grad_()
-                    _gpf.gpf(x, x, coeffs, sim, 1e-6, True).backward(cot)
-                    total = rta.float() + rtp.float()
-                    sum_excess = rows_excess(x.grad, total, tol)
-                    if not math.isfinite(sum_excess) or sum_excess > 1.0:
-                        fail(f"{what}: the summed gradient of one tensor used twice is off "
-                             f"({sum_excess:.3f}x its tolerance)")
-                    if rows_excess(rta, total, tol) <= 1.0:
-                        fail(f"{what}: one gradient alone passes for the sum of both")
-                    del x, total
-                k_ms = time_ms(lambda: GPF_BWD_KERNEL(*args))
-                p_ms = time_ms(lambda: _gpf.gpf_bwd_plain(*args), reps=5, samples=3)
-                # library yardstick (part of the work only): autograd through
-                # one bmm Gram
-                tf = ta.float().requires_grad_()
-                gram = torch.bmm(tf, tf.transpose(1, 2))
-                l_ms = time_ms(lambda: torch.autograd.grad(gram, tf, cot, retain_graph=True),
-                               reps=10, samples=3)
-                del tf, gram
-                n_in = 1 if same else 2
-                es = ta.element_size()
-                nbytes = (n_in + 2) * ta.numel() * es + BATCH * n * n * 4 + BATCH * 36 + 36
-                flops = 8.0 * BATCH * n * n * d
-                b_ms, kind = bound_ms(nbytes, flops, dtype)
-                log(f"  gpf_bwd [{BATCH},{n},{d}] {sim} same_tokens={int(same)} {str(dtype)[6:]}: "
-                    f"max_abs_err={err:.3e} err/tol={excess:.4f} (tol {tol} x row max) dc "
-                    f"err/tol={dc_excess:.4f} control err/tol={min(ctrl_excess, ctrl_dc):.1f} "
-                    f"cotangent entries zeroed on the kink: {on_kink} kernel_ms={k_ms:.4f} "
-                    f"plain_ms={p_ms:.4f} library_ms(bmm Gram backward)={l_ms:.4f} "
-                    f"bound_ms={b_ms:.4f} ({kind}, {nbytes / 1e6:.1f} MB)")
-                if dtype == torch.bfloat16 and sim == "dot" and not same:  # the training call
-                    f_ms = time_ms(lambda: GPF_KERNEL(ta, tp, coeffs, sim, 1e-6, True))
-                    # its two launches apart: the w kernel, the dX kernel
-                    split = launch_split(lambda: GPF_BWD_KERNEL(*args))
-                    log(f"  gpf_bwd [{BATCH},{n},{d}] launches a call (torch.profiler): "
-                        + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
-                    main = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                            "bound_ms": b_ms, "bound_by": kind, "fwd_ms": f_ms,
-                            "launch_ms": split}
-    return {"err_over_tol": worst, **main}
-
-
-# packed-layout attention shapes: (name, W, T, C, heads, bias heads, mask groups,
-# launches per ViT-Base forward).  The ViT-Base call is the main path's; the
-# ViT-Tiny call has three heads of 64; the Swin packed shape (two windows of 49
-# per group at stage 0) switches on a per-head bias with a -100 block seal
-# between the two windows and a per-group mask, and heads of 32.
-PACKED_SHAPES = (
-    ("vit_base", 1, VIT_T, VIT_C, VIT_H, 0, 0, VIT_DEPTH),
-    ("vit_tiny", 1, VIT_T, 192, 3, 0, 0, 0),
-    ("swin_packed", 32, 98, 128, 4, 4, 32, 0),
-)
-
-
-def packed_inputs(g, batch, w, t, c, heads, hb, wm, dtype):
-    dev = torch.device("cuda")
-    qkv = torch.randn(batch, w, t, 3 * c, generator=g, device=dev).to(dtype)
-    bias = mask = None
-    if hb:
-        bias = torch.randn(hb, t, t, generator=g, device=dev) * BIAS_TABLE_STD
-        half = t // 2  # the seal between the two packed windows
-        bias[:, :half, half:] = -100.0
-        bias[:, half:, :half] = -100.0
-    if wm:
-        mask = torch.where(torch.rand(wm, t, t, generator=g, device=dev) < 0.2, -100.0, 0.0)
-    return qkv, bias, mask
-
-
-def sdpa_inputs(qkv, bias, mask, heads):
-    """q, k, v [B*W, H, T, d] and the float mask SDPA takes, from the packed layout."""
-    b, w, t, c3 = qkv.shape
-    d = c3 // 3 // heads
-    x = qkv.reshape(b * w, t, 3, heads, d).permute(2, 0, 3, 1, 4)
-    am = None
-    if bias is not None or mask is not None:
-        am = torch.zeros(b, w, heads, t, t, dtype=torch.float32, device=qkv.device)
-        if bias is not None:
-            am = am + bias[None, None]
-        if mask is not None:
-            am = am + mask[None, :, None]
-        am = am.reshape(b * w, heads, t, t).to(qkv.dtype)
-    return x[0].contiguous(), x[1].contiguous(), x[2].contiguous(), am
-
-
-def check_packed_attention(g: torch.Generator) -> dict:
-    main = {}
-    min_control = math.inf
-    for name, w, t, c, heads, hb, wm, per_forward in PACKED_SHAPES:
-        d = c // heads
-        for dtype in (torch.bfloat16, torch.float32):
-            qkv, bias, mask = packed_inputs(g, BATCH, w, t, c, heads, hb, wm, dtype)
-            args = (qkv, bias, mask, heads)
-            out = PA_KERNEL(*args)
-            ref, ref_lse = _pa.packed_attention_plain(*args, return_lse=True)
-            out_lse, lse = PA_KERNEL(*args, return_lse=True)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            excess = wa_excess(out, ref, dtype)
-            what = f"packed attention {name} [{BATCH},{w},{t},{3 * c}] H={heads} {dtype}"
-            if not math.isfinite(excess) or excess > 1.0:
-                fail(f"{what}: error {excess:.3f}x its tolerance {TOL_WA[dtype]} (max abs err "
-                     f"{err})")
-            # the log-sum-exp the training forward writes, and the same output
-            lse_err = (lse - ref_lse).abs().max().item()
-            if not torch.equal(out_lse, out) or not lse_err <= 1e-4 * ref_lse.abs().max().item():
-                fail(f"{what}: with lse the output differs or lse is off by {lse_err}")
-            again, lse_again = PA_KERNEL(*args, return_lse=True)  # twice, bit for bit
-            if not torch.equal(again, out) or not torch.equal(lse_again, lse):
-                fail(f"{what}: two runs of the forward kernel differ")
-            del out_lse, lse, ref_lse, again, lse_again
-            # controls: the keys padded up to the kernel's tile and left
-            # unmasked (zero keys join the softmax), and the bias dropped
-            pad = -(-t // _pa.TILE) * _pa.TILE - t
-            padded = torch.nn.functional.pad(qkv, (0, 0, 0, pad))
-            pb = None if bias is None else torch.nn.functional.pad(bias, (0, pad, 0, pad))
-            pm = None if mask is None else torch.nn.functional.pad(mask, (0, pad, 0, pad))
-            ctrl_excess = wa_excess(
-                _pa.packed_attention_plain(padded, pb, pm, heads)[:, :, :t], ref, dtype)
-            if bias is not None:
-                ctrl_excess = min(ctrl_excess, wa_excess(
-                    _pa.packed_attention_plain(qkv, None, mask, heads), ref, dtype))
-            if ctrl_excess <= 1.0:
-                fail(f"{what}: a control (padded keys unmasked, bias dropped) passes the check")
-            min_control = min(min_control, ctrl_excess)
-            del padded, pb, pm
-            reps = 20 if dtype == torch.bfloat16 else 5
-            k_ms = time_ms(lambda: PA_KERNEL(*args), reps=reps, samples=3)
-            p_ms = time_ms(lambda: _pa.packed_attention_plain(*args), reps=3, samples=3)
-            q, k, v, am = sdpa_inputs(qkv, bias, mask, heads)
-            l_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, attn_mask=am, scale=d ** -0.5), reps=5, samples=3)
-            es = qkv.element_size()
-            nbytes = qkv.numel() * es + qkv.numel() // 3 * es + (
-                bias.numel() * 4 if bias is not None else 0) + (
-                mask.numel() * 4 if mask is not None else 0)
-            flops = 4.0 * BATCH * w * heads * t * t * d
-            b_ms, kind = bound_ms(nbytes, flops, dtype)
-            log(f"  packed_attention {name} [{BATCH},{w},{t},{3 * c}] H={heads} "
-                f"{str(dtype)[6:]}: max_abs_err={err:.3e} err/tol={excess:.3f} (tol atol+rtol|ref| "
-                f"{TOL_WA[dtype]}) lse max_abs_err={lse_err:.3e} two runs equal; "
-                f"control err/tol>={ctrl_excess:.1f} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms(SDPA)={l_ms:.4f} "
-                f"bound_ms={b_ms:.4f} ({kind}) GB/s={nbytes / k_ms / 1e6:.0f} "
-                f"(SDPA {nbytes / l_ms / 1e6:.0f}) TFLOP/s(4T^2d)={flops / k_ms / 1e9:.1f} "
-                f"(SDPA {flops / l_ms / 1e9:.1f})")
-            if per_forward and dtype == torch.bfloat16:  # the serving path's call
-                main = {"max_abs_err": err, "ms": per_forward * k_ms,
-                        "plain_ms": per_forward * p_ms, "library_ms": per_forward * l_ms,
-                        "bound_ms": per_forward * b_ms, "bound_by": kind,
-                        "gb_per_s": nbytes / k_ms / 1e6, "library_gb_per_s": nbytes / l_ms / 1e6}
-            del qkv, out, ref, q, k, v, am
+    res = {}
+    for name, (check, cases) in kernel_checks.MAIN_PATH.items():
+        res[name] = []
+        for case in cases:
+            call = f"{check.__name__}{tuple(str(a).replace('torch.', '') for a in case)}"
+            try:
+                kernel, plain = check(dev, *case)
+            except AssertionError:
+                fail(f"{name}: {call}: {traceback.format_exc(limit=-1).strip()}")
+            before = COUNTERS[name].launches
+            kernel()
+            launches = COUNTERS[name].launches - before
+            ms = time_ms(kernel, reps=5, samples=3)
+            plain_ms = time_ms(plain, reps=1, samples=3, warm=1)
+            log(f"  {name} {call}: within its tolerance, its control outside; "
+                f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} launches a call {launches}")
+            res[name].append({"call": call, "ms": ms, "plain_ms": plain_ms,
+                              "launches_a_call": launches})
+            del kernel, plain
             torch.cuda.empty_cache()
-    log(f"  packed attention controls: smallest err/tol {min_control:.1f} (must be > 1)")
-    return main
+    return res
 
 
-def issued_tflops(batch: int, heads: int, t: int, d: int, ms: float) -> float:
-    """The attention backward's seven T x T x d products (two rebuilt, none
-    skipped), 14 T^2 d flops per (image, head), over ``ms``: TFLOP/s."""
-    return 14.0 * batch * heads * t * t * d / ms / 1e9
-
-
-def sdpa_forward_ms(qkv: torch.Tensor, bias, mask, heads: int) -> float:
-    """Library yardstick of the forward at a training call: SDPA on the same
-    inputs (without the log-sum-exp the kernel also writes there)."""
-    d = qkv.shape[-1] // 3 // heads
-    q, k, v, am = sdpa_inputs(qkv, bias, mask, heads)
-    return time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q, k, v, attn_mask=am, scale=d ** -0.5), reps=5, samples=3)
-
-
-def sdpa_backward_ms(qkv: torch.Tensor, bias, mask, heads: int, reps: int) -> float:
-    """Library yardstick: the backward of SDPA on the same inputs (dq, dk, dv;
-    no bias gradient, so with a bias it does part of the work only)."""
-    d = qkv.shape[-1] // 3 // heads
-    q, k, v, am = sdpa_inputs(qkv, bias, mask, heads)
-    q, k, v = (x.requires_grad_() for x in (q, k, v))
-    o = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=am, scale=d ** -0.5)
-    do = torch.randn_like(o)
-    return time_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True), reps=reps,
-                   samples=3)
-
-
-def check_packed_attention_bwd(g: torch.Generator) -> dict:
-    """Backward kernel vs its plain version at the training shapes (batch 128
-    for the ViT calls, 64 for the Swin packed shape), both from the forward
-    kernel's out and lse; also times the forward kernel at that batch."""
-    main = {}
-    worst = 0.0
-    min_control = math.inf
-    for name, w, t, c, heads, hb, wm, per_step in PACKED_SHAPES:
-        d = c // heads
-        batch = TRAIN_VIEWS if w == 1 else BATCH
-        for dtype in (torch.bfloat16, torch.float32):
-            atol, rtol, btol = TOL_WA_BWD[dtype]
-            qkv, bias, mask = packed_inputs(g, batch, w, t, c, heads, hb, wm, dtype)
-            dout = torch.randn(batch, w, t, c, generator=g, device=qkv.device).to(dtype)
-            out, lse = PA_KERNEL(qkv, bias, mask, heads, return_lse=True)
-            args = (qkv, bias, mask, out, lse, dout, heads)
-            dqkv, dbias = PA_BWD_KERNEL(*args)
-            ref_dqkv, ref_dbias = _pa.packed_attention_bwd_plain(*args)
-            torch.cuda.synchronize()
-            what = f"packed attention backward {name} [{batch},{w},{t},{3 * c}] {dtype}"
-            err = (dqkv.float() - ref_dqkv.float()).abs().max().item()
-            excess = close_excess(dqkv, ref_dqkv, atol, rtol)
-            if not math.isfinite(excess) or excess > 1.0:
-                fail(f"{what}: dqkv error {excess:.3f}x its tolerance (max abs err {err})")
-            bias_excess, bias_err, bias_scale = 0.0, 0.0, 0.0
-            if bias is not None:
-                bias_scale = ref_dbias.abs().max().item()
-                bias_err = (dbias - ref_dbias).abs().max().item()
-                bias_excess = bias_err / (btol * bias_scale)
-                if not math.isfinite(bias_excess) or bias_excess > 1.0:
-                    fail(f"{what}: dbias error {bias_err} is {bias_excess:.3f}x its tolerance "
-                         f"{btol} x max |dbias| {bias_scale}")
-            worst = max(worst, excess, bias_excess)
-            # the same gradient twice, bit for bit
-            again, dbias_again = PA_BWD_KERNEL(*args)
-            if not torch.equal(again, dqkv) or (
-                    dbias is not None and not torch.equal(dbias_again, dbias)):
-                fail(f"{what}: two runs of the backward kernel differ")
-            # controls: dK zeroed in dqkv, and dbias dropped, must both fail
-            ctrl = ref_dqkv.clone()
-            ctrl[..., c:2 * c] = 0
-            ctrl_excess = close_excess(ctrl, ref_dqkv, atol, rtol)
-            if bias is not None:  # |0 - ref| at its largest entry
-                ctrl_excess = min(ctrl_excess, bias_scale / (btol * bias_scale))
-            if ctrl_excess <= 1.0:
-                fail(f"{what}: a control (dK zeroed, dbias dropped) passes the check")
-            min_control = min(min_control, ctrl_excess)
-            del ctrl, ref_dqkv, dqkv, again
-            reps = 10 if dtype == torch.bfloat16 else 3
-            k_ms = time_ms(lambda: PA_BWD_KERNEL(*args), reps=reps, samples=3)
-            p_ms = time_ms(lambda: _pa.packed_attention_bwd_plain(*args), reps=2, samples=3)
-            f_ms = time_ms(lambda: PA_KERNEL(qkv, bias, mask, heads, return_lse=True), reps=reps,
-                           samples=3)
-            fl_ms = sdpa_forward_ms(qkv, bias, mask, heads)
-            l_ms = sdpa_backward_ms(qkv, bias, mask, heads, reps=5)
-            es = qkv.element_size()
-            # qkv, out, dout and lse read, dqkv written (bias and mask read,
-            # dbias written); the minimal work is the five products of the
-            # backward, 10 T^2 d flops per (image, group, head)
-            nbytes = (2 * qkv.numel() + 2 * dout.numel()) * es + lse.numel() * 4 + (
-                2 * bias.numel() * 4 if bias is not None else 0) + (
-                mask.numel() * 4 if mask is not None else 0)
-            flops = 10.0 * batch * w * heads * t * t * d
-            b_ms, kind = bound_ms(nbytes, flops, dtype)
-            log(f"  packed_attention_bwd {name} [{batch},{w},{t},{3 * c}] H={heads} "
-                f"{str(dtype)[6:]}: dqkv max_abs_err={err:.3e} err/tol={excess:.3f} (tol "
-                f"{atol}+{rtol:.4f}|ref|) dbias err={bias_err:.3e} of max {bias_scale:.3e} "
-                f"err/tol={bias_excess:.3f} two runs equal; control err/tol>={ctrl_excess:.1f} "
-                f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms(SDPA backward)={l_ms:.4f} "
-                f"bound_ms={b_ms:.4f} ({kind}) "
-                f"TFLOP/s(14T^2d)={issued_tflops(batch * w, heads, t, d, k_ms):.1f} "
-                f"fwd_kernel_ms={f_ms:.4f} (SDPA {fl_ms:.4f})")
-            if per_step and dtype == torch.bfloat16:  # the training path's call
-                main = {"max_abs_err": err, "ms": per_step * k_ms, "plain_ms": per_step * p_ms,
-                        "library_ms": per_step * l_ms, "bound_ms": per_step * b_ms,
-                        "bound_by": kind, "fwd_ms": per_step * f_ms,
-                        "fwd_library_ms": per_step * fl_ms}
-            del qkv, dout, out, lse, args
-            torch.cuda.empty_cache()
-    log(f"  packed attention backward controls: smallest err/tol {min_control:.1f} (must be > 1)")
-    return {"err_over_tol": worst, **main}
-
-
-def check_flash_attention(g: torch.Generator, t: int = VIT448_T, c: int = VIT_C,
-                          heads: int = VIT_H, depth: int = VIT_DEPTH) -> dict:
-    """Kernel 6 at a serving call, bf16 and fp32, with the log-sum-exp it
-    writes for the backward: ViT-Base at 448, qkv [64, 785, 2304] (the
-    default), or ViT-Large at 512, [64, 1025, 3072] with 16 heads.  The
-    per-forward sums count ``depth`` launches."""
-    d = c // heads
-    main = {}
-    min_control = math.inf
-    for dtype in (torch.bfloat16, torch.float32):
-        atol, rtol = TOL_FA[dtype]
-        qkv = torch.randn(BATCH, t, 3 * c, generator=g, device="cuda").to(dtype)
-        out, lse = FA_KERNEL(qkv, heads)
-        ref, ref_lse = _fa.flash_attention_tiled_plain(qkv, heads)
-        torch.cuda.synchronize()
-        what = f"q-tiled attention [{BATCH},{t},{3 * c}] H={heads} {dtype}"
-        err = (out.float() - ref.float()).abs().max().item()
-        excess = close_excess(out, ref, atol, rtol)
-        lse_err = (lse - ref_lse).abs().max().item()
-        if not math.isfinite(excess) or excess > 1.0:
-            fail(f"{what}: error {excess:.3f}x its tolerance {TOL_FA[dtype]} (max abs err {err})")
-        if not lse_err <= 1e-4 * ref_lse.abs().max().item():
-            fail(f"{what}: log-sum-exp off by {lse_err}")
-        again, lse_again = FA_KERNEL(qkv, heads)  # twice, bit for bit
-        if not torch.equal(again, out) or not torch.equal(lse_again, lse):
-            fail(f"{what}: two runs of the forward kernel differ")
-        del again, lse_again
-        # controls: the keys padded up to the kernel's tile and left unmasked
-        # (zero keys join the softmax), and only the first tile of keys
-        pad = -(-t // _fa.TILE) * _fa.TILE - t
-        padded = torch.nn.functional.pad(qkv, (0, 0, 0, pad))
-        controls = (_fa.flash_attention_tiled_plain(padded, heads)[0][:, :t],
-                    first_keys_attention(qkv, heads)[0])
-        ctrl_excess = min(close_excess(ctrl, ref, atol, rtol) for ctrl in controls)
-        if ctrl_excess <= 1.0:
-            fail(f"{what}: a control (padded keys unmasked, first 64 keys only) passes the check")
-        min_control = min(min_control, ctrl_excess)
-        del padded, controls
-        reps = 10 if dtype == torch.bfloat16 else 3
-        k_ms = time_ms(lambda: FA_KERNEL(qkv, heads), reps=reps, samples=3)
-        p_ms = time_ms(lambda: _fa.flash_attention_tiled_plain(qkv, heads), reps=3, samples=3)
-        q, k, v, _ = sdpa_inputs(qkv[:, None], None, None, heads)
-        l_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, scale=d ** -0.5), reps=5, samples=3)
-        nbytes = qkv.numel() * qkv.element_size() * 4 / 3 + lse.numel() * 4
-        flops = 4.0 * BATCH * heads * t * t * d
-        b_ms, kind = bound_ms(nbytes, flops, dtype)
-        log(f"  flash_attention_tiled [{BATCH},{t},{3 * c}] H={heads} {str(dtype)[6:]}: "
-            f"max_abs_err={err:.3e} err/tol={excess:.3f} (tol atol+rtol|ref| {TOL_FA[dtype]}) "
-            f"lse max_abs_err={lse_err:.3e} two runs equal; control err/tol>={ctrl_excess:.1f} "
-            f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms(SDPA)={l_ms:.4f} "
-            f"bound_ms={b_ms:.4f} ({kind}) TFLOP/s(4T^2d)={flops / k_ms / 1e9:.1f} "
-            f"(SDPA {flops / l_ms / 1e9:.1f})")
-        if dtype == torch.bfloat16:  # the serving path's call, depth per forward
-            main = {"max_abs_err": err, "ms": depth * k_ms, "plain_ms": depth * p_ms,
-                    "library_ms": depth * l_ms, "bound_ms": depth * b_ms,
-                    "bound_by": kind, "tflops": flops / k_ms / 1e9,
-                    "library_tflops": flops / l_ms / 1e9}
-        del qkv, out, lse, ref, ref_lse, q, k, v
-        torch.cuda.empty_cache()
-    log(f"  q-tiled attention controls: smallest err/tol {min_control:.1f} (must be > 1)")
-    return main
-
-
-def check_flash_attention_bwd(g: torch.Generator, t: int = VIT448_T, c: int = VIT_C,
-                              heads: int = VIT_H, depth: int = VIT_DEPTH,
-                              plain_batch: int = TRAIN_VIEWS) -> dict:
-    """Kernel 6b at a training call (batch 128), from the forward kernel's out
-    and lse: ViT-Base at 448, qkv [128, 785, 2304] (the default), or
-    ViT-Large at 512, [128, 1025, 3072] with 16 heads, bf16 only (its fp32
-    plain version would hold ~45 GB).  The plain version runs on the first
-    ``plain_batch`` images; the per-step sums count ``depth`` launches.  Also
-    times the forward kernel at that batch."""
-    d = c // heads
-    batch = TRAIN_VIEWS
-    main = {}
-    worst = 0.0
-    min_control = math.inf
-    dtypes = (torch.bfloat16, torch.float32) if plain_batch == batch else (torch.bfloat16,)
-    for dtype in dtypes:
-        atol, rtol = TOL_FA_BWD[dtype]
-        qkv = torch.randn(batch, t, 3 * c, generator=g, device="cuda").to(dtype)
-        dout = torch.randn(batch, t, c, generator=g, device="cuda").to(dtype)
-        out, lse = FA_KERNEL(qkv, heads)
-        args = (qkv, out, lse, dout, heads)
-        dqkv = FA_BWD_KERNEL(*args)[:plain_batch]
-        ref = _fa.flash_attention_tiled_bwd_plain(qkv[:plain_batch], dout[:plain_batch], heads)
-        torch.cuda.synchronize()
-        what = f"q-tiled attention backward [{batch},{t},{3 * c}] H={heads} {dtype}"
-        err = (dqkv.float() - ref.float()).abs().max().item()
-        excess = close_excess(dqkv, ref, atol, rtol)
-        if not math.isfinite(excess) or excess > 1.0:
-            fail(f"{what}: dqkv error {excess:.3f}x its tolerance (max abs err {err})")
-        worst = max(worst, excess)
-        if not torch.equal(FA_BWD_KERNEL(*args)[:plain_batch], dqkv):  # twice, bit for bit
-            fail(f"{what}: two runs of the backward kernel differ")
-        ctrl = ref.clone()
-        ctrl[..., c:2 * c] = 0  # control: dK zeroed
-        ctrl_excess = close_excess(ctrl, ref, atol, rtol)
-        if ctrl_excess <= 1.0:
-            fail(f"{what}: a control (dK zeroed) passes the check")
-        min_control = min(min_control, ctrl_excess)
-        del ctrl, ref, dqkv
-        reps = 5 if dtype == torch.bfloat16 else 2
-        k_ms = time_ms(lambda: FA_BWD_KERNEL(*args), reps=reps, samples=3)
-        p_ms = time_ms(lambda: _fa.flash_attention_tiled_bwd_plain(
-            qkv[:plain_batch], dout[:plain_batch], heads), reps=2, samples=3)
-        f_ms = time_ms(lambda: FA_KERNEL(qkv, heads), reps=reps, samples=3)
-        fl_ms = sdpa_forward_ms(qkv[:, None], None, None, heads)
-        l_ms = sdpa_backward_ms(qkv[:, None], None, None, heads, reps=3)
-        es = qkv.element_size()
-        nbytes = (2 * qkv.numel() + 2 * dout.numel()) * es + lse.numel() * 4
-        flops = 10.0 * batch * heads * t * t * d
-        b_ms, kind = bound_ms(nbytes, flops, dtype)
-        log(f"  flash_attention_tiled_bwd [{batch},{t},{3 * c}] H={heads} {str(dtype)[6:]}: "
-            f"dqkv max_abs_err={err:.3e} err/tol={excess:.3f} (tol {atol}+{rtol:.4f}|ref|, "
-            f"first {plain_batch} images) two runs equal; control err/tol>={ctrl_excess:.1f} "
-            f"kernel_ms={k_ms:.4f} plain_ms(batch {plain_batch})={p_ms:.4f} "
-            f"library_ms(SDPA backward)={l_ms:.4f} bound_ms={b_ms:.4f} ({kind}) "
-            f"TFLOP/s(14T^2d)={issued_tflops(batch, heads, t, d, k_ms):.1f} "
-            f"fwd_kernel_ms={f_ms:.4f} (SDPA {fl_ms:.4f})")
-        if dtype == torch.bfloat16:  # the training path's call, depth per step
-            main = {"max_abs_err": err, "ms": depth * k_ms, "plain_ms": depth * p_ms,
-                    "plain_batch": plain_batch, "library_ms": depth * l_ms,
-                    "bound_ms": depth * b_ms, "bound_by": kind, "fwd_ms": depth * f_ms,
-                    "fwd_library_ms": depth * fl_ms}
-        del qkv, dout, out, lse, args
-        torch.cuda.empty_cache()
-    log(f"  q-tiled attention backward controls: smallest err/tol {min_control:.1f} "
-        "(must be > 1)")
-    return {"err_over_tol": worst, **main}
-
-
-def head_moment_matrix(g: torch.Generator, n: int, d: int) -> torch.Tensor:
-    """M2 = Zc^T W Zc in fp32 as the moment head forms it on the dense route,
-    from random [64, n, d] tokens and a random non-negative symmetric graph
-    (a Gram of non-negative features, so W and M2 are PSD as the head's are)."""
-    tokens = torch.randn(BATCH, n, d, generator=g, device="cuda")
-    feats = torch.rand(BATCH, n, 16, generator=g, device="cuda")
-    w = normalize_graph(torch.matmul(feats, feats.transpose(1, 2)), "symmetric", eps=NS_EPS)
-    centered = tokens - graph_weighted_mean(tokens, w, eps=NS_EPS)[:, None, :]
-    return torch.matmul(centered.transpose(1, 2), torch.matmul(w, centered))
-
-
-def ns_excess(out: torch.Tensor, ref: torch.Tensor, dtype, tol=None) -> float:
-    """Largest |out - ref| / (rtol |ref| + atol max |ref|); passes at <= 1."""
-    rtol, atol = tol or TOL_NS[dtype]
-    ref = ref.float()
-    return ((out.float() - ref).abs() / (rtol * ref.abs() + atol * ref.abs().max())).max().item()
-
-
-def check_newton_schulz(g: torch.Generator) -> dict:
-    """Kernel 5 at the dense head's call, M [64, 768, 768] (ViT-Base at 448),
-    and at [64, 192, 192] (ViT-Tiny at 224), M in bf16 and fp32."""
-    main = {}
-    min_control = math.inf
-    for n, d in ((VIT448_T - 1, VIT_C), (196, 192)):
-        m32 = head_moment_matrix(g, n, d)
-        for dtype in (torch.bfloat16, torch.float32):
-            m = m32.to(dtype)
-            out = NS_KERNEL(m, NS_ITERS, NS_EPS)
-            ref = _ns.newton_schulz_isqrt_plain(m, NS_ITERS, NS_EPS)
-            torch.cuda.synchronize()
-            what = f"newton_schulz [{BATCH},{d},{d}] {dtype}"
-            err = (out.float() - ref.float()).abs().max().item()
-            excess = ns_excess(out, ref, dtype)
-            if not math.isfinite(excess) or excess > 1.0:
-                fail(f"{what}: error {excess:.3f}x its tolerance {TOL_NS[dtype]} (max abs err "
-                     f"{err})")
-            # control: four iterations instead of five
-            ctrl_excess = ns_excess(_ns.newton_schulz_isqrt_plain(m, NS_ITERS - 1, NS_EPS), ref,
-                                    dtype)
-            if ctrl_excess <= 1.0:
-                fail(f"{what}: a control (four iterations) passes the check")
-            min_control = min(min_control, ctrl_excess)
-            k_ms = time_ms(lambda: NS_KERNEL(m, NS_ITERS, NS_EPS), reps=3, samples=3)
-            p_ms = time_ms(lambda: _ns.newton_schulz_isqrt_plain(m, NS_ITERS, NS_EPS), reps=3,
-                           samples=3)
-
-            def library():
-                # the same iteration on cuBLAS fp32, each update one baddbmm
-                mf = m.float()
-                tr = torch.diagonal(mf, dim1=-2, dim2=-1).sum(-1)[:, None, None] + NS_EPS
-                z = mf / tr
-                y = torch.eye(d, device=m.device).expand_as(z).contiguous()
-                for i in range(NS_ITERS):
-                    t = torch.bmm(z, y)
-                    y_next = torch.baddbmm(y, y, t, beta=1.5, alpha=-0.5)
-                    if i + 1 < NS_ITERS:
-                        z = torch.baddbmm(z, t.transpose(1, 2), z, beta=1.5, alpha=-0.5)
-                    y = y_next
-                return (y / torch.sqrt(tr)).to(m.dtype)
-
-            l_ms = time_ms(library, reps=3, samples=3)
-            nbytes = 2 * m.numel() * m.element_size()
-            # products the function needs: three a step, less the first step's
-            # two (Y = I) and the last step's Z update, which nothing reads
-            flops = BATCH * (3 * NS_ITERS - 3) * 2.0 * d ** 3
-            b_ms, kind = bound_ms(nbytes, flops, torch.float32)  # fp32 inside, whatever M's type
-            log(f"  newton_schulz [{BATCH},{d},{d}] k={NS_ITERS} {str(dtype)[6:]}: "
-                f"max_abs_err={err:.3e} of max |ref| {ref.float().abs().max().item():.3e} "
-                f"err/tol={excess:.3f} (tol rtol|ref| + atol max|ref| {TOL_NS[dtype]}) control "
-                f"err/tol={ctrl_excess:.1f} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                f"library_ms(cuBLAS fp32 bmm/baddbmm iteration)={l_ms:.4f} bound_ms={b_ms:.4f} "
-                f"({kind})")
-            if d == VIT_C and dtype == torch.bfloat16:  # the 448 path's call, 1 per forward
-                main = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                        "bound_ms": b_ms, "bound_by": kind}
-            del m, out, ref
-        del m32
-        torch.cuda.empty_cache()
-    log(f"  newton_schulz controls: smallest err/tol {min_control:.1f} (must be > 1)")
-    return main
-
-
-def ns_bf16_library(m: torch.Tensor, streamed: bool) -> torch.Tensor:
-    """The bf16 iteration on cuBLAS, at the kernels' rounding points: bf16
-    ``bmm`` for the products and ``baddbmm`` for the update, with the first
-    step's exact copies skipped as the kernels skip them.  A yardstick, never
-    the port's."""
-    mf = m.float()
-    tr = torch.diagonal(mf, dim1=-2, dim2=-1).sum(-1)[:, None, None] + NS_EPS
-    mn = (mf / tr).to(torch.bfloat16)
-    eye = torch.eye(m.shape[-1], device=m.device)
-    y = (1.5 * eye - 0.5 * mn.float()).to(torch.bfloat16)
-    for _ in range(NS_ITERS - 1):
-        if streamed:
-            p = torch.bmm(torch.bmm(y, mn), y)
-            y = torch.baddbmm(y, p, y, beta=1.5, alpha=-0.5)
-        else:
-            t2 = torch.bmm(mn, torch.bmm(y, y))
-            y = torch.baddbmm(y, y, t2, beta=1.5, alpha=-0.5)
-    return (y.float() / torch.sqrt(tr)).to(m.dtype)
-
-
-def check_newton_schulz_bf16(g: torch.Generator) -> dict:
-    """Kernels 5′ and 5″ at the dense head's calls: M [64, 1024, 1024] as the
-    head builds it for ViT-Large at 512 (N = 1024) and [64, 1536, 1536] for
-    Swin-Large at 1280 (N = 1600), M in bf16 and fp32, each against the plain
-    version that rounds where it rounds.  Two runs must agree bit for bit;
-    four iterations must fail; the other variant's grouping is printed.
-    Bound: 3(k - 1) products of 2 D^3 over the bf16 tensor-core peak."""
-    results = {}
-    min_control = math.inf
-    for variant, n, d in (("bf16", VITL_T - 1, VITL_C), ("bf16_streamed", SWINL_N, SWINL_C)):
-        kernel, plain, other = NS_BF16_VARIANTS[variant]
-        m32 = head_moment_matrix(g, n, d)
-        for dtype in (torch.bfloat16, torch.float32):
-            m = m32.to(dtype)
-            out = kernel(m, NS_ITERS, NS_EPS)
-            again = kernel(m, NS_ITERS, NS_EPS)
-            ref = plain(m, NS_ITERS, NS_EPS)
-            torch.cuda.synchronize()
-            what = f"newton_schulz {variant} [{BATCH},{d},{d}] {dtype}"
-            if not torch.equal(out, again):
-                fail(f"{what}: two runs of the kernel differ")
-            # one step is Mn and an elementwise update: the same bits as the
-            # plain version, or the two do not normalize alike
-            if not torch.equal(kernel(m, 1, NS_EPS), plain(m, 1, NS_EPS)):
-                fail(f"{what}: one step differs from the plain version's bits")
-            del again
-            err = (out.float() - ref.float()).abs().max().item()
-            excess = ns_excess(out, ref, dtype, TOL_NS_BF16)
-            if not math.isfinite(excess) or excess > 1.0:
-                fail(f"{what}: error {excess:.3f}x its tolerance {TOL_NS_BF16} (max abs err "
-                     f"{err})")
-            # control: four iterations instead of five
-            ctrl_excess = ns_excess(plain(m, NS_ITERS - 1, NS_EPS), ref, dtype, TOL_NS_BF16)
-            if ctrl_excess <= 1.0:
-                fail(f"{what}: a control (four iterations) passes the check")
-            min_control = min(min_control, ctrl_excess)
-            other_excess = ns_excess(other(m, NS_ITERS, NS_EPS), ref, dtype, TOL_NS_BF16)
-            lib_excess = ns_excess(ns_bf16_library(m, variant == "bf16_streamed"), ref, dtype,
-                                   TOL_NS_BF16)
-            k_ms = time_ms(lambda: kernel(m, NS_ITERS, NS_EPS), reps=3, samples=3)
-            p_ms = time_ms(lambda: plain(m, NS_ITERS, NS_EPS), reps=2, samples=3)
-            l_ms = time_ms(lambda: ns_bf16_library(m, variant == "bf16_streamed"), reps=3,
-                           samples=3)
-            nbytes = 2 * m.numel() * m.element_size()
-            flops = BATCH * (3 * NS_ITERS - 3) * 2.0 * d ** 3
-            b_ms, kind = bound_ms(nbytes, flops, torch.bfloat16)  # bf16 tensor-core products
-            log(f"  newton_schulz {variant} [{BATCH},{d},{d}] k={NS_ITERS} {str(dtype)[6:]}: "
-                f"max_abs_err={err:.3e} of max |ref| {ref.float().abs().max().item():.3e} "
-                f"err/tol={excess:.3f} (tol rtol|ref| + atol max|ref| {TOL_NS_BF16}) two runs "
-                f"equal, one step equal to the plain version's bits; control (four iterations) err/tol={ctrl_excess:.1f}; the other "
-                f"grouping err/tol={other_excess:.3f} (printed, not enforced); library "
-                f"err/tol={lib_excess:.3f} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
-                f"library_ms(cuBLAS bf16 bmm/baddbmm iteration)={l_ms:.4f} bound_ms={b_ms:.4f} "
-                f"({kind}) TFLOP/s={flops / k_ms / 1e9:.1f} (cuBLAS iteration "
-                f"{flops / l_ms / 1e9:.1f})")
-            if dtype == torch.bfloat16:  # the serving paths' call, 1 per forward
-                results[variant] = {"max_abs_err": err, "err_over_tol": excess, "ms": k_ms,
-                                    "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
-                                    "bound_by": kind, "tflops": flops / k_ms / 1e9,
-                                    "library_tflops": flops / l_ms / 1e9}
-            del m, out, ref
-        del m32
-        torch.cuda.empty_cache()
-    log(f"  newton_schulz bf16 controls: smallest err/tol {min_control:.1f} (must be > 1)")
-    return results
-
-
-def subspace_inputs(g: torch.Generator, n: int, d: int, dtype) -> tuple:
-    """centered and weighted [64, n, d] as the moment head makes them: tokens
-    centered on their graph-weighted mean, and the graph times them, from a
-    random symmetric graph normalized as the head normalizes it."""
-    tokens = torch.randn(BATCH, n, d, generator=g, device="cuda").to(dtype)
-    graph = torch.rand(BATCH, n, n, generator=g, device="cuda")
-    w = normalize_graph(0.5 * (graph + graph.transpose(1, 2)), "symmetric", eps=NS_EPS)
-    centered = tokens - graph_weighted_mean(tokens, w, eps=NS_EPS)[:, None, :]
-    weighted = torch.matmul(w.float(), centered.float()).to(dtype)
-    return centered.contiguous(), weighted.contiguous()
-
-
-def si_witness_error(out, witness, centered, weighted) -> float:
-    """||out - witness|| over what the iteration adds to a_k I / sqrt(t), in fp64."""
-    t = (centered.double() * weighted.double()).sum(dim=(1, 2))[:, None, None] + NS_EPS
-    eye = torch.eye(witness.shape[-1], dtype=torch.float64, device=witness.device)
-    part = witness - eye * 1.5 ** NS_ITERS / torch.sqrt(t)
-    return float((out.double() - witness).norm() / part.norm())
-
-
-def si_bf16_apart(out, ref) -> tuple[float, float]:
-    """bf16 outputs element by element: the largest |out - ref| over
-    (rtol |ref| + atol max |ref|), and the share of elements that differ."""
-    rtol, atol, _ = TOL_SI_BF16
-    out, ref = out.float(), ref.float()
-    excess = ((out - ref).abs() / (rtol * ref.abs() + atol * ref.abs().max())).max().item()
-    return excess, (out != ref).double().mean().item()
-
-
-def check_subspace_isqrt(g: torch.Generator) -> dict:
-    """Kernel 7 at the subspace head's serving calls, ViT-Large/16 at 448
-    ([64, 784, 1024]) and Swin-Base/224 ([64, 49, 1024]), k = 5, bf16 and
-    fp32, against the plain fp32 route and an fp64 witness (TOL_SI_*); the
-    control drops each fp32 operand's lo term.  Two runs must agree bit for
-    bit.  Bound: :func:`subspace_isqrt.bound_flops` over the bf16 peak."""
-    results = {}
-    for n, d in ((VIT448_T - 1, VITL_C), (49, 1024)):
-        for dtype in (torch.bfloat16, torch.float32):
-            centered, weighted = subspace_inputs(g, n, d, dtype)
-            out = SI_KERNEL(centered, weighted, NS_ITERS, NS_EPS)
-            again = SI_KERNEL(centered, weighted, NS_ITERS, NS_EPS)
-            control = SI_KERNEL(centered, weighted, NS_ITERS, NS_EPS, _terms=2)
-            ref = isqrt_cov_subspace(centered, weighted, NS_ITERS, NS_EPS)
-            torch.cuda.synchronize()
-            what = f"subspace_isqrt [{BATCH},{n},{d}] {dtype}"
-            if not torch.equal(out, again):
-                fail(f"{what}: two runs of the kernel differ")
-            if not bool(torch.isfinite(out).all()):
-                fail(f"{what}: non-finite output")
-            del again
-            err = (out.float() - ref.float()).abs().max().item()
-            if dtype == torch.bfloat16:
-                excess, share = si_bf16_apart(out, ref)
-                ctrl_excess, ctrl_share = si_bf16_apart(control, ref)
-                if not (excess <= 1.0 and share <= TOL_SI_BF16[2]):
-                    fail(f"{what}: {share:.3e} of the elements differ from the plain route's "
-                         f"(bar {TOL_SI_BF16[2]}), largest error {excess:.3f}x its tolerance")
-                if ctrl_share <= TOL_SI_BF16[2]:
-                    fail(f"{what}: the control (two bf16 terms) passes the check "
-                         f"({ctrl_share:.3e} of the elements differ)")
-                msg = (f"elements apart from the plain route's {share:.3e} (bar "
-                       f"{TOL_SI_BF16[2]}; control {ctrl_share:.3e}) largest err/tol "
-                       f"{excess:.3f} (control {ctrl_excess:.3f})")
-                res = {"share_apart": share, "control_share_apart": ctrl_share,
-                       "err_over_tol": excess}
-            else:
-                witness = isqrt_cov_subspace(centered.double(), weighted.double(), NS_ITERS,
-                                             NS_EPS)
-                e_k = si_witness_error(out, witness, centered, weighted)
-                e_p = si_witness_error(ref, witness, centered, weighted)
-                e_c = si_witness_error(control, witness, centered, weighted)
-                del witness
-                if not e_k <= TOL_SI_F32_RATIO * e_p:
-                    fail(f"{what}: error {e_k:.3e} against the fp64 witness, the plain route's "
-                         f"{e_p:.3e} (bar {TOL_SI_F32_RATIO}x)")
-                if e_c <= TOL_SI_F32_RATIO * e_p:
-                    fail(f"{what}: the control (two bf16 terms) passes the fp64 check")
-                msg = (f"fp64-witness error {e_k:.3e}, plain route {e_p:.3e} (ratio "
-                       f"{e_k / e_p:.2f}, bar {TOL_SI_F32_RATIO}; control {e_c / e_p:.1f})")
-                res = {"witness_ratio": e_k / e_p, "control_witness_ratio": e_c / e_p}
-            del control
-            k_ms = time_ms(lambda: SI_KERNEL(centered, weighted, NS_ITERS, NS_EPS), reps=3,
-                           samples=3)
-            p_ms = time_ms(lambda: isqrt_cov_subspace(centered, weighted, NS_ITERS, NS_EPS),
-                           reps=3, samples=3)
-            nbytes = (2 * centered.numel() + out.numel()) * centered.element_size()
-            flops = _si.bound_flops(BATCH, n, d, NS_ITERS, dtype == torch.bfloat16)
-            b_ms, kind = bound_ms(nbytes, flops, torch.bfloat16)  # bf16 tensor-core products
-            log(f"  subspace_isqrt [{BATCH},{n},{d}] k={NS_ITERS} {str(dtype)[6:]}: "
-                f"max_abs_err={err:.3e} of max |ref| {ref.float().abs().max().item():.3e} {msg}; "
-                f"two runs equal; kernel_ms={k_ms:.4f} plain_ms(cuBLAS fp32 route)={p_ms:.4f} "
-                f"bound_ms={b_ms:.4f} ({kind})")
-            results[(n, str(dtype)[6:])] = {"max_abs_err": err, **res, "ms": k_ms,
-                                            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": kind}
-            del centered, weighted, out, ref
-        torch.cuda.empty_cache()
-    return results
-
-
-def sn_excess(out: torch.Tensor, plain: torch.Tensor, width: int) -> float:
-    """The largest |out - plain| over TOL_SN on the true columns."""
-    rtol, atol = TOL_SN
-    out, plain = out[:, :width].float(), plain[:, :width].float()
-    tol = rtol * plain.abs() + atol * plain.abs().amax(dim=-1, keepdim=True)
-    return ((out - plain).abs() / tol).max().item()
-
-
-def check_swiglu_norm(g: torch.Generator) -> dict:
-    """EVA's SwiGLU glue at EVA-02-L/448's serving call ([64 x 1025, 2736],
-    W = 2730), at a ragged row count and at the micro EVA's 341 -> 344,
-    against its plain version (TOL_SN), g and u drawn in the padded columns
-    too; two runs bit for bit; controls: gate and value swapped, the bias
-    left out.  Bound: its bytes (``swiglu_norm.bound_bytes``)."""
-    results = {}
-    for rows, width in ((BATCH * VITL_T, 2730), (4099, 2730), (4099, 341)):
-        padded = width + (-width % 8)
-        gu = torch.randn(2, rows, padded, generator=g, device="cuda")
-        gate, value = (1.5 * gu[0]).to(torch.bfloat16), gu[1].to(torch.bfloat16)
-        del gu
-        w = 1 + 0.3 * torch.randn(width, generator=g, device="cuda")
-        b = 0.3 * torch.randn(width, generator=g, device="cuda")
-        out = SN_KERNEL(gate, value, w, b, width, 1e-6)
-        again = SN_KERNEL(gate, value, w, b, width, 1e-6)
-        ref = _sn.swiglu_norm_plain(gate, value, w, b, width, 1e-6)
-        torch.cuda.synchronize()
-        what = f"swiglu_norm [{rows},{padded}] W={width}"
-        if not torch.equal(out, again):
-            fail(f"{what}: two runs of the kernel differ")
-        if not torch.equal(out[:, width:], torch.zeros_like(out[:, width:])):
-            fail(f"{what}: the padded columns are not exactly 0")
-        excess = sn_excess(out, ref, width)
-        apart = (out[:, :width] != ref[:, :width]).double().mean().item()
-        err = (out.float() - ref.float()).abs().max().item()
-        del again
-        swapped = sn_excess(SN_KERNEL(value, gate, w, b, width, 1e-6), ref, width)
-        no_bias = sn_excess(SN_KERNEL(gate, value, w, torch.zeros_like(b), width, 1e-6), ref,
-                            width)
-        if not excess <= 1.0:
-            fail(f"{what}: error {excess:.3f}x its tolerance (rtol {TOL_SN[0]}, atol "
-                 f"{TOL_SN[1]} x max |row|) against the composition")
-        for name, ctrl in (("gate and value swapped", swapped), ("bias left out", no_bias)):
-            if ctrl <= 1.0:
-                fail(f"{what}: the control ({name}) passes the check ({ctrl:.3f}x)")
-        k_ms = time_ms(lambda: SN_KERNEL(gate, value, w, b, width, 1e-6))
-        p_ms = time_ms(lambda: _sn.swiglu_norm_plain(gate, value, w, b, width, 1e-6), reps=5,
-                       samples=3)
-        b_ms, kind = bound_ms(_sn.bound_bytes(rows, padded), 0.0, torch.bfloat16)
-        log(f"  {what}: max_abs_err={err:.3e} err/tol {excess:.3f} (controls: swapped "
-            f"{swapped:.1f}, no bias {no_bias:.1f}), {apart:.2e} of the elements apart from the "
-            f"composition's; two runs equal, padded columns 0; kernel_ms={k_ms:.4f} "
-            f"plain_ms(the composition)={p_ms:.4f} bound_ms={b_ms:.4f} ({kind}; "
-            f"{100 * b_ms / k_ms:.1f} % of it)")
-        results[(rows, width)] = {"max_abs_err": err, "err_over_tol": excess,
-                                  "share_apart": apart, "control_swapped": swapped,
-                                  "control_no_bias": no_bias, "ms": k_ms, "plain_ms": p_ms,
-                                  "bound_ms": b_ms, "bound_by": kind}
-        del gate, value, out, ref
-        torch.cuda.empty_cache()
-    return results
-
-
-def time_newton_schulz_bwd(g: torch.Generator) -> float:
-    """The dense head's iSQRT backward on the ViT-Large/512 training path:
-    autograd over the plain fp32 iteration from the saved M [64, 1024, 1024]
-    (bf16), as ``NewtonSchulzFunction.backward`` runs it, in ms."""
-    m = head_moment_matrix(g, VITL_T - 1, VITL_C).to(torch.bfloat16)
-    cot = torch.randn(m.shape, generator=g, device="cuda").to(torch.bfloat16)
-
-    def backward():
-        x = m.detach().requires_grad_()
-        y = _ns.newton_schulz_isqrt_plain(x, NS_ITERS, NS_EPS)
-        return torch.autograd.grad(y, x, cot)
-
-    torch.cuda.reset_peak_memory_stats()
-    ms = time_ms(backward, reps=2, samples=3)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"  newton_schulz backward (autograd over the plain fp32 iteration) [{BATCH},{VITL_C},"
-        f"{VITL_C}] bf16 M: {ms:.3f} ms, peak memory {peak:.2f} GiB")
-    del m, cot
-    torch.cuda.empty_cache()
-    return ms
-
-
-def check_window_attention_padded(g: torch.Generator) -> dict:
-    """Kernel 1 at the Swin-Large/1280 serving path's own launches: batch 64
-    on every stage's padded canvas (322 / 161 / 84 / 42 for 320 / 160 / 80 /
-    40 real rows, C 192 .. 1536), unshifted and shifted, both masks holding
-    the pad sentinel, bf16 and fp32.  Each launch is held against the plain
-    version on the same qkv in slices of PLAIN_SLICE images (where the plain
-    version's [B, nW, H, 49, 49] probabilities fit).  Control: the mask
-    without the pad sentinel, under which real queries see pad keys (on the
-    first slice).  The bf16 launches are then timed, beside SDPA on the same
-    inputs and the bytes each must move, and summed over a forward's 24."""
-    dev = torch.device("cuda")
-    nt = WS * WS
-    idx = torch.as_tensor(_relative_position_index(WS).reshape(-1), device=dev)
-    max_err, max_excess, min_control = 0.0, 0.0, math.inf
-    stage0_ms, total = {}, {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-    for stage, (h, hp, c, heads, blocks) in enumerate(SWINL_STAGES):
-        table = torch.randn((2 * WS - 1) ** 2, heads, generator=g, device=dev) * BIAS_TABLE_STD
-        bias = table[idx].reshape(nt, nt, heads).permute(2, 0, 1).contiguous()
-        scale, d, nw = (c // heads) ** -0.5, c // heads, (hp // WS) ** 2
-        qkv32 = torch.randn(BATCH, hp, hp, 3 * c, generator=g, device=dev)
-        for dtype in (torch.bfloat16, torch.float32):
-            qkv = qkv32.to(dtype)
-            for shift in (0, WS // 2):
-                mask = torch.as_tensor(_attn_mask(h, h, hp, hp, WS, shift), device=dev)
-                no_pad = _attn_mask(hp, hp, hp, hp, WS, shift)
-                no_pad = None if no_pad is None else torch.as_tensor(no_pad, device=dev)
-                args = (qkv, bias, mask, heads, WS, scale)
-                out = WA_KERNEL(*args)
-                what = (f"window attention Swin-Large/1280 [{BATCH},{hp},{hp},{3 * c}] "
-                        f"shift={shift} {dtype}")
-                err, excess = 0.0, 0.0
-                for i in range(0, BATCH, PLAIN_SLICE):
-                    part = (qkv[i:i + PLAIN_SLICE],) + args[1:]
-                    ref = _wa.window_attention_plain(*part)
-                    err = max(err, (out[i:i + PLAIN_SLICE].float() - ref.float()).abs()
-                              .max().item())
-                    excess = max(excess, wa_excess(out[i:i + PLAIN_SLICE], ref, dtype))
-                    if i == 0:
-                        ctrl = _wa.window_attention_plain(part[0], bias, no_pad, heads, WS,
-                                                          scale)
-                        ctrl_excess = wa_excess(ctrl, ref, dtype)
-                        del ctrl
-                    del ref
-                if not math.isfinite(excess) or excess > 1.0:
-                    fail(f"{what}: error {excess:.3f}x its tolerance {TOL_WA[dtype]} "
-                         f"(max abs err {err})")
-                if ctrl_excess <= 1.0:
-                    fail(f"{what}: the control (pad sentinel removed) passes the check")
-                max_err, max_excess = max(max_err, err), max(max_excess, excess)
-                min_control = min(min_control, ctrl_excess)
-                msg = (f"  window_attention Swin-Large/1280 [{BATCH},{hp},{hp},{3 * c}] "
-                       f"H={heads} shift={shift} {str(dtype)[6:]}: max_abs_err={err:.3e} "
-                       f"err/tol={excess:.3f} (tol atol+rtol|ref| {TOL_WA[dtype]}, plain "
-                       f"version in slices of {PLAIN_SLICE}) control (pad sentinel removed) "
-                       f"err/tol={ctrl_excess:.1f}")
-                del out
-                if dtype == torch.bfloat16:
-                    k_ms = time_ms(lambda: WA_KERNEL(*args), reps=5, samples=3)
-                    nbytes = qkv.numel() * qkv.element_size() * 4 / 3 + bias.numel() * 4 + \
-                        mask.numel() * 4
-                    b_ms, kind = bound_ms(nbytes, 4.0 * BATCH * nw * heads * nt * nt * d, dtype)
-                    # library yardstick, as in check_window_attention: SDPA on
-                    # pre-partitioned q / k / v, bias + mask as a float mask
-                    x = qkv.reshape(BATCH, hp // WS, WS, hp // WS, WS, 3, heads, d)
-                    x = x.permute(5, 0, 1, 3, 6, 2, 4, 7)
-                    q, k, v = (x[j].reshape(BATCH, nw * heads, nt, d) for j in range(3))
-                    am = (bias[None] + mask[:, None]).reshape(nw * heads, nt, nt).to(dtype)
-                    l_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-                        q, k, v, attn_mask=am, scale=scale), reps=5, samples=3)
-                    del x, q, k, v, am
-                    msg += (f" kernel_ms={k_ms:.4f} library_ms(SDPA)={l_ms:.4f} "
-                            f"bound_ms={b_ms:.4f} ({kind}) launches/forward={blocks // 2} "
-                            f"({k_ms / b_ms:.2f}x its bound)")
-                    if stage == 0:
-                        stage0_ms[shift] = k_ms
-                    total["ms"] += blocks // 2 * k_ms
-                    total["bound_ms"] += blocks // 2 * b_ms
-                    total["library_ms"] += blocks // 2 * l_ms
-                log(msg)
-                del args
-            del qkv
-        del qkv32
-        torch.cuda.empty_cache()
-    log(f"  padded window attention controls: smallest err/tol {min_control:.1f} (must be > 1)")
-    log(f"  window_attention Swin-Large/1280 a forward at batch {BATCH}: "
-        f"{sum(b for *_, b in SWINL_STAGES)} launches, {total['ms']:.3f} ms against a "
-        f"{total['bound_ms']:.3f} ms bound ({total['ms'] / total['bound_ms']:.2f}x); "
-        f"SDPA on the same inputs {total['library_ms']:.3f} ms")
-    return {"max_abs_err": max_err, "err_over_tol": max_excess, "stage0_ms": stage0_ms,
-            **total}
-
-
-# the fused attention half at Swin-Base's stages 0 and 1, the blocks that
-# fuse: (Hp = Wp, C, heads); block 0 of each stage is unshifted, block 1
-# shifted (with a mask), one of each per forward
-AH_STAGES = ((56, 128, 4), (28, 256, 8))
-
-
-def attention_half_by_library(args: tuple, heads: int) -> torch.Tensor:
-    """The same block as PyTorch's own calls: layer_norm, linear, SDPA over
-    the partitioned windows with bias + mask as its float mask (partition and
-    reverse copies included), linear, add.  A yardstick, never the port's."""
-    x, ln_g, ln_b, wqkv, bqkv, wproj, bproj, bias, mask = args
-    b, hp, wp, c = x.shape
-    nw, nt, d = (hp // WS) * (wp // WS), WS * WS, c // heads
-    xn = torch.nn.functional.layer_norm(x.float(), (c,), ln_g, ln_b, 1e-5).to(x.dtype)
-    qkv = torch.nn.functional.linear(xn, wqkv, bqkv)
-    qkv = qkv.reshape(b, hp // WS, WS, wp // WS, WS, 3, heads, d)
-    qkv = qkv.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, b * nw, heads, nt, d)
-    am = bias[None] + (mask[:, None] if mask is not None else 0.0)
-    am = am.expand(b, nw, heads, nt, nt).reshape(b * nw, heads, nt, nt).to(x.dtype)
-    o = torch.nn.functional.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], attn_mask=am,
-                                                         scale=d ** -0.5)
-    om = o.reshape(b, hp // WS, wp // WS, heads, WS, WS, d).permute(0, 1, 4, 2, 5, 3, 6)
-    return x + torch.nn.functional.linear(om.reshape(b, hp, wp, c), wproj, bproj)
-
-
-def attn_half_bound(args: tuple, heads: int, backward: bool) -> tuple[float, str]:
-    """Least time for the block: x read and y written (backward: x, dy read,
-    dx written), weights and tables once; operations 2 M C 4C + 4 M T C
-    forward, 22 M C^2 + 12 M T C backward (qkv and the attention recomputed,
-    then dom, the attention's four products, dwproj, dwqkv and dxn)."""
-    x, bias, mask = args[0], args[7], args[8]
-    m, c, nt = x.numel() // x.shape[-1], x.shape[-1], WS * WS
-    es = x.element_size()
-    params = (4 * c * c + 4 * c) * es + 2 * c * 4 + bias.numel() * 4 + (
-        mask.numel() * 4 if mask is not None else 0)
-    if backward:
-        return bound_ms(3 * x.numel() * es + 2 * params, 22.0 * m * c * c + 12.0 * m * nt * c,
-                        x.dtype)
-    return bound_ms(2 * x.numel() * es + params, 8.0 * m * c * c + 4.0 * m * nt * c, x.dtype)
-
-
-def check_attn_half(g: torch.Generator) -> dict:
-    """Kernel 4 at the serving calls: [64, 56, 56, 128] with 4 heads and
-    [64, 28, 28, 256] with 8, unshifted and shifted, bf16 and fp32."""
-    per_forward = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                   "unfused_ms": 0.0}
-    max_err, min_control = 0.0, math.inf
-    bound_kinds = {"bytes": 0.0, "operations": 0.0}
-    for hp, c, heads in AH_STAGES:
-        for shifted in (False, True):
-            for dtype in (torch.bfloat16, torch.float32):
-                atol, rtol = TOL_AH[dtype]
-                args = attn_half_inputs(g, BATCH, hp, c, heads, shifted, dtype)
-                out = AH_KERNEL(*args, heads, WS)
-                ref = _ah.attn_half_plain(*args, heads, WS)
-                torch.cuda.synchronize()
-                what = f"attention half {hp}x{hp} C={c} shift={shifted} {dtype}"
-                err = (out.float() - ref.float()).abs().max().item()
-                excess = close_excess(out, ref, atol, rtol)
-                if not math.isfinite(excess) or excess > 1.0:
-                    fail(f"{what}: error {excess:.3f}x its tolerance {TOL_AH[dtype]} "
-                         f"(max abs err {err})")
-                max_err = max(max_err, err)
-                # controls: the bias omitted, and the residual dropped
-                no_bias = args[:7] + (torch.zeros_like(args[7]), args[8])
-                controls = (_ah.attn_half_plain(*no_bias, heads, WS),
-                            (ref.float() - args[0].float()).to(dtype))
-                ctrl_excess = min(close_excess(ctrl, ref, atol, rtol) for ctrl in controls)
-                if ctrl_excess <= 1.0:
-                    fail(f"{what}: a control (bias omitted, residual dropped) passes the check")
-                min_control = min(min_control, ctrl_excess)
-                del controls, no_bias, out, ref
-                what_log = (f"  attn_half [{BATCH},{hp},{hp},{c}] H={heads} shift={int(shifted)} "
-                            f"{str(dtype)[6:]}: max_abs_err={err:.3e} err/tol={excess:.3f} (tol "
-                            f"atol+rtol|ref| {TOL_AH[dtype]}) control err/tol>={ctrl_excess:.1f}")
-                if dtype != torch.bfloat16:  # timed in the serving path's dtype only
-                    log(what_log)
-                    del args
-                    continue
-                k_ms = time_ms(lambda: AH_KERNEL(*args, heads, WS), reps=20, samples=3)
-                p_ms = time_ms(lambda: _ah.attn_half_plain(*args, heads, WS), reps=3, samples=3)
-                l_ms = time_ms(lambda: attention_half_by_library(args, heads), reps=5, samples=3)
-                u_ms = time_ms(lambda: attention_half_unfused(args, heads), reps=5, samples=3)
-                b_ms, kind = attn_half_bound(args, heads, backward=False)
-                log(f"{what_log} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms(LN+linear+"
-                    f"SDPA+linear)={l_ms:.4f} unfused_ms(LN+linear+kernel 1+linear)={u_ms:.4f} "
-                    f"bound_ms={b_ms:.4f} ({kind})")
-                for key, val in (("ms", k_ms), ("plain_ms", p_ms), ("library_ms", l_ms),
-                                 ("unfused_ms", u_ms), ("bound_ms", b_ms)):
-                    per_forward[key] += val  # one block of each per forward
-                bound_kinds[kind] += b_ms
-                del args
-                torch.cuda.empty_cache()
-    log(f"  attention half controls: smallest err/tol {min_control:.1f} (must be > 1)")
-    return {"max_abs_err": max_err, "bound_by": max(bound_kinds, key=bound_kinds.get),
-            **per_forward}
-
-
-def first_chunk_qkv_gradient(args: tuple, dy: torch.Tensor, heads: int) -> torch.Tensor:
-    """The first token chunk's share of dwqkv = dqkv^T xn, as the backward's
-    weight-gradient kernel sums it into one partial, in plain PyTorch (xn,
-    qkv, do and dqkv rounded as in the kernels)."""
-    x, ln_g, ln_b, wqkv, bqkv, wproj, _, bias, mask = args
-    b, hp, wp, c = x.shape
-    m, dt = b * hp * wp, x.dtype
-    geo = _ah.bwd_geometry(b, m, c, (hp // WS) * (wp // WS), heads, dt)
-    chunk = -(-m // 64 // geo["w_chunks"]) * 64
-    xn = torch.nn.functional.layer_norm(x.float(), (c,), ln_g, ln_b, 1e-5).to(dt)
-    qkv = (xn.float() @ wqkv.float().T + bqkv.float()).to(dt)
-    dom = (dy.float() @ wproj.float()).to(dt)
-    dqkv, _ = _wa.window_attention_bwd_plain(qkv, bias, mask, dom, heads, WS,
-                                             (c // heads) ** -0.5)
-    return dqkv.reshape(m, 3 * c)[:chunk].float().T @ xn.reshape(m, c)[:chunk].float()
-
-
-AH_GRAD_NAMES = ("dx", "dln_g", "dln_b", "dwqkv", "dbqkv", "dwproj", "dbproj", "dbias")
-
-
-def check_attn_half_bwd(g: torch.Generator) -> dict:
-    """Kernel 4b at the training calls (batch 128): dx per element, every
-    parameter gradient within a fraction of its own largest entry; two runs
-    bit for bit.  Also holds the forward kernel at that batch, the training
-    forward's own launches, as check_attn_half holds it at batch 64, and
-    times it beside the unfused route's forward."""
-    per_step = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                "unfused_ms": 0.0, "fwd_ms": 0.0, "fwd_unfused_ms": 0.0}
-    max_err, worst, min_control = 0.0, 0.0, math.inf
-    fwd_err, fwd_min_control = 0.0, math.inf
-    bound_kinds = {"bytes": 0.0, "operations": 0.0}
-    batch = TRAIN_VIEWS
-    for hp, c, heads in AH_STAGES:
-        for shifted in (False, True):
-            for dtype in (torch.bfloat16, torch.float32):
-                atol, rtol, gtol = TOL_AH_BWD[dtype]
-                args = attn_half_inputs(g, batch, hp, c, heads, shifted, dtype)
-                dy = torch.randn(args[0].shape, generator=g, device="cuda").to(dtype)
-                # the forward's launch at this batch, held as at batch 64
-                f_atol, f_rtol = TOL_AH[dtype]
-                out = AH_KERNEL(*args, heads, WS)
-                ref = _ah.attn_half_plain(*args, heads, WS)
-                torch.cuda.synchronize()
-                what = f"attention half {hp}x{hp} C={c} shift={shifted} {dtype} batch {batch}"
-                f_excess = close_excess(out, ref, f_atol, f_rtol)
-                if not math.isfinite(f_excess) or f_excess > 1.0:
-                    fail(f"{what}: error {f_excess:.3f}x its tolerance {TOL_AH[dtype]} (max abs "
-                         f"err {(out.float() - ref.float()).abs().max().item()})")
-                no_bias = args[:7] + (torch.zeros_like(args[7]), args[8])
-                f_ctrl = min(close_excess(_ah.attn_half_plain(*no_bias, heads, WS), ref, f_atol,
-                                          f_rtol),
-                             close_excess((ref.float() - args[0].float()).to(dtype), ref, f_atol,
-                                          f_rtol))
-                if f_ctrl <= 1.0:
-                    fail(f"{what}: a control (bias omitted, residual dropped) passes the check")
-                fwd_err = max(fwd_err, (out.float() - ref.float()).abs().max().item())
-                fwd_min_control = min(fwd_min_control, f_ctrl)
-                log(f"  attn_half [{batch},{hp},{hp},{c}] H={heads} shift={int(shifted)} "
-                    f"{str(dtype)[6:]}: err/tol={f_excess:.3f} (tol atol+rtol|ref| "
-                    f"{TOL_AH[dtype]}) control err/tol>={f_ctrl:.1f}")
-                del out, ref, no_bias
-
-                got = AH_BWD_KERNEL(*args, dy, heads, WS)
-                ref = _ah.attn_half_bwd_plain(*args, dy, heads, WS)
-                again = AH_BWD_KERNEL(*args, dy, heads, WS)
-                torch.cuda.synchronize()
-                what = f"attention half backward {hp}x{hp} C={c} shift={shifted} {dtype}"
-                if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                    fail(f"{what}: two runs of the backward kernel differ")
-                del again
-                err = (got[0].float() - ref[0].float()).abs().max().item()
-                excess = close_excess(got[0], ref[0], atol, rtol)
-                if not math.isfinite(excess) or excess > 1.0:
-                    fail(f"{what}: dx error {excess:.3f}x its tolerance (max abs err {err})")
-                rels = {}
-                for name, a, r in zip(AH_GRAD_NAMES[1:], got[1:], ref[1:]):
-                    rels[name] = (a - r).abs().max().item() / r.abs().max().item()
-                    if not math.isfinite(rels[name]) or rels[name] > gtol:
-                        fail(f"{what}: {name} off by {rels[name]:.3e} of its largest entry "
-                             f"(tol {gtol})")
-                max_err = max(max_err, err)
-                worst = max(worst, excess, max(rels.values()) / gtol)
-                # controls: one chunk's dwqkv partial dropped (the share of
-                # the first chunk of tokens taken away), and dbias dropped
-                share = first_chunk_qkv_gradient(args, dy, heads)
-                ctrl_w = share.abs().max().item() / ref[3].abs().max().item()
-                ctrl = min(ctrl_w, 1.0) / gtol  # dbias dropped: |0 - ref| is 1.0 of its max
-                if ctrl <= 1.0:
-                    fail(f"{what}: a control (one chunk's dwqkv dropped, dbias dropped) passes "
-                         f"the check")
-                min_control = min(min_control, ctrl)
-                del got, ref, share
-                what_log = (f"  attn_half_bwd [{batch},{hp},{hp},{c}] H={heads} shift="
-                            f"{int(shifted)} {str(dtype)[6:]}: dx max_abs_err={err:.3e} err/tol="
-                            f"{excess:.3f} (tol {atol}+{rtol:.4f}|ref|) gradients off by (of their "
-                            f"largest entry) {', '.join(f'{k} {v:.2e}' for k, v in rels.items())} "
-                            f"(tol {gtol}); two runs equal; control err/tol>={ctrl:.1f} (one "
-                            f"chunk's dwqkv {ctrl_w:.3e})")
-                if dtype != torch.bfloat16:  # timed in the training path's dtype only
-                    log(what_log)
-                    del args, dy
-                    continue
-                k_ms = time_ms(lambda: AH_BWD_KERNEL(*args, dy, heads, WS), reps=5, samples=3)
-                p_ms = time_ms(lambda: _ah.attn_half_bwd_plain(*args, dy, heads, WS), reps=2,
-                               samples=3)
-                f_ms = time_ms(lambda: AH_KERNEL(*args, heads, WS), reps=5, samples=3)
-                fu_ms = time_ms(lambda: attention_half_unfused(args, heads), reps=5, samples=3)
-                grads_of = {}
-                for route, fn in (("library", attention_half_by_library),
-                                  ("unfused", attention_half_unfused)):
-                    leaves = [t.detach().clone().requires_grad_() for t in args[:8]]
-                    y = fn((*leaves, args[8]), heads)
-                    grads_of[route] = time_ms(
-                        lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True), reps=3,
-                        samples=3)
-                    del leaves, y
-                b_ms, kind = attn_half_bound(args, heads, backward=True)
-                split = launch_split(lambda: AH_BWD_KERNEL(*args, dy, heads, WS))
-                log(f"{what_log} launches a call: " + ", ".join(
-                    f"{k} {v:.4f} ms" for k, v in sorted(split.items(), key=lambda kv: -kv[1])))
-                log(f"{what_log} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} library_ms(autograd of "
-                    f"LN+linear+SDPA+linear)={grads_of['library']:.4f} unfused_ms(autograd of "
-                    f"LN+linear+kernel 1b+linear)={grads_of['unfused']:.4f} bound_ms={b_ms:.4f} "
-                    f"({kind}) fwd_kernel_ms={f_ms:.4f} fwd_unfused_ms(LN+linear+kernel 1+"
-                    f"linear)={fu_ms:.4f} scratch "
-                    f"{sum(_ah.scratch_bytes(args[0], heads, WS).values()) / 1e6:.1f} MB")
-                for key, val in (("ms", k_ms), ("plain_ms", p_ms),
-                                 ("library_ms", grads_of["library"]),
-                                 ("unfused_ms", grads_of["unfused"]), ("bound_ms", b_ms),
-                                 ("fwd_ms", f_ms), ("fwd_unfused_ms", fu_ms)):
-                    per_step[key] += val  # one block of each per train step
-                bound_kinds[kind] += b_ms
-                del args, dy
-                torch.cuda.empty_cache()
-    log(f"  attention half backward controls: smallest err/tol {min_control:.1f} (must be > 1)")
-    log(f"  attention half forward at batch {batch}: max_abs_err={fwd_err:.3e}, controls' "
-        f"smallest err/tol {fwd_min_control:.1f} (must be > 1)")
-    return {"max_abs_err": max_err, "err_over_tol": worst, "fwd_max_abs_err": fwd_err,
-            "bound_by": max(bound_kinds, key=bound_kinds.get), **per_step}
-
-
-# ----------------------------------------------------------------------------
 # phase 3: serving end to end
 # ----------------------------------------------------------------------------
 
 
 def zero_launches(**counts) -> dict:
-    return {**{name: 0 for name in KERNELS}, **counts}
+    return {**{name: 0 for name in COUNTERS}, **counts}
 
 
 # the two model families the port serves and trains: configuration, launches
@@ -4030,65 +2486,8 @@ def main() -> int:
             if any(k in line for k in ("registers", "spill", "wgmma", "GMMA")):
                 log(f"  {name}: {line.strip()}")
 
-    # the Hopper kernels run on wgmma: their SASS holds HGMMA (the bf16
-    # attention 3, 6, 3b, 6b; 2b's bf16 w and dX kernels; the GEMM of 5′ and
-    # 5″; 1b's window-attention core; 4b's qkv / do, dx and weight-gradient
-    # products; the bf16 forwards of 1, 2 and 4; 7's split-bf16 products)
-    cuobjdump = shutil.which("cuobjdump") or str(Path(_build.nvcc_path()).parent / "cuobjdump")
-    for name in ("packed_attention_fwd", "flash_attention_fwd", "packed_attention_bwd",
-                 "flash_attention_bwd", "gpf_bwd", "newton_schulz_bf16",
-                 "newton_schulz_bf16_streamed", "window_attention_bwd", "attn_half_fwd",
-                 "attn_half_bwd", "window_attention_fwd", "gpf_fwd", "subspace_isqrt"):
-        if not os.path.exists(cuobjdump):
-            log(f"  {name}: cuobjdump not found, SASS not read")
-            continue
-        sass = subprocess.run([cuobjdump, "-sass", str(paths[name])], capture_output=True,
-                              text=True, check=True).stdout
-        n_hgmma = sum("HGMMA" in line for line in sass.splitlines())
-        log(f"  {name}: {n_hgmma} HGMMA instructions in its SASS (cuobjdump -sass)")
-        if n_hgmma == 0:
-            fail(f"{name} holds no wgmma (HGMMA) instruction")
-
-    phase("[2] kernels against their plain versions, batch 64")
-    g = torch.Generator(device="cuda").manual_seed(1234)
-    with torch.inference_mode():
-        wa = check_window_attention(g)
-        pa = check_packed_attention(g)
-        gp = check_gpf(g, 49, 1024)
-        gp_vit = check_gpf(g, VIT_T - 1, VIT_C)
-        gp_448 = check_gpf(g, VIT448_T - 1, VIT_C)
-        gp_vitl = check_gpf(g, VITL_T - 1, VITL_C)
-        gp_swinl = check_gpf(g, SWINL_N, SWINL_C)
-        fa = check_flash_attention(g)
-        fa_vitl = check_flash_attention(g, VITL_T, VITL_C, VITL_H, VITL_DEPTH)
-        ns = check_newton_schulz(g)
-        ns_wide = check_newton_schulz_bf16(g)
-        wa_pad = check_window_attention_padded(g)
-        ah = check_attn_half(g)
-        si = check_subspace_isqrt(g)
-        sn = check_swiglu_norm(g)
-
-    phase(f"[2b] backward kernels against their plain versions, batch {TRAIN_VIEWS} / {BATCH}")
-    wab = check_window_attention_bwd(g)
-    pab = check_packed_attention_bwd(g)
-    gpb = check_gpf_bwd(g, 49, 1024)
-    gpb_vit = check_gpf_bwd(g, VIT_T - 1, VIT_C)
-    gpb_448 = check_gpf_bwd(g, VIT448_T - 1, VIT_C)
-    gpb_vitl = check_gpf_bwd(g, VITL_T - 1, VITL_C)
-    gpb_swinl = check_gpf_bwd(g, SWINL_N, SWINL_C)
-    fab = check_flash_attention_bwd(g)
-    fab_vitl = check_flash_attention_bwd(g, VITL_T, VITL_C, VITL_H, VITL_DEPTH, plain_batch=16)
-    occ_fwd = _fa.fwd_occupancy()
-    log(f"  attention forward (3, 6) at d = 64: {occ_fwd['registers']} registers a thread, "
-        f"{occ_fwd['blocks_per_sm']} blocks an SM; {occ_fwd['smem']} bytes of shared memory a "
-        "block")
-    occ = _fa.bwd_occupancy()
-    log(f"  attention backward (3b, 6b) at d = 64: dq kernel {occ['dq_registers']} registers a "
-        f"thread, {occ['dq_blocks_per_sm']} blocks an SM; dk/dv kernel {occ['dkv_registers']}, "
-        f"{occ['dkv_blocks_per_sm']}; {occ['smem']} bytes of shared memory a block")
-    ahb = check_attn_half_bwd(g)
-    ns_bwd_ms = time_newton_schulz_bwd(g)
-    torch.cuda.empty_cache()
+    phase("[2] every kernel at its main paths' calls against its plain version, bf16")
+    mains = main_path_kernels()
 
     phase("[3] serving, Swin-Base/224 flagship, batch 64")
     srv = serve(card, args.profile, SWIN)
@@ -4176,198 +2575,6 @@ def main() -> int:
           f"mesh under NCCL, ranks sharing the card under gloo")
     par = mesh_phase(card)
 
-    # ms, plain_ms, bound_ms, library_ms: bf16, summed over one forward's
-    # launches at batch 64 (forward kernels, the serving path) or over one
-    # train step's launches at batch 128 / [64,N,D] x2 (backward kernels);
-    # train_ms is a forward kernel's sum over one train step's launches.
-    # launches: the count from the main path that runs the kernel (Swin-Base
-    # for window attention, ViT-Base/224 for packed attention and for GPF, whose
-    # Swin-path, 448-path and this slice's numbers ride along under swin_*,
-    # vit448_*, vitL512_* and swinL1280_*, ViT-Base/448 for q-tiled attention
-    # (ViT-Large/512 under vitL512_*) and for the fp32 Newton-Schulz,
-    # ViT-Large/512 for the bf16 Newton-Schulz, Swin-Large/1280 for the
-    # streamed one, Swin-Base under fused_half for the fused attention half,
-    # whose unfused_ms is the port's default route for the same blocks,
-    # ViT-Large/448 for the subspace iSQRT, which replaces no TPU kernel and
-    # whose Swin-Base/224 call and fp32 numbers ride along under swin_* and
-    # *fp32_*, plain_ms its fp32 cuBLAS route); every path was driven with the
-    # counts at 0 just before and read just after.
-    src = "ego_moment_cle_vit_tpu_torch/csrc/"
-
-    def other_gpf(prefix: str, res: dict) -> dict:
-        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms", "launch_ms",
-                "full_gram_bound_ms")
-        return {f"{prefix}_{k}": res[k] for k in keys if k in res}
-
-    def ns_row(name: str, variant: str, source: str, replaces: str, launches: int) -> dict:
-        res = ns_wide[variant]
-        return {"name": name, "route": "cuda", "source": src + source, "replaces": replaces,
-                "launches": launches, **{k: res[k] for k in (
-                    "max_abs_err", "err_over_tol", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "tflops", "library_tflops")}}
-
-    kernels = [
-        {"name": "window_attention_fwd", "route": "cuda",
-         "source": src + "window_attention_fwd.cu",
-         "replaces": WA_REPLACES, "launches": srv["launches"]["window_attention_fwd"],
-         "train_launches": trn["launches"]["window_attention_fwd"],
-         "max_abs_err": wa["max_abs_err"], "ms": wa["ms"], "plain_ms": wa["plain_ms"],
-         "bound_ms": wa["bound_ms"], "bound_by": wa["bound_by"],
-         "library_ms": wa["library_ms"], "train_ms": wab["fwd_ms"],
-         "swinL1280_launches": srv_swinl["launches"]["window_attention_fwd"],
-         "swinL1280_padded_max_abs_err": wa_pad["max_abs_err"],
-         "swinL1280_padded_err_over_tol": wa_pad["err_over_tol"],
-         "swinL1280_stage0_padded_ms_b64": wa_pad["stage0_ms"],
-         "swinL1280_forward_ms_b64": wa_pad["ms"],
-         "swinL1280_forward_bound_ms_b64": wa_pad["bound_ms"],
-         "swinL1280_forward_library_ms_b64": wa_pad["library_ms"],
-         "engine_step_launches": eng["step_launches"]["window_attention_fwd"],
-         "engine_eval_launches": eng["eval_launches"]["window_attention_fwd"]},
-        {"name": "window_attention_bwd", "route": "cuda",
-         "source": src + "window_attention_bwd.cu",
-         "replaces": WA_BWD_REPLACES, "launches": trn["launches"]["window_attention_bwd"],
-         "max_abs_err": wab["max_abs_err"], "err_over_tol": wab["err_over_tol"],
-         "ms": wab["ms"], "plain_ms": wab["plain_ms"], "bound_ms": wab["bound_ms"],
-         "bound_by": wab["bound_by"], "library_ms": wab["library_ms"],
-         "library_no_dbias_ms": wab["library_no_dbias_ms"],
-         "engine_step_launches": eng["step_launches"]["window_attention_bwd"]},
-        {"name": "gpf_fwd", "route": "cuda", "source": src + "gpf_fwd.cu",
-         "replaces": GPF_REPLACES, "launches": srv_vit["launches"]["gpf_fwd"],
-         "train_launches": trn_vit["launches"]["gpf_fwd"],
-         "swin_launches": srv["launches"]["gpf_fwd"],
-         "max_abs_err": gp_vit["max_abs_err"],
-         "err_over_tol": max(gp["err_over_tol"], gp_vit["err_over_tol"], gp_448["err_over_tol"]),
-         "ms": gp_vit["ms"], "plain_ms": gp_vit["plain_ms"],
-         "bound_ms": gp_vit["bound_ms"], "bound_by": gp_vit["bound_by"],
-         "full_gram_bound_ms": gp_vit["full_gram_bound_ms"],
-         "library_ms": gp_vit["library_ms"], "train_ms": gpb_vit["fwd_ms"],
-         **other_gpf("swin", gp), "swin_train_ms": gpb["fwd_ms"],
-         **other_gpf("vit448", gp_448), "vit448_train_ms": gpb_448["fwd_ms"],
-         **other_gpf("vitL512", gp_vitl), "vitL512_launches": srv_vitl["launches"]["gpf_fwd"],
-         "vitL512_train_ms": gpb_vitl["fwd_ms"],
-         **other_gpf("swinL1280", gp_swinl),
-         "swinL1280_launches": srv_swinl["launches"]["gpf_fwd"],
-         "engine_step_launches": eng["step_launches"]["gpf_fwd"],
-         "engine_eval_launches": eng["eval_launches"]["gpf_fwd"]},
-        {"name": "gpf_bwd", "route": "cuda", "source": src + "gpf_bwd.cu",
-         "replaces": GPF_BWD_REPLACES, "launches": trn_vit["launches"]["gpf_bwd"],
-         "swin_launches": trn["launches"]["gpf_bwd"],
-         "max_abs_err": gpb_vit["max_abs_err"],
-         "err_over_tol": max(gpb["err_over_tol"], gpb_vit["err_over_tol"],
-                             gpb_448["err_over_tol"], gpb_vitl["err_over_tol"],
-                             gpb_swinl["err_over_tol"]),
-         "ms": gpb_vit["ms"], "plain_ms": gpb_vit["plain_ms"], "bound_ms": gpb_vit["bound_ms"],
-         "bound_by": gpb_vit["bound_by"], "library_ms": gpb_vit["library_ms"],
-         "launch_ms": gpb_vit["launch_ms"],
-         **other_gpf("swin", gpb), **other_gpf("vit448", gpb_448),
-         **other_gpf("vitL512", gpb_vitl), "vitL512_launches": trn_vitl["launches"]["gpf_bwd"],
-         **other_gpf("swinL1280", gpb_swinl),
-         "engine_step_launches": eng["step_launches"]["gpf_bwd"]},
-        {"name": "packed_attention_fwd", "route": "cuda",
-         "source": src + "packed_attention_fwd.cu",
-         "replaces": PA_REPLACES, "launches": srv_vit["launches"]["packed_attention_fwd"],
-         "train_launches": trn_vit["launches"]["packed_attention_fwd"],
-         "max_abs_err": pa["max_abs_err"], "ms": pa["ms"], "plain_ms": pa["plain_ms"],
-         "bound_ms": pa["bound_ms"], "bound_by": pa["bound_by"],
-         "library_ms": pa["library_ms"], "train_ms": pab["fwd_ms"],
-         "train_library_ms": pab["fwd_library_ms"], "gb_per_s": pa["gb_per_s"],
-         "library_gb_per_s": pa["library_gb_per_s"], "occupancy": occ_fwd},
-        {"name": "packed_attention_bwd", "route": "cuda",
-         "source": src + "packed_attention_bwd.cu",
-         "replaces": PA_BWD_REPLACES, "launches": trn_vit["launches"]["packed_attention_bwd"],
-         "max_abs_err": pab["max_abs_err"], "err_over_tol": pab["err_over_tol"],
-         "ms": pab["ms"], "plain_ms": pab["plain_ms"], "bound_ms": pab["bound_ms"],
-         "bound_by": pab["bound_by"], "library_ms": pab["library_ms"]},
-        {"name": "flash_attention_tiled_fwd", "route": "cuda",
-         "source": src + "flash_attention_fwd.cu",
-         "replaces": FA_REPLACES, "launches": srv_448["launches"]["flash_attention_tiled_fwd"],
-         "train_launches": trn_448["launches"]["flash_attention_tiled_fwd"],
-         "max_abs_err": fa["max_abs_err"], "ms": fa["ms"], "plain_ms": fa["plain_ms"],
-         "bound_ms": fa["bound_ms"], "bound_by": fa["bound_by"],
-         "library_ms": fa["library_ms"], "train_ms": fab["fwd_ms"],
-         "train_library_ms": fab["fwd_library_ms"], "tflops": fa["tflops"],
-         "library_tflops": fa["library_tflops"], "occupancy": occ_fwd,
-         **other_gpf("vitL512", fa_vitl), "vitL512_train_ms": fab_vitl["fwd_ms"],
-         "vitL512_train_library_ms": fab_vitl["fwd_library_ms"],
-         "vitL512_tflops": fa_vitl["tflops"],
-         "vitL512_launches": srv_vitl["launches"]["flash_attention_tiled_fwd"],
-         "vitL512_train_launches": trn_vitl["launches"]["flash_attention_tiled_fwd"]},
-        {"name": "flash_attention_tiled_bwd", "route": "cuda",
-         "source": src + "flash_attention_bwd.cu",
-         "replaces": FA_BWD_REPLACES,
-         "launches": trn_448["launches"]["flash_attention_tiled_bwd"],
-         "max_abs_err": fab["max_abs_err"], "err_over_tol": fab["err_over_tol"],
-         "ms": fab["ms"], "plain_ms": fab["plain_ms"], "bound_ms": fab["bound_ms"],
-         "bound_by": fab["bound_by"], "library_ms": fab["library_ms"],
-         "vitL512_launches": trn_vitl["launches"]["flash_attention_tiled_bwd"],
-         "vitL512_max_abs_err": fab_vitl["max_abs_err"], "vitL512_ms": fab_vitl["ms"],
-         "vitL512_plain_ms_b16": fab_vitl["plain_ms"], "vitL512_bound_ms": fab_vitl["bound_ms"],
-         "vitL512_library_ms": fab_vitl["library_ms"], "occupancy": occ},
-        {"name": "newton_schulz_isqrt_fp32_fwd", "route": "cuda",
-         "source": src + "newton_schulz.cu", "replaces": NS_REPLACES,
-         "launches": srv_448["launches"]["newton_schulz_isqrt_fp32_fwd"],
-         "train_launches": trn_448["launches"]["newton_schulz_isqrt_fp32_fwd"],
-         "max_abs_err": ns["max_abs_err"], "ms": ns["ms"], "plain_ms": ns["plain_ms"],
-         "bound_ms": ns["bound_ms"], "bound_by": ns["bound_by"],
-         "library_ms": ns["library_ms"]},
-        {**ns_row("newton_schulz_isqrt_bf16_fwd", "bf16", "newton_schulz_bf16.cu",
-                  NS_BF16_REPLACES, srv_vitl["launches"]["newton_schulz_isqrt_bf16_fwd"]),
-         "train_launches": trn_vitl["launches"]["newton_schulz_isqrt_bf16_fwd"],
-         "backward_plain_ms": ns_bwd_ms},
-        ns_row("newton_schulz_isqrt_bf16_streamed_fwd", "bf16_streamed",
-               "newton_schulz_bf16_streamed.cu", NS_BF16S_REPLACES,
-               srv_swinl["launches"]["newton_schulz_isqrt_bf16_streamed_fwd"]),
-        {"name": "attn_half_fwd", "route": "cuda", "source": src + "attn_half_fwd.cu",
-         "replaces": AH_REPLACES, "launches": srv_fh["launches"]["attn_half_fwd"],
-         "train_launches": trn_fh["launches"]["attn_half_fwd"],
-         "max_abs_err": ah["max_abs_err"], "ms": ah["ms"], "plain_ms": ah["plain_ms"],
-         "bound_ms": ah["bound_ms"], "bound_by": ah["bound_by"],
-         "library_ms": ah["library_ms"], "unfused_ms": ah["unfused_ms"],
-         "train_ms": ahb["fwd_ms"], "train_unfused_ms": ahb["fwd_unfused_ms"],
-         "train_max_abs_err": ahb["fwd_max_abs_err"]},
-        {"name": "attn_half_bwd", "route": "cuda", "source": src + "attn_half_bwd.cu",
-         "replaces": AH_BWD_REPLACES, "launches": trn_fh["launches"]["attn_half_bwd"],
-         "max_abs_err": ahb["max_abs_err"], "err_over_tol": ahb["err_over_tol"],
-         "ms": ahb["ms"], "plain_ms": ahb["plain_ms"], "bound_ms": ahb["bound_ms"],
-         "bound_by": ahb["bound_by"], "library_ms": ahb["library_ms"],
-         "unfused_ms": ahb["unfused_ms"]},
-        {"name": "subspace_isqrt_fwd", "route": "cuda", "source": src + "subspace_isqrt.cu",
-         "replaces": None, "launches": srv_vitl448["launches"]["subspace_isqrt_fwd"],
-         "swin_launches": srv["launches"]["subspace_isqrt_fwd"],
-         **si[(VIT448_T - 1, "bfloat16")],
-         **{f"swin_{k}": v for k, v in si[(49, "bfloat16")].items()},
-         **{f"fp32_{k}": v for k, v in si[(VIT448_T - 1, "float32")].items()},
-         **{f"swin_fp32_{k}": v for k, v in si[(49, "float32")].items()}},
-        {"name": "swiglu_norm_fwd", "route": "cuda", "source": src + "swiglu_norm.cu",
-         "replaces": None, "launches": srv_eva["launches"]["swiglu_norm_fwd"],
-         **sn[(BATCH * VITL_T, 2730)],
-         **{f"ragged_{k}": v for k, v in sn[(4099, 2730)].items()},
-         **{f"micro_{k}": v for k, v in sn[(4099, 341)].items()}},
-    ]
-    # phase 7's paths, each driven with the counts at 0 just before and read
-    # just after: {path: launches} for every kernel they ran
-    p7_paths = {"7a_step": opt_bn["launches"], "7a_serve": opt_bn["serve_launches"],
-                "7b_serve": srv_vitl448["launches"], "7b_step": trn_vitl448["launches"],
-                **{f"7c_{k.replace(': ', '_').replace('.', '_')}_{what}": v[f"{what}_launches"]
-                   for k, v in opt_other.items() for what in ("serve", "train")}}
-    for entry in kernels:
-        runs = {path: counts[entry["name"]] for path, counts in p7_paths.items()
-                if counts[entry["name"]]}
-        if runs:
-            entry["phase7_launches"] = runs
-    # phase 8's mesh paths, per rank, each driven with the counts at 0 just
-    # before its step and read just after
-    for entry in kernels:
-        if par["1x1"]["launches"][entry["name"]]:
-            entry["mesh_launches"] = {
-                "1x1": par["1x1"]["launches"][entry["name"]],
-                **{shape: [c[entry["name"]] for c in par[shape]["launches"]]
-                   for shape in ("2x1", "2x2")}}
-    for entry in kernels:
-        if entry["launches"] < 1:
-            fail(f"kernel {entry['name']} was launched no time on its main path")
-    if len(kernels) != len(KERNELS):
-        fail(f"the kernels line lists {len(kernels)} kernels, the port has {len(KERNELS)}")
     for label, s_res, t_res in (("Swin-Base/224", srv, trn),
                                 ("Swin-Base/224 fused_half", srv_fh, trn_fh),
                                 ("ViT-Base/224", srv_vit, trn_vit),
@@ -4396,6 +2603,24 @@ def main() -> int:
     log(f"  data x model parallelism (phase 8): 1 x 1 mesh step {par['1x1']['turns_ms']['mesh']:.1f}"
         f" ms against make_train_step {par['1x1']['turns_ms']['one']:.1f}; (2, 2) step ms by rank "
         f"{[[round(x, 1) for x in r] for r in par['2x2']['step_ms']]} ({SHARED_CARD})")
+    # every path of phases 3-8, each driven with the counts at 0 just before
+    # and read just after: {path: {wrapper: launches}}
+    paths = {"3": srv["launches"], "4": trn["launches"], "3f": srv_fh["launches"],
+             "4f": trn_fh["launches"], "5": srv_vit["launches"], "5b": trn_vit["launches"],
+             "5c": srv_448["launches"], "5d": trn_448["launches"], "5e": srv_vitl["launches"],
+             "5f": trn_vitl["launches"], "5g": srv_swinl["launches"], "5h": srv_eva["launches"],
+             "6_step": eng["step_launches"], "6_eval": eng["eval_launches"],
+             "7a_step": opt_bn["launches"], "7a_serve": opt_bn["serve_launches"],
+             "7b_serve": srv_vitl448["launches"], "7b_step": trn_vitl448["launches"],
+             **{f"7c_{label}_{what}": res[f"{what}_launches"] for label, res in opt_other.items()
+                for what in ("serve", "train")},
+             "8_1x1": par["1x1"]["launches"]}
+    kernels = []
+    for name in COUNTERS:
+        launched = {path: counts[name] for path, counts in paths.items() if counts[name]}
+        if not launched:
+            fail(f"kernel {name} was launched no time on the paths of phases 3-8")
+        kernels.append({"name": name, "calls": mains[name], "launches": launched})
     log(f"  total {time.time() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,28 +10,34 @@ at first use, into ``ego_moment_cle_vit_tpu_torch/_build/`` (git-ignored),
 keyed on a hash of the sources and flags so an edit rebuilds.  ``build()``
 starts one nvcc per source at once and waits for all of them.  Nothing here
 runs when a module is imported.
+
+``launch`` is every wrapper's launch protocol: the device's context bound to
+the thread, the library loaded, the ``kernel.<wrapper>`` span
+(``utils/trace.py``), the stream, the return code and the
+``<wrapper>.launches`` count, which the benchmark and the card tests read.  A wrapper names itself to it as ``"<module>:<function>"``, the way
+``h100_bench/kernel_work`` names it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 from pathlib import Path
 
 import torch
 
+from ..utils.trace import span
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-KERNEL_SOURCES = ("window_attention_fwd", "window_attention_bwd", "gpf_fwd", "gpf_bwd",
-                  "packed_attention_fwd", "packed_attention_bwd", "flash_attention_fwd",
-                  "flash_attention_bwd", "newton_schulz", "newton_schulz_bf16",
-                  "newton_schulz_bf16_streamed", "attn_half_fwd", "attn_half_bwd",
-                  "subspace_isqrt", "swiglu_norm")
+KERNEL_SOURCES = tuple(sorted(p.stem for p in CSRC_DIR.glob("*.cu")))  # one library each
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -45,6 +51,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_thread = threading.local()  # .devices: the devices whose context this thread has bound
 
 
 def nvcc_path() -> str:
@@ -118,6 +125,49 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.emct_error_string(code).decode()
         raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+
+
+def launch(wrapper: str, source: str, signatures: dict, device: torch.device, *args) -> None:
+    """Launch the kernel of ``wrapper``, ``"<module>:<function>"``: load
+    ``source``'s library and call its entry point, the first C function
+    ``signatures`` declares, with ``args`` and ``device``'s current stream,
+    inside the span ``"kernel.<function>"``.  A CUDA error raises naming the
+    function; otherwise the launch counts one in the ``launches`` of whatever
+    the module's name ``<function>`` holds (a stand-in put there counts in
+    the wrapper's place).  ``args`` are pointers and scalars only: the caller
+    keeps every tensor they point into alive."""
+    module, name = wrapper.split(":")
+    bind_context(device)
+    lib = load(source, signatures)
+    entry = getattr(lib, next(iter(signatures)))
+    with span("kernel." + name):
+        code = entry(*args, stream_ptr(device))
+    check(lib, code, name)
+    getattr(sys.modules[module], name).launches += 1
+
+
+def bind_context(device: torch.device) -> None:
+    """Make ``device``'s primary context current on this thread, once a
+    thread.  The libraries encode their TMA tensor maps with libcuda's
+    ``cuTensorMapEncodeTiled`` before any runtime call, and it fails
+    (invalid argument) on a thread where no context is current: a new
+    thread, or autograd's device thread, whose first CUDA work is a launch.
+    A runtime call, a query of the device's stream, binds the context."""
+    devices = _thread.__dict__.setdefault("devices", set())
+    if device not in devices:
+        torch.cuda.current_stream(device).query()
+        devices.add(device)
+
+
+def wrappers() -> dict:
+    """{name: wrapper} of every kernel wrapper: the functions of the kernel
+    modules that count their launches in ``<wrapper>.launches``."""
+    found = {}
+    for path in sorted(Path(__file__).parent.glob("[!_]*.py")):
+        module = importlib.import_module(f"{__package__}.{path.stem}")
+        found.update({name: fn for name, fn in vars(module).items()
+                      if hasattr(fn, "launches") and fn.__module__ == module.__name__})
+    return found
 
 
 def stream_ptr(device: torch.device) -> int:

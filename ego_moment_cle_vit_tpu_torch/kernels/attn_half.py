@@ -41,7 +41,6 @@ import ctypes
 
 import torch
 
-from ..utils.trace import span
 from . import _build
 from . import window_attention as _wa
 from .window_attention import (
@@ -284,15 +283,11 @@ def attn_half_fwd(
                         torch.cuda.get_device_properties(x.device).multi_processor_count)
            if x.dtype == torch.bfloat16 else {"blocks": 0, "smem": 0})
     y = torch.empty_like(x)
-    lib = _build.load("attn_half_fwd", _SIGNATURES)
-    with span("kernel.attn_half_fwd"):
-        rc = lib.attn_half_fwd(
-            *(_pointer(t) for t in args), y.data_ptr(), b, hp, wp, c, num_heads, window_size,
-            float((c // num_heads) ** -0.5), float(ln_eps), geo["blocks"], geo["smem"], code,
-            _build.stream_ptr(x.device),
-        )
-    _build.check(lib, rc, "attn_half_fwd")
-    attn_half_fwd.launches += 1
+    _build.launch(
+        f"{__name__}:attn_half_fwd", "attn_half_fwd", _SIGNATURES, x.device,
+        *(_pointer(t) for t in args), y.data_ptr(), b, hp, wp, c, num_heads, window_size,
+        float((c // num_heads) ** -0.5), float(ln_eps), geo["blocks"], geo["smem"], code,
+    )
     return y
 
 
@@ -411,18 +406,14 @@ def attn_half_bwd(
                f32(geo["w_chunks"], 4 * c),                          # dbqkv | dbproj partials
                f32(geo["dx_blocks"], 2 * c))                         # dln_g | dln_b partials
     stats = f32(m, 2) if sm90 else None  # each row's LayerNorm mean and rstd
-    lib = _build.load("attn_half_bwd", _BWD_SIGNATURES)
-    with span("kernel.attn_half_bwd"):
-        rc = lib.attn_half_bwd(
-            *(_pointer(t) for t in args), dy.data_ptr(), dx.data_ptr(),
-            *(t.data_ptr() for t in grads), *(t.data_ptr() for t in scratch), _pointer(stats),
-            b, hp, wp, c, num_heads, window_size, float((c // num_heads) ** -0.5), float(ln_eps),
-            geo["attn_chunks"], geo["w_chunks"], geo["dx_blocks"], geo.get("qkv_blocks", 0),
-            geo.get("attn_stages", 0),
-            geo["smem"]["attention"] if sm90 else 0, code, _build.stream_ptr(dev),
-        )
-    _build.check(lib, rc, "attn_half_bwd")
-    attn_half_bwd.launches += 1
+    _build.launch(
+        f"{__name__}:attn_half_bwd", "attn_half_bwd", _BWD_SIGNATURES, dev,
+        *(_pointer(t) for t in args), dy.data_ptr(), dx.data_ptr(),
+        *(t.data_ptr() for t in grads), *(t.data_ptr() for t in scratch), _pointer(stats),
+        b, hp, wp, c, num_heads, window_size, float((c // num_heads) ** -0.5), float(ln_eps),
+        geo["attn_chunks"], geo["w_chunks"], geo["dx_blocks"], geo.get("qkv_blocks", 0),
+        geo.get("attn_stages", 0), geo["smem"]["attention"] if sm90 else 0, code,
+    )
     return (dx, *grads)
 
 

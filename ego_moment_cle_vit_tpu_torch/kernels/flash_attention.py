@@ -32,7 +32,6 @@ import ctypes
 
 import torch
 
-from ..utils.trace import span
 from . import _build
 from .packed_attention import bwd_geometry, check_saved, fwd_geometry, geometry_args
 
@@ -158,14 +157,9 @@ def flash_attention_tiled_fwd(
     scale = (c // num_heads) ** -0.5
     out = torch.empty((b, t, c), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((b, num_heads, t), dtype=torch.float32, device=qkv.device)
-    lib = _build.load("flash_attention_fwd", _SIGNATURES)
-    with span("kernel.flash_attention_tiled_fwd"):
-        rc = lib.flash_attention_fwd(qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, t, c,
-                                     num_heads, float(scale),
-                                     *geometry_args(fwd_geometry(t, c // num_heads)), code,
-                                     _build.stream_ptr(qkv.device))
-    _build.check(lib, rc, "flash_attention_tiled_fwd")
-    flash_attention_tiled_fwd.launches += 1
+    _build.launch(f"{__name__}:flash_attention_tiled_fwd", "flash_attention_fwd", _SIGNATURES,
+                  qkv.device, qkv.data_ptr(), out.data_ptr(), lse.data_ptr(), b, t, c, num_heads,
+                  float(scale), *geometry_args(fwd_geometry(t, c // num_heads)), code)
     return out, lse
 
 
@@ -202,14 +196,10 @@ def flash_attention_tiled_bwd(
     geo = bwd_geometry(t, c // num_heads)
     dqkv = torch.empty_like(qkv)
     delta = torch.empty((b, num_heads, t), dtype=torch.float32, device=qkv.device)
-    lib = _build.load("flash_attention_bwd", _BWD_SIGNATURES)
-    with span("kernel.flash_attention_tiled_bwd"):
-        rc = lib.flash_attention_bwd(
-            qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), lse.data_ptr(), dqkv.data_ptr(),
-            delta.data_ptr(), b, t, c, num_heads, float(scale), *geometry_args(geo), code,
-            _build.stream_ptr(qkv.device))
-    _build.check(lib, rc, "flash_attention_tiled_bwd")
-    flash_attention_tiled_bwd.launches += 1
+    _build.launch(f"{__name__}:flash_attention_tiled_bwd", "flash_attention_bwd",
+                  _BWD_SIGNATURES, qkv.device, qkv.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                  lse.data_ptr(), dqkv.data_ptr(), delta.data_ptr(), b, t, c, num_heads,
+                  float(scale), *geometry_args(geo), code)
     return dqkv
 
 

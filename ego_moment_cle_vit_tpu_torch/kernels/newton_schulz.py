@@ -45,7 +45,6 @@ import ctypes
 
 import torch
 
-from ..utils.trace import span
 from . import _build
 
 _SIGNATURES = {
@@ -277,35 +276,27 @@ def newton_schulz_isqrt_fp32_fwd(
     out = torch.empty_like(matrix)
     # Y and Z two buffers each, T, the traces
     work = torch.empty(5 * b * d * d + b, dtype=torch.float32, device=matrix.device)
-    lib = _build.load("newton_schulz", _SIGNATURES)
-    with span("kernel.newton_schulz_isqrt_fp32_fwd"):
-        rc = lib.newton_schulz_isqrt(matrix.data_ptr(), out.data_ptr(), work.data_ptr(), b, d,
-                                     num_iterations, float(eps), code,
-                                     _build.stream_ptr(matrix.device))
-    _build.check(lib, rc, "newton_schulz_isqrt_fp32_fwd")
-    newton_schulz_isqrt_fp32_fwd.launches += 1
+    _build.launch(f"{__name__}:newton_schulz_isqrt_fp32_fwd", "newton_schulz", _SIGNATURES,
+                  matrix.device, matrix.data_ptr(), out.data_ptr(), work.data_ptr(), b, d,
+                  num_iterations, float(eps), code)
     return out
 
 
 newton_schulz_isqrt_fp32_fwd.launches = 0
 
 
-def _bf16_launch(source: str, signatures: dict, matrix: torch.Tensor, num_iterations: int,
-                 eps: float, what: str, geometry) -> torch.Tensor:
-    code = _checked(matrix, num_iterations, what)
+def _bf16_fwd(wrapper: str, source: str, signatures: dict, geometry, matrix: torch.Tensor,
+              num_iterations: int, eps: float) -> torch.Tensor:
+    """Kernel 5′'s or 5″'s buffers at ``geometry``'s padded width, then its launch."""
+    code = _checked(matrix, num_iterations, wrapper)
     b, d, _ = matrix.shape
-    geo = geometry(d)
+    dp = geometry(d).get("dp", d)
     trace = _trace(matrix, eps)
     out = torch.empty_like(matrix)
-    dp = geo.get("dp", d)
     work = torch.empty(BF16_SCRATCH_MATRICES * b * dp * dp, dtype=torch.bfloat16,
                        device=matrix.device)
-    lib = _build.load(source, signatures)
-    (fn,) = signatures
-    with span("kernel." + what):
-        rc = getattr(lib, fn)(matrix.data_ptr(), out.data_ptr(), work.data_ptr(), trace.data_ptr(),
-                              b, d, num_iterations, code, _build.stream_ptr(matrix.device))
-    _build.check(lib, rc, what)
+    _build.launch(f"{__name__}:{wrapper}", source, signatures, matrix.device, matrix.data_ptr(),
+                  out.data_ptr(), work.data_ptr(), trace.data_ptr(), b, d, num_iterations, code)
     return out
 
 
@@ -322,10 +313,8 @@ def newton_schulz_isqrt_bf16_fwd(
     """
     if matrix.device.type == "cpu":
         return newton_schulz_isqrt_bf16_plain(matrix, num_iterations, eps)
-    out = _bf16_launch("newton_schulz_bf16", _BF16_SIGNATURES, matrix, num_iterations, eps,
-                       "newton_schulz_isqrt_bf16_fwd", bf16_gemm_geometry)
-    newton_schulz_isqrt_bf16_fwd.launches += 1
-    return out
+    return _bf16_fwd("newton_schulz_isqrt_bf16_fwd", "newton_schulz_bf16", _BF16_SIGNATURES,
+                     bf16_gemm_geometry, matrix, num_iterations, eps)
 
 
 newton_schulz_isqrt_bf16_fwd.launches = 0
@@ -343,11 +332,9 @@ def newton_schulz_isqrt_bf16_streamed_fwd(
     """
     if matrix.device.type == "cpu":
         return newton_schulz_isqrt_bf16_streamed_plain(matrix, num_iterations, eps)
-    out = _bf16_launch("newton_schulz_bf16_streamed", _BF16_STREAMED_SIGNATURES, matrix,
-                       num_iterations, eps, "newton_schulz_isqrt_bf16_streamed_fwd",
-                       streamed_gemm_geometry)
-    newton_schulz_isqrt_bf16_streamed_fwd.launches += 1
-    return out
+    return _bf16_fwd("newton_schulz_isqrt_bf16_streamed_fwd", "newton_schulz_bf16_streamed",
+                     _BF16_STREAMED_SIGNATURES, streamed_gemm_geometry, matrix, num_iterations,
+                     eps)
 
 
 newton_schulz_isqrt_bf16_streamed_fwd.launches = 0

@@ -33,7 +33,6 @@ import ctypes
 
 import torch
 
-from ..utils.trace import span
 from . import _build
 
 _SIGNATURES = {
@@ -231,16 +230,13 @@ def packed_attention_fwd(
     out = torch.empty((b, w, t, c), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b * w, num_heads, t), dtype=torch.float32, device=qkv.device)
            if return_lse else None)
-    lib = _build.load("packed_attention_fwd", _SIGNATURES)
-    with span("kernel.packed_attention_fwd"):
-        rc = lib.packed_attention_fwd(
-            qkv.data_ptr(), _ptr(bias), _ptr(mask), out.data_ptr(), _ptr(lse), b, w, t, c,
-            num_heads, bias.shape[0] if bias is not None else 1,
-            mask.shape[0] if mask is not None else 1, float(scale),
-            *geometry_args(fwd_geometry(t, c // num_heads)), code, _build.stream_ptr(qkv.device),
-        )
-    _build.check(lib, rc, "packed_attention_fwd")
-    packed_attention_fwd.launches += 1
+    _build.launch(
+        f"{__name__}:packed_attention_fwd", "packed_attention_fwd", _SIGNATURES, qkv.device,
+        qkv.data_ptr(), _ptr(bias), _ptr(mask), out.data_ptr(), _ptr(lse), b, w, t, c,
+        num_heads, bias.shape[0] if bias is not None else 1,
+        mask.shape[0] if mask is not None else 1, float(scale),
+        *geometry_args(fwd_geometry(t, c // num_heads)), code,
+    )
     return (out, lse) if return_lse else out
 
 
@@ -362,16 +358,14 @@ def packed_attention_bwd(
         n_chunks = _dbias_chunks(b * w, -(-t // ROWS) * -(-t // TILE) * num_heads)
         dbias = torch.empty_like(bias)
         partial = torch.empty((n_chunks, num_heads, t, t), dtype=torch.float32, device=dev)
-    lib = _build.load("packed_attention_bwd", _BWD_SIGNATURES)
-    with span("kernel.packed_attention_bwd"):
-        rc = lib.packed_attention_bwd(
-            qkv.data_ptr(), _ptr(bias), _ptr(mask), out.data_ptr(), lse.data_ptr(),
-            dout.data_ptr(), dqkv.data_ptr(), delta.data_ptr(), _ptr(partial), _ptr(dbias),
-            b, w, t, c, num_heads, bias.shape[0] if bias is not None else 1,
-            mask.shape[0] if mask is not None else 1, float(scale), n_chunks, *geometry_args(geo), code, _build.stream_ptr(dev),
-        )
-    _build.check(lib, rc, "packed_attention_bwd")
-    packed_attention_bwd.launches += 1
+    _build.launch(
+        f"{__name__}:packed_attention_bwd", "packed_attention_bwd", _BWD_SIGNATURES, dev,
+        qkv.data_ptr(), _ptr(bias), _ptr(mask), out.data_ptr(), lse.data_ptr(),
+        dout.data_ptr(), dqkv.data_ptr(), delta.data_ptr(), _ptr(partial), _ptr(dbias),
+        b, w, t, c, num_heads, bias.shape[0] if bias is not None else 1,
+        mask.shape[0] if mask is not None else 1, float(scale), n_chunks, *geometry_args(geo),
+        code,
+    )
     return dqkv, dbias
 
 

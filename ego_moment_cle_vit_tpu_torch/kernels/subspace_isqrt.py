@@ -37,7 +37,6 @@ import ctypes
 import torch
 
 from ..ops.moments import isqrt_cov_subspace
-from ..utils.trace import span
 from . import _build
 
 _SIGNATURES = {
@@ -85,6 +84,13 @@ def bound_flops(b: int, n: int, d: int, num_iterations: int, exact_inputs: bool)
         return b * last
     return b * (2 * n * n * d * a_terms + products(num_iterations) * 2 * n ** 3 * 6
                 + 2 * n * n * d * 6 + last)
+
+
+def bound_bytes(b: int, n: int, d: int, element_size: int) -> int:
+    """Device-memory bytes of one call: A and B ``[B, N, D]`` read, the
+    ``[B, D, D]`` result written, in the inputs' type.  Over 3.35 TB/s, the
+    kernel's bound where it moves more than it computes."""
+    return (2 * b * n * d + b * d * d) * element_size
 
 
 def _checked(centered: torch.Tensor, weighted: torch.Tensor, num_iterations: int,
@@ -135,13 +141,9 @@ def subspace_isqrt_fwd(
     out = torch.empty(b, d, d, dtype=centered.dtype, device=centered.device)
     work = torch.empty(scratch_bytes(b, n, d, centered.dtype), dtype=torch.uint8,
                        device=centered.device)
-    lib = _build.load("subspace_isqrt", _SIGNATURES)
-    with span("kernel.subspace_isqrt_fwd"):
-        rc = lib.subspace_isqrt(centered.data_ptr(), weighted.data_ptr(), out.data_ptr(),
-                                work.data_ptr(), b, n, d, num_iterations, float(eps), code, _terms,
-                                _build.stream_ptr(centered.device))
-    _build.check(lib, rc, "subspace_isqrt_fwd")
-    subspace_isqrt_fwd.launches += 1
+    _build.launch(f"{__name__}:subspace_isqrt_fwd", "subspace_isqrt", _SIGNATURES, centered.device,
+                  centered.data_ptr(), weighted.data_ptr(), out.data_ptr(), work.data_ptr(), b, n,
+                  d, num_iterations, float(eps), code, _terms)
     return out
 
 

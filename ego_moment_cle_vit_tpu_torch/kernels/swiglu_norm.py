@@ -30,7 +30,6 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ..utils.trace import span
 from . import _build
 
 # the widest padded row the kernel takes: a warp holds a row in registers,
@@ -112,13 +111,9 @@ def swiglu_norm_fwd(g: torch.Tensor, u: torch.Tensor, weight: torch.Tensor, bias
         return swiglu_norm_plain(g, u, weight, bias, width, eps)
     rows = _checked(g, u, weight, bias, width)
     out = torch.empty_like(g)
-    lib = _build.load("swiglu_norm", _SIGNATURES)
-    with span("kernel.swiglu_norm_fwd"):
-        rc = lib.swiglu_norm(g.data_ptr(), u.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-                             out.data_ptr(), rows, width, g.shape[-1], float(eps),
-                             _build.stream_ptr(g.device))
-    _build.check(lib, rc, "swiglu_norm_fwd")
-    swiglu_norm_fwd.launches += 1
+    _build.launch(f"{__name__}:swiglu_norm_fwd", "swiglu_norm", _SIGNATURES, g.device, g.data_ptr(),
+                  u.data_ptr(), weight.data_ptr(), bias.data_ptr(), out.data_ptr(), rows, width,
+                  g.shape[-1], float(eps))
     return out
 
 

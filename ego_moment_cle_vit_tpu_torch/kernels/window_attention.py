@@ -32,7 +32,6 @@ import ctypes
 
 import torch
 
-from ..utils.trace import span
 from . import _build
 
 _SIGNATURES = {
@@ -206,15 +205,12 @@ def window_attention_fwd(
     geo = fwd_geometry(b, hp, wp, c3 // 3, num_heads, window_size,
                        torch.cuda.get_device_properties(qkv.device).multi_processor_count)
     out = torch.empty((b, hp, wp, c3 // 3), dtype=qkv.dtype, device=qkv.device)
-    lib = _build.load("window_attention_fwd", _SIGNATURES)
-    with span("kernel.window_attention_fwd"):
-        rc = lib.window_attention_fwd(
-            qkv.data_ptr(), bias.data_ptr(), mask.data_ptr() if mask is not None else None,
-            out.data_ptr(), b, hp, wp, c3 // 3, num_heads, window_size, float(scale),
-            geo["chunks"], geo["stages"], geo["smem"], code, _build.stream_ptr(qkv.device),
-        )
-    _build.check(lib, rc, "window_attention_fwd")
-    window_attention_fwd.launches += 1
+    _build.launch(
+        f"{__name__}:window_attention_fwd", "window_attention_fwd", _SIGNATURES, qkv.device,
+        qkv.data_ptr(), bias.data_ptr(), mask.data_ptr() if mask is not None else None,
+        out.data_ptr(), b, hp, wp, c3 // 3, num_heads, window_size, float(scale),
+        geo["chunks"], geo["stages"], geo["smem"], code,
+    )
     return out
 
 
@@ -308,16 +304,13 @@ def window_attention_bwd(
     dbias = torch.empty((num_heads, nt, nt), dtype=torch.float32, device=qkv.device)
     partial = torch.empty((geo["chunks"], geo["windows"], num_heads, nt, nt),
                           dtype=torch.float32, device=qkv.device)
-    lib = _build.load("window_attention_bwd", _BWD_SIGNATURES)
-    with span("kernel.window_attention_bwd"):
-        rc = lib.window_attention_bwd(
-            qkv.data_ptr(), bias.data_ptr(), mask.data_ptr() if mask is not None else None,
-            dout.data_ptr(), dqkv.data_ptr(), partial.data_ptr(), dbias.data_ptr(),
-            b, hp, wp, c, num_heads, window_size, float(scale), geo["chunks"], geo["stages"],
-            geo["smem"], code, _build.stream_ptr(qkv.device),
-        )
-    _build.check(lib, rc, "window_attention_bwd")
-    window_attention_bwd.launches += 1
+    _build.launch(
+        f"{__name__}:window_attention_bwd", "window_attention_bwd", _BWD_SIGNATURES, qkv.device,
+        qkv.data_ptr(), bias.data_ptr(), mask.data_ptr() if mask is not None else None,
+        dout.data_ptr(), dqkv.data_ptr(), partial.data_ptr(), dbias.data_ptr(),
+        b, hp, wp, c, num_heads, window_size, float(scale), geo["chunks"], geo["stages"],
+        geo["smem"], code,
+    )
     return dqkv, dbias
 
 

@@ -30,7 +30,7 @@ product ``(x_2i + i x_2i+1) e^(i angle)``, taken in float32 (float64 in a
 float64 model) and rounded once to the model's type, as timm's rotation is
 under autocast; the rotated q and k are written beside v into the
 ``[B, T, 3C]`` layout of the attention kernels, which take it as the ViT's
-qkv (``vit.resolve_attn_path``: kernel 3 up to 256 tokens, kernel 6 beyond;
+qkv (``vit.attend``: kernel 3 up to 256 tokens, kernel 6 beyond;
 a 448 input has 1025).  On the card a head width the kernels do not take
 raises.
 
@@ -53,12 +53,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels import flash_attention as _fa
-from ..kernels import packed_attention as _pa
 from ..kernels import swiglu_norm as _sn
 from ..utils.trace import span
 from .layers import Dense, Dropout, LayerNorm
-from .vit import PatchEmbed, resolve_attn_path
+from .vit import PatchEmbed, attend
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,15 +123,11 @@ class EVAAttention(nn.Module):
         self.proj = Dense(dim, dim, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor, rope: torch.Tensor) -> torch.Tensor:
-        b, t, c = x.shape
         q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
         with span("rope"):
             qkv = torch.cat([apply_rope(q, rope, self.num_heads),
                              apply_rope(k, rope, self.num_heads), v], dim=-1)
-        if resolve_attn_path(t, c, self.num_heads, qkv.device) == "tiled":
-            return self.proj(_fa.flash_attention_tiled(qkv, self.num_heads))
-        out = _pa.packed_attention(qkv.reshape(b, 1, t, 3 * c), None, None, self.num_heads)
-        return self.proj(out.reshape(b, t, c))
+        return self.proj(attend(qkv, self.num_heads))
 
 
 # A hidden width that is no multiple of ALIGN (EVA-02-L's 2730: bf16 rows of

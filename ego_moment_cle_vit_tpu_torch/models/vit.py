@@ -104,6 +104,16 @@ def resolve_attn_path(tokens: int, channels: int, num_heads: int,
     return "packed" if tokens <= _pa.MAX_TOKENS else "tiled"
 
 
+def attend(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """qkv ``[B, T, 3C]`` -> attention over the whole sequence ``[B, T, C]``
+    through the kernel :func:`resolve_attn_path` picks (differentiable)."""
+    b, t, c3 = qkv.shape
+    if resolve_attn_path(t, c3 // 3, num_heads, qkv.device) == "tiled":
+        return _fa.flash_attention_tiled(qkv, num_heads)
+    out = _pa.packed_attention(qkv.reshape(b, 1, t, c3), None, None, num_heads)
+    return out.reshape(b, t, c3 // 3)
+
+
 class Attention(nn.Module):
     """qkv -> attention over the whole sequence (packed or q-tiled kernel) -> proj."""
 
@@ -114,12 +124,7 @@ class Attention(nn.Module):
         self.proj = Dense(dim, dim, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, t, c = x.shape
-        qkv = self.qkv(x)
-        if resolve_attn_path(t, c, self.num_heads, qkv.device) == "tiled":
-            return self.proj(_fa.flash_attention_tiled(qkv, self.num_heads))
-        out = _pa.packed_attention(qkv.reshape(b, 1, t, 3 * c), None, None, self.num_heads)
-        return self.proj(out.reshape(b, t, c))
+        return self.proj(attend(self.qkv(x), self.num_heads))
 
 
 class MlpBlock(nn.Module):

@@ -20,6 +20,14 @@ in bf16, and some at a call in fp32:
     2b  GPF backward               tokens [64, 784, 768] and [64, 1024, 1024] x2, dot
     5'' streamed bf16 Newton-Schulz M [64, 1536, 1536] bf16, 5 steps
     5'  bf16 Newton-Schulz         M [64, 1024, 1024] bf16, 5 steps
+    5   fp32 Newton-Schulz         M [64, 768, 768] bf16, 5 steps (ViT-Base/448's head)
+    5b  the iSQRT's backward       M [64, 1024, 1024] bf16, 5 steps: autograd over the
+                                   plain fp32 iteration, as ViT-Large/512's training
+                                   step runs it (no kernel)
+    7   subspace iSQRT             centred and weighted tokens [64, 784, 1024] and
+                                   [64, 49, 1024] bf16, 5 steps (ViT-L/16 at 448's
+                                   and Swin-Base/224's heads)
+    8   SwiGLU glue                g and u [65600, 2736] bf16, W = 2730 (EVA-02-L/448)
     3, 6 in fp32 (off the main paths) at [8, 1, 197, 2304] and [4, 785, 2304]
     2b in fp32 (off the main paths) at [4, 784, 768]
     1b  window attention backward  qkv [128, 56, 56, 384] H4 ... [128, 7, 7, 3072] H32,
@@ -28,9 +36,10 @@ in bf16, and some at a call in fp32:
                                    shift 0 and 1
     1   window attention forward   qkv [64, 56, 56, 384] H4 ... [64, 7, 7, 3072] H32 and
                                    the same at batch 128, the four Swin-Base stages,
-                                   shift 0 and 1; Swin-Large/1280 stages 0 and 2 on
-                                   their padded canvases, [64, 322, 322, 576] H6 and
-                                   [64, 84, 84, 2304] H24, masks with the pad sentinel
+                                   shift 0 and 1; the four Swin-Large/1280 stages on
+                                   their padded canvases, [64, 322, 322, 576] H6 ...
+                                   [64, 42, 42, 4608] H48, masks with the pad sentinel,
+                                   and their sum over one forward's 24 launches
     2   GPF forward                tokens [64, 49, 1024], [64, 196, 768], [64, 784, 768]
                                    (one tensor twice, and two), [64, 1024, 1024] and
                                    [64, 1600, 1536], dot
@@ -48,8 +57,10 @@ whose own spread across turns decides whether a kernel is at or under it:
 SDPA (``scaled_dot_product_attention``, forward or backward) for attention,
 autograd of one fp32 ``bmm`` Gram for 2b (part of its work only), and the
 same bf16 iteration on cuBLAS (``bmm``, ``baddbmm``, each kernel's grouping
-and rounding points) for 5'' and 5', SDPA on the partitioned windows with bias + mask as its
-float mask for 1, one fp32 ``bmm`` Gram for 2 (part of its work), SDPA's
+and rounding points) for 5'' and 5', the same iteration on cuBLAS in fp32 (``bmm``,
+``baddbmm``) for 5, the plain fp32 route (``isqrt_cov_subspace``) for 7, the
+composition it replaces (``swiglu_norm_plain``) for 8, SDPA on the partitioned windows with
+bias + mask as its float mask for 1, one fp32 ``bmm`` Gram for 2 (part of its work), SDPA's
 backward on the partitioned windows for 1b (without
 the bias gradient, and again with the float mask a leaf that takes one:
 ``library_dbias``), and for 4b autograd of the port's unfused route
@@ -57,21 +68,31 @@ the bias gradient, and again with the float mask a leaf that takes one:
 add), for 4 that route's forward (and, as ``library_sdpa``, LayerNorm,
 ``linear``, SDPA on the partitioned windows, ``linear``, add).  2b, 5'', 5',
 1b and 4b are also profiled once a turn (torch.profiler, 5 calls), which
-splits their time among the launches inside one call.  Each
+splits their time among the launches inside one call.  5, 5', 5'', 7 and 8 print their
+bound beside their time: the larger of their bytes over 3.35 TB/s and their operations over
+the bf16 peak, for 5, 5' and 5'' from their own modules of ``h100_bench/kernel_work``, for 7
+and 8 from the package's ``subspace_isqrt.bound_flops`` / ``bound_bytes`` and
+``swiglu_norm.bound_bytes``.  5' and 5'' also print how far from their plain version,
+which rounds where they round, they are, beside the other grouping's and the cuBLAS
+iteration's distance (err / tol of ``kernel_checks.TOL_NS_BF16``; printed, not
+enforced).  Each
 turn hashes what its kernels return at every call (out and lse, dqkv; for 2b
 dc and the token gradients apart; for 1b dqkv and dbias apart; for 4b dx and
-each parameter gradient apart; for 1, 2, 4, 5' and 5'' out; for e2e the
-logits), from the same seeded
+each parameter gradient apart; for 1, 2, 4, 5, 5', 5'', 7 and 8 out; for 5b dM; for e2e
+the logits), from the same seeded
 inputs, so the two checkouts are compared bit for bit too.
 
 The turns run other, this, this, other, so that drift of the card hits both
 alike.  ``--only`` takes a comma-separated list of kernel names (3, 6, 3b, 6b,
-2b, 5'', 5', 1b, 4b, 1, 2, 4, e2e) and times only their calls.  Prints the card's name and
-power limit, each turn's times, the best of each side, and a last line of
+2b, 5'', 5', 5, 5b, 7, 8, 1b, 4b, 1, 2, 4, e2e) and times only their calls.
+Prints the card's name and power limit, each turn's times, the best of each
+side, and a last line of
 JSON {"card": ..., "shapes": {shape: {"other": [ms, ms], "this": [ms, ms],
 "library": [ms, ms, ms, ms], "library_dbias": [...] (1b only),
-"library_sdpa": [...] (4 only), "same_bits":
-{part: bool}, "split": {"other": {launch: ms}, "this": {...}}}}}; --out
+"library_sdpa": [...] (4 only), "bound": ms (5, 5', 5'', 7 and 8), "apart":
+{"other": {...}, "this": {...}} (5' and 5''), "same_bits": {part: bool},
+"split": {"other": {launch: ms}, "this": {...}}}}, "swinL1280_forward_ms":
+{"other": ms, "this": ms, "library": ms} (with every padded shape of 1)}; --out
 writes that JSON to a file too.  Needs one GPU.
 """
 
@@ -87,6 +108,10 @@ import statistics
 import subprocess
 import sys
 
+# Swin-Large/1280's stages on their padded canvases: (Hp, C, heads), and the
+# blocks of each (half of them shifted)
+SWINL1280 = ((322, 192, 6), (161, 384, 12), (84, 768, 24), (42, 1536, 48))
+SWINL1280_BLOCKS = {322: 2, 161: 2, 84: 18, 42: 2}
 # (name, kind, batch, tokens or N, width C or D, heads)
 SHAPES = (("3 [64,1,197,2304] H12", "packed_fwd", 64, 197, 768, 12),
           ("3 [128,1,197,2304] H12 lse", "packed_fwd_lse", 128, 197, 768, 12),
@@ -119,7 +144,7 @@ SHAPES = (("3 [64,1,197,2304] H12", "packed_fwd", 64, 197, 768, 12),
                                                 (7, 1024, 32))
             for s in ((0, 1) if hp > 7 else (0,))),
           *((f"1 [64,{hp},{hp},{3 * c}] H{h} s{s} padded", "wfwd", 64, hp, c, h)
-            for hp, c, h in ((322, 192, 6), (84, 768, 24)) for s in (0, 1)),
+            for hp, c, h in SWINL1280 for s in (0, 1)),
           ("2 [64,49,1024] dot", "gfwd", 64, 49, 1024, 0),
           ("2 [64,196,768] dot", "gfwd", 64, 196, 768, 0),
           ("2 [64,784,768] dot", "gfwd", 64, 784, 768, 0),
@@ -127,13 +152,17 @@ SHAPES = (("3 [64,1,197,2304] H12", "packed_fwd", 64, 197, 768, 12),
           ("2 [64,1024,1024] dot", "gfwd", 64, 1024, 1024, 0),
           ("2 [64,1600,1536] dot", "gfwd", 64, 1600, 1536, 0),
           ("5' [64,1024,1024] k5", "ns_bf16", 64, 1024, 1024, 0),
+          ("5 [64,768,768] k5", "nsfp32", 64, 784, 768, 0),
+          ("5b [64,1024,1024] k5", "ns_bwd", 64, 1024, 1024, 0),
+          ("7 [64,784,1024] k5", "si", 64, 784, 1024, 0),
+          ("7 [64,49,1024] k5", "si", 64, 49, 1024, 0),
+          ("8 [65600,2736] W2730", "sn", 64 * 1025, 2736, 2730, 0),
           *((f"4 [{b},{hp},{hp},{c}] H{h} s{s}", "ah_fwd", b, hp, c, h)
             for b in (64, 128) for hp, c, h in ((56, 128, 4), (28, 256, 8)) for s in (0, 1)),
           ("e2e serve-swinL-1280 b64", "serve", 64, 0, 0, 0),
           ("e2e serve-vitL-512 b64", "serve", 64, 0, 0, 0),
           ("e2e serve-swinB-224-fused b64", "serve", 64, 0, 0, 0))
 WS = 7  # Swin's window
-PADDED = {322: 320, 84: 80}  # Swin-Large/1280's padded canvases: their real rows
 SOURCES = {"packed": ("packed_attention_fwd", "packed_attention_bwd"),
            "tiled": ("flash_attention_fwd", "flash_attention_bwd"),
            "gpf": ("gpf_bwd",), "ns": ("newton_schulz_bf16_streamed", "newton_schulz_bf16"),
@@ -141,6 +170,7 @@ SOURCES = {"packed": ("packed_attention_fwd", "packed_attention_bwd"),
            "ah": ("attn_half_fwd", "attn_half_bwd", "window_attention_fwd",
                   "window_attention_bwd"),
            "wfwd": ("window_attention_fwd",), "gfwd": ("gpf_fwd",),
+           "nsfp32": ("newton_schulz",), "si": ("subspace_isqrt",), "sn": ("swiglu_norm",),
            "serve": ("window_attention_fwd", "gpf_fwd", "newton_schulz_bf16_streamed",
                      "newton_schulz_bf16", "flash_attention_fwd", "attn_half_fwd")}
 # the e2e entries' configurations in chip_smoke.py
@@ -310,6 +340,68 @@ def attn_half_inputs(g, batch: int, hp: int, c: int, heads: int, shifted: bool, 
             randn(c, c, scale=c ** -0.5).to(dtype), randn(c, scale=0.1).to(dtype), bias, mask)
 
 
+def attention_half_by_library(args: tuple, heads: int):
+    """The same block as PyTorch's own calls: layer_norm, linear, SDPA over
+    the partitioned windows with bias + mask as its float mask (partition and
+    reverse copies included), linear, add.  A yardstick, never the port's."""
+    import torch
+
+    x, ln_g, ln_b, wqkv, bqkv, wproj, bproj, bias, mask = args
+    b, hp, wp, c = x.shape
+    nw, nt, d = (hp // WS) * (wp // WS), WS * WS, c // heads
+    xn = torch.nn.functional.layer_norm(x.float(), (c,), ln_g, ln_b, 1e-5).to(x.dtype)
+    qkv = torch.nn.functional.linear(xn, wqkv, bqkv)
+    qkv = qkv.reshape(b, hp // WS, WS, wp // WS, WS, 3, heads, d)
+    qkv = qkv.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, b * nw, heads, nt, d)
+    am = bias[None] + (mask[:, None] if mask is not None else 0.0)
+    am = am.expand(b, nw, heads, nt, nt).reshape(b * nw, heads, nt, nt).to(x.dtype)
+    o = torch.nn.functional.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], attn_mask=am,
+                                                         scale=d ** -0.5)
+    om = o.reshape(b, hp // WS, wp // WS, heads, WS, WS, d).permute(0, 1, 4, 2, 5, 3, 6)
+    return x + torch.nn.functional.linear(om.reshape(b, hp, wp, c), wproj, bproj)
+
+
+def ns_fp32_library(m):
+    """Kernel 5's iteration on cuBLAS in fp32, each update one ``baddbmm``: a
+    yardstick, never the port's."""
+    import torch
+
+    mf = m.float()
+    tr = torch.diagonal(mf, dim1=-2, dim2=-1).sum(-1)[:, None, None] + NS_EPS
+    z = mf / tr
+    y = torch.eye(m.shape[-1], device=m.device).expand_as(z).contiguous()
+    for i in range(NS_ITERS):
+        t = torch.bmm(z, y)
+        y_next = torch.baddbmm(y, y, t, beta=1.5, alpha=-0.5)
+        if i + 1 < NS_ITERS:
+            z = torch.baddbmm(z, t.transpose(1, 2), z, beta=1.5, alpha=-0.5)
+        y = y_next
+    return (y / torch.sqrt(tr)).to(m.dtype)
+
+
+def ns_bf16_library(m, streamed: bool):
+    """The bf16 iteration on cuBLAS at the kernels' rounding points, the
+    products grouped as 5'' (``streamed``) or 5' groups them: bf16 ``bmm``
+    for the products and ``baddbmm`` for the update, with the first step's
+    exact copies skipped as the kernels skip them.  A yardstick, never the
+    port's."""
+    import torch
+
+    mf = m.float()
+    tr = torch.diagonal(mf, dim1=-2, dim2=-1).sum(-1)[:, None, None] + NS_EPS
+    mn = (mf / tr).to(torch.bfloat16)
+    eye = torch.eye(m.shape[-1], device=m.device)
+    y = (1.5 * eye - 0.5 * mn.float()).to(torch.bfloat16)
+    for _ in range(NS_ITERS - 1):
+        if streamed:
+            p = torch.bmm(torch.bmm(y, mn), y)
+            y = torch.baddbmm(y, p, y, beta=1.5, alpha=-0.5)
+        else:
+            t2 = torch.bmm(mn, torch.bmm(y, y))
+            y = torch.baddbmm(y, y, t2, beta=1.5, alpha=-0.5)
+    return (y.float() / torch.sqrt(tr)).to(m.dtype)
+
+
 def attention_half_unfused(args: tuple, heads: int):
     """The port's default route for a fused block: LayerNorm, Dense, kernel 1
     (1b under autograd), Dense, add."""
@@ -325,6 +417,32 @@ def attention_half_unfused(args: tuple, heads: int):
     return x + torch.nn.functional.linear(om, wproj, bproj)
 
 
+def bound_ms(kind: str, b: int, t: int, c: int) -> float | None:
+    """The bound of one bf16 call of 5, 5', 5'' (their modules of
+    ``h100_bench/kernel_work``), 7 or 8 (the package's ``bound_flops`` /
+    ``bound_bytes``), from this checkout; None for the other kernels."""
+    import importlib
+
+    from ego_moment_cle_vit_tpu_torch.kernels import subspace_isqrt as si
+    from ego_moment_cle_vit_tpu_torch.kernels import swiglu_norm as sn
+    from h100_bench.kernel_work import bound_s
+
+    dense = {"nsfp32": "newton_schulz_isqrt_fp32_fwd", "ns_bf16": "newton_schulz_isqrt_bf16_fwd",
+             "ns_streamed": "newton_schulz_isqrt_bf16_streamed_fwd"}
+    if kind in dense:
+        work = importlib.import_module(f"h100_bench.kernel_work.{dense[kind]}")
+        spec = {"architecture": {"num_features": c},
+                "port_config": {"model": {"bf16": True, "moment": {"isqrt_iterations": NS_ITERS}}}}
+        ((nbytes, flops),) = work.work(spec, b, True)
+        return bound_s(nbytes, flops, work.DTYPE) * 1e3
+    if kind == "si":
+        return bound_s(si.bound_bytes(b, t, c, 2), si.bound_flops(b, t, c, NS_ITERS, True),
+                       "bfloat16") * 1e3
+    if kind == "sn":
+        return bound_s(sn.bound_bytes(b, t), 0.0, "bfloat16") * 1e3
+    return None
+
+
 def worker(only: set) -> None:
     """One turn: time every shape with the port of the working directory (put
     ahead of this script's own directory, which Python searches first)."""
@@ -337,7 +455,11 @@ def worker(only: set) -> None:
     from ego_moment_cle_vit_tpu_torch.kernels import gpf
     from ego_moment_cle_vit_tpu_torch.kernels import newton_schulz as ns
     from ego_moment_cle_vit_tpu_torch.kernels import packed_attention as pa
+    from ego_moment_cle_vit_tpu_torch.kernels import subspace_isqrt as si
+    from ego_moment_cle_vit_tpu_torch.kernels import swiglu_norm as sn
     from ego_moment_cle_vit_tpu_torch.kernels import window_attention as wa
+    from ego_moment_cle_vit_tpu_torch.ops.moments import isqrt_cov_subspace
+    from kernel_checks import PADDED, TOL_NS_BF16, subspace_inputs
 
     shapes = [s for s in SHAPES if kernel_of(s[0]) in only]
     sources = {src for _, kind, *_ in shapes for src in SOURCES[kind.split("_")[0]]}
@@ -351,7 +473,7 @@ def worker(only: set) -> None:
     res = {}
     for name, kind, b, t, c, h in shapes:
         dtype = torch.float32 if "fp32" in name else torch.bfloat16
-        split = lib_dbias = lib_sdpa = None
+        split = lib_dbias = lib_sdpa = apart = None
         if kind == "serve":
             # the whole serving path: chip_smoke.py's configuration from the
             # same checkout, weights from seed 0
@@ -399,12 +521,10 @@ def worker(only: set) -> None:
             digests = {"dqkv": digest(dqkv), "dbias": digest(dbias)}
             split = launch_split(fn)
         elif kind == "ah_fwd":
-            import chip_smoke
-
             args = attn_half_inputs(g, b, t, c, h, name.endswith("s1"), dtype)
             fn = lambda: ah.attn_half_fwd(*args, h, WS)  # noqa: E731
             lib = lambda: attention_half_unfused(args, h)  # noqa: E731
-            lib_sdpa = lambda: chip_smoke.attention_half_by_library(args, h)  # noqa: E731
+            lib_sdpa = lambda: attention_half_by_library(args, h)  # noqa: E731
             digests = {"out": digest(fn())}
         elif kind == "ah_bwd":
             args = attn_half_inputs(g, b, t, c, h, name.endswith("s1"), dtype)
@@ -436,11 +556,58 @@ def worker(only: set) -> None:
             kernel = (ns.newton_schulz_isqrt_bf16_streamed_fwd if streamed
                       else ns.newton_schulz_isqrt_bf16_fwd)
             fn = lambda: kernel(m, NS_ITERS, NS_EPS)  # noqa: E731
-            import chip_smoke
-
-            lib = lambda: chip_smoke.ns_bf16_library(m, streamed)  # noqa: E731
-            digests = {"out": digest(fn())}
+            lib = lambda: ns_bf16_library(m, streamed)  # noqa: E731
+            out = fn()
+            digests = {"out": digest(out)}
             split = launch_split(fn)
+            plains = (ns.newton_schulz_isqrt_bf16_plain, ns.newton_schulz_isqrt_bf16_streamed_plain)
+            plain, other = plains[::-1] if streamed else plains
+            ref = plain(m, NS_ITERS, NS_EPS).float()
+            rtol, atol = TOL_NS_BF16["full_rank"]
+            tol = rtol * ref.abs() + atol * ref.abs().max()
+            apart = {what: float(((x.float() - ref).abs() / tol).max()) for what, x in (
+                ("kernel", out), ("other grouping", other(m, NS_ITERS, NS_EPS)), ("cuBLAS", lib()))}
+            del out, ref, tol
+        elif kind == "nsfp32":
+            z = torch.randn(b, t, c, generator=g, device="cuda")
+            m = (torch.matmul(z.transpose(1, 2), z) / t).to(dtype)
+            del z
+            fn = lambda: ns.newton_schulz_isqrt_fp32_fwd(m, NS_ITERS, NS_EPS)  # noqa: E731
+            lib = lambda: ns_fp32_library(m)  # noqa: E731
+            digests = {"out": digest(fn())}
+        elif kind == "ns_bwd":
+            # ViT-Large/512's training step: M from the head's 1024 tokens
+            z = torch.randn(b, t, c, generator=g, device="cuda")
+            m = (torch.matmul(z.transpose(1, 2), z) / t).to(dtype)
+            cot = torch.randn(m.shape, generator=g, device="cuda").to(dtype)
+            del z
+
+            def fn():
+                x = m.detach().requires_grad_()
+                return torch.autograd.grad(ns.newton_schulz_isqrt_plain(x, NS_ITERS, NS_EPS),
+                                           x, cot)[0]
+
+            digests = {"dM": digest(fn())}
+            res[name] = {"ms": time_ms(fn, warm=1, samples=3, reps=2), "library": None,
+                         "digests": digests, "split": None}
+            del fn, m, cot
+            torch.cuda.empty_cache()
+            continue
+        elif kind == "si":
+            centered, weighted = subspace_inputs(g, b, t, c, dtype)
+            fn = lambda: si.subspace_isqrt_fwd(centered, weighted, NS_ITERS, NS_EPS)  # noqa: E731
+            lib = lambda: isqrt_cov_subspace(centered, weighted,  # noqa: E731
+                                             NS_ITERS, NS_EPS)
+            digests = {"out": digest(fn())}
+        elif kind == "sn":
+            gu = torch.randn(2, b, t, generator=g, device="cuda")
+            gate, value = (1.5 * gu[0]).to(torch.bfloat16), gu[1].to(torch.bfloat16)
+            del gu
+            w = 1 + 0.3 * torch.randn(c, generator=g, device="cuda")
+            bias = 0.3 * torch.randn(c, generator=g, device="cuda")
+            fn = lambda: sn.swiglu_norm_fwd(gate, value, w, bias, c, 1e-6)  # noqa: E731
+            lib = lambda: sn.swiglu_norm_plain(gate, value, w, bias, c, 1e-6)  # noqa: E731
+            digests = {"out": digest(fn())}
         else:
             shape = (b, 1, t, 3 * c) if kind.startswith("packed") else (b, t, 3 * c)
             qkv = torch.randn(*shape, generator=g, device="cuda").to(dtype)
@@ -469,6 +636,8 @@ def worker(only: set) -> None:
             res[name]["library_dbias"] = time_ms(lib_dbias)
         if lib_sdpa is not None:
             res[name]["library_sdpa"] = time_ms(lib_sdpa)
+        if apart is not None:
+            res[name]["apart"] = apart
         del fn, lib, lib_dbias, lib_sdpa
         torch.cuda.empty_cache()
     print(json.dumps(res), flush=True)
@@ -477,7 +646,7 @@ def worker(only: set) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", help="another checkout of the repository")
-    ap.add_argument("--only", default="3,6,3b,6b,2b,5'',5',1b,4b,1,2,4",
+    ap.add_argument("--only", default="3,6,3b,6b,2b,5'',5',5,5b,7,8,1b,4b,1,2,4",
                     help="comma-separated kernels to time (default: all)")
     ap.add_argument("--out", help="also write the JSON result here")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
@@ -529,6 +698,8 @@ def main() -> int:
             for extra in ("library_dbias", "library_sdpa"):
                 if extra in times[name]:
                     r.setdefault(extra, []).append(times[name][extra])
+            if "apart" in times[name]:
+                r.setdefault("apart", {}).setdefault(turn, times[name]["apart"])
             if times[name]["split"] is not None:
                 r["split"].setdefault(turn, times[name]["split"])
             for part, hexd in times[name]["digests"].items():
@@ -536,6 +707,9 @@ def main() -> int:
         print(f"{turn:5s} " + "  ".join(
             f"{k}: {v['ms']:.4f} ms" + (f" (library {v['library']:.4f})" if v["library"] else "")
             for k, v in times.items()), flush=True)
+    for name, kind, b, tokens, c, _ in SHAPES:
+        if name in result["shapes"] and bound_ms(kind, b, tokens, c) is not None:
+            result["shapes"][name]["bound"] = bound_ms(kind, b, tokens, c)
     for name, t in result["shapes"].items():
         t["same_bits"] = {part: len(d["this"]) == 1 and d["this"] == d["other"]
                           for part, d in digests[name].items()}
@@ -549,11 +723,25 @@ def main() -> int:
               + (f"; library with dbias {min(t['library_dbias']):.4f}-"
                  f"{max(t['library_dbias']):.4f} ms" if "library_dbias" in t else "")
               + (f"; LN+linear+SDPA+linear {min(t['library_sdpa']):.4f}-"
-                 f"{max(t['library_sdpa']):.4f} ms" if "library_sdpa" in t else ""))
+                 f"{max(t['library_sdpa']):.4f} ms" if "library_sdpa" in t else "")
+              + (f"; bound {t['bound']:.4f} ms (this at {100 * t['bound'] / min(t['this']):.1f} "
+                 "% of it)" if "bound" in t else ""))
+        for turn, apart in t.get("apart", {}).items():
+            print(f"{name}: {turn} err/tol against its plain version (TOL_NS_BF16, printed, not "
+                  "enforced): " + ", ".join(f"{k} {v:.3f}" for k, v in apart.items()))
         for turn, split in t["split"].items():
             print(f"{name}: {turn} launches a call: "
                   + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(split.items(),
                                                                    key=lambda kv: -kv[1])))
+    padded = [name for name in result["shapes"] if name.endswith(" padded")]
+    if len(padded) == 2 * len(SWINL1280):  # both shifts of every stage: one forward's sum
+        forward = {side: sum(SWINL1280_BLOCKS[int(name.split(",")[1])] // 2
+                             * min(result["shapes"][name][side]) for name in padded)
+                   for side in ("other", "this", "library")}
+        result["swinL1280_forward_ms"] = forward
+        print(f"1 Swin-Large/1280 a forward at batch 64, 24 launches: other "
+              f"{forward['other']:.4f} ms, this {forward['this']:.4f} ms; SDPA on the same "
+              f"windows {forward['library']:.4f} ms")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

@@ -22,6 +22,14 @@ against ``flash_window_attention`` and its ``jax.vjp`` in interpret mode (forwar
 fp32 sum order over up to 197 keys and up to 16 (image, group) pairs), against
 fp64 autograd (1e-9 relative) and under ``gradcheck``; GPF at a ViT's 196
 tokens against ``fused_gpf_pallas`` as at 49.
+
+The launch protocol (``_build.launch``), on a stand-in wrapper and library:
+one ``emct.kernel.<wrapper>`` range under a profiler, the stream appended to
+the arguments, one count in ``<wrapper>.launches`` on success, and on a CUDA
+error a ``RuntimeError`` naming the wrapper with the count unchanged; a
+stand-in put in the wrapper's place takes the count under the wrapper's
+span.  The list of libraries, one a ``csrc/*.cu``, holds every source the
+benchmark builds, and ``kernel_checks.MAIN_PATH`` names every wrapper.
 """
 
 import numpy as np
@@ -41,6 +49,7 @@ from ego_moment_cle_vit_tpu.ops.pallas.window_attention import (
     flash_window_attention,
     flash_window_attention_spatial,
 )
+from ego_moment_cle_vit_tpu_torch.kernels import _build
 from ego_moment_cle_vit_tpu_torch.kernels import gpf as tgpf
 from ego_moment_cle_vit_tpu_torch.kernels import packed_attention as tpa
 from ego_moment_cle_vit_tpu_torch.kernels import window_attention as twa
@@ -506,3 +515,133 @@ def test_gpf_plain_matches_pallas_at_vit_token_count(similarity):
     da, dp, dc = tgpf.gpf_bwd_plain(*args, torch.from_numpy(cot), similarity, 1e-6, True)
     for got, want in ((da.numpy(), ref_da), (dp.numpy(), ref_dp), (dc.sum(0).numpy(), ref_dc)):
         assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+class _StandInLibrary:
+    """A built kernel library's stand-in: its entry point records its
+    arguments and returns ``code``."""
+
+    def __init__(self, code: int):
+        self.code, self.calls = code, []
+
+    def entry(self, *args):
+        self.calls.append(args)
+        return self.code
+
+    def emct_error_string(self, code):
+        return b"stand-in error"
+
+
+def _stand_in_kernels(monkeypatch, code: int):
+    """A kernel module's stand-in holding one wrapper, ``standin_fwd``, with
+    3 launches counted, and a library that returns ``code``."""
+    import sys
+    import types
+
+    def standin_fwd():
+        pass
+
+    standin_fwd.launches = 3
+    module = types.ModuleType("standin_kernels")
+    module.standin_fwd = standin_fwd
+    monkeypatch.setitem(sys.modules, "standin_kernels", module)
+    lib = _StandInLibrary(code)
+    monkeypatch.setattr(_build, "load", lambda source, signatures: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 4242)
+    lib.bound = []
+    monkeypatch.setattr(_build, "bind_context", lambda device: lib.bound.append(device))
+    return module, lib
+
+
+def _launched_spans(fn):
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    return [e.name for e in prof.events() if e.name.startswith("emct.")]
+
+
+@pytest.mark.parametrize("code", [0, 700])
+def test_launch_protocol(monkeypatch, code):
+    """One ``emct.kernel.<wrapper>`` range, the stream after the arguments,
+    one count on success; on a CUDA error a ``RuntimeError`` naming the
+    wrapper, the count unchanged."""
+    module, lib = _stand_in_kernels(monkeypatch, code)
+
+    def run():
+        _build.launch("standin_kernels:standin_fwd", "any", {"entry": None},
+                      torch.device("cpu"), 7, 0.5)
+
+    if code:
+        with pytest.raises(RuntimeError, match="^standin_fwd failed: CUDA error 700 "):
+            _launched_spans(run)
+    else:
+        assert _launched_spans(run) == ["emct.kernel.standin_fwd"]
+    assert lib.calls == [(7, 0.5, 4242)] and lib.bound == [torch.device("cpu")]
+    assert module.standin_fwd.launches == (3 if code else 4)
+
+
+def test_bind_context_queries_once_a_thread(monkeypatch):
+    """The device's stream is queried (a runtime call, which makes its
+    context current) on the first launch of each thread only."""
+    import threading
+
+    queries = []
+
+    class Stream:
+        def query(self):
+            queries.append(threading.get_ident())
+            return True
+
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: Stream())
+    monkeypatch.setattr(_build, "_thread", threading.local())
+    dev = torch.device("cuda", 0)
+    _build.bind_context(dev)
+    _build.bind_context(dev)
+    t = threading.Thread(target=lambda: [_build.bind_context(dev) for _ in range(2)])
+    t.start()
+    t.join(timeout=30)
+    assert not t.is_alive()
+    _build.bind_context(torch.device("cuda", 1))
+    assert len(queries) == 3 and len(set(queries)) == 2
+
+
+def test_launch_counts_on_what_the_module_name_holds(monkeypatch):
+    """A stand-in put in the wrapper's place (a control of the card checks)
+    takes the count; the span and the name stay the wrapper's."""
+    module, _ = _stand_in_kernels(monkeypatch, 0)
+    wrapper = module.standin_fwd
+
+    def truncated():
+        pass
+
+    truncated.launches = 0
+    module.standin_fwd = truncated
+    spans = _launched_spans(lambda: _build.launch("standin_kernels:standin_fwd", "any",
+                                                  {"entry": None}, torch.device("cpu")))
+    assert spans == ["emct.kernel.standin_fwd"]
+    assert truncated.launches == 1 and wrapper.launches == 3
+
+
+def test_one_library_a_source_and_every_source_the_benchmark_builds():
+    import importlib
+    from pathlib import Path
+
+    csrc = Path(_build.CSRC_DIR)
+    assert _build.KERNEL_SOURCES == tuple(sorted(p.stem for p in csrc.glob("*.cu")))
+    assert len(_build.KERNEL_SOURCES) == len(_build.wrappers()) == 15
+    work = Path(__file__).resolve().parent.parent / "h100_bench" / "kernel_work"
+    for path in sorted(work.glob("[!_]*.py")):
+        mod = importlib.import_module(f"h100_bench.kernel_work.{path.stem}")
+        assert mod.SOURCE in _build.KERNEL_SOURCES, path.name
+        assert mod.WRAPPER.split(":")[1] == path.stem in _build.wrappers(), path.name
+
+
+def test_main_path_calls_name_every_wrapper():
+    """``chip_smoke.py`` runs each wrapper's card check at these calls, in
+    bf16: every wrapper has one at least."""
+    import kernel_checks
+
+    assert set(kernel_checks.MAIN_PATH) == set(_build.wrappers())
+    for name, (check, cases) in kernel_checks.MAIN_PATH.items():
+        assert cases and callable(check), name
+        assert all(torch.bfloat16 in case or check is kernel_checks.check_swiglu_norm_fwd
+                   for case in cases), name

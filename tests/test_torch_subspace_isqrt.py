@@ -175,3 +175,14 @@ def test_schedule_counts():
     assert 7.2e12 < flops < 7.4e12
     assert si.bound_flops(2, 16, 64, 0, True) == 0
     assert si.bound_flops(2, 16, 64, 1, False) == 2 * 6 * 2 * 64 * 64 * 16
+
+
+def test_bound_is_the_benchmarks_work():
+    """The bound's operations and bytes of a ViT-L/448 serving call are those
+    the benchmark's roofline counts for kernel 7."""
+    from h100_bench.kernel_work import subspace_isqrt_fwd as work
+
+    for exact in (True, False):
+        assert si.bound_flops(64, 784, 1024, 5, exact) == 64 * work.operations(784, 1024, 5,
+                                                                                exact)
+    assert si.bound_bytes(64, 784, 1024, 2) == (2 * 64 * 784 * 1024 + 64 * 1024 ** 2) * 2
