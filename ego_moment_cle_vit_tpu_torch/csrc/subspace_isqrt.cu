@@ -25,51 +25,27 @@
 // its tests hold it to isqrt_cov_subspace bit for bit): 5k - 5 products for
 // k >= 2, each fp32-accurate.
 //
-// What bounds it on an H100: tensor-core operations.  An fp32 operand is split
-// into three bf16 terms (hi + mid + lo, 8 significant bits each, 24 in all)
-// and the six cross products down to 2^-24 (lo hi, mid mid, hi lo, mid hi,
-// hi mid, hi hi) run as bf16 wgmma with fp32 sums; an operand that is exactly
-// bf16 (A in the bf16 model) has its hi term alone, so S and A^T (G B^) take
-// three.  At [64, 784, 1024], k = 5: 17 N^3 products of six, G B^ of six, S
-// and A^T (.) of three: 7.3e12 flops over 989 TFLOP/s, 7.4 ms
-// (kernels/subspace_isqrt.py:bound_flops); the device-memory bytes (A and B
-// read, the iterates ~3.7 MB an image each) do not bound it.
+// What bounds it on an H100: tensor-core operations.  Every product is
+// split_sm90.cuh's fp32-accurate product from bf16 planes: six bf16 cross
+// products, or three where one side is exactly bf16 (A in the bf16 model), so
+// S and A^T (G B^) take three.  At [64, 784, 1024], k = 5: 17 N^3 products of
+// six, G B^ of six, S and A^T (.) of three: 7.3e12 flops over 989 TFLOP/s,
+// 7.4 ms (kernels/subspace_isqrt.py:bound_flops); the device-memory bytes (A
+// and B read, the iterates ~3.7 MB an image each) do not bound it.
 //
 // Design.  Each product C = L R is one launch of product_kernel over the
-// batch: a block owns a [128][112] tile of C (N = 784 is 7 x 112; a 64-row
-// warpgroup that holds no row of C skips its products), two consumer
-// warpgroups each hold one m64n112 accumulator, and a producer warp keeps a
-// four-stage TMA ring of 32-deep contraction slices in flight, every term of
-// both operands a slice (48 KB a stage; two stages of 64 ran 2 %
-// slower).  The split is made once, where a matrix is made: each epilogue
-// writes its result as three bf16 planes (hi, mid, lo; their sum is the fp32
-// value exactly), and split_kernel makes B^'s planes (and A's, for fp32
-// inputs) from the inputs, so the products' loads are plain TMA boxes that
-// cost the SM nothing; splitting in the main loop instead, every tile of a
-// row or column once for each block that reads it, took a loader warpgroup's
-// registers and instruction slots and ran the products at a quarter of the tensor
-// cores' rate.  A source whose rows are C's rows is read K-major; one whose
-// rows are the contraction MN-major (wgmma reads it transposed), so no
-// matrix is ever transposed in memory.  Precision: wgmma's fp32 sums do not
-// round to nearest, so each stage's products go into a fresh accumulator,
-// the small cross products first and hi hi last (the small ones round
-// against their own size), and each stage's sum is added to a register sum
-// with one IEEE fp32 addition: without that the error against an fp64
-// witness read 2.4-3.1x the fp32 CUDA-core route's, with it 1.0-1.7x.  A
-// stage waits for its own products before the next one starts: a second
-// accumulator to overlap them spilled at the 168 registers a thread that
-// three warpgroups' worth of threads leave, and issuing the two consumers'
-// stages in turns gained nothing: the products run at ~55 % of the bf16
-// rate, with ~5 TB/s of tiles from L2 over the card.  Every elementwise step
-// of the iteration runs in the epilogue of the product that feeds it; the
-// last adds a_k on the diagonal, divides by sqrt(t) and rounds to the
-// inputs' dtype.  The planes live in a scratch the wrapper allocates
+// batch: split_sm90.cuh's block on a [128][112] tile of C (N = 784 is 7 x
+// 112; a 64-row warpgroup that holds no row of C skips its products), whose
+// products run at ~55 % of the bf16 rate, with ~5 TB/s of tiles from L2 over
+// the card.  Every elementwise step of the iteration runs in the epilogue of
+// the product that feeds it, which writes its result as three bf16 planes;
+// split_kernel makes B^'s planes (and A's, for fp32 inputs) from the inputs;
+// the last epilogue adds a_k on the diagonal, divides by sqrt(t) and rounds to
+// the inputs' dtype.  The planes live in a scratch the wrapper allocates
 // (kernels/subspace_isqrt.py:scratch_bytes): t; S, G twice (blocks of one
 // product still read G while others write the next), two work matrices,
-// whose room G B^ takes at the end; B^ (and A).  Rows of the N x N planes are
-// padded to 8 elements, the 16 bytes a TMA row pitch needs; the tensor maps
-// end at N, so the pad is never read.  For k >= 2, 5k - 3 launches (the
-// trace, the split of B^, the products; one more split for fp32 inputs),
+// whose room G B^ takes at the end; B^ (and A).  For k >= 2, 5k - 3 launches
+// (the trace, the split of B^, the products; one more split for fp32 inputs),
 // which the wrapper counts as one.  At [64, 784, 1024] bf16, k = 5, on an
 // H100 80GB HBM3 at 700 W: 18.2 ms, against the bound's 7.4 ms and the fp32
 // CUDA-core route's 51.3 ms.
@@ -77,28 +53,14 @@
 #include <algorithm>
 #include <type_traits>
 
-#include "gemm_sm90.cuh"
+#include "split_sm90.cuh"
 
 namespace {
 
-using namespace sm90;
-using gemm_sm90::encode_tiles;
+using namespace split_sm90;
 
-constexpr int kRows = 128;                      // C rows a block: two warpgroups of 64
-constexpr int kCols = 112;                      // C columns a block: one m64n112 each
-constexpr int kK = 32;                          // contraction a stage: 64 bytes of bf16
-constexpr int kStages = 4;
-constexpr int kConsumers = 256;                 // two consumer warpgroups
-constexpr int kThreads = kConsumers + 32;       // and one producer warp
-constexpr int kAcc = kCols / 2;                 // fp32 accumulators a thread
-constexpr int kBoxBytes = 64 * kK * 2;          // 64 of C's side x kK: 4 KB
-constexpr int kTermBytes = 2 * kBoxBytes;       // a term's slot of a stage: 8 KB
-constexpr int kStageBytes = 2 * 3 * kTermBytes;  // L's and R's three terms: 48 KB
-constexpr size_t kSmemBytes = 1024 + static_cast<size_t>(kStages) * kStageBytes + 16 * kStages;
-
-// kernels/subspace_isqrt.py:pitch and scratch_bytes compute the same
-inline int pitch_of(int n) { return (n + 7) / 8 * 8; }
-inline size_t trace_bytes(int b) { return (static_cast<size_t>(b) * 4 + 255) / 256 * 256; }
+constexpr int kCols = 112;  // C columns a block: one m64n112 each
+constexpr int kAcc = kCols / 2;
 
 // what the epilogue makes of a tile of C = L R (v), given the iteration's a
 enum Epilogue : int {
@@ -134,12 +96,6 @@ __device__ __forceinline__ uint2 load4(const bf16* p) {
   return __ldg(reinterpret_cast<const uint2*>(p));
 }
 
-__device__ __forceinline__ float2 unpack(uint32_t u) {
-  __nv_bfloat162 h;
-  *reinterpret_cast<uint32_t*>(&h) = u;
-  return __bfloat1622float2(h);
-}
-
 __device__ __forceinline__ void values(const float4& v, float* x) {
   x[0] = v.x;
   x[1] = v.y;
@@ -152,128 +108,6 @@ __device__ __forceinline__ void values(const uint2& v, float* x) {
   x[1] = a.y;
   x[2] = b.x;
   x[3] = b.y;
-}
-
-// Two neighbours x0, x1 as bf16 pairs hi, mid, lo with x = hi + mid + lo
-// exactly (normal numbers): each term the nearest bf16 to what the terms
-// before it leave; the subtractions are exact.
-struct Split2 {
-  uint32_t hi, mid, lo;
-};
-__device__ __forceinline__ Split2 split2(float x0, float x1, bool keep_lo) {
-  Split2 s;
-  s.hi = pack_bf16(x0, x1);
-  float2 f = unpack(s.hi);
-  x0 = __fsub_rn(x0, f.x);
-  x1 = __fsub_rn(x1, f.y);
-  s.mid = pack_bf16(x0, x1);
-  f = unpack(s.mid);
-  s.lo = keep_lo ? pack_bf16(__fsub_rn(x0, f.x), __fsub_rn(x1, f.y)) : 0u;
-  return s;
-}
-
-// the fp32 pair at ``at`` of a matrix held as three planes ``plane`` apart
-// (read-only while a kernel reads it, so the loads may pass its stores)
-__device__ __forceinline__ float2 load_split(const bf16* m, long long plane, long long at) {
-  const float2 hi = unpack(__ldg(reinterpret_cast<const unsigned int*>(m + at)));
-  const float2 mid = unpack(__ldg(reinterpret_cast<const unsigned int*>(m + plane + at)));
-  const float2 lo = unpack(__ldg(reinterpret_cast<const unsigned int*>(m + 2 * plane + at)));
-  return make_float2(__fadd_rn(__fadd_rn(hi.x, mid.x), lo.x),
-                     __fadd_rn(__fadd_rn(hi.y, mid.y), lo.y));
-}
-
-__device__ __forceinline__ void store_split(bf16* m, long long plane, long long at, float x0,
-                                            float x1, bool keep_lo) {
-  const Split2 s = split2(x0, x1, keep_lo);
-  *reinterpret_cast<uint32_t*>(m + at) = s.hi;
-  *reinterpret_cast<uint32_t*>(m + plane + at) = s.mid;
-  *reinterpret_cast<uint32_t*>(m + 2 * plane + at) = s.lo;
-}
-
-// One operand of a product: Terms planes (1: an exactly bf16 input; 3: hi,
-// mid, lo), read through a tensor map over [groups = planes x batch][rows]
-// [cols].  Trans = 0: the source's rows are C's rows (Rows of them a tile),
-// the contraction runs along them: one box [Rows][kK] a term, K-major
-// (64-byte rows, 64-byte swizzle).  Trans = 1: the source's rows are the
-// contraction: two boxes [kK][64] side by side a term, MN-major (128-byte
-// rows and swizzle), which wgmma reads transposed.  Rows and columns
-// past the map's ends arrive as zeros.
-template <int Terms, int Trans, int Rows>
-struct Side {
-  static constexpr int kTerms = Terms;
-  static constexpr int kTrans = Trans;
-  static constexpr int kBytes = Trans ? 2 * kBoxBytes : Rows * kK * 2;  // a term's boxes
-
-  static __device__ __forceinline__ void load(unsigned char* dst, const CUtensorMap* map,
-                                              uint64_t* bar, int r0, int k0, int group) {
-    if (Trans) {
-      tma_load(dst, map, bar, r0, k0, group);
-      tma_load(dst + kBoxBytes, map, bar, r0 + 64, k0, group);
-    } else {
-      tma_load(dst, map, bar, k0, r0, group);
-    }
-  }
-};
-
-// A term's tile as a wgmma operand at k-step ks: K-major, 16 columns 32 bytes
-// into each 2 kK-byte row, 8-row groups 16 kK bytes apart; MN-major, rows
-// 16 ks .. 16 ks + 15 of its boxes, boxes a box apart, 8-row groups 1024
-// bytes apart.
-template <int Trans>
-__device__ __forceinline__ uint64_t desc(uint32_t tile, int ks) {
-  if (Trans) return descriptor<64>(tile + ks * 16 * 128, kBoxBytes, 8 * 128);
-  return descriptor<kK>(tile + ks * 32, 16, 8 * kK * 2);
-}
-
-// m64n112k16 from shared memory, A transposed when TA = 1, B when TB = 1;
-// acc = 0 overwrites d.  d[4j .. 4j + 3] hold columns 8j + 2(lane % 4) +
-// {0, 1} of rows 16w + g and 16w + g + 8 of the warpgroup's 64 (warp w,
-// g = lane / 4).
-template <int TA, int TB>
-__device__ __forceinline__ void mma112(float* d, uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %58, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55"
-      "}, %56, %57, p, 1, 1, %59, %60;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
-        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
-      : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
-}
-
-// One stage's products: every pair of terms (i, j) with i + j <= 2, the
-// smallest first, over the stage's k-steps; accumulate = 0 starts the
-// accumulator afresh.  A contraction that ends inside the stage reads the
-// zeros TMA filled past it: a k-step skipped at run time would put the
-// products on a divergent path, where ptxas serializes every wgmma (C7520).
-template <class L, class R>
-__device__ __forceinline__ void stage_products(float* acc, uint32_t l, uint32_t r,
-                                               int accumulate) {
-#pragma unroll
-  for (int order = 2; order >= 0; --order) {
-#pragma unroll
-    for (int i = order; i >= 0; --i) {
-      const int j = order - i;
-      if (i < L::kTerms && j < R::kTerms) {
-#pragma unroll
-        for (int ks = 0; ks < kK / 16; ++ks) {
-          mma112<L::kTrans, R::kTrans>(acc, desc<L::kTrans>(l + i * kTermBytes, ks),
-                                       desc<R::kTrans>(r + j * kTermBytes, ks), accumulate);
-          accumulate = 1;
-        }
-      }
-    }
-  }
 }
 
 // the epilogue of one value v of C at ``at`` (diag: on C's diagonal); g and
@@ -302,71 +136,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 product_kernel(const __grid_constant__ CUtensorMap tm_l, const __grid_constant__ CUtensorMap tm_r,
                const Product p) {
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* ring = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
-  uint64_t* empty = full + kStages;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      bar_init(full + s, 1);
-      bar_init(empty + s, kConsumers);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
+  float sum[kAcc];
+  if (!product_tile<L, R, kCols>(smem_raw, &tm_l, &tm_r, p.batch, p.m, p.k, sum)) return;
   const int b = blockIdx.z;
-  const int m0 = blockIdx.y * kRows;
-  const int n0 = blockIdx.x * kCols;
-  const int n_k = (p.k + kK - 1) / kK;
-
-  if (threadIdx.x >= kConsumers) {  // the producer warp: its first lane starts every copy
-    if (threadIdx.x == kConsumers) {
-      constexpr uint32_t kBytes = L::kTerms * L::kBytes + R::kTerms * R::kBytes;
-      for (int kt = 0; kt < n_k; ++kt) {
-        const int s = kt % kStages;
-        unsigned char* stage = ring + s * kStageBytes;
-        bar_wait(empty + s, ((kt / kStages) & 1) ^ 1);
-        bar_arrive_tx(full + s, kBytes);
-#pragma unroll
-        for (int i = 0; i < L::kTerms; ++i) {
-          L::load(stage + i * kTermBytes, &tm_l, full + s, m0, kt * kK, i * p.batch + b);
-        }
-#pragma unroll
-        for (int j = 0; j < R::kTerms; ++j) {
-          R::load(stage + (3 + j) * kTermBytes, &tm_r, full + s, n0, kt * kK, j * p.batch + b);
-        }
-      }
-    }
-    return;
-  }
-
-  const int wg = threadIdx.x >> 7;
-  if (m0 + wg * 64 >= p.m) {  // no row of C here: keep the ring turning
-    for (int kt = 0; kt < n_k; ++kt) {
-      bar_wait(full + kt % kStages, (kt / kStages) & 1);
-      bar_arrive(empty + kt % kStages);
-    }
-    return;
-  }
   const int lane = threadIdx.x & 31;
-  const int row0 = m0 + wg * 64 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
-  const int col0 = n0 + (lane & 3) * 2;
-  float acc[kAcc], sum[kAcc];
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) sum[i] = acc[i] = 0.f;
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int s = kt % kStages;
-    bar_wait(full + s, (kt / kStages) & 1);
-    const uint32_t stage = smem_u32(ring + s * kStageBytes);
-    wg_fence();
-    stage_products<L, R>(acc, stage + wg * kBoxBytes, stage + 3 * kTermBytes, 0);
-    wg_commit();
-    wg_wait<0>();
-    fence_regs<kAcc>(acc);
-    bar_arrive(empty + s);
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i) sum[i] = __fadd_rn(sum[i], acc[i]);
-  }
+  const int row0 = blockIdx.y * kRows + (threadIdx.x >> 7) * 64 +
+                   ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+  const int col0 = blockIdx.x * kCols + (lane & 3) * 2;
 
   // The epilogue, a half of the tile's columns at a time: G and H (where the
   // step reads them) are loaded first, then every value is formed and stored.
@@ -478,44 +254,14 @@ __global__ void __launch_bounds__(256) eye_kernel(T* __restrict__ out,
   out[(static_cast<long long>(blockIdx.z) * D + row) * D + col] = from_f32<T>(v);
 }
 
-// A matrix held as bf16 planes in device memory, as a product's operand:
-// [planes x batch][rows][cols] with rows ``pitch`` elements apart.
-struct Planes {
-  const bf16* ptr;
-  int rows, cols, pitch;
-};
-
-// The tensor map of an operand's ``terms`` planes: MN-major, boxes of 64 of
-// C's side x kK contraction rows (gemm_sm90.cuh's, 128-byte swizzle);
-// K-major, boxes of kK contraction columns x ``rows`` of C's side, swizzled
-// as the wgmma descriptors read them.
-template <int Trans>
-bool encode(CUtensorMap* map, const Planes& m, int terms, int batch, int rows) {
-  if (Trans) return encode_tiles(map, m.ptr, m.cols, m.rows, terms * batch, m.pitch, kK);
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(m.cols), static_cast<cuuint64_t>(m.rows),
-                              static_cast<cuuint64_t>(terms) * batch};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(m.pitch) * 2,
-                                 static_cast<cuuint64_t>(m.pitch) * 2 * m.rows};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kK), static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<bf16*>(m.ptr),
-                                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                                kK == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <class L, class R, typename TOut>
 cudaError_t launch(const Planes& l, const Planes& r, const Product& p, cudaStream_t stream) {
   CUtensorMap tm_l, tm_r;
-  if (!encode<L::kTrans>(&tm_l, l, L::kTerms, p.batch, kRows) ||
-      !encode<R::kTrans>(&tm_r, r, R::kTerms, p.batch, kCols)) {
-    return cudaErrorInvalidValue;
-  }
+  dim3 grid;
   auto kernel = product_kernel<L, R, TOut>;
-  cudaError_t err = emct_allow_smem(kernel, kSmemBytes);
+  const cudaError_t err =
+      prepare<L, R, kCols>(kernel, &tm_l, &tm_r, l, r, p.m, p.n, p.batch, &grid);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.n + kCols - 1) / kCols, (p.m + kRows - 1) / kRows, p.batch);
   kernel<<<grid, kThreads, kSmemBytes, stream>>>(tm_l, tm_r, p);
   return cudaGetLastError();
 }

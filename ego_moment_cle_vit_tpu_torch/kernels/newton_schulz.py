@@ -9,8 +9,13 @@ makes the same choice (:func:`variant_for`):
 
 * ``"fp32"``, D <= 825 (``_fp32_fits``): :func:`newton_schulz_isqrt_fp32_fwd`
   replaces ``_ns_kernel``, the coupled iteration in its symmetric
-  three-product form, fp32 throughout.  ViT-Base at a 448 input:
-  ``[64, 768, 768]``.  Source ``csrc/newton_schulz.cu``.
+  three-product form with fp32-accurate products: every iterate is held as
+  three bf16 planes (hi + mid + lo, the fp32 value exactly) and each product
+  runs its six cross products on bf16 ``wgmma`` with fp32 sums
+  (``csrc/split_sm90.cuh``, which kernel 7 shares), the batch in passes of
+  at most ``FP32_PASS_IMAGES`` images (its scratch :func:`fp32_geometry`).
+  ViT-Base at a 448 input: ``[64, 768, 768]``.  Source
+  ``csrc/newton_schulz.cu``.
 * ``"bf16"``, 826 <= D <= 1059 (``_bf16_resident_fits``):
   :func:`newton_schulz_isqrt_bf16_fwd` replaces ``_ns_kernel_bf16``, the
   single-matrix iteration on ``Mn = bf16(M / tr)`` with bf16 storage and fp32
@@ -49,11 +54,18 @@ from . import _build
 
 _SIGNATURES = {
     "newton_schulz_isqrt": (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int,
-                                                      ctypes.c_void_p],
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float] + [ctypes.c_int] * 3
+        + [ctypes.c_void_p],
         ctypes.c_int,
     )
 }
+# Kernel 5 iterates on a pass of at most this many images at a time, in a
+# scratch of four matrices' bf16 planes for the pass (csrc/newton_schulz.cu):
+# at D = 768 a pass of 32 is 32 x 36 tiles of [128][128], 8.7 waves of the
+# 132 SMs, and its planes (453 MB) stay under the 755 MB that five fp32
+# matrices an image took at batch 64 before the planes.
+FP32_PASS_IMAGES = 32
+FP32_SCRATCH_MATRICES, FP32_PLANES = 4, 3
 _BF16_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _BF16_SIGNATURES = {"newton_schulz_isqrt_bf16": (_BF16_ARGTYPES, ctypes.c_int)}
 _BF16_STREAMED_SIGNATURES = {"newton_schulz_isqrt_bf16_streamed": (_BF16_ARGTYPES, ctypes.c_int)}
@@ -106,6 +118,24 @@ def variant_for(d: int) -> str | None:
     if bf16_streamed_fits(d):
         return "bf16_streamed"
     return None
+
+
+def fp32_geometry(b: int, d: int) -> dict:
+    """Kernel 5's passes and scratch for B matrices of width D: the batch in
+    ``passes`` of at most ``images`` matrices (as even as they go, none over
+    ``FP32_PASS_IMAGES``), each plane's rows ``pitch`` bf16 values apart (D
+    rounded up to 8, the 16 bytes a TMA row pitch needs), and
+    ``scratch_bytes``: the fp32 traces of the batch (256-byte aligned), then
+    ``FP32_SCRATCH_MATRICES`` matrices of ``FP32_PLANES`` bf16 planes for a
+    pass."""
+    if b < 1 or d < 1:
+        raise ValueError(f"kernel 5 takes B, D >= 1, got {(b, d)}")
+    passes = -(-b // FP32_PASS_IMAGES)
+    images = -(-b // passes)
+    pitch = -(-d // 8) * 8
+    planes = FP32_SCRATCH_MATRICES * FP32_PLANES * images * d * pitch
+    return {"passes": passes, "images": images, "pitch": pitch,
+            "scratch_bytes": -(-4 * b // 256) * 256 + 2 * planes}
 
 
 def streamed_gemm_geometry(d: int) -> dict:
@@ -257,15 +287,16 @@ def _checked(matrix: torch.Tensor, num_iterations: int, what: str) -> int:
 
 
 def newton_schulz_isqrt_fp32_fwd(
-    matrix: torch.Tensor, num_iterations: int = 5, eps: float = 1e-5
+    matrix: torch.Tensor, num_iterations: int = 5, eps: float = 1e-5, *, _terms: int = 3,
 ) -> torch.Tensor:
-    """Kernel 5: ``M^-1/2`` of each of [B, D, D] symmetric PSD matrices, fp32
-    inside, in M's dtype, for D <= 825 (``fp32_fits``).
+    """Kernel 5: ``M^-1/2`` of each of [B, D, D] symmetric PSD matrices,
+    fp32-accurate inside, in M's dtype, for D <= 825 (``fp32_fits``).
 
     CPU tensors take :func:`newton_schulz_isqrt_plain`; CUDA tensors launch
     the kernel (after dtype, shape and contiguity checks) or raise.  Counts
     one launch per call in ``newton_schulz_isqrt_fp32_fwd.launches``, whatever
-    it launches inside.
+    it launches inside.  ``_terms`` is a test hook, not an option: 2 drops
+    each iterate's lo plane, the precision control of the card tests.
     """
     if matrix.device.type == "cpu":
         return newton_schulz_isqrt_plain(matrix, num_iterations, eps)
@@ -273,12 +304,14 @@ def newton_schulz_isqrt_fp32_fwd(
     b, d, _ = matrix.shape
     if not fp32_fits(d):
         raise ValueError(f"the fp32 kernel takes D <= 825 (the TPU kernel's _fp32_fits), got {d}")
+    if _terms not in (2, 3):
+        raise ValueError(f"_terms must be 3 (or 2, the control), got {_terms}")
+    geometry = fp32_geometry(b, d)
     out = torch.empty_like(matrix)
-    # Y and Z two buffers each, T, the traces
-    work = torch.empty(5 * b * d * d + b, dtype=torch.float32, device=matrix.device)
+    work = torch.empty(geometry["scratch_bytes"], dtype=torch.uint8, device=matrix.device)
     _build.launch(f"{__name__}:newton_schulz_isqrt_fp32_fwd", "newton_schulz", _SIGNATURES,
                   matrix.device, matrix.data_ptr(), out.data_ptr(), work.data_ptr(), b, d,
-                  num_iterations, float(eps), code)
+                  num_iterations, float(eps), code, geometry["images"], _terms)
     return out
 
 

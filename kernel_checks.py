@@ -73,6 +73,11 @@ KINK_BAND = 1e-4
 # by sum order over 14 chained products, bf16 M one ulp of the output's
 # rounding: (rtol, atol)
 TOL_NS = {torch.float32: (0.0, 1e-5), torch.bfloat16: (2.0**-7, 1e-4)}
+# and on M's fp32 values (exact for bf16 M), its error against an fp64 witness
+# (the plain iteration in fp64), ||out - witness|| / ||witness||, at most this
+# many times the plain fp32 route's (TF32 off): the products fp32-accurate, as
+# kernel 7's bar holds them (TOL_SI_F32_RATIO)
+TOL_NS_F32_RATIO = 2.0
 # 5′ and 5″ (bf16 storage, fp32 sums) against plain versions that round where
 # they round, M in either type, (rtol, atol) as above: an fp32 sum taken in
 # another order lands on the other side of a bf16 rounding now and then, and
@@ -499,23 +504,57 @@ NS = [(4, None, 768), (2, None, 192), (2, None, 100), (3, None, 64), (64, 784, 7
       (64, 196, 192)]
 
 
+def ns_witness_error(out, witness):
+    """||out - witness|| / ||witness||, in fp64."""
+    return float((out.double() - witness).norm() / witness.norm())
+
+
+def ns_witness_bar(m, k=5):
+    """(witness, bar): the plain iteration on M's fp32 values in fp64, and
+    TOL_NS_F32_RATIO times the plain fp32 route's error against it."""
+    assert not torch.backends.cuda.matmul.allow_tf32  # the plain route in full fp32
+    m32 = m.float()
+    witness = tns.newton_schulz_isqrt_plain(m32.double(), k, 1e-5)
+    return witness, TOL_NS_F32_RATIO * ns_witness_error(
+        tns.newton_schulz_isqrt_plain(m32, k, 1e-5), witness)
+
+
+def ns_inputs(g, dtype, b, n, d):
+    """M = z^T z / D from D + 16 rows of z (n None), or the moment head's M."""
+    if n is None:
+        z = torch.randn(b, d + 16, d, generator=g, device=g.device)
+        return (z.transpose(1, 2) @ z / d).to(dtype)
+    return head_moment(g, b, n, d).to(dtype)
+
+
 def check_newton_schulz_isqrt_fp32_fwd(device, dtype, b, n, d):
     """Kernel 5 through the width dispatch within TOL_NS of its plain
-    version; four iterations fail that; the Function runs the kernel forward
-    and the plain iteration's gradient."""
+    version, four iterations failing that; on M's fp32 values, its error
+    against an fp64 witness within TOL_NS_F32_RATIO of the plain fp32 route's,
+    which two controls fail: the plain route with TF32 products, and the kernel
+    with two bf16 planes an iterate, not three; the same bits twice; the
+    Function runs the kernel forward and the plain iteration's gradient."""
     rtol, atol = TOL_NS[dtype]
-    g = torch.Generator(device=device).manual_seed(6)
-    if n is None:
-        z = torch.randn(b, d + 16, d, generator=g, device=device)
-        m = (z.transpose(1, 2) @ z / d).to(dtype)
-    else:
-        m = head_moment(g, b, n, d).to(dtype)
+    m = ns_inputs(torch.Generator(device=device).manual_seed(6), dtype, b, n, d)
     before = tns.newton_schulz_isqrt_fp32_fwd.launches
     out = tns.newton_schulz_isqrt_fwd(m, 5, 1e-5)  # the dispatch: the fp32 kernel at D <= 825
     assert tns.newton_schulz_isqrt_fp32_fwd.launches == before + 1
     ref = tns.newton_schulz_isqrt_plain(m, 5, 1e-5)
     assert out.dtype == dtype and ns_close(out, ref, rtol, atol)
     assert not ns_close(tns.newton_schulz_isqrt_plain(m, 4, 1e-5), ref, rtol, atol)  # a control
+    witness, bar = ns_witness_bar(m)
+    m32 = m.float()
+    err = ns_witness_error(tns.newton_schulz_isqrt_fp32_fwd(m32, 5, 1e-5), witness)
+    assert err <= bar, (err, bar / TOL_NS_F32_RATIO)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = tns.newton_schulz_isqrt_plain(m32, 5, 1e-5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert ns_witness_error(tf32, witness) > bar
+    two_planes = tns.newton_schulz_isqrt_fp32_fwd(m32, 5, 1e-5, _terms=2)
+    assert ns_witness_error(two_planes, witness) > bar
+    assert torch.equal(tns.newton_schulz_isqrt_fwd(m, 5, 1e-5), out)
     # the Function: the kernel's forward, the plain iteration's gradient
     x = m.clone().requires_grad_()
     y = tns.newton_schulz_isqrt_kernel(x, 5, 1e-5)

@@ -66,7 +66,7 @@ the bias gradient, and again with the float mask a leaf that takes one:
 ``library_dbias``), and for 4b autograd of the port's unfused route
 (LayerNorm, ``linear``, kernel 1 / 1b of the same checkout, ``linear``,
 add), for 4 that route's forward (and, as ``library_sdpa``, LayerNorm,
-``linear``, SDPA on the partitioned windows, ``linear``, add).  2b, 5'', 5',
+``linear``, SDPA on the partitioned windows, ``linear``, add).  2b, 5'', 5', 5,
 1b and 4b are also profiled once a turn (torch.profiler, 5 calls), which
 splits their time among the launches inside one call.  5, 5', 5'', 7 and 8 print their
 bound beside their time: the larger of their bytes over 3.35 TB/s and their operations over
@@ -75,7 +75,10 @@ and 8 from the package's ``subspace_isqrt.bound_flops`` / ``bound_bytes`` and
 ``swiglu_norm.bound_bytes``.  5' and 5'' also print how far from their plain version,
 which rounds where they round, they are, beside the other grouping's and the cuBLAS
 iteration's distance (err / tol of ``kernel_checks.TOL_NS_BF16``; printed, not
-enforced).  Each
+enforced).  5, whose fp32-accurate output differs from the CUDA-core kernel's bits on
+purpose, prints its error on M's fp32 values against an fp64 witness over the plain
+fp32 route's, beside the cuBLAS iteration's (``kernel_checks.TOL_NS_F32_RATIO``
+bounds it in the card tests; printed here, not enforced).  Each
 turn hashes what its kernels return at every call (out and lse, dqkv; for 2b
 dc and the token gradients apart; for 1b dqkv and dbias apart; for 4b dx and
 each parameter gradient apart; for 1, 2, 4, 5, 5', 5'', 7 and 8 out; for 5b dM; for e2e
@@ -90,7 +93,8 @@ side, and a last line of
 JSON {"card": ..., "shapes": {shape: {"other": [ms, ms], "this": [ms, ms],
 "library": [ms, ms, ms, ms], "library_dbias": [...] (1b only),
 "library_sdpa": [...] (4 only), "bound": ms (5, 5', 5'', 7 and 8), "apart":
-{"other": {...}, "this": {...}} (5' and 5''), "same_bits": {part: bool},
+{"other": {...}, "this": {...}} (5' and 5''), "witness": {"other": {...}, "this":
+{...}} (5), "same_bits": {part: bool},
 "split": {"other": {launch: ms}, "this": {...}}}}, "swinL1280_forward_ms":
 {"other": ms, "this": ms, "library": ms} (with every padded shape of 1)}; --out
 writes that JSON to a file too.  Needs one GPU.
@@ -402,6 +406,21 @@ def ns_bf16_library(m, streamed: bool):
     return (y.float() / torch.sqrt(tr)).to(m.dtype)
 
 
+def witness_ratios(ns, m, fns: dict) -> dict:
+    """{name: error of fn on M's fp32 values against an fp64 witness (the
+    plain iteration in fp64), over the plain fp32 route's}, each error
+    ||out - witness|| / ||witness||: how kernel 5's output, whose bits differ
+    from the CUDA-core kernel's, stands beside fp32."""
+    m32 = m.float()
+    witness = ns.newton_schulz_isqrt_plain(m32.double(), NS_ITERS, NS_EPS)
+
+    def err(out):
+        return float((out.double() - witness).norm() / witness.norm())
+
+    plain = err(ns.newton_schulz_isqrt_plain(m32, NS_ITERS, NS_EPS))
+    return {name: err(fn(m32, NS_ITERS, NS_EPS)) / plain for name, fn in fns.items()}
+
+
 def attention_half_unfused(args: tuple, heads: int):
     """The port's default route for a fused block: LayerNorm, Dense, kernel 1
     (1b under autograd), Dense, add."""
@@ -473,7 +492,7 @@ def worker(only: set) -> None:
     res = {}
     for name, kind, b, t, c, h in shapes:
         dtype = torch.float32 if "fp32" in name else torch.bfloat16
-        split = lib_dbias = lib_sdpa = apart = None
+        split = lib_dbias = lib_sdpa = apart = witness = None
         if kind == "serve":
             # the whole serving path: chip_smoke.py's configuration from the
             # same checkout, weights from seed 0
@@ -575,6 +594,9 @@ def worker(only: set) -> None:
             fn = lambda: ns.newton_schulz_isqrt_fp32_fwd(m, NS_ITERS, NS_EPS)  # noqa: E731
             lib = lambda: ns_fp32_library(m)  # noqa: E731
             digests = {"out": digest(fn())}
+            witness = witness_ratios(ns, m, {"kernel": ns.newton_schulz_isqrt_fp32_fwd,
+                                             "cuBLAS": lambda x, k, e: ns_fp32_library(x)})
+            split = launch_split(fn)
         elif kind == "ns_bwd":
             # ViT-Large/512's training step: M from the head's 1024 tokens
             z = torch.randn(b, t, c, generator=g, device="cuda")
@@ -638,6 +660,8 @@ def worker(only: set) -> None:
             res[name]["library_sdpa"] = time_ms(lib_sdpa)
         if apart is not None:
             res[name]["apart"] = apart
+        if witness is not None:
+            res[name]["witness"] = witness
         del fn, lib, lib_dbias, lib_sdpa
         torch.cuda.empty_cache()
     print(json.dumps(res), flush=True)
@@ -698,8 +722,9 @@ def main() -> int:
             for extra in ("library_dbias", "library_sdpa"):
                 if extra in times[name]:
                     r.setdefault(extra, []).append(times[name][extra])
-            if "apart" in times[name]:
-                r.setdefault("apart", {}).setdefault(turn, times[name]["apart"])
+            for extra in ("apart", "witness"):
+                if extra in times[name]:
+                    r.setdefault(extra, {}).setdefault(turn, times[name][extra])
             if times[name]["split"] is not None:
                 r["split"].setdefault(turn, times[name]["split"])
             for part, hexd in times[name]["digests"].items():
@@ -729,6 +754,10 @@ def main() -> int:
         for turn, apart in t.get("apart", {}).items():
             print(f"{name}: {turn} err/tol against its plain version (TOL_NS_BF16, printed, not "
                   "enforced): " + ", ".join(f"{k} {v:.3f}" for k, v in apart.items()))
+        for turn, ratios in t.get("witness", {}).items():
+            print(f"{name}: {turn} error against an fp64 witness over the plain fp32 route's "
+                  "(TOL_NS_F32_RATIO, printed, not enforced): "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items()))
         for turn, split in t["split"].items():
             print(f"{name}: {turn} launches a call: "
                   + ", ".join(f"{k} {v:.4f} ms" for k, v in sorted(split.items(),

@@ -286,6 +286,7 @@ WGMMA = [
      ("attn_half_bwd_attention", "attn_half_bwd_dx", "attn_half_bwd_wgrad",
       "attn_half_bwd_layer_norm")),
     ("subspace_isqrt", ("product_kernel",), ("trace_kernel", "split_kernel", "eye_kernel")),
+    ("newton_schulz", ("ns_gemm",), ("ns_trace", "ns_init")),
 ]
 
 
@@ -494,6 +495,27 @@ def test_cuda_flash_attention_bwd_matches_plain(cuda_device, dtype, b, t, c, hea
 @pytest.mark.parametrize("b, n, d", kc.NS)
 def test_cuda_newton_schulz_matches_plain(cuda_device, dtype, b, n, d):
     kc.check_newton_schulz_isqrt_fp32_fwd(cuda_device, dtype, b, n, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k, b, d", [(0, 3, 64), (1, 3, 99), (2, 3, 100), (5, 33, 99),
+                                     (5, 2, 825), (3, 1, 8)])
+def test_cuda_newton_schulz_edges(cuda_device, k, b, d):
+    """Kernel 5 at k = 0 and 1 (no product), 2 (no Z update), at odd widths
+    (output rows off the pair grain, a plane's pad column), the dispatch's
+    widest (825) and a width under one tile's rows, and at 33 images (two
+    passes, the second short): within TOL_NS of the plain fp32 route, and for
+    k >= 2 within the fp64 witness's bar; one launch a call."""
+    m = kc.ns_inputs(torch.Generator(device=cuda_device).manual_seed(7), torch.float32, b,
+                     None, d)
+    before = tns.newton_schulz_isqrt_fp32_fwd.launches
+    out = tns.newton_schulz_isqrt_fp32_fwd(m, k, 1e-5)
+    assert tns.newton_schulz_isqrt_fp32_fwd.launches == before + 1
+    assert kc.ns_close(out, tns.newton_schulz_isqrt_plain(m, k, 1e-5),
+                       *kc.TOL_NS[torch.float32])
+    if k >= 2:
+        witness, bar = kc.ns_witness_bar(m, k)
+        assert kc.ns_witness_error(out, witness) <= bar
 
 
 @pytest.mark.cuda

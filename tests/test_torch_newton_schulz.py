@@ -107,6 +107,29 @@ def test_kernel_supports_is_fp32_fits():
         "fp32", "bf16", "bf16_streamed", None]
 
 
+@pytest.mark.parametrize("b", [1, 3, 32, 33, 64, 65, 128])
+def test_fp32_geometry_passes_and_scratch(b):
+    """Kernel 5's passes cover the batch as its launch loop walks it (passes
+    of ``images``, the last one short), none over FP32_PASS_IMAGES; its plane
+    rows take D on the 8-element TMA pitch; its scratch holds the batch's
+    traces and four matrices' three planes for a pass, and from the serving
+    batch (64) on no more than the five fp32 matrices an image the kernel
+    took before its planes (past the narrowest widths, whose pitch pads most)."""
+    for d in range(1, 826):
+        g = tns.fp32_geometry(b, d)
+        walked = [min(g["images"], b - b0) for b0 in range(0, b, g["images"])]
+        assert len(walked) == g["passes"] and min(walked) >= 1 and sum(walked) == b
+        assert g["images"] <= tns.FP32_PASS_IMAGES
+        assert max(walked) - min(walked) <= 1 or g["passes"] == 1
+        assert g["pitch"] % 8 == 0 and d <= g["pitch"] < d + 8
+        planes = tns.FP32_SCRATCH_MATRICES * tns.FP32_PLANES * g["images"] * d * g["pitch"]
+        assert g["scratch_bytes"] == -(-4 * b // 256) * 256 + 2 * planes
+        if b >= 64 and d >= 16:
+            assert g["scratch_bytes"] <= (5 * b * d * d + b) * 4
+    with pytest.raises(ValueError, match="B, D >= 1"):
+        tns.fp32_geometry(0, 768)
+
+
 def test_wrapper_takes_the_plain_version_on_the_cpu_without_counting():
     m = torch.from_numpy(_spd(2, 24, 15))
     before = tns.newton_schulz_isqrt_fp32_fwd.launches
