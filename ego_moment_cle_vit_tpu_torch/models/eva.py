@@ -200,6 +200,8 @@ class EVA(nn.Module):
     final LayerNorm.  ``cls_token`` and ``pos_embed`` stay fp32 and are cast
     at use."""
 
+    num_prefix_tokens = 1  # CLS
+
     def __init__(self, config: EVAConfig, dtype=torch.float32, device="cpu"):
         super().__init__()
         cfg = config

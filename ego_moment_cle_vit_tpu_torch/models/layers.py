@@ -188,8 +188,9 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
 
     Dense and conv kernels: truncated normal with std sqrt(1/fan_in) (flax's
     lecun_normal); biases zero; LayerNorm ones/zeros; Swin relative-position
-    tables and the ViT's CLS token and position embedding: truncated normal,
-    std 0.02; a bilinear classifier kernel ``[hidden, d_cls, d_moment]``:
+    tables and the ViT's CLS token, registers and position embedding:
+    truncated normal, std 0.02; LayerScale vectors keep their initial value; a
+    bilinear classifier kernel ``[hidden, d_cls, d_moment]``:
     lecun_normal over its fan-in ``d_cls``.  GPF coefficients and sketch
     matrices are initialized by their own modules.
     """
@@ -200,7 +201,7 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             fan_in = sub.weight[0].numel()
             _trunc_normal(sub.weight, _LECUN / math.sqrt(fan_in), generator)
             nn.init.zeros_(sub.bias)
-        for name in ("relative_position_bias_table", "cls_token", "pos_embed"):
+        for name in ("relative_position_bias_table", "cls_token", "reg_token", "pos_embed"):
             table = getattr(sub, name, None)
             if isinstance(table, nn.Parameter):
                 _trunc_normal(table, 0.02, generator)

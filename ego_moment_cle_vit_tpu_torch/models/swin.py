@@ -268,6 +268,8 @@ class PatchMerging(nn.Module):
 class Swin(nn.Module):
     """NHWC images [B, H, W, 3] -> final-stage tokens [B, N, D]."""
 
+    num_prefix_tokens = 0  # every token is a patch token; the global feature pools them
+
     def __init__(self, config: SwinConfig, dtype=torch.float32, device="cpu"):
         super().__init__()
         cfg = config

@@ -28,6 +28,25 @@ has nothing else stochastic) and ``remat='block'``, which checkpoints every
 ``TransformerBlock``.  The JAX package's ``remat='attn'`` only avoided saving
 attention probabilities, which the kernel never saves, so here it equals
 ``'none'``.
+
+DINOv2 with registers (Oquab et al., arXiv:2304.07193; Darcet et al.,
+arXiv:2309.16588), as timm builds ``vit_giant_patch14_reg4_dinov2``, is this
+ViT with four options on (``DINOV2_CONFIGS``; the JAX package has none of
+them, so their parity is held against ``h100_bench/reference/families/
+dinov2.py``).  Each is off by default, which leaves the leaves, launches and
+bits of every ``VIT_CONFIGS`` entry as they were:
+
+* ``num_registers``: register tokens after CLS (``reg_token``, fp32 like
+  ``cls_token``), ``[CLS, reg_0 .. reg_{R-1}, patches]``; the heads get the
+  patches only (``ViT.num_prefix_tokens``);
+* ``no_embed_class``: the position embedding covers the patches alone and is
+  added before the prefix is put in front of them;
+* ``layer_scale``: ``x + gamma * branch`` for both residual branches, with
+  per-channel ``ls1.gamma`` / ``ls2.gamma`` (fp32, cast at use) and one
+  ``addcmul`` an update, under the span ``layer_scale``;
+* ``swiglu_hidden``: timm's ``SwiGLUPacked`` in the GELU MLP's place,
+  ``fc2(silu(h1) * h2)`` with ``[h1, h2] = chunk(fc1(x), 2)``, under the span
+  ``swiglu`` (EVA's name and meaning), in plain ops.
 """
 
 from __future__ import annotations
@@ -41,6 +60,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels import flash_attention as _fa
 from ..kernels import packed_attention as _pa
+from ..utils.trace import span
 from .layers import Dense, Dropout, LayerNorm
 
 
@@ -55,6 +75,11 @@ class ViTConfig:
     drop_rate: float = 0.0
     layer_norm_eps: float = 1e-6
     remat: str = "none"  # 'none' | 'attn' (same as 'none' here) | 'block'
+    # DINOv2's options (the module docstring); the defaults are the plain ViT
+    num_registers: int = 0
+    no_embed_class: bool = False
+    layer_scale: float | None = None  # LayerScale's initial value (timm's init_values)
+    swiglu_hidden: int = 0  # the packed SwiGLU's hidden width; 0: the GELU MLP
 
     @property
     def num_patches(self) -> int:
@@ -70,6 +95,18 @@ VIT_CONFIGS = {
     "vit_base_patch16_224": ViTConfig(embed_dim=768, depth=12, num_heads=12),
     "deit_base_patch16_224": ViTConfig(embed_dim=768, depth=12, num_heads=12),
     "vit_large_patch16_224": ViTConfig(embed_dim=1024, depth=24, num_heads=16),
+}
+
+# The ViT with DINOv2's options, registered apart from VIT_CONFIGS, which
+# mirrors the JAX package's registry.  The SwiGLU's hidden width is timm's
+# int(D * 2.66667 * 2) // 2.
+_DINOV2 = dict(patch_size=14, num_registers=4, no_embed_class=True, layer_scale=1e-5)
+DINOV2_CONFIGS = {
+    # CPU tests: 4 x 4 patches behind CLS and 4 registers, two heads of 64
+    "vit_micro_patch14_reg4_dinov2": ViTConfig(img_size=56, embed_dim=128, depth=2, num_heads=2,
+                                               swiglu_hidden=341, **_DINOV2),
+    "vit_giant_patch14_reg4_dinov2": ViTConfig(img_size=518, embed_dim=1536, depth=40,
+                                               num_heads=24, swiglu_hidden=4096, **_DINOV2),
 }
 
 
@@ -137,24 +174,62 @@ class MlpBlock(nn.Module):
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))
 
 
-class TransformerBlock(nn.Module):
-    def __init__(self, dim: int, num_heads: int, mlp_ratio: float, layer_norm_eps: float,
-                 dtype, device):
+class SwiGLUPacked(nn.Module):
+    """timm's ``SwiGLUPacked``: ``fc2(silu(h1) * h2)``, ``[h1, h2] =
+    chunk(fc1(x), 2)``, SiLU on the first half; ``hidden`` is fc2's input."""
+
+    def __init__(self, dim: int, hidden: int, dtype, device):
         super().__init__()
-        self.norm1 = LayerNorm(dim, eps=layer_norm_eps, device=device)
-        self.attn = Attention(dim, num_heads, dtype, device)
-        self.norm2 = LayerNorm(dim, eps=layer_norm_eps, device=device)
-        self.mlp = MlpBlock(dim, int(dim * mlp_ratio), dtype, device)
+        self.fc1 = Dense(dim, 2 * hidden, dtype=dtype, device=device)
+        self.fc2 = Dense(hidden, dim, dtype=dtype, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with span("swiglu"):
+            h1, h2 = self.fc1(x).chunk(2, dim=-1)
+            return self.fc2(F.silu(h1) * h2)
+
+
+class LayerScale(nn.Module):
+    """A residual update ``x + gamma * branch``; ``gamma`` per channel, fp32."""
+
+    def __init__(self, dim: int, init: float, device):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), init, dtype=torch.float32, device=device))
+
+    def forward(self, x: torch.Tensor, branch: torch.Tensor) -> torch.Tensor:
+        with span("layer_scale"):
+            return torch.addcmul(x, branch, self.gamma.to(x.dtype))
+
+
+class TransformerBlock(nn.Module):
+    def __init__(self, cfg: ViTConfig, dtype, device):
+        super().__init__()
+        dim = cfg.embed_dim
+        self.norm1 = LayerNorm(dim, eps=cfg.layer_norm_eps, device=device)
+        self.attn = Attention(dim, cfg.num_heads, dtype, device)
+        self.norm2 = LayerNorm(dim, eps=cfg.layer_norm_eps, device=device)
+        if cfg.swiglu_hidden:
+            self.mlp = SwiGLUPacked(dim, cfg.swiglu_hidden, dtype, device)
+        else:
+            self.mlp = MlpBlock(dim, int(dim * cfg.mlp_ratio), dtype, device)
+        self.layer_scaled = cfg.layer_scale is not None
+        if self.layer_scaled:
+            self.ls1 = LayerScale(dim, cfg.layer_scale, device)
+            self.ls2 = LayerScale(dim, cfg.layer_scale, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.layer_scaled:
+            x = self.ls1(x, self.attn(self.norm1(x)))
+            return self.ls2(x, self.mlp(self.norm2(x)))
         x = x + self.attn(self.norm1(x))
         return x + self.mlp(self.norm2(x))
 
 
 class ViT(nn.Module):
-    """NHWC images [B, H, W, 3] -> tokens [B, 1 + N, D], CLS first, after the
-    final LayerNorm.  ``cls_token`` and ``pos_embed`` stay fp32 and are cast
-    at use."""
+    """NHWC images [B, H, W, 3] -> tokens [B, P + N, D], CLS first (then the
+    registers, ``P = num_prefix_tokens``), after the final LayerNorm.
+    ``cls_token``, ``reg_token`` and ``pos_embed`` stay fp32 and are cast at
+    use."""
 
     def __init__(self, config: ViTConfig, dtype=torch.float32, device="cpu"):
         super().__init__()
@@ -168,28 +243,44 @@ class ViT(nn.Module):
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.embed_dim, dtype, device)
         self.cls_token = nn.Parameter(
             torch.zeros(1, 1, cfg.embed_dim, dtype=torch.float32, device=device))
+        if cfg.num_registers:
+            self.reg_token = nn.Parameter(
+                torch.zeros(1, cfg.num_registers, cfg.embed_dim, dtype=torch.float32,
+                            device=device))
+        embedded = cfg.num_patches + (0 if cfg.no_embed_class else self.num_prefix_tokens)
         self.pos_embed = nn.Parameter(
-            torch.zeros(1, 1 + cfg.num_patches, cfg.embed_dim, dtype=torch.float32,
-                        device=device))
+            torch.zeros(1, embedded, cfg.embed_dim, dtype=torch.float32, device=device))
         self.drop = Dropout(cfg.drop_rate)
         self.block_names = [f"blocks_{i}" for i in range(cfg.depth)]
         for name in self.block_names:
-            self.add_module(name, TransformerBlock(
-                cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, cfg.layer_norm_eps, dtype, device))
+            self.add_module(name, TransformerBlock(cfg, dtype, device))
         self.norm = LayerNorm(cfg.embed_dim, eps=cfg.layer_norm_eps, device=device)
+
+    @property
+    def num_prefix_tokens(self) -> int:
+        """Tokens ahead of the patches, which the heads do not get: CLS, then
+        the registers."""
+        return 1 + self.config.num_registers
+
+    def stem(self, images: torch.Tensor) -> torch.Tensor:
+        """Patches, the prefix and the position embedding: ``[B, P + N, D]``."""
+        cfg = self.config
+        x = self.patch_embed(images.to(self.dtype))
+        b, n, d = x.shape
+        if n != cfg.num_patches:
+            raise ValueError(
+                f"{n} patches from a {tuple(images.shape[1:3])} input, but the position "
+                f"embedding was built for {cfg.num_patches} (img_size {cfg.img_size})")
+        prefix = [self.cls_token.to(self.dtype).expand(b, 1, d)]
+        if cfg.num_registers:
+            prefix.append(self.reg_token.to(self.dtype).expand(b, -1, d))
+        if cfg.no_embed_class:
+            return torch.cat(prefix + [x + self.pos_embed.to(self.dtype)], dim=1)
+        return torch.cat(prefix + [x], dim=1) + self.pos_embed.to(self.dtype)
 
     def forward(self, images: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        x = self.patch_embed(images.to(self.dtype))
-        b, n, d = x.shape
-        if n + 1 != self.pos_embed.shape[1]:
-            raise ValueError(
-                f"{n} patches from a {tuple(images.shape[1:3])} input, but the position "
-                f"embedding was built for {self.pos_embed.shape[1] - 1} (img_size "
-                f"{self.config.img_size})")
-        x = torch.cat([self.cls_token.to(self.dtype).expand(b, 1, d), x], dim=1)
-        x = x + self.pos_embed.to(self.dtype)
-        x = self.drop(x, generator)
+        x = self.drop(self.stem(images), generator)
         remat = self.config.remat == "block" and torch.is_grad_enabled()
         for name in self.block_names:
             block = getattr(self, name)

@@ -26,7 +26,10 @@ does not reach the exported trace).  The names:
 * ``backbone``, ``gpf``, ``moment_head``, ``classifier``: the model's layers;
 * ``rope``, ``swiglu``: inside every EVA block (``models/eva.py``), the
   rotation of q and k with their write, beside v, into the attention
-  kernels' layout, and the whole SwiGLU MLP;
+  kernels' layout, and the whole SwiGLU MLP; ``swiglu`` also around the
+  packed SwiGLU MLP of every DINOv2 block (``models/vit.py``);
+* ``layer_scale``: each of a DINOv2 block's two residual updates
+  ``x + gamma * branch`` (``models/vit.py``), where LayerScale is on;
 * ``kernel.<wrapper>``: each hand-written kernel's launch, one range per
   ``<wrapper>.launches`` count;
 * ``data.wait``: the consumer's wait on a background loader's queue.

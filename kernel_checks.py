@@ -707,8 +707,10 @@ def check_attn_half_bwd(device, dtype, b, hp, c, heads, shifted):
 
 
 # (B, N, D) of the subspace iSQRT: ViT-L/16 at 448, Swin's last stage at batch
-# 64, ViT-Base at 224, and ViT-L/16 at 448 served at batch 64
-SUBSPACE = [(4, 784, 1024), (64, 49, 1024), (8, 196, 768), (64, 784, 1024)]
+# 64, ViT-Base at 224, ViT-L/16 at 448 served at batch 64, and DINOv2 ViT-g/14
+# at 518 (N = 1369 < D = 1536, no multiple of the tiles) and served at batch 64
+SUBSPACE = [(4, 784, 1024), (64, 49, 1024), (8, 196, 768), (64, 784, 1024),
+            (4, 1369, 1536), (64, 1369, 1536)]
 
 
 def subspace_inputs(g, b, n, d, dtype):

@@ -24,9 +24,10 @@ in bf16, and some at a call in fp32:
     5b  the iSQRT's backward       M [64, 1024, 1024] bf16, 5 steps: autograd over the
                                    plain fp32 iteration, as ViT-Large/512's training
                                    step runs it (no kernel)
-    7   subspace iSQRT             centred and weighted tokens [64, 784, 1024] and
-                                   [64, 49, 1024] bf16, 5 steps (ViT-L/16 at 448's
-                                   and Swin-Base/224's heads)
+    7   subspace iSQRT             centred and weighted tokens [64, 784, 1024],
+                                   [64, 49, 1024] and [64, 1369, 1536] bf16, 5 steps
+                                   (ViT-L/16 at 448's, Swin-Base/224's and DINOv2
+                                   ViT-g/14 at 518's heads)
     8   SwiGLU glue                g and u [65600, 2736] bf16, W = 2730 (EVA-02-L/448)
     3, 6 in fp32 (off the main paths) at [8, 1, 197, 2304] and [4, 785, 2304]
     2b in fp32 (off the main paths) at [4, 784, 768]
@@ -160,6 +161,7 @@ SHAPES = (("3 [64,1,197,2304] H12", "packed_fwd", 64, 197, 768, 12),
           ("5b [64,1024,1024] k5", "ns_bwd", 64, 1024, 1024, 0),
           ("7 [64,784,1024] k5", "si", 64, 784, 1024, 0),
           ("7 [64,49,1024] k5", "si", 64, 49, 1024, 0),
+          ("7 [64,1369,1536] k5", "si", 64, 1369, 1536, 0),
           ("8 [65600,2736] W2730", "sn", 64 * 1025, 2736, 2730, 0),
           *((f"4 [{b},{hp},{hp},{c}] H{h} s{s}", "ah_fwd", b, hp, c, h)
             for b in (64, 128) for hp, c, h in ((56, 128, 4), (28, 256, 8)) for s in (0, 1)),

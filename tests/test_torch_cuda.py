@@ -911,7 +911,7 @@ def _flagship_config(backbone, size, resize, **model):
                          "epochs": 1}}
 
 
-# the benchmark's two configurations, with the launches a step and a call
+# the benchmark's configurations, with the launches a step and a call
 SPAN_CONFIGS = {
     "swinB-224": (_flagship_config("swin_base_patch4_window7_224", 224, 256),
                   {"window_attention_fwd": 24, "window_attention_bwd": 24, "gpf_fwd": 1,
@@ -922,10 +922,12 @@ SPAN_CONFIGS = {
                     {"flash_attention_tiled_fwd": 48, "flash_attention_tiled_bwd": 24,
                      "gpf_fwd": 1, "gpf_bwd": 1},
                     {"flash_attention_tiled_fwd": 24, "gpf_fwd": 1, "subspace_isqrt_fwd": 1}),
-    # served only: no cell trains EVA
+    # served only: no cell trains EVA or DINOv2
     "eva02L-448": (_flagship_config("eva02_large_patch14_448", 448, 600), None,
                    {"flash_attention_tiled_fwd": 24, "gpf_fwd": 1,
                     "newton_schulz_isqrt_bf16_fwd": 1, "swiglu_norm_fwd": 24}),
+    "dinov2g-518": (_flagship_config("vit_giant_patch14_reg4_dinov2", 518, 592), None,
+                    {"flash_attention_tiled_fwd": 40, "gpf_fwd": 1, "subspace_isqrt_fwd": 1}),
 }
 
 

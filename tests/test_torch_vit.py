@@ -205,7 +205,7 @@ def test_backbone_splits_cls_from_patches():
     with torch.no_grad():
         feats = bb(x)
         tokens = bb.vit(x)
-    assert bb.has_cls_token and bb.num_features == 64
+    assert bb.num_prefix_tokens == 1 and bb.num_features == 64
     assert torch.equal(feats["global_features"], tokens[:, 0])
     assert torch.equal(feats["patch_tokens"], tokens[:, 1:])
     bigger = CLEViTBackbone("vit_micro_patch16_64", img_size=96, device="cpu")
